@@ -19,7 +19,16 @@ Phases (any failure exits non-zero; nothing is caught):
    against ``ToyLM.expected_pages``, a sample of attend outputs against
    the plain kernel over the oracle bytes, the coherence invariants,
    the page accounting, and that every kernel launched during the run;
-4. print the ``kernels`` JSON line, then the result line.
+4. serve Qwen3-1.7B and then Mamba2-2.7B at full published width and
+   depth (``src/repro/configs/qwen3_1p7b.py``, ``mamba2_2p7b.py``; random
+   bf16 weights from a seeded ``torch.Generator`` on the card) through
+   the port's ``launch.serve.main``: 16 and 8 requests, batch 4, prompt
+   512, 32 generated tokens each; check finite logits, every token, and
+   that K4 ran once per layer per prefill (Qwen3) and K5 likewise
+   (Mamba2); then, at full width and 4 layers, hold a 512-token prefill
+   against its token-by-token replay through ``decode_step`` (the plain
+   decode path) and time the fp32 head product of a decode step;
+5. print the ``kernels`` JSON line, then the result line.
 
 Needs one CUDA device; exits 1 without one, before printing anything
 on standard output.
@@ -38,6 +47,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside tensor cores
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+REPLAY_TOL = 2e-2                  # prefill vs decode replay, x max|logit|
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -93,9 +104,9 @@ def eager_ms(fn, iters=20) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float = 0.0):
+def bound_ms(n_bytes: float, n_flops: float = 0.0, peak=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -223,6 +234,73 @@ def check_attention(dev, K):
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
+def check_flash(dev, K):
+    """K4 at the Qwen3-1.7B prefill shape: B 4, S 512, Hq 16, Hkv 8,
+    hd 128, bf16, causal, read through the model's [B, S, H, hd] layout;
+    then a ragged S = 500 (correctness only).  Tolerance 2e-2 (bf16
+    output; ``tests/test_kernels.py``'s bf16 tolerance)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(SEED + 4)
+    b, hq, hkv, hd = 4, 16, 8, 128
+
+    def inputs(s):
+        return [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                                 .astype(np.float32)).to(dev, torch.bfloat16)
+                .transpose(1, 2) for h in (hq, hkv, hkv)]
+
+    err = 0.0
+    for s in (500, 512):
+        q, k, v = inputs(s)
+        got = K.flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        assert e < 2e-2, f"flash_attention off by {e} at S={s} (tol 2e-2)"
+        err = max(err, e)
+    s = 512
+    n_bytes = b * s * (2 * hq + 2 * hkv) * hd * 2
+    n_flops = 4.0 * b * hq * hd * s * (s + 1) / 2     # causal half
+    bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS)
+    return {"name": "flash_attention", "max_abs_err": err,
+            "ms": graph_ms(lambda: K.flash_attention(q, k, v, causal=True)),
+            "plain_ms": eager_ms(lambda: flash_attention_plain(
+                q, k, v, causal=True)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))}
+
+
+def check_ssd(dev, K):
+    """K5 at the Mamba2-2.7B prefill shape: B*nc 8 (batch 4, two chunks),
+    Q 256, H 80, P 64, fp32, with a cumsum steep enough that exp
+    overflows above the diagonal.  Tolerance 2e-4 of the output's scale
+    (fp32 sums of up to 256 terms in another order).  No single PyTorch
+    call computes this function: library_ms is null."""
+    from repro_torch.kernels.ssd_intra import ssd_intra_plain
+    rng = np.random.default_rng(SEED + 5)
+    bc, q, h, p = 8, 256, 80, 64
+    cb = torch.from_numpy(rng.normal(size=(bc, q, q)).astype(np.float32))
+    cs = torch.from_numpy((-np.abs(rng.normal(size=(bc, q, h)))
+                           .cumsum(axis=1)).astype(np.float32))
+    win = torch.from_numpy(rng.normal(size=(bc, q, h, p)).astype(np.float32))
+    cb, cs, win = cb.to(dev), cs.to(dev), win.to(dev)
+    got = K.ssd_intra(cb, cs, win)
+    want = ssd_intra_plain(cb, cs, win)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()), "ssd_intra gave non-finite"
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    assert err < 2e-4 * scale, f"ssd_intra off by {err} (tol 2e-4 x {scale})"
+    n_bytes = 4 * (bc * q * q + bc * q * h + 2 * bc * q * h * p)
+    n_flops = bc * h * q * (q + 1) / 2 * (2.0 * p + 3)  # causal pairs
+    bms, by = bound_ms(n_bytes, n_flops, FP32_FLOPS)
+    return {"name": "ssd_intra", "max_abs_err": err,
+            "ms": graph_ms(lambda: K.ssd_intra(cb, cs, win)),
+            "plain_ms": eager_ms(lambda: ssd_intra_plain(cb, cs, win)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 # --------------------------------------------------------- phase 3: serve
 
 def serve(dev, cfg=None, n_q_heads=16):
@@ -308,6 +386,78 @@ def serve(dev, cfg=None, n_q_heads=16):
             "attends_checked": checked["attend"]}
 
 
+# ------------------------------------------------------ phase 4: LM serve
+
+def lm_serve(K, arch, requests, kernel, per_prefill, batch=4, prompt=512,
+             gen=32):
+    """The port's ``launch.serve.main`` at the full config of ``arch``;
+    returns its counts and the kernels it launched."""
+    from repro_torch.launch.serve import main as serve_main
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_main(["--arch", arch, "--requests", str(requests),
+                      "--batch", str(batch), "--prompt-len", str(prompt),
+                      "--gen", str(gen)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    prefills = -(-requests // batch)
+    assert res["finite"], f"{arch}: non-finite logits"
+    assert res["tokens"] == requests * gen and \
+        res["generated"].shape == (requests, gen), f"{arch}: tokens missing"
+    assert counts[kernel] == per_prefill * prefills, \
+        f"{arch}: {kernel} launched {counts[kernel]} times, expected " \
+        f"{per_prefill} x {prefills}"
+    return {"arch": arch, "requests": res["requests"],
+            "tokens": res["tokens"], "serve_s": res["seconds"],
+            "tok_per_s": res["tokens"] / res["seconds"],
+            "wall_s_with_init": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts}
+
+
+def replay_check(dev, arch, n_layers=4, s=512):
+    """Full width, ``n_layers`` layers: the last logits of a prefill (K4
+    or K5) against a token-by-token replay through ``decode_step`` (plain
+    decode path), compared as ``tests/test_archs_smoke.py`` does, with
+    the error stated relative to max |logit|; plus the time of the fp32
+    head product one decode step pays (batch 4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    params = lm.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev)
+    ctx = lm.NO_PARALLEL
+    logits_pf, _ = lm.prefill(params, {"tokens": toks}, cfg, ctx)
+    cache = lm.init_decode_cache(cfg, 1, s, device=dev)
+    t0 = time.perf_counter()
+    for i in range(s):
+        logits_dec, cache = lm.decode_step(params, cache, toks[:, i:i + 1],
+                                           cfg, ctx)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / s * 1e3
+    err = float((logits_pf - logits_dec).abs().max())
+    scale = float(logits_dec.abs().max())
+    x = torch.randn((4, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    out = {"arch": arch, "layers": n_layers, "prompt": s,
+           "max_abs_err": err, "max_abs_logit": scale,
+           "rel_err": err / scale, "tolerance_rel": REPLAY_TOL,
+           "decode_step_ms_4_layers": step_ms,
+           "head_fp32_ms": graph_ms(lambda: lm._logits(params, x, cfg),
+                                    iters=20),
+           "head_bf16_ms": graph_ms(
+               lambda: x @ lm._head(params, cfg), iters=20)}
+    log(f"replay {arch}: " + json.dumps(out))
+    assert np.isfinite(err) and err <= REPLAY_TOL * scale, \
+        f"{arch}: prefill vs decode replay off by {err} (max |logit| " \
+        f"{scale}, tolerance {REPLAY_TOL} x max |logit|)"
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -346,9 +496,15 @@ def main() -> int:
         "paged_attention": (
             "src/repro_torch/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention/paged_attention.py:108"),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:90"),
+        "ssd_intra": ("src/repro_torch/csrc/ssd_intra.cu",
+                      "src/repro/kernels/ssd_intra/ssd_intra.py:52"),
     }
     rows = [check_latch(dev, K), check_fetch(dev, K),
-            check_attention(dev, K)]
+            check_attention(dev, K), check_flash(dev, K),
+            check_ssd(dev, K)]
     for row in rows:
         log(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} "
             f"ms {row['ms']} plain_ms {row['plain_ms']} "
@@ -359,8 +515,16 @@ def main() -> int:
     res = serve(dev)
     counts = K.launch_counts()
     log("serve: " + json.dumps(res))
-    for name, n in counts.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
+    for name in ("latch_ops", "gcl_fetch", "paged_attention"):
+        assert counts[name] > 0, f"kernel {name} never launched in the serve"
+
+    for arch, n_req, name, per in (("qwen3-1.7b", 16, "flash_attention", 28),
+                                   ("mamba2-2.7b", 8, "ssd_intra", 64)):
+        res = lm_serve(K, arch, n_req, name, per)
+        log(f"lm {arch}: " + json.dumps(res))
+        counts[name] = res["launches"][name]
+    for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+        replay_check(dev, arch)
 
     kernels = []
     for row in rows:

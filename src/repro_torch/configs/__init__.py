@@ -1,0 +1,82 @@
+"""Architecture registry of the port: one module per architecture it runs.
+
+``get_config(name)`` returns the full published config;
+``get_smoke_config(name)`` returns the reduced same-family config the
+CPU tests use (tiny widths, few layers, small vocab).  The names are the
+JAX package's; the port has the ``dense`` and ``ssm`` families so far,
+and any other architecture raises ``NotImplementedError`` naming the
+ROADMAP item that ports its family.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = [
+    "deepseek_moe_16b",
+    "dbrx_132b",
+    "command_r_plus_104b",
+    "qwen3_1p7b",
+    "starcoder2_7b",
+    "llama3_405b",
+    "llava_next_mistral_7b",
+    "recurrentgemma_2b",
+    "mamba2_2p7b",
+    "seamless_m4t_medium",
+]
+
+# canonical ids as given in the assignment
+CANON = {
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "dbrx-132b": "dbrx_132b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "qwen3-1.7b": "qwen3_1p7b",
+    "starcoder2-7b": "starcoder2_7b",
+    "llama3-405b": "llama3_405b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-2.7b": "mamba2_2p7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+}
+
+PORTED = ("qwen3_1p7b", "mamba2_2p7b")
+
+# where each family not yet ported waits (ROADMAP.md, queue 1)
+WAITS = {
+    "deepseek_moe_16b": "queue 1 item 1 (moe family, models/moe.py)",
+    "dbrx_132b": "queue 1 item 1 (moe family, models/moe.py)",
+    "command_r_plus_104b": "queue 1 item 1 (dense configs beyond "
+                           "qwen3-1.7b: use_bias, their own config files)",
+    "starcoder2_7b": "queue 1 item 1 (dense configs beyond qwen3-1.7b: "
+                     "gelu FFN with biases, its own config file)",
+    "llama3_405b": "queue 1 item 1 (dense configs beyond qwen3-1.7b; "
+                   "needs the sharded stack of queue 4)",
+    "llava_next_mistral_7b": "queue 1 item 3 (vlm family)",
+    "recurrentgemma_2b": "queue 1 item 2 (hybrid family: models/rglru.py "
+                         "and windowed attention)",
+    "seamless_m4t_medium": "queue 1 item 3 (encdec family: "
+                           "cross-attention)",
+}
+
+
+def _module(name: str):
+    mod = CANON.get(name, name).replace("-", "_")
+    if mod not in PORTED:
+        if mod in WAITS:
+            raise NotImplementedError(
+                f"{name} is not ported to PyTorch yet: ROADMAP.md "
+                f"{WAITS[mod]}")
+        raise KeyError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str):
+    return _module(name).SMOKE_CONFIG
+
+
+def all_arch_ids():
+    inv = {v: k for k, v in CANON.items()}
+    return [inv[a] for a in ARCHS]

@@ -6,6 +6,7 @@ state) becomes a dict of numpy arrays with ``{k: np.asarray(v)}``, and
 int8 ``cache_state``, bool ``dirty``, int32 lanes.  :func:`to_numpy`
 goes back.  :func:`pool_from_arrays` rebuilds a serving pool from a
 rounds state and its allocator's bump pointer and free list.
+:func:`lm_params_to_torch` carries a JAX LM parameter tree across.
 """
 
 from __future__ import annotations
@@ -42,3 +43,25 @@ def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,
     pool._alloc.top = int(alloc_top)
     pool._alloc._freed = set(int(p) for p in alloc_freed)
     return pool
+
+
+def _leaf_to_torch(a, dev):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16: move the bits
+        t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def lm_params_to_torch(params_np, device=None):
+    """A JAX ``lm.init_params`` tree (nested dicts of arrays, e.g. after
+    ``jax.tree.map(np.asarray, params)``) -> the port's tree of tensors
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for), every dtype
+    and bit kept (bf16 included)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _leaf_to_torch(node, dev)
+    return walk(params_np)

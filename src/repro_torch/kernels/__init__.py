@@ -3,7 +3,10 @@
 * ``latch_ops.apply_batch`` (K1) replaces the TPU's ``latch_apply``;
 * ``gcl_fetch.fetch`` (K2) replaces the TPU's ``gcl_fetch``;
 * ``paged_attention.decode_paged`` (K3) replaces the TPU's
-  ``paged_attention``.
+  ``paged_attention``;
+* ``flash_attention.flash_attention`` (K4) replaces the TPU's
+  ``flash_attention``;
+* ``ssd_intra.ssd_intra`` (K5) replaces the TPU's ``ssd_intra``.
 
 The CUDA sources live in ``../csrc`` and build on first launch
 (``_build``).  A wrapper launches its kernel for CUDA tensors, runs the
@@ -11,12 +14,15 @@ plain version for CPU tensors, and counts its launches in
 ``<wrapper>.launches``.
 """
 
+from .flash_attention import flash_attention
 from .gcl_fetch import fetch
 from .latch_ops import apply_batch
 from .paged_attention import decode_paged
+from .ssd_intra import ssd_intra
 
 WRAPPERS = {"latch_ops": apply_batch, "gcl_fetch": fetch,
-            "paged_attention": decode_paged}
+            "paged_attention": decode_paged,
+            "flash_attention": flash_attention, "ssd_intra": ssd_intra}
 
 
 def reset_launch_counts() -> None:
@@ -29,4 +35,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["WRAPPERS", "apply_batch", "decode_paged", "fetch",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention", "launch_counts", "reset_launch_counts",
+           "ssd_intra"]

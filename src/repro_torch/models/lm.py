@@ -1,0 +1,259 @@
+"""Model assembly for serving: init / prefill / decode, dense and ssm
+families.
+
+Port of the serving half of ``repro.models.lm``.  Parameters are the
+JAX package's tree of plain dicts with layer-stacked ``[L, ...]`` leaves
+(``convert.lm_params_to_torch`` carries a JAX tree across); where JAX
+scans over layers, a Python loop indexes layer ``l`` of each leaf.
+
+Caches are plain dicts of tensors, as in JAX:
+  attention : k, v [L, B, Smax, Hkv, hd], pos [B]
+  ssm       : state [L,B,H,P,N], conv [L,B,K-1,Cc], pos [B]
+RoPE is applied to K at write time, so cached keys are position-baked.
+:func:`decode_step` updates the large leaves in place (the attention
+k/v rows of the new token, the ssm state) instead of copying the whole
+cache each token, and returns the cache dict with ``pos`` advanced;
+the caller must not keep using the cache it passed in as a snapshot.
+
+The moe, hybrid, vlm and encdec families wait for ROADMAP.md queue 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .. import resolve_device
+from . import layers, ssm
+from .attention import attention, decode_attention
+from .config import LMConfig
+from .rope import apply_rope
+
+FAMILIES = ("dense", "ssm")
+
+
+@dataclass(frozen=True)
+class ParallelCtx:
+    """What the model knows about sharding.  On one device there is none:
+    ``c(tensor, kind)`` is the identity.  The sharded stack, whose
+    context constrains, waits for ROADMAP.md queue 4."""
+
+    def c(self, t, kind):
+        return t
+
+
+NO_PARALLEL = ParallelCtx()
+
+
+def _dt(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _check_family(cfg):
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported to PyTorch yet "
+            f"(ROADMAP.md queue 1)")
+
+
+def _layer(blocks, i):
+    return {k: v[i] for k, v in blocks.items()}
+
+
+# ============================================================ param init
+
+def init_params(cfg: LMConfig, generator: torch.Generator, device=None):
+    """Random parameters with the JAX package's distributions, drawn from
+    ``generator`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for;
+    the generator must live there).  Not the same numbers as JAX's."""
+    dev = resolve_device(device)
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(f"the generator lives on {generator.device}, "
+                         f"the parameters go to {dev}")
+    _check_family(cfg)
+    dt = _dt(cfg)
+    d, v = cfg.d_model, cfg.vocab_padded
+    gen = generator
+    params = {"embed": layers.normal(gen, (v, d), 0.02, dt),
+              "final_norm": layers.zeros(gen, (d,), dt)}
+    if not cfg.tie_embeddings:
+        params["head"] = layers.normal(gen, (d, v), d ** -0.5, dt)
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        params["blocks"] = _init_dense_stack(gen, cfg, dt, L)
+    else:
+        blk = {"ln1": layers.zeros(gen, (L, d), dt)}
+        blk.update(ssm.init_mamba2(gen, cfg, dt, stack=(L,)))
+        params["blocks"] = blk
+    return params
+
+
+def _init_dense_stack(gen, cfg, dt, L):
+    d = cfg.d_model
+    blk = {"ln1": layers.zeros(gen, (L, d), dt),
+           "ln2": layers.zeros(gen, (L, d), dt)}
+    blk.update(layers.init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.hd, cfg.qk_norm, cfg.use_bias, dt,
+                                stack=(L,)))
+    blk.update(layers.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type,
+                               cfg.use_bias, dt, stack=(L,)))
+    return blk
+
+
+# ============================================================ sub-blocks
+
+def _project_qkv(x, p, cfg, positions):
+    b, s, _ = x.shape
+    q = layers.dense(x, p["wq"], p.get("bq")).reshape(
+        b, s, cfg.n_heads, cfg.hd)
+    k = layers.dense(x, p["wk"], p.get("bk")).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd)
+    v = layers.dense(x, p["wv"], p.get("bv")).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = layers.rms_norm(k, p["k_norm"], cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_sub(x, p, cfg, ctx, *, cache=None, pos=None):
+    """Causal self-attention sub-block (no residual).  cache: (k_l, v_l)
+    for decode, written in place at ``pos``.  (The hybrid family's
+    window waits for ROADMAP.md queue 1 item 2.)"""
+    b, s, _ = x.shape
+    if cache is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+        q, k, v = _project_qkv(x, p, cfg, positions)
+        q = ctx.c(q, "attn_q")
+        k = ctx.c(k, "attn_kv")
+        v = ctx.c(v, "attn_kv")
+        o = attention(q, k, v, causal=True)
+        o = ctx.c(o, "attn_out")
+        return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), (k, v)
+    k_l, v_l = cache                                  # [B, Smax, Hkv, hd]
+    q, k_new, v_new = _project_qkv(x, p, cfg, pos[:, None])
+    slot = pos.long()
+    bidx = torch.arange(b, device=x.device)
+    k_l[bidx, slot] = k_new[:, 0].to(k_l.dtype)
+    v_l[bidx, slot] = v_new[:, 0].to(v_l.dtype)
+    o = decode_attention(q, k_l, v_l, pos + 1)
+    return (layers.dense(o.reshape(b, 1, -1), p["wo"], p.get("bo")),
+            (k_l, v_l))
+
+
+def _ffn_sub(x, p, cfg, ctx):
+    fp = {k: p[k] for k in ("wg", "wu", "wd", "bu", "bd") if k in p}
+    return ctx.c(layers.ffn(ctx.c(x, "ffn_in"), fp, cfg.ffn_type), "ffn_out")
+
+
+# ============================================================ block bodies
+
+def dense_block(x, p, cfg, ctx, cache=None, pos=None):
+    h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
+                      cache=cache, pos=pos)
+    x = x + h
+    x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg, ctx)
+    return x, kv
+
+
+def ssm_block(x, p, cfg, ctx, cache=None):
+    h, new_cache = ssm.mamba2_block(
+        layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, cache=cache)
+    return x + h, new_cache
+
+
+# ============================================================ serving paths
+
+def embed_tokens(params, tokens):
+    return params["embed"][tokens]
+
+
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def _logits(params, x, cfg):
+    # fp32 head product, as the JAX package computes it: with tied
+    # embeddings this copies the [V, d] table to fp32 on every call
+    return x.float() @ _head(params, cfg).float()
+
+
+def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                      device=None):
+    """Zeroed decode cache (bf16 unless asked, whatever ``cfg.dtype``, as
+    in JAX) on ``device`` (``cuda`` unless ``"cpu"`` is asked for)."""
+    dev = resolve_device(device)
+    _check_family(cfg)
+    L = cfg.n_layers
+    pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.family == "dense":
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "pos": pos}
+    cc = cfg.d_inner + 2 * cfg.ssm_state
+    return {"state": torch.zeros((L, batch, cfg.n_ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev),
+            "conv": torch.zeros((L, batch, cfg.conv_width - 1, cc),
+                                dtype=dtype, device=dev),
+            "pos": pos}
+
+
+def decode_step(params, cache, tokens, cfg, ctx):
+    """One token for every sequence.  tokens [B,1] -> logits [B, V]."""
+    _check_family(cfg)
+    x = ctx.c(embed_tokens(params, tokens), "resid_decode")
+    pos = cache["pos"]
+    blocks = params["blocks"]
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x, _ = dense_block(x, _layer(blocks, i), cfg, ctx,
+                               cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    else:
+        tails = []
+        for i in range(cfg.n_layers):
+            x, (st, tail) = ssm_block(
+                x, _layer(blocks, i), cfg, ctx,
+                cache=(cache["state"][i], cache["conv"][i]))
+            cache["state"][i].copy_(st)
+            tails.append(tail)
+        # a fresh conv leaf: its dtype follows the window's, as in JAX
+        new_cache = {"state": cache["state"], "conv": torch.stack(tails),
+                     "pos": pos + 1}
+    x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return ctx.c(_logits(params, x[:, 0], cfg), "logits"), new_cache
+
+
+def prefill(params, batch, cfg, ctx):
+    """Process the full prompt; returns last-token logits + a decode
+    cache sized to the prompt (``launch.serve.grow_cache`` makes room
+    for the tokens to come)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = ctx.c(embed_tokens(params, tokens), "resid")
+    blocks = params["blocks"]
+    if cfg.family == "dense":
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, (k, v) = dense_block(ctx.c(x, "resid"), _layer(blocks, i),
+                                    cfg, ctx)
+            ks.append(k)
+            vs.append(v)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        states, tails = [], []
+        for i in range(cfg.n_layers):
+            x, (st, tail) = ssm_block(ctx.c(x, "resid"), _layer(blocks, i),
+                                      cfg, ctx)
+            states.append(st)
+            tails.append(tail)
+        cache = {"state": torch.stack(states), "conv": torch.stack(tails)}
+    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _logits(params, x[:, -1], cfg), cache

@@ -1,0 +1,2 @@
+"""Step builders of the port: serving only (the training half waits for
+ROADMAP.md queue 1)."""

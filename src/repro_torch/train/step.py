@@ -1,0 +1,31 @@
+"""Serve step builder; port of ``repro.train.step.build_serve_step``.
+
+There is no mesh: the port runs on one device, and the sharded stack
+waits for ROADMAP.md queue 4.  The training half of the JAX module
+(``build_train_step`` and its optimizer wiring) waits for ROADMAP.md
+queue 1.
+"""
+
+from __future__ import annotations
+
+from .. import resolve_device
+from ..models import lm
+from ..models.config import LMConfig
+
+
+def build_serve_step(cfg: LMConfig, device=None):
+    """Returns ``(serve_step, serve_prefill, ctx)`` for ``cfg`` on
+    ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Token ids are
+    moved to the device; parameters and caches must already live there.
+    """
+    dev = resolve_device(device)
+    ctx = lm.NO_PARALLEL
+
+    def serve_step(params, cache, tokens):
+        return lm.decode_step(params, cache, tokens.to(dev), cfg, ctx)
+
+    def serve_prefill(params, batch):
+        batch = dict(batch, tokens=batch["tokens"].to(dev))
+        return lm.prefill(params, batch, cfg, ctx)
+
+    return serve_step, serve_prefill, ctx

@@ -8,7 +8,10 @@ on a machine with one, run them with
 (this file imports no JAX, so it runs where only PyTorch is installed).
 Tolerances: the latch and fetch kernels must match exactly; paged
 attention agrees within 2e-5 with an fp32 output and 3e-2 with a bf16
-one (the kernel sums in another order than the plain version).
+one (the kernel sums in another order than the plain version); flash
+attention within 2e-5 in fp32 and 2e-2 in bf16 (``test_kernels.py``'s
+tolerances); ssd_intra within 2e-4 of the output's scale (fp32 sums of
+up to 256 terms in another order).
 """
 
 import pytest
@@ -21,8 +24,11 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels.gcl_fetch import gcl_fetch_plain  # noqa: E402
 from repro_torch.kernels.latch_ops import REQ_KEYS, \
     latch_apply_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     paged_attention_plain  # noqa: E402
+from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -136,7 +142,8 @@ def test_cuda_wrappers_count_launches(cuda):
             req["op"])
     torch.cuda.synchronize()
     assert K.launch_counts() == {"latch_ops": 1, "gcl_fetch": 1,
-                                 "paged_attention": 0}
+                                 "paged_attention": 0,
+                                 "flash_attention": 0, "ssd_intra": 0}
 
 
 def test_serve_on_gpu_matches_cpu(cuda):
@@ -175,4 +182,129 @@ def test_serve_on_gpu_matches_cpu(cuda):
         assert torch.equal(st_g[k], st_c[k]), k
     for rid in at_c:
         assert np.abs(at_g[rid] - at_c[rid]).max() < 2e-5
-    assert set(cnt_c.values()) == {0} and min(cnt_g.values()) > 0
+    assert set(cnt_c.values()) == {0}
+    assert min(cnt_g[k] for k in ("latch_ops", "gcl_fetch",
+                                  "paged_attention")) > 0
+
+
+@pytest.mark.parametrize("s", [64, 500, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_kernel_matches_plain(cuda, hd, group, causal,
+                                             dtype, s):
+    """K4 over head dims, GQA groups, masks, dtypes and ragged S, read
+    through the model's [B, S, H, hd] layout (transposed views)."""
+    rng = np.random.default_rng(hd + group + s)
+    b, hkv = 2, 2
+    q, k, v = [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                                .astype(np.float32)).to(cuda, dtype)
+               for h in (hkv * group, hkv, hkv)]
+    ins = [t.transpose(1, 2) for t in (q, k, v)]
+    want = flash_attention_plain(*ins, causal=causal)
+    got = K.flash_attention(*ins, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 24)])
+def test_ssd_intra_kernel_matches_plain(cuda, bc, q, h, p):
+    """K5 at the Mamba2-2.7B prefill shape and at a ragged one; the
+    cumsum is steep enough that exp overflows above the diagonal."""
+    rng = np.random.default_rng(q)
+    cb = torch.from_numpy(rng.normal(size=(bc, q, q)).astype(np.float32))
+    cs = torch.from_numpy((-np.abs(rng.normal(size=(bc, q, h)))
+                           .cumsum(axis=1)).astype(np.float32))
+    win = torch.from_numpy(rng.normal(size=(bc, q, h, p)).astype(np.float32))
+    ins = [t.to(cuda) for t in (cb, cs, win)]
+    want = ssd_intra_plain(*ins)
+    got = K.ssd_intra(*ins)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() < 2e-4 * max(1.0, scale)
+
+
+def test_lm_wrappers_count_and_reject(cuda):
+    K.reset_launch_counts()
+    x = torch.zeros((1, 2, 64, 64), device=cuda)
+    K.flash_attention(x, x[:, :1], x[:, :1])
+    K.ssd_intra(torch.zeros((1, 8, 8), device=cuda),
+                torch.zeros((1, 8, 2), device=cuda),
+                torch.zeros((1, 8, 2, 16), device=cuda))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["ssd_intra"] == 1
+    with pytest.raises(ValueError, match="head_dim"):
+        K.flash_attention(*[torch.zeros((1, 2, 8, 32), device=cuda)] * 3)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        K.flash_attention(x, x[:, :1].bfloat16(), x[:, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention(x.transpose(2, 3), x[:, :1], x[:, :1])
+    with pytest.raises(ValueError, match="too large"):
+        K.ssd_intra(torch.zeros((1, 512, 512), device=cuda),
+                    torch.zeros((1, 512, 1), device=cuda),
+                    torch.zeros((1, 512, 1, 8), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ssd_intra(torch.zeros((1, 8, 8), device=cuda),
+                    torch.zeros((1, 2, 8), device=cuda).transpose(1, 2),
+                    torch.zeros((1, 8, 2, 4), device=cuda))
+    assert K.launch_counts() == counts
+
+
+def test_lm_attention_raises_where_k4_cannot_serve(cuda):
+    from repro_torch.models.attention import attention
+    q = torch.zeros((1, 16, 4, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention(q, q[:, :, :2], q[:, :, :2], window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention(q, q[:, :, :2], q[:, :, :2], q_offset=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention(q, q[:, :8, :2], q[:, :8, :2], causal=False)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b"])
+def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
+    """A small prefill + 4 decode steps in fp32, same weights, on the
+    card (K4 or K5 in the prefill) and on the CPU (plain versions):
+    logits within 1e-3 of their scale, caches likewise (bf16 leaves also
+    within one bf16 rounding step, 2**-7 relative)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models import lm
+    cfg = configs.get_smoke_config(arch).replace(dtype="float32", d_model=128)
+    if cfg.family == "dense":
+        cfg = cfg.replace(n_heads=4, n_kv_heads=2, head_dim=64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(2))
+    runs = []
+    for dev in ("cpu", cuda):
+        K.reset_launch_counts()
+        p = {k: (v.to(dev) if torch.is_tensor(v) else
+                 {kk: vv.to(dev) for kk, vv in v.items()})
+             for k, v in params.items()}
+        logits, cache = lm.prefill(p, {"tokens": toks.to(dev)}, cfg,
+                                   lm.NO_PARALLEL)
+        cache = grow_cache(cfg, cache, 68)
+        out = [logits]
+        for i in range(4):
+            logits, cache = lm.decode_step(p, cache, toks[:, i:i + 1].to(dev),
+                                           cfg, lm.NO_PARALLEL)
+            out.append(logits)
+        dtypes = {k: v.dtype for k, v in cache.items()}
+        runs.append(([o.cpu() for o in out],
+                     {k: v.cpu().float() for k, v in cache.items()},
+                     K.launch_counts()))
+    (lc, cc, nc), (lg, cg, ng) = runs
+    for a, b in zip(lc, lg):
+        assert (a - b).abs().max().item() < 1e-3 * a.abs().max().item()
+    for k in cc:          # a bf16 leaf may also differ by one bf16 step
+        allow = 1e-3 * max(1.0, cc[k].abs().max().item()) \
+            + (cc[k].abs() * 2.0 ** -7 if dtypes[k] == torch.bfloat16 else 0)
+        assert ((cc[k] - cg[k]).abs() <= allow).all(), k
+    name = "flash_attention" if cfg.family == "dense" else "ssd_intra"
+    assert set(nc.values()) == {0} and ng[name] == cfg.n_layers

@@ -3,7 +3,8 @@
 * an AST scan finds no import of ``jax`` or ``repro`` anywhere under
   ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling script;
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
-  imports the port and serves a small trace on the CPU;
+  imports the port, serves a small trace on the CPU and runs the LM
+  serve of both families;
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -24,7 +25,11 @@ import numpy as np  # noqa: E402
 from repro_torch import convert, kernels  # noqa: E402
 from repro_torch.core.rounds import make_state  # noqa: E402
 from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import ServeLoop, ToyLM  # noqa: E402
+from repro_torch.train.step import build_serve_step  # noqa: E402
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 CFG = KVPoolConfig(n_pages=16, page_size=4, n_kv_heads=2, head_dim=4,
@@ -44,8 +49,9 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_repro():
     root = PORT.parents[1]
     files = sorted(PORT.rglob("*.py")) + [
-        root / "chip_smoke.py", root / "scripts" / "profile_torch_serve.py"]
-    assert len(files) > 15
+        root / "chip_smoke.py", root / "scripts" / "profile_torch_serve.py",
+        root / "scripts" / "profile_torch_lm.py"]
+    assert len(files) > 25
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_roots(f)
            if name in ("jax", "jaxlib", "repro")]
@@ -69,6 +75,12 @@ def test_port_serves_with_jax_blocked():
         reqs = [loop.submit([1, 2, 3], 4), loop.submit([9], 2)]
         assert loop.drain(timeout=60)
         assert [len(r.generated) for r in reqs] == [4, 2]
+        from repro_torch.launch.serve import main
+        for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+            res = main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "2", "--prompt-len", "32",
+                        "--gen", "2"])
+            assert res["tokens"] == 4 and res["finite"]
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("PORT_WITHOUT_JAX_OK")
@@ -90,6 +102,24 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.to_torch({"words": np.zeros((4, 2), np.int32)})
     assert make_state(2, 4, device="cpu")["words"].device.type == "cpu"
+    cfg = get_smoke_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_serve_step(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--arch", "qwen3-1.7b", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params_to_torch({"embed": np.zeros((4, 2), np.float32)})
+    step, prefill, _ = build_serve_step(cfg, device="cpu")
+    params = lm.init_params(cfg, torch.Generator(), device="cpu")
+    logits, _ = prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    assert logits.device.type == "cpu"
+    assert serve_main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                       "--requests", "1", "--prompt-len", "4",
+                       "--gen", "2"])["tokens"] == 2
 
 
 def test_cpu_run_launches_no_kernel():
@@ -102,7 +132,9 @@ def test_cpu_run_launches_no_kernel():
     assert loop.drain(timeout=60)
     assert loop.stats().attend_calls > 0
     assert kernels.launch_counts() == {"latch_ops": 0, "gcl_fetch": 0,
-                                       "paged_attention": 0}
+                                       "paged_attention": 0,
+                                       "flash_attention": 0,
+                                       "ssd_intra": 0}
 
 
 def test_convert_round_trip_keeps_dtypes_and_bits():
