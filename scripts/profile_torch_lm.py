@@ -1,7 +1,10 @@
 """Where the LM serving path's time goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_lm.py [--arch qwen3-1.7b mamba2-2.7b]
-        [--out-dir build/profiles]
+        [--out-dir build/profiles] [--src DIR]
+
+(``--src``: profile the ``repro_torch`` package under DIR, for instance
+an unpacked older commit, instead of this checkout's.)
 
 For each architecture, at its full published config with random bf16
 weights (the port's ``init_params``, seed 0): one prefill of 4 prompts
@@ -13,7 +16,10 @@ of 512 tokens, the cache grown by 32 slots, then decode steps, as
 2. under ``torch.profiler`` (CPU + CUDA), one prefill and 8 decode
    steps: the device's busy time (sum of kernel and copy durations)
    against the wall time, the device kernels launched per decode step,
-   and the top device kernels and host ops.
+   and the top device kernels and host ops;
+3. under ``torch.profiler``, one prefill alone: its device time and the
+   share of it spent in the prefill's kernel (K4 ``flash_attention``
+   for dense, K5 ``ssd_intra`` for ssm).
 
 Needs a CUDA device; prints the card's name and power limit first.
 Writes the full tables to ``<out-dir>/profile_lm_<arch>.txt``.
@@ -30,7 +36,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke  # noqa: E402
 
@@ -97,6 +102,17 @@ def profile_arch(arch, dev):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     lines.append(f"{arch}: one decode step launches {per_step} device "
                  f"kernels and copies ({cfg.n_layers} layers)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof2:
+        prefill()
+        torch.cuda.synchronize()
+    ev2 = prof2.key_averages()
+    pf_us = sum(e.self_device_time_total for e in ev2)
+    needle = ("flash_attention" if cfg.family == "dense" else "ssd_intra")
+    k_us = sum(e.self_device_time_total for e in ev2 if needle in e.key)
+    lines.append(f"{arch}: one prefill's device time {pf_us / 1e3:.3f} ms, "
+                 f"of which {needle} kernels {k_us / 1e3:.3f} ms "
+                 f"({100 * k_us / pf_us:.2f} %)")
     tables = [events.table(sort_by="self_device_time_total", row_limit=15),
               events.table(sort_by="self_cpu_time_total", row_limit=20)]
     del params, cache, logits
@@ -110,7 +126,9 @@ def main() -> int:
                     default=["qwen3-1.7b", "mamba2-2.7b"])
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "build",
                                                       "profiles"))
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
     if not torch.cuda.is_available():
         print("profile_torch_lm: needs a CUDA device", file=sys.stderr)
         return 1

@@ -3,9 +3,11 @@
 Counterpart of ``repro/kernels/flash_attention/flash_attention.py``.
 On CUDA tensors :func:`flash_attention` launches
 ``csrc/flash_attention.cu`` (it replaces the TPU kernel
-``flash_attention``, the ``pallas_call`` at line 90); on CPU tensors it
-runs :func:`flash_attention_plain`.  ``flash_attention.launches`` counts
-kernel launches.
+``flash_attention``, the ``pallas_call`` at line 90): bf16 inputs go
+through its tensor-core kernel, which rounds the probabilities to bf16
+before the P.V product, fp32 inputs through its fp32 FMA kernel.  On
+CPU tensors it runs :func:`flash_attention_plain`.
+``flash_attention.launches`` counts kernel launches.
 
 q [B, Hq, S, hd]; k, v [B, Hkv, S, hd] with Hq a multiple of Hkv (the kv
 head of q head h is h // (Hq // Hkv)).  Any strides are taken as long as
@@ -86,6 +88,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the last dimension of q, k and v must be "
                          "contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start 16-byte aligned with "
+                         "strides of multiples of 8 (the kernel copies "
+                         "16-byte vectors)")
     out = torch.empty((b, s, hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*[

@@ -15,6 +15,10 @@ first ceil(lens[b] / page) entries of a row are read; lens [B] int32.
 Scores, softmax and accumulation are fp32, the scale is 1/sqrt(hd) and
 the output has q's dtype.  A row with ``lens == 0`` comes out zero (the
 Pallas kernel's behaviour; the JAX ``ref.py`` averages instead).
+
+On the card each (sequence, kv head) is one thread-block cluster of
+:func:`cluster_size` blocks, each taking a slice of the window's valid
+pages; the slices' softmax states merge inside the one launch.
 """
 
 from __future__ import annotations
@@ -28,6 +32,16 @@ from . import _build
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+CLUSTER = 2                 # blocks per (sequence, kv head), see below
+
+
+def cluster_size(max_pages: int) -> int:
+    """Blocks per (sequence, kv head) for a window of ``max_pages``
+    pages: ``CLUSTER``, or one a page where the window has fewer.  Two
+    were the fastest of 1, 2, 4 and 8 at the serve's grid (16 slots x 8
+    kv heads) for windows of 256, 512 and 1024 tokens
+    (``scripts/bench_attention_kernels.py``); other grids are untuned."""
+    return max(1, min(CLUSTER, max_pages))
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_tbl, lens):
@@ -53,8 +67,8 @@ def paged_attention_plain(q, k_pages, v_pages, page_tbl, lens):
 
 _SIGNATURES = {"paged_attention_launch": (
     [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p])}
+    + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p])}
 
 
 def _check(q, k_pages, v_pages, page_tbl, lens):
@@ -95,7 +109,9 @@ def decode_paged(q, k_pages, v_pages, page_tbl, lens):
                          f"(supported: {HEAD_DIMS})")
     if hq // hkv > 32:
         raise ValueError(f"{hq // hkv} query heads per kv head exceeds "
-                         f"the kernel's 32 warps per block")
+                         f"the kernel's 32")
+    if b > 65535:
+        raise ValueError(f"B = {b} exceeds the grid's 65535")
     inner = (hkv * hd, hd, 1)
     if k_pages.stride()[1:] != inner or v_pages.stride()[1:] != inner \
             or k_pages.stride(0) != v_pages.stride(0):
@@ -105,15 +121,23 @@ def decode_paged(q, k_pages, v_pages, page_tbl, lens):
     if not (q.is_contiguous() and page_tbl.is_contiguous()
             and lens.is_contiguous()):
         raise ValueError("q, page_tbl and lens must be contiguous")
+    if (k_pages.data_ptr() | v_pages.data_ptr()
+            | k_pages.stride(0) * k_pages.element_size()) % 16:
+        raise ValueError("k/v pages must start 16-byte aligned, with a "
+                         "page stride of a multiple of 16 bytes (the "
+                         "kernel reads 16-byte vectors)")
+    max_pages = page_tbl.shape[1]
+    cluster = cluster_size(max_pages)
     out = torch.empty_like(q)
     lib = _build.load("paged_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         rc = lib.paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_pages.stride(0), page_tbl.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, hq, hkv, hd, page, page_tbl.shape[1],
-            n_pool, 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
-            int(k_pages.dtype == torch.bfloat16), _build.stream_of(q))
+            out.data_ptr(), b, hq, hkv, hd, page, max_pages, n_pool,
+            1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+            int(k_pages.dtype == torch.bfloat16), cluster,
+            _build.stream_of(q))
     _build.check(rc, "paged_attention")
     decode_paged.launches += 1
     return out

@@ -9,9 +9,12 @@ on a machine with one, run them with
 Tolerances: the latch and fetch kernels must match exactly; paged
 attention agrees within 2e-5 with an fp32 output and 3e-2 with a bf16
 one (the kernel sums in another order than the plain version); flash
-attention within 2e-5 in fp32 and 2e-2 in bf16 (``test_kernels.py``'s
-tolerances); ssd_intra within 2e-4 of the output's scale (fp32 sums of
-up to 256 terms in another order).
+attention within 2e-5 in fp32 and, in bf16, within 2e-2 of max(1,
+|want|) elementwise (``test_kernels.py``'s tolerances, the bf16 one
+scaled above 1 with the output's rounding step; the bf16 kernel also
+rounds its probabilities to bf16);
+ssd_intra within 2e-4 of the output's scale (fp32 sums of up to 256
+terms in another order).
 """
 
 import pytest
@@ -88,6 +91,7 @@ def test_fetch_kernel_matches_plain(cuda, dtype, e):
 
 @pytest.mark.parametrize("hd,qdt,kvdt,tol", [
     (64, torch.float32, torch.float32, 2e-5),
+    (256, torch.float32, torch.float32, 2e-5),
     (128, torch.float32, torch.bfloat16, 2e-5),
     (256, torch.bfloat16, torch.bfloat16, 3e-2),
     (128, torch.bfloat16, torch.float32, 3e-2),
@@ -109,6 +113,41 @@ def test_paged_attention_kernel_matches_plain(cuda, hd, qdt, kvdt, tol):
     got = K.decode_paged(*[t.to(cuda) for t in ins]).float().cpu()
     assert got.dtype == want.dtype
     assert (got - want).abs().max().item() < tol
+    assert not got[0].any()                    # lens == 0 -> zeros
+
+
+@pytest.mark.parametrize("window,page", [(1, 1), (16, 4), (256, 16),
+                                         (1024, 16)])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 16, 32])
+def test_paged_attention_kernel_cluster_split(cuda, group, window, page):
+    """K3 over GQA groups (3: a padded head; 16 and 32: heads in chunks
+    of 8 on separate lane groups) and windows of one, several and many
+    cluster slices (1, 16, 256, 1024 tokens: clusters of 1, 2, 2 and 2),
+    with lens of 0, a full window, ragged ones, and -1 past the valid
+    pages; the serve's fp32 q over bf16 k/v, fp32 output: 2e-5."""
+    from repro_torch.kernels.paged_attention import cluster_size
+    rng = np.random.default_rng(group * 7919 + window)
+    hkv, hd, mp = 2, 128, window // page
+    b = 5
+    pool = b * mp + 4
+    assert cluster_size(mp) == (1 if mp == 1 else 2)
+    q = torch.from_numpy(rng.normal(size=(b, hkv * group, hd))
+                         .astype(np.float32))
+    kp, vp = [torch.from_numpy(rng.normal(size=(pool, page, hkv, hd))
+                               .astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2)]
+    lens = torch.from_numpy(rng.integers(1, window + 1, b).astype(np.int32))
+    lens[0], lens[1] = 0, window
+    tbl = torch.from_numpy(rng.permutation(pool)[:b * mp].reshape(b, mp)
+                           .astype(np.int32))
+    for i, n in enumerate(lens.tolist()):
+        tbl[i, -(-n // page):] = -1            # -1 past the valid pages
+    ins = (q, kp, vp, tbl, lens)
+    want = paged_attention_plain(*ins)
+    K.reset_launch_counts()
+    got = K.decode_paged(*[t.to(cuda) for t in ins]).cpu()
+    assert K.launch_counts()["paged_attention"] == 1
+    assert (got - want).abs().max().item() < 2e-5
     assert not got[0].any()                    # lens == 0 -> zeros
 
 
@@ -187,6 +226,15 @@ def test_serve_on_gpu_matches_cpu(cuda):
                                   "paged_attention")) > 0
 
 
+def _bf16_err(got, want):
+    """Largest |got - want| / max(1, |want|): a bf16 output's rounding
+    step grows with its magnitude, so two correct results of size 4 may
+    already sit one step, 2**-5, apart."""
+    want = want.float()
+    return ((got.float() - want).abs() / want.abs().clamp(min=1.0)) \
+        .max().item()
+
+
 @pytest.mark.parametrize("s", [64, 500, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -206,8 +254,29 @@ def test_flash_attention_kernel_matches_plain(cuda, hd, group, causal,
     got = K.flash_attention(*ins, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    assert (got.float() - want.float()).abs().max().item() < tol
+    if dtype == torch.bfloat16:
+        assert _bf16_err(got, want) < 2e-2
+    else:
+        assert (got - want).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("s", [1, 17, 127])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_bf16_ragged_and_wide(cuda, hd, group, causal, s):
+    """The bf16 tensor-core K4 at S shorter than, or not a multiple of,
+    its 64-row q and key tiles, and at a GQA group of 16."""
+    rng = np.random.default_rng(hd * 3 + group + s)
+    b, hkv = 2, 1
+    ins = [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                            .astype(np.float32)).to(cuda, torch.bfloat16)
+           .transpose(1, 2) for h in (hkv * group, hkv, hkv)]
+    want = flash_attention_plain(*ins, causal=causal)
+    got = K.flash_attention(*ins, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_err(got, want) < 2e-2
 
 
 @pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 24)])
@@ -244,6 +313,9 @@ def test_lm_wrappers_count_and_reject(cuda):
         K.flash_attention(x, x[:, :1].bfloat16(), x[:, :1])
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention(x.transpose(2, 3), x[:, :1], x[:, :1])
+    xb = torch.zeros((1, 2, 64, 68), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        K.flash_attention(*[xb[..., :64]] * 3)
     with pytest.raises(ValueError, match="too large"):
         K.ssd_intra(torch.zeros((1, 512, 512), device=cuda),
                     torch.zeros((1, 512, 1), device=cuda),
