@@ -8,13 +8,16 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels from ``src/repro_torch/csrc`` and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it, and time it (CUDA events; the
-   kernel and the library call as CUDA-graph replays, the plain version
-   eagerly), beside its bound: the larger of bytes over 3.35 TB/s and
-   operations over the card's peak for their type; print the registers
-   and spills of every K3 and K4 instantiation (no spill allowed for
-   bf16 K4 at hd 128), K4's and K3's achieved rates (TFLOP/s, GB/s),
-   their share of the bound and their time against SDPA's, and fp32
-   K4's time at K4's shape;
+   kernel and the library call as CUDA-graph replays of one call a
+   graph, ``ms``, and the kernel also of 20 calls a graph,
+   ``ms_graph20``; the plain version eagerly), beside its bound: the
+   larger of bytes over 3.35 TB/s and operations over the card's peak
+   for their type; print the launch floor of both timers (one 1-element
+   ``add_``), the registers and spills of every K3, K4 and K5
+   instantiation (no spill allowed for bf16 K4 at hd 128 or fp32 K5 at
+   P 64), K4's, K3's and K5's achieved rates, their share of the bound
+   and K3's and K4's time against SDPA's, and fp32 K4's time at K4's
+   shape;
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
    the attention width of Qwen3-1.7B (16 query heads, 8 kv heads, head
    dim 128; ``src/repro/configs/qwen3_1p7b.py``) over the default pool
@@ -53,6 +56,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside tensor cores
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 494.7e12              # H100 SXM TF32 tensor cores, dense
 REPLAY_TOL = 2e-2                  # prefill vs decode replay, x max|logit|
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -70,9 +74,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def graph_ms(fn, iters=200) -> float:
-    """Device time of one ``fn()`` call: captured once in a CUDA graph,
-    replayed ``iters`` times between two events (no host overhead)."""
+def graph_ms(fn, iters=200, calls=1) -> float:
+    """Device time of one ``fn()`` call: ``calls`` back-to-back calls
+    captured in one CUDA graph, replayed ``iters`` times between two
+    events (no host overhead), divided by ``iters * calls``.  With one
+    call a graph, a kernel of a few microseconds also pays the replay's
+    own cost; with many, only the gap between kernels in a graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -81,7 +88,8 @@ def graph_ms(fn, iters=200) -> float:
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        fn()
+        for _ in range(calls):
+            fn()
     g.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -91,7 +99,20 @@ def graph_ms(fn, iters=200) -> float:
         g.replay()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / iters
+    return a.elapsed_time(b) / (iters * calls)
+
+
+def graph20_ms(fn) -> float:
+    """``graph_ms`` with 20 calls a graph (the ``ms_graph20`` column)."""
+    return graph_ms(fn, iters=50, calls=20)
+
+
+def launch_floor() -> dict:
+    """Both timers on one tiny torch elementwise kernel (``x.add_(1)``
+    on a 1-element tensor): the least a launch costs on each."""
+    x = torch.zeros(1, device="cuda")
+    return {"ms": graph_ms(lambda: x.add_(1)),
+            "ms_graph20": graph20_ms(lambda: x.add_(1))}
 
 
 def eager_ms(fn, iters=20) -> float:
@@ -170,6 +191,7 @@ def check_latch(dev, K):
     bms, by = bound_ms(n_bytes)
     return {"name": "latch_ops", "max_abs_err": float(err),
             "ms": graph_ms(lambda: K.apply_batch(w, req)),
+            "ms_graph20": graph20_ms(lambda: K.apply_batch(w, req)),
             "plain_ms": eager_ms(lambda: latch_apply_plain(
                 w, *[req[k] for k in REQ_KEYS])),
             "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -204,6 +226,7 @@ def check_fetch(dev, K):
     idx = args[1].long().clamp(min=0)
     return {"name": "gcl_fetch", "max_abs_err": float(err),
             "ms": graph_ms(lambda: K.fetch(pages, *args)),
+            "ms_graph20": graph20_ms(lambda: K.fetch(pages, *args)),
             "plain_ms": eager_ms(lambda: gcl_fetch_plain(pages, *args)),
             "bound_ms": bms, "bound_by": by,
             "library_ms": graph_ms(lambda: torch.index_select(pages, 0,
@@ -273,6 +296,8 @@ def check_attention(dev, K, mp=16):
     row = {"name": "paged_attention", "max_abs_err": err,
            "ms": graph_ms(lambda: K.decode_paged(q, k_pages, v_pages, tbl,
                                                  lens)),
+           "ms_graph20": graph20_ms(lambda: K.decode_paged(
+               q, k_pages, v_pages, tbl, lens)),
            "plain_ms": eager_ms(lambda: paged_attention_plain(
                q, k_pages, v_pages, tbl, lens)),
            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
@@ -316,6 +341,8 @@ def check_flash(dev, K):
     bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS)
     row = {"name": "flash_attention", "max_abs_err": err,
            "ms": graph_ms(lambda: K.flash_attention(q, k, v, causal=True)),
+           "ms_graph20": graph20_ms(lambda: K.flash_attention(
+               q, k, v, causal=True)),
            "plain_ms": eager_ms(lambda: flash_attention_plain(
                q, k, v, causal=True)),
            "bound_ms": bms, "bound_by": by,
@@ -354,11 +381,18 @@ def check_ssd(dev, K):
     assert err < 2e-4 * scale, f"ssd_intra off by {err} (tol 2e-4 x {scale})"
     n_bytes = 4 * (bc * q * q + bc * q * h + 2 * bc * q * h * p)
     n_flops = bc * h * q * (q + 1) / 2 * (2.0 * p + 3)  # causal pairs
-    bms, by = bound_ms(n_bytes, n_flops, FP32_FLOPS)
-    return {"name": "ssd_intra", "max_abs_err": err,
-            "ms": graph_ms(lambda: K.ssd_intra(cb, cs, win)),
-            "plain_ms": eager_ms(lambda: ssd_intra_plain(cb, cs, win)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    bms, by = bound_ms(n_bytes, n_flops, TF32_FLOPS)
+    row = {"name": "ssd_intra", "max_abs_err": err,
+           "ms": graph_ms(lambda: K.ssd_intra(cb, cs, win)),
+           "ms_graph20": graph20_ms(lambda: K.ssd_intra(cb, cs, win)),
+           "plain_ms": eager_ms(lambda: ssd_intra_plain(cb, cs, win)),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    log(f"rate ssd_intra: {n_bytes / row['ms'] / 1e6:.3f} GB/s, "
+        f"{3 * n_flops / row['ms'] / 1e9:.3f} TFLOP/s of TF32 products "
+        f"(3xTF32), {100 * bms / row['ms']:.2f} % of its bound; error "
+        f"{err / scale} of the scale (tolerance 2e-4); the fp32 FMA bound "
+        f"of the first port: {bound_ms(n_bytes, n_flops, FP32_FLOPS)[0]} ms")
+    return row
 
 
 # --------------------------------------------------------- phase 3: serve
@@ -543,7 +577,7 @@ def main() -> int:
         log(f"  ptxas {name}: {len(funcs)} kernels, at most "
             f"{max((r for _, r, _ in funcs), default=0)} registers, "
             f"{sum(sp for _, _, sp in funcs)} spill bytes")
-        if name in ("flash_attention", "paged_attention"):
+        if name in ("flash_attention", "paged_attention", "ssd_intra"):
             for fn, r, sp in funcs:
                 log(f"    {fn}: {r} registers, {sp} spill bytes")
     if "flash_attention" in _build.BUILD_LOG:
@@ -552,6 +586,12 @@ def main() -> int:
             if "flash_attention_bf16_kernel<128>" in fn
             or "flash_attention_bf16_kernelILi128E" in fn]
         assert tc128 == [0], f"K4 bf16 at hd 128 spills: {tc128}"
+    if "ssd_intra" in _build.BUILD_LOG:
+        f32p64 = [sp for fn, _, sp in ptxas_functions(
+            _build.BUILD_LOG["ssd_intra"])
+            if "ssd_intra_kernel<float, 8>" in fn
+            or "ssd_intra_kernelIfLi8E" in fn]
+        assert f32p64 == [0], f"K5 fp32 at P 64 spills: {f32p64}"
 
     meta = {
         "latch_ops": ("src/repro_torch/csrc/latch_ops.cu",
@@ -570,9 +610,13 @@ def main() -> int:
     rows = [check_latch(dev, K), check_fetch(dev, K),
             check_attention(dev, K), check_flash(dev, K),
             check_ssd(dev, K)]
+    floor = launch_floor()
+    log(f"launch floor (x.add_(1) on 1 element): ms {floor['ms']} "
+        f"ms_graph20 {floor['ms_graph20']}")
     for row in rows:
         log(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} "
-            f"ms {row['ms']} plain_ms {row['plain_ms']} "
+            f"ms {row['ms']} ms_graph20 {row['ms_graph20']} "
+            f"plain_ms {row['plain_ms']} "
             f"library_ms {row['library_ms']} bound_ms {row['bound_ms']} "
             f"({row['bound_by']})")
 
@@ -598,7 +642,8 @@ def main() -> int:
                         "source": src, "replaces": replaces,
                         "launches": counts[row["name"]],
                         "max_abs_err": row["max_abs_err"],
-                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "ms": row["ms"], "ms_graph20": row["ms_graph20"],
+                        "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})

@@ -1,14 +1,17 @@
-"""K3 and K4 on one NVIDIA GPU, at the main path's shapes, beside SDPA.
+"""K3 and K4 beside SDPA, and K1 and K5, on one NVIDIA GPU at the main
+path's shapes.
 
     python3 scripts/bench_attention_kernels.py [--src DIR] [--label NAME]
         [--out-dir build/bench] [--phases]
 
 Builds the CUDA kernels of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``; point it at an unpacked older commit
-to compare two versions on one card, in turns) and runs
-``chip_smoke.py``'s own checks of K3 and K4 on them
-(``check_attention``, ``check_flash``: each kernel at the main path's
-shape against its plain version, timed beside SDPA).
+to compare two versions on one card, in turns: parent, change, change,
+parent) and runs ``chip_smoke.py``'s own checks of K3, K4, K1 and K5 on
+them (``check_attention``, ``check_flash``, ``check_latch``,
+``check_ssd``: each kernel at the main path's shape against its plain
+version, timed on one call a CUDA graph and on 20, K3 and K4 beside
+SDPA), after the launch floor of both timers (``launch_floor``).
 
 Where the package splits K3's window across a thread-block cluster
 (``paged_attention.cluster_size``), also K3 at windows of 256 (the
@@ -158,8 +161,11 @@ def main() -> int:
     print(card, flush=True)
     _build.build_all()
     res = {"label": args.label, "src": os.path.abspath(args.src),
-           "card": card, "k3": chip_smoke.check_attention(dev, K),
-           "k4": chip_smoke.check_flash(dev, K)}
+           "card": card, "launch_floor": chip_smoke.launch_floor(),
+           "k3": chip_smoke.check_attention(dev, K),
+           "k4": chip_smoke.check_flash(dev, K),
+           "k1": chip_smoke.check_latch(dev, K),
+           "k5": chip_smoke.check_ssd(dev, K)}
     if hasattr(PA, "cluster_size"):
         res["k3_clusters"] = cluster_sweep(dev)
     if args.phases:

@@ -14,7 +14,8 @@ attention within 2e-5 in fp32 and, in bf16, within 2e-2 of max(1,
 scaled above 1 with the output's rounding step; the bf16 kernel also
 rounds its probabilities to bf16);
 ssd_intra within 2e-4 of the output's scale (fp32 sums of up to 256
-terms in another order).
+terms in another order) and, with bf16 inputs, within 2e-2 of max(1,
+|want|) elementwise (the output's rounding step).
 """
 
 import pytest
@@ -62,6 +63,62 @@ def test_latch_kernel_matches_plain(cuda, seed, n, r, n_hot):
     want = latch_apply_plain(words, *[req[k] for k in REQ_KEYS])
     got = K.apply_batch(words.to(cuda), {k: v.to(cuda)
                                          for k, v in req.items()})
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("same_line", [False, True])
+@pytest.mark.parametrize("n", [1, 63, 4097])
+@pytest.mark.parametrize("r", [0, 1, 33, 1025, 1500])
+def test_latch_kernel_line_slices(cuda, r, n, same_line):
+    """K1 over one or several 1024-line slices (4097: a one-line tail),
+    more requests than one staged tile (1025, 1500), empty slots and
+    lines past N (replies of zeros, not ok, like an empty slot), and,
+    with ``same_line``, one chain that every request is on."""
+    rng = np.random.default_rng(r * 7 + n)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (n, 2))
+                             .astype(np.int32))
+    words[:2, 1] = -1                          # lo = 0xFFFFFFFF: carries
+    if same_line:
+        line = np.full(r, n - 1, np.int32)
+    else:
+        line = rng.integers(-1, n + 3, r).astype(np.int32)
+    cmp = words.numpy()[np.clip(line, 0, n - 1)]
+    req = {"line": line, "op": rng.integers(0, 2, r).astype(np.int32),
+           "arg_hi": rng.integers(-4, 4, r).astype(np.int32),
+           "arg_lo": rng.integers(-2**31, 2**31, r).astype(np.int32),
+           "cmp_hi": cmp[:, 0].copy(), "cmp_lo": cmp[:, 1].copy()}
+    req = {k: torch.from_numpy(v) for k, v in req.items()}
+    plain_req = dict(req, line=torch.where(req["line"] < n, req["line"], -1))
+    want = latch_apply_plain(words, *[plain_req[k] for k in REQ_KEYS])
+    got = K.apply_batch(words.to(cuda), {k: v.to(cuda)
+                                         for k, v in req.items()})
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_latch_kernel_unaligned_words(cuda):
+    """words at an 8-byte offset (a view one line into its storage) take
+    the copy path of single lanes instead of 16-byte vectors."""
+    rng = np.random.default_rng(9)
+    n, r = 2049, 40
+    store = torch.from_numpy(rng.integers(-2**31, 2**31, (n + 1, 2))
+                             .astype(np.int32))
+    words = store[1:]
+    line = rng.integers(-1, n, r).astype(np.int32)
+    line[:10] = 2047                           # a chain on one line
+    cmp = words.numpy()[np.maximum(line, 0)]
+    req = {"line": line, "op": rng.integers(0, 2, r).astype(np.int32),
+           "arg_hi": rng.integers(-4, 4, r).astype(np.int32),
+           "arg_lo": rng.integers(-2**31, 2**31, r).astype(np.int32),
+           "cmp_hi": cmp[:, 0].copy(), "cmp_lo": cmp[:, 1].copy()}
+    req = {k: torch.from_numpy(v) for k, v in req.items()}
+    want = latch_apply_plain(words, *[req[k] for k in REQ_KEYS])
+    dev_words = store.to(cuda)[1:]
+    assert dev_words.is_contiguous() and dev_words.data_ptr() % 16 == 8
+    got = K.apply_batch(dev_words, {k: v.to(cuda) for k, v in req.items()})
     torch.cuda.synchronize()
     for w, g in zip(want, got):
         assert torch.equal(g.cpu(), w)
@@ -279,10 +336,15 @@ def test_flash_attention_bf16_ragged_and_wide(cuda, hd, group, causal, s):
     assert _bf16_err(got, want) < 2e-2
 
 
-@pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 24)])
+@pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 24),
+                                      (4, 32, 6, 16), (2, 256, 3, 128),
+                                      (2, 37, 3, 10)])
 def test_ssd_intra_kernel_matches_plain(cuda, bc, q, h, p):
-    """K5 at the Mamba2-2.7B prefill shape and at a ragged one; the
-    cumsum is steep enough that exp overflows above the diagonal."""
+    """K5 at the Mamba2-2.7B prefill shape, at ragged ones (Q 100, P 24,
+    head counts its group of 2 does not divide), at the smoke config's
+    chunk, at P 128, and with rows that are not 16-byte aligned (Q 37,
+    P 10: loaded element by element, odd stores); the cumsum is steep
+    enough that exp overflows above the diagonal."""
     rng = np.random.default_rng(q)
     cb = torch.from_numpy(rng.normal(size=(bc, q, q)).astype(np.float32))
     cs = torch.from_numpy((-np.abs(rng.normal(size=(bc, q, h)))
@@ -295,6 +357,23 @@ def test_ssd_intra_kernel_matches_plain(cuda, bc, q, h, p):
     assert torch.isfinite(got).all()
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() < 2e-4 * max(1.0, scale)
+
+
+def test_ssd_intra_kernel_bf16(cuda):
+    """bf16 inputs, widened to fp32 on load: within 2e-2 of max(1,
+    |want|), the output's bf16 rounding step."""
+    rng = np.random.default_rng(7)
+    bc, q, h, p = 2, 64, 4, 32
+    ins = [torch.from_numpy(a.astype(np.float32)).to(cuda, torch.bfloat16)
+           for a in (rng.normal(size=(bc, q, q)),
+                     -np.abs(rng.normal(size=(bc, q, h))).cumsum(axis=1),
+                     rng.normal(size=(bc, q, h, p)))]
+    want = ssd_intra_plain(*ins).float()
+    got = K.ssd_intra(*ins)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    rel = (got.float() - want).abs() / want.abs().clamp(min=1.0)
+    assert rel.max().item() < 2e-2
 
 
 def test_lm_wrappers_count_and_reject(cuda):

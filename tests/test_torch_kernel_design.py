@@ -1,4 +1,5 @@
-"""The arithmetic of the Hopper designs of K4 and K3, emulated on the CPU.
+"""The arithmetic of the Hopper designs of K4, K3, K5 and K1, emulated on
+the CPU.
 
 The CUDA kernels run only on the card; what their designs change in
 the numbers is pinned down here, against the JAX package's kernels:
@@ -15,9 +16,26 @@ the numbers is pinned down here, against the JAX package's kernels:
   keeps a (max, sum, acc) state, and the states merge by rescaling to
   the largest max.  Held against ``decode_paged`` (the JAX reference
   and the Pallas kernel in interpret mode) within 2e-5 in fp32.
+* K5 (``csrc/ssd_intra.cu``): 3xTF32 on the tensor cores.  Each operand
+  x is split as big = tf32(x), small = tf32(x - big), rounded as
+  ``cvt.rna.tf32.f32`` rounds (half away from zero on the 13 dropped
+  bits); keys go in steps of 8 in order, the diagonal masked by select,
+  and each step adds small.big, big.small, then big.big to an fp32 sum.
+  Held against the Pallas kernel in interpret mode at
+  ``tests/test_kernels.py``'s fp32 shapes within that file's 2e-4, and,
+  with ``chip_smoke.check_ssd``'s steep cumsum, against the function in
+  float64 within 1e-5 of the output's scale and against
+  ``ssd_intra_plain`` within 2e-4 of it (one TF32 product, which the
+  2e-4 check would not pass, is shown beside it).
+* K1 (``csrc/latch_ops.cu``): lines partitioned into slices, one block
+  each; a block finds each line's first request (the least index) and
+  walks the line's chain from it in request order.  Held bit for bit
+  against the JAX ``apply_batch`` through the Pallas kernel in
+  interpret mode, with slices of 64 lines so that a small N spans
+  several.
 
-Neither emulation is on any path of the port: they are the kernels'
-algorithms written out in PyTorch, for this file alone.
+None of the emulations is on any path of the port: they are the
+kernels' algorithms written out in PyTorch, for this file alone.
 """
 
 import math
@@ -31,12 +49,17 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention.ops import \
     attention as jax_flash  # noqa: E402
+from repro.kernels.latch_ops.ops import \
+    apply_batch as jax_apply_batch  # noqa: E402
 from repro.kernels.paged_attention.ops import \
     decode_paged as jax_decode_paged  # noqa: E402
+from repro.kernels.ssd_intra.ops import \
+    intra_chunk as jax_intra_chunk  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     cluster_size  # noqa: E402
+from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
 
 K4_TILE = 64              # keys per tile of the bf16 kernel
 K3_LANE_GROUPS = 16       # lane groups of a block (bf16 rows at hd 128)
@@ -227,3 +250,180 @@ def test_k3_cluster_size_follows_the_window(max_pages, cs):
     """Two blocks per (sequence, kv head), one where the window has a
     single page: the serve's 16-page windows take 2."""
     assert cluster_size(max_pages) == cs
+
+
+# ------------------------------------------------------------------ K5
+
+def tf32_rna(x):
+    """fp32 -> the nearest TF32 value, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits to the
+    magnitude's bit pattern, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def k5_emulate(cb, cs, win, terms=3):
+    """K5's arithmetic on cb [B, Q, Q], cs [B, Q, H], win [B, Q, H, P]:
+    keys in steps of 8, in order; the step's scores S = cb * exp2((cs[q]
+    - cs[k]) * log2 e), selected to 0 above the diagonal; with
+    ``terms=3`` small.big, big.small and big.big added in that order to
+    an fp32 sum, with ``terms=1`` big.big alone (one TF32 product).  The
+    kernel skips the steps past a warp's last row; here they add exact
+    zeros."""
+    b, q, h, p = win.shape
+    cbf, csf = cb.float(), cs.float().permute(0, 2, 1)      # [B, H, Q]
+    wf = win.float().permute(0, 2, 1, 3)                     # [B, H, Q, P]
+    rows = torch.arange(q)[:, None]
+    acc = torch.zeros((b, h, q, p))
+    for k0 in range(0, q, 8):
+        keys = torch.arange(k0, min(k0 + 8, q))
+        dec = torch.exp2((csf[:, :, :, None] - csf[:, :, None, keys])
+                         * math.log2(math.e))
+        dec = torch.where(keys[None, :] <= rows, dec, 0.0)  # select first
+        s = cbf[:, None, :, keys] * dec                      # [B, H, Q, 8]
+        wk = wf[:, :, keys]                                  # [B, H, 8, P]
+        a_big, a_small = tf32_split(s)
+        b_big, b_small = tf32_split(wk)
+        if terms == 3:
+            acc = acc + a_small @ b_big
+            acc = acc + a_big @ b_small
+        acc = acc + a_big @ b_big
+    return acc.permute(0, 2, 1, 3).to(win.dtype)
+
+
+def test_tf32_rna_rounds_half_away_from_zero():
+    ulp = 2.0 ** -10                       # TF32's step in [1, 2)
+    x = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 2
+                      - 2.0 ** -23, 1.0 + 1.5 * ulp, 3.0])
+    want = torch.tensor([1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + 2 * ulp, 3.0])
+    assert torch.equal(tf32_rna(x), want)
+    big, small = tf32_split(torch.tensor([math.pi]))
+    assert abs(float(big + small) - math.pi) < 2.0 ** -20
+
+
+@pytest.mark.parametrize("b,q,h,p", [(2, 32, 4, 16), (1, 64, 8, 64)])
+def test_k5_design_matches_pallas(b, q, h, p):
+    """``tests/test_kernels.py``'s fp32 cases and inputs."""
+    rng = np.random.default_rng(4)
+    cb = rng.normal(size=(b, q, q)).astype(np.float32) * 0.3
+    cs = (-np.abs(rng.normal(size=(b, q, h))).cumsum(axis=1)
+          * 0.1).astype(np.float32)
+    win = rng.normal(size=(b, q, h, p)).astype(np.float32)
+    want = np.asarray(jax_intra_chunk(jnp.asarray(cb), jnp.asarray(cs),
+                                      jnp.asarray(win), backend="pallas",
+                                      interpret=True))
+    got = k5_emulate(*[torch.from_numpy(a) for a in (cb, cs, win)]).numpy()
+    assert np.abs(got - want).max() < 2e-4
+
+
+def test_k5_design_matches_plain_with_a_steep_cumsum():
+    """``chip_smoke.check_ssd``'s inputs (a cumsum steep enough that exp
+    overflows above the diagonal) at 2 chunks of Q 256, 4 heads, P 64.
+    3xTF32 agrees with the function evaluated in float64 within 1e-5 of
+    the scale, and with ``ssd_intra_plain`` within the kernel's 2e-4 of
+    the scale; one TF32 product misses 2e-4.  (``ssd_intra_plain`` is
+    itself an fp32 einsum whose error against float64 varies from run to
+    run on the CPU, up to a few 1e-5 of the scale, so the tight bound is
+    held against float64.)"""
+    rng = np.random.default_rng(5)
+    b, q, h, p = 2, 256, 4, 64
+    cb = torch.from_numpy(rng.normal(size=(b, q, q)).astype(np.float32))
+    cs = torch.from_numpy((-np.abs(rng.normal(size=(b, q, h)))
+                           .cumsum(axis=1)).astype(np.float32))
+    win = torch.from_numpy(rng.normal(size=(b, q, h, p)).astype(np.float32))
+    seg = cs.double()[:, :, None, :] - cs.double()[:, None, :, :]
+    causal = torch.ones((q, q), dtype=torch.bool).tril()[None, :, :, None]
+    exact = torch.einsum("bqk,bqkh,bkhp->bqhp", cb.double(),
+                         torch.where(causal, torch.exp(seg), 0.0),
+                         win.double())
+    scale = max(1.0, exact.abs().max().item())
+    got = k5_emulate(cb, cs, win)
+    assert torch.isfinite(got).all()
+    assert (got.double() - exact).abs().max().item() < 1e-5 * scale
+    want = ssd_intra_plain(cb, cs, win)
+    assert (got - want).abs().max().item() < 2e-4 * scale
+    one = k5_emulate(cb, cs, win, terms=1)
+    assert (one.double() - exact).abs().max().item() > 2e-4 * scale
+
+
+# ------------------------------------------------------------------ K1
+
+_U64 = (1 << 64) - 1
+
+
+def _word(hi, lo):
+    return ((int(hi) & 0xFFFFFFFF) << 32) | (int(lo) & 0xFFFFFFFF)
+
+
+def _lanes(w):
+    return (np.int32(np.uint32(w >> 32)), np.int32(np.uint32(w & 0xFFFFFFFF)))
+
+
+def k1_emulate(words, req, lines_per_block):
+    """K1's partition: block b owns lines [b * L, (b + 1) * L); it finds
+    each line's first request (the least index, the kernel's atomicMin
+    table) and walks the line's chain from it in request order, the word
+    held as one 64-bit value.  Empty slots and lines past N reply zeros,
+    not ok (block 0 writes them)."""
+    n, r = words.shape[0], req["line"].shape[0]
+    line = req["line"]
+    new = words.copy()
+    old_hi = np.zeros(r, np.int32)
+    old_lo = np.zeros(r, np.int32)
+    ok = np.zeros(r, np.int32)
+    for l0 in range(0, max(n, 1), lines_per_block):
+        in_slice = (line >= l0) & (line < min(n, l0 + lines_per_block))
+        first = {}
+        for i in np.nonzero(in_slice)[0]:
+            first[int(line[i])] = min(first.get(int(line[i]), r), int(i))
+        for ln, f in first.items():
+            w = _word(*words[ln])
+            for j in f + np.nonzero(line[f:] == ln)[0]:
+                old_hi[j], old_lo[j] = _lanes(w)
+                arg = _word(req["arg_hi"][j], req["arg_lo"][j])
+                if req["op"][j] == 0:
+                    hit = w == _word(req["cmp_hi"][j], req["cmp_lo"][j])
+                    w = arg if hit else w
+                    ok[j] = int(hit)
+                else:
+                    w = (w + arg) & _U64
+                    ok[j] = 1
+            new[ln] = _lanes(w)
+    return new, old_hi, old_lo, ok
+
+
+@pytest.mark.parametrize("n,n_lines,same_line", [
+    (200, 200, False),           # 4 slices of 64, the last one ragged
+    (192, 12, False),            # long chains on a few lines
+    (200, 1, True),              # one line named by every request
+])
+def test_k1_design_matches_pallas(n, n_lines, same_line):
+    rng = np.random.default_rng(n + n_lines)
+    r = 1500
+    words = rng.integers(-2**31, 2**31, (n, 2)).astype(np.int32)
+    words[:4, 1] = -1                          # lo = 0xFFFFFFFF: carries
+    words[0, 0] = -1                           # whole word 2**64 - 1
+    if same_line:
+        line = np.full(r, 137, np.int32)
+    else:
+        line = rng.choice(rng.permutation(n)[:n_lines], r).astype(np.int32)
+        line[rng.random(r) < 0.1] = -1
+    cmp = words[np.maximum(line, 0)].copy()
+    miss = rng.random(r) < 0.5
+    cmp[miss] = rng.integers(-2**31, 2**31, (miss.sum(), 2))
+    req = {"line": line, "op": rng.integers(0, 2, r).astype(np.int32),
+           "arg_hi": rng.integers(-4, 4, r).astype(np.int32),
+           "arg_lo": rng.integers(-2**31, 2**31, r).astype(np.int32),
+           "cmp_hi": cmp[:, 0].astype(np.int32),
+           "cmp_lo": cmp[:, 1].astype(np.int32)}
+    want = jax_apply_batch(jnp.asarray(words),
+                           {k: jnp.asarray(v) for k, v in req.items()},
+                           backend="pallas", interpret=True)
+    got = k1_emulate(words, req, lines_per_block=64)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, np.asarray(w))
