@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; nothing is caught):
    instantiation (no spill allowed for bf16 K4 at hd 128 or fp32 K5 at
    P 64), K4's, K3's and K5's achieved rates, their share of the bound
    and K3's and K4's time against SDPA's, and fp32 K4's time at K4's
-   shape;
+   shape; K2 also at the serve's own mix of granted and empty rows and
+   with rotating rows, and K2-K4's library calls on both timers;
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
    the attention width of Qwen3-1.7B (16 query heads, 8 kv heads, head
    dim 128; ``src/repro/configs/qwen3_1p7b.py``) over the default pool
@@ -25,7 +26,8 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens), checking every completion's KV readback bit for bit
    against ``ToyLM.expected_pages``, a sample of attend outputs against
    the plain kernel over the oracle bytes, the coherence invariants,
-   the page accounting, and that every kernel launched during the run;
+   the page accounting, and that every kernel launched during the run,
+   each K2 call once; print K2's calls counted by (R, valid rows);
 4. serve Qwen3-1.7B and then Mamba2-2.7B at full published width and
    depth (``src/repro/configs/qwen3_1p7b.py``, ``mamba2_2p7b.py``; random
    bf16 weights from a seeded ``torch.Generator`` on the card) through
@@ -43,6 +45,9 @@ on standard output.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import json
 import os
 import shutil
@@ -197,10 +202,14 @@ def check_latch(dev, K):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-def check_fetch(dev, K):
-    """K2 at the serving round's shape: R = 32 rows of W = 16384 int32
-    lanes from a 1024-page image, duplicates with unequal bits; exact."""
-    from repro_torch.kernels.gcl_fetch import gcl_fetch_plain
+def fetch_cases(dev):
+    """K2's inputs at the serving round's shape, R = 32 rows of W = 16384
+    int32 lanes (64 KiB) from a 1024-page image: ``(pages, dense, serve,
+    rotating)``, each case the argument list ``[words, req_page, bit_hi,
+    bit_lo]`` after ``pages``.  dense: 28 rows valid, duplicates with
+    unequal bits (the ``ms`` and ``ms_graph20`` case); serve: the
+    serve's own mix, one valid row, zero bits as the round engine passes
+    them; rotating: 20 dense cases over disjoint rows of the image."""
     rng = np.random.default_rng(SEED + 1)
     p, e, r = 1024, 16384, 32
     pages = torch.from_numpy(rng.integers(-2**31, 2**31, (p, e))
@@ -210,27 +219,83 @@ def check_fetch(dev, K):
     req_np = rng.integers(0, p, r).astype(np.int32)
     req_np[5] = req_np[6] = req_np[7]              # duplicate requests
     req_np[::9] = -1
-    args = [torch.from_numpy(a).to(dev) for a in (
-        words_np, req_np, rng.integers(0, 2**30, r).astype(np.int32),
-        rng.integers(0, 2**30, r).astype(np.int32))]
-    got = K.fetch(pages, *args)
-    want = gcl_fetch_plain(pages, *args)
-    torch.cuda.synchronize()
-    err = max(int((a.long() - b.long()).abs().max()) for a, b in
-              zip(got, want))
+    words = torch.from_numpy(words_np).to(dev)
+
+    def case(req, bits=True):
+        b = [rng.integers(0, 2**30, r).astype(np.int32) if bits
+             else np.zeros(r, np.int32) for _ in range(2)]
+        return [words] + [torch.from_numpy(a).to(dev) for a in (req, *b)]
+
+    dense = case(req_np)
+    serve_np = np.full(r, -1, np.int32)
+    serve_np[rng.integers(0, r)] = rng.integers(0, p)
+    serve = case(serve_np, bits=False)
+    perm = rng.permutation(p).astype(np.int32)
+    rotating = []
+    for k in range(20):
+        rot_np = perm[k * r:(k + 1) * r].copy()
+        rot_np[::9] = -1
+        rotating.append(case(rot_np))
+    return pages, dense, serve, rotating
+
+
+def check_fetch(dev, K):
+    """K2 on :func:`fetch_cases`, exact against its plain version in all
+    three cases; timed dense (``ms``, ``ms_graph20``), at the serve's mix
+    (``*_serve``) and with rotating rows in one 20-call graph, so that no
+    call finds its rows where the call before it left them in L2
+    (``*_rotating``).  ``index_select`` over the same rows is the
+    library yardstick on both timers."""
+    from repro_torch.kernels.gcl_fetch import gcl_fetch_plain
+    pages, dense, serve, rotating = fetch_cases(dev)
+    (p, e), r = pages.shape, dense[1].shape[0]
+    err = 0
+    for args in [dense, serve] + rotating:
+        got = K.fetch(pages, *args)
+        want = gcl_fetch_plain(pages, *args)
+        torch.cuda.synchronize()
+        err = max([err] + [int((a.long() - b.long()).abs().max())
+                           for a, b in zip(got, want)])
     assert err == 0, f"gcl_fetch disagrees with its plain version ({err})"
-    row = e * 4
-    n_valid = int((args[1] >= 0).sum())
-    n_bytes = n_valid * row + r * row + 2 * p * 8 + 6 * r * 4
-    bms, by = bound_ms(n_bytes)
-    idx = args[1].long().clamp(min=0)
-    return {"name": "gcl_fetch", "max_abs_err": float(err),
-            "ms": graph_ms(lambda: K.fetch(pages, *args)),
-            "ms_graph20": graph20_ms(lambda: K.fetch(pages, *args)),
-            "plain_ms": eager_ms(lambda: gcl_fetch_plain(pages, *args)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": graph_ms(lambda: torch.index_select(pages, 0,
-                                                              idx))}
+
+    def bound(args):
+        n_valid = int((args[1] >= 0).sum())
+        return bound_ms(n_valid * e * 4 + r * e * 4 + 2 * p * 8 + 6 * r * 4)
+
+    def gather(args):
+        idx = args[1].long().clamp(min=0)
+        return lambda: torch.index_select(pages, 0, idx)
+
+    def cycle(calls):
+        """One of ``calls`` per invocation, in turn."""
+        it = itertools.cycle(calls)
+        return lambda: next(it)()
+
+    bms, by = bound(dense)
+    bms_serve, _ = bound(serve)
+    row = {"name": "gcl_fetch", "max_abs_err": float(err),
+           "ms": graph_ms(lambda: K.fetch(pages, *dense)),
+           "ms_graph20": graph20_ms(lambda: K.fetch(pages, *dense)),
+           "plain_ms": eager_ms(lambda: gcl_fetch_plain(pages, *dense)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": graph_ms(gather(dense)),
+           "library_ms_graph20": graph20_ms(gather(dense)),
+           "ms_serve": graph_ms(lambda: K.fetch(pages, *serve)),
+           "ms_graph20_serve": graph20_ms(lambda: K.fetch(pages, *serve)),
+           "bound_ms_serve": bms_serve,
+           "library_ms_graph20_serve": graph20_ms(gather(serve)),
+           "ms_graph20_rotating": graph20_ms(cycle(
+               [lambda a=a: K.fetch(pages, *a) for a in rotating])),
+           "library_ms_graph20_rotating": graph20_ms(cycle(
+               [gather(a) for a in rotating]))}
+    log(f"rate gcl_fetch on ms_graph20: dense "
+        f"{100 * bms / row['ms_graph20']:.2f} % of its bound, "
+        f"{row['ms_graph20'] / row['library_ms_graph20']:.3f}x "
+        f"index_select's time; serve mix "
+        f"{100 * bms_serve / row['ms_graph20_serve']:.2f} % of its bound; "
+        f"rotating rows {100 * bms / row['ms_graph20_rotating']:.2f} % of "
+        f"the dense bound")
+    return row
 
 
 def attention_inputs(dev, mp=16):
@@ -292,7 +357,8 @@ def check_attention(dev, K, mp=16):
     n_bytes = (2 * toks * hkv * hd * 2 + 2 * b * hq * hd * 4
                + int(sum(-(-int(n) // page) for n in lens_np)) * 4 + b * 4)
     bms, by = bound_ms(n_bytes, 4.0 * hq * hd * toks)
-    lib_ms = graph_ms(paged_sdpa(q, k_pages, v_pages, tbl, lens))
+    lib = paged_sdpa(q, k_pages, v_pages, tbl, lens)
+    lib_ms = graph_ms(lib)
     row = {"name": "paged_attention", "max_abs_err": err,
            "ms": graph_ms(lambda: K.decode_paged(q, k_pages, v_pages, tbl,
                                                  lens)),
@@ -300,7 +366,8 @@ def check_attention(dev, K, mp=16):
                q, k_pages, v_pages, tbl, lens)),
            "plain_ms": eager_ms(lambda: paged_attention_plain(
                q, k_pages, v_pages, tbl, lens)),
-           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "library_ms_graph20": graph20_ms(lib)}
     log(f"rate paged_attention (window {mp * page}): "
         f"{n_bytes / row['ms'] / 1e6:.3f} GB/s, "
         f"{100 * bms / row['ms']:.2f} % of its bound, "
@@ -347,7 +414,10 @@ def check_flash(dev, K):
                q, k, v, causal=True)),
            "bound_ms": bms, "bound_by": by,
            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True))}
+               q, k, v, is_causal=True, enable_gqa=True)),
+           "library_ms_graph20": graph20_ms(
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True))}
     q32, k32, v32 = [t.float() for t in (q, k, v)]     # fp32 FMA kernel
     f32_ms = graph_ms(lambda: K.flash_attention(q32, k32, v32, causal=True))
     log(f"rate flash_attention: {n_flops / row['ms'] / 1e9:.3f} TFLOP/s "
@@ -478,6 +548,39 @@ def serve(dev, cfg=None, n_q_heads=16):
             "attend_calls": st.attend_calls, "wall_s": wall,
             "readbacks_checked": checked["readback"],
             "attends_checked": checked["attend"]}
+
+
+@contextlib.contextmanager
+def fetch_histogram():
+    """Counts the round engine's K2 calls by (R, valid rows) into the
+    dictionary it yields under ``"calls"``, and its valid rows by when
+    their page was last named: by the call before (``"named_before"``),
+    by an earlier one (``"named_earlier"``) or never (``"first"``);
+    filled when the block ends: each call's request tensor is kept
+    meanwhile (no copy, no sync)."""
+    from repro_torch.core.rounds import engine
+    reqs, real = [], engine.gcl_fetch_op
+    hist = {"calls": {}, "named_before": 0, "named_earlier": 0, "first": 0}
+
+    def recording(pages, words, req_page, bit_hi, bit_lo):
+        reqs.append(req_page)
+        return real(pages, words, req_page, bit_hi, bit_lo)
+
+    engine.gcl_fetch_op = recording
+    try:
+        yield hist
+    finally:
+        engine.gcl_fetch_op = real
+    host = [[p for p in t.tolist() if p >= 0] for t in reqs]
+    hist["calls"].update(sorted(collections.Counter(
+        (t.shape[0], len(v)) for t, v in zip(reqs, host)).items()))
+    last = {}                                # page -> call that last named it
+    for i, pages in enumerate(host):
+        for p in pages:
+            key = ("first" if p not in last else "named_before"
+                   if last[p] == i - 1 else "named_earlier")
+            hist[key] += 1
+        last.update((p, i) for p in pages)
 
 
 # ------------------------------------------------------ phase 4: LM serve
@@ -614,18 +717,25 @@ def main() -> int:
     log(f"launch floor (x.add_(1) on 1 element): ms {floor['ms']} "
         f"ms_graph20 {floor['ms_graph20']}")
     for row in rows:
-        log(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} "
-            f"ms {row['ms']} ms_graph20 {row['ms_graph20']} "
-            f"plain_ms {row['plain_ms']} "
-            f"library_ms {row['library_ms']} bound_ms {row['bound_ms']} "
-            f"({row['bound_by']})")
+        log(f"kernel {row['name']}: " + " ".join(
+            f"{k} {v}" for k, v in row.items() if k != "name"))
 
     K.reset_launch_counts()
-    res = serve(dev)
+    with fetch_histogram() as hist:
+        res = serve(dev)
     counts = K.launch_counts()
     log("serve: " + json.dumps(res))
+    calls = hist["calls"]
+    log(f"serve gcl_fetch: {sum(calls.values())} calls; by (R, valid "
+        f"rows): " + ", ".join(f"({r}, {v}) {n}"
+                              for (r, v), n in calls.items())
+        + "; valid rows whose page the call before named "
+        f"{hist['named_before']}, an earlier call {hist['named_earlier']}, "
+        f"none {hist['first']}")
     for name in ("latch_ops", "gcl_fetch", "paged_attention"):
         assert counts[name] > 0, f"kernel {name} never launched in the serve"
+    assert counts["gcl_fetch"] == sum(calls.values()), \
+        "a K2 call of the serve did not launch its kernel exactly once"
 
     for arch, n_req, name, per in (("qwen3-1.7b", 16, "flash_attention", 28),
                                    ("mamba2-2.7b", 8, "ssd_intra", 64)):
@@ -641,12 +751,7 @@ def main() -> int:
         kernels.append({"name": row["name"], "route": "cuda",
                         "source": src, "replaces": replaces,
                         "launches": counts[row["name"]],
-                        "max_abs_err": row["max_abs_err"],
-                        "ms": row["ms"], "ms_graph20": row["ms_graph20"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        **{k: v for k, v in row.items() if k != "name"}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""K3 and K4 beside SDPA, and K1 and K5, on one NVIDIA GPU at the main
-path's shapes.
+"""K3 and K4 beside SDPA, K2 beside ``index_select``, and K1 and K5, on
+one NVIDIA GPU at the main path's shapes.
 
     python3 scripts/bench_attention_kernels.py [--src DIR] [--label NAME]
         [--out-dir build/bench] [--phases]
@@ -7,11 +7,16 @@ path's shapes.
 Builds the CUDA kernels of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``; point it at an unpacked older commit
 to compare two versions on one card, in turns: parent, change, change,
-parent) and runs ``chip_smoke.py``'s own checks of K3, K4, K1 and K5 on
-them (``check_attention``, ``check_flash``, ``check_latch``,
-``check_ssd``: each kernel at the main path's shape against its plain
-version, timed on one call a CUDA graph and on 20, K3 and K4 beside
-SDPA), after the launch floor of both timers (``launch_floor``).
+parent) and runs ``chip_smoke.py``'s own checks of K3, K4, K2, K1 and K5
+on them (``check_attention``, ``check_flash``, ``check_fetch``,
+``check_latch``, ``check_ssd``: each kernel at the main path's shape
+against its plain version, timed on one call a CUDA graph and on 20, K3
+and K4 beside SDPA, K2 also at the serve's mix of granted and empty
+rows and with rotating rows), after the launch floor of both timers
+(``launch_floor``).
+
+Also torch's own zero fill and row copy of the 32 rows of 64 KiB that
+K2 writes at the serve's mix, on 20 calls a graph (``fetch_floor``).
 
 Where the package splits K3's window across a thread-block cluster
 (``paged_attention.cluster_size``), also K3 at windows of 256 (the
@@ -79,6 +84,17 @@ def cluster_sweep(dev):
             row[f"cluster{c}_ms"] = chip_smoke.graph_ms(lambda: call(c))
         out[f"window{mp * page}"] = row
     return out
+
+
+def fetch_floor(dev):
+    """Two torch kernels that write what K2 writes at the serve's mix,
+    32 rows of 64 KiB, on 20 calls a graph: a zero fill, and a copy of
+    32 contiguous rows of a 1024-page image."""
+    pages = torch.ones((1024, 16384), dtype=torch.int32, device=dev)
+    out = torch.empty((32, 16384), dtype=torch.int32, device=dev)
+    return {"zero_fill_32_rows_ms_graph20": chip_smoke.graph20_ms(out.zero_),
+            "copy_32_rows_ms_graph20": chip_smoke.graph20_ms(
+                lambda: out.copy_(pages[:32]))}
 
 
 def k4_phases(dev, src_dir):
@@ -164,6 +180,8 @@ def main() -> int:
            "card": card, "launch_floor": chip_smoke.launch_floor(),
            "k3": chip_smoke.check_attention(dev, K),
            "k4": chip_smoke.check_flash(dev, K),
+           "k2": chip_smoke.check_fetch(dev, K),
+           "k2_floor": fetch_floor(dev),
            "k1": chip_smoke.check_latch(dev, K),
            "k5": chip_smoke.check_ssd(dev, K)}
     if hasattr(PA, "cluster_size"):

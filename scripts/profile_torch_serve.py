@@ -9,8 +9,9 @@ times after the kernels are built:
 1. plain, for the wall time;
 2. under ``torch.profiler`` (CPU + CUDA): the device's busy time (sum of
    kernel and copy durations) against the wall time, and the top device
-   kernels and host ops, and the share of the device time spent in
-   kernel K3 (``paged_attention_kernel``);
+   kernels and host ops, and the device time and its share spent in
+   each of the serve's kernels, K1 (``latch_apply_kernel``), K2
+   (``gcl_fetch_kernel``) and K3 (``paged_attention_kernel``);
 3. under ``cProfile``: the host functions of the port by cumulative time.
 
 Needs a CUDA device; prints the card's name and power limit first.
@@ -61,12 +62,15 @@ def main() -> int:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events)
-    k3_us = sum(e.self_device_time_total for e in events
-                if "paged_attention_kernel" in e.key)
+    kernel_us = {k: sum(e.self_device_time_total for e in events
+                        if f"{fn}_kernel" in e.key)
+                 for k, fn in (("K1", "latch_apply"), ("K2", "gcl_fetch"),
+                               ("K3", "paged_attention"))}
     lines.append(f"profiled serve: wall {wall:.3f} s, device busy "
                  f"{dev_us / 1e6:.3f} s ({100 * dev_us / 1e6 / wall:.2f} % "
-                 f"of wall); K3 {k3_us / 1e3:.3f} ms "
-                 f"({100 * k3_us / dev_us:.3f} % of the device time)")
+                 f"of wall); " + ", ".join(
+                     f"{k} {us / 1e3:.3f} ms ({100 * us / dev_us:.3f} % of "
+                     f"the device time)" for k, us in kernel_us.items()))
     lines.append(events.table(sort_by="self_device_time_total",
                               row_limit=15))
     lines.append(events.table(sort_by="self_cpu_time_total", row_limit=25))

@@ -146,6 +146,87 @@ def test_fetch_kernel_matches_plain(cuda, dtype, e):
         assert torch.equal(g.cpu(), w)
 
 
+def _fetch_inputs(seed, p, e, r, n_valid, dtype=torch.int32):
+    """Pages [p, e], words with some writer bytes set, r requests of
+    which n_valid name one of the first p / 4 pages (so that pages
+    repeat, with unequal bits) and the rest -1, and random reader
+    bits."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        pages = torch.from_numpy(rng.integers(-2**31, 2**31, (p, e))
+                                 .astype(np.int32))
+    else:
+        pages = torch.from_numpy(rng.normal(size=(p, e)) * 1000).to(dtype)
+    words = torch.from_numpy(rng.integers(0, 2**20, (p, 2)).astype(np.int32))
+    words[::3, 0] |= 5 << 24
+    req = np.full(r, -1, np.int32)
+    slots = rng.permutation(r)[:n_valid]
+    req[slots] = rng.integers(0, max(1, p // 4), n_valid)
+    bits = [torch.from_numpy(rng.integers(0, 2**30, r).astype(np.int32))
+            for _ in range(2)]
+    return pages, words, torch.from_numpy(req), bits
+
+
+@pytest.mark.parametrize("p,e,r,n_valid,dtype", [
+    (1024, 16384, 32, 28, torch.int32),    # the dense round (chip_smoke)
+    (1024, 16384, 32, 1, torch.int32),     # the serve's mix
+    (1024, 16384, 32, 0, torch.int32),     # every row empty
+    (1024, 16384, 0, 0, torch.int32),      # no request: words copied
+    (64, 16384, 1500, 1200, torch.int32),  # many merge passes; 8 vectors
+    (2100, 96, 40, 30, torch.int32),       # P past two page slices
+    (3000, 7, 50, 40, torch.int32),        # 28-byte rows: byte path
+    (64, 4096, 32, 20, torch.bfloat16),
+    (64, 1000, 32, 20, torch.float32),     # ragged last chunk
+])
+def test_fetch_kernel_cases(cuda, p, e, r, n_valid, dtype):
+    """The one-launch kernel against its plain version, exactly, with
+    duplicate requests of unequal bits, at the main path's shapes and
+    at the edges of its partition.  Two empty slots name pages far past
+    P instead of -1 (2^30 and 2^31 - 1): they stay empty slots."""
+    pages, words, req, bits = _fetch_inputs(p + r, p, e, r, n_valid, dtype)
+    want = gcl_fetch_plain(pages, words, req, *bits)
+    far, empty = req.clone(), torch.nonzero(req < 0).squeeze(1)[:2]
+    far[empty] = torch.tensor([2**30, 2**31 - 1],
+                              dtype=torch.int32)[:len(empty)]
+    got = K.fetch(*[t.to(cuda) for t in (pages, words, far, *bits)])
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_fetch_kernel_unaligned_pages(cuda):
+    """pages 4 bytes past a 16-byte boundary (a view one lane into its
+    storage) take the byte path although the rows are 64 bytes."""
+    pages, words, req, bits = _fetch_inputs(3, 40, 16, 24, 20)
+    store = torch.empty(40 * 16 + 1, dtype=torch.int32, device=cuda)
+    dev_pages = store[1:].view(40, 16)
+    dev_pages.copy_(pages.to(cuda))
+    assert dev_pages.is_contiguous() and dev_pages.data_ptr() % 16 == 4
+    want = gcl_fetch_plain(pages, words, req, *bits)
+    got = K.fetch(dev_pages, *[t.to(cuda) for t in (words, req, *bits)])
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_fetch_is_one_kernel_launch(cuda):
+    """One call is one kernel on the device, with no copy of the words
+    beside it, and counts one launch."""
+    from torch.profiler import ProfilerActivity, profile
+    pages, words, req, bits = _fetch_inputs(5, 1024, 16384, 32, 1)
+    args = [t.to(cuda) for t in (pages, words, req, *bits)]
+    K.fetch(*args)                              # built and warm
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.fetch(*args)
+        torch.cuda.synchronize()
+    assert K.launch_counts()["gcl_fetch"] == 1
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "gcl_fetch_kernel" in names[0], names
+
+
 @pytest.mark.parametrize("hd,qdt,kvdt,tol", [
     (64, torch.float32, torch.float32, 2e-5),
     (256, torch.float32, torch.float32, 2e-5),

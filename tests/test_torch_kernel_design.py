@@ -33,6 +33,17 @@ the numbers is pinned down here, against the JAX package's kernels:
   against the JAX ``apply_batch`` through the Pallas kernel in
   interpret mode, with slices of 64 lines so that a small N spans
   several.
+* K2 (``csrc/gcl_fetch.cu``): one launch of two kinds of block.  Merge
+  blocks own slices of pages; each ORs the bits of the requests naming
+  its slice, a pass of NT requests at a time, into a table and writes
+  words | table.  Copy blocks own (request, chunk of NT x U 16-byte
+  vectors) tiles, a valid row copied and an empty one zeroed, and the
+  chunk-0 tile writes the request's old lanes and verdict from words.
+  Every output element must be written by exactly one tile.  Held bit
+  for bit against the Pallas kernel in interpret mode (distinct pages,
+  or duplicates with equal bits) and against ``gcl_fetch_plain`` with
+  duplicates of unequal bits, at slices, passes and chunks small enough
+  that P, R and each row span several.
 
 None of the emulations is on any path of the port: they are the
 kernels' algorithms written out in PyTorch, for this file alone.
@@ -49,6 +60,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention.ops import \
     attention as jax_flash  # noqa: E402
+from repro.kernels.gcl_fetch.ops import fetch as jax_fetch  # noqa: E402
 from repro.kernels.latch_ops.ops import \
     apply_batch as jax_apply_batch  # noqa: E402
 from repro.kernels.paged_attention.ops import \
@@ -57,6 +69,8 @@ from repro.kernels.ssd_intra.ops import \
     intra_chunk as jax_intra_chunk  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain  # noqa: E402
+from repro_torch.kernels.gcl_fetch import WRITER_MASK_HI, \
+    gcl_fetch_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     cluster_size  # noqa: E402
 from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
@@ -427,3 +441,118 @@ def test_k1_design_matches_pallas(n, n_lines, same_line):
     got = k1_emulate(words, req, lines_per_block=64)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+# ------------------------------------------------------------------ K2
+
+def k2_emulate(pages, words, req_page, bit_hi, bit_lo, *, slice_pages,
+               threads, vecs):
+    """K2's partition, in numpy: merge blocks over slices of
+    ``slice_pages`` pages whose OR tables take ``threads`` requests a
+    pass, then (request, chunk of ``threads * vecs`` 16-byte vectors)
+    copy tiles over each row's bytes.  Counts the writes to every
+    output element and asserts each was written once."""
+    p, r = pages.shape[0], req_page.shape[0]
+    src = pages.reshape(p, -1).view(np.uint8)
+    row_bytes = src.shape[1]
+    payload = np.zeros((r, row_bytes), np.uint8)
+    new_words = np.zeros_like(words)
+    reply = np.zeros((3, r), np.int32)
+    wrote = {"payload": np.zeros((r, row_bytes), int),
+             "new_words": np.zeros(p, int), "reply": np.zeros(r, int)}
+    for p0 in range(0, p, slice_pages):                 # merge blocks
+        n = min(slice_pages, p - p0)
+        table = np.zeros((n, 2), np.int32)
+        for t0 in range(0, r, threads):                 # one pass
+            for i in range(t0, min(r, t0 + threads)):
+                q = int(req_page[i]) - p0
+                if 0 <= q < n:
+                    table[q] |= (bit_hi[i], bit_lo[i])
+        new_words[p0:p0 + n] = words[p0:p0 + n] | table
+        wrote["new_words"][p0:p0 + n] += 1
+    chunk = threads * vecs * 16
+    for i in range(r):                                  # copy tiles
+        page = int(req_page[i])
+        valid = 0 <= page < p
+        for c in range(max(1, -(-row_bytes // chunk))):
+            cut = slice(c * chunk, min(row_bytes, (c + 1) * chunk))
+            payload[i, cut] = src[page, cut] if valid else 0
+            wrote["payload"][i, cut] += 1
+            if c == 0:
+                hi, lo = words[page] if valid else (0, 0)
+                reply[:, i] = (hi, lo, int(valid and (hi & WRITER_MASK_HI)
+                                           == 0))
+                wrote["reply"][i] += 1
+    for name, count in wrote.items():
+        assert (count == 1).all(), f"{name}: an element not written once"
+    return (payload.view(pages.dtype).reshape(r, *pages.shape[1:]),
+            reply[0], reply[1], reply[2], new_words)
+
+
+def _k2_inputs(seed, p, e, r, dtype, bits):
+    """Requests name pages 1.. (JAX's ``.at[].set`` sends an empty slot
+    to page 0, where it would race a real request) or -1.  ``bits``:
+    "distinct" pages with random bits; "equal" duplicates with equal
+    bits; "unequal" duplicates with random bits."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        pages = rng.integers(-2**31, 2**31, (p, e)).astype(np.int32)
+    else:
+        pages = rng.normal(size=(p, e)).astype(dtype)
+    words = rng.integers(0, 2**20, (p, 2)).astype(np.int32)
+    words[::3, 0] |= 5 << 24                   # some exclusive holders
+    if bits == "distinct":
+        req = 1 + rng.permutation(p - 1)[:r].astype(np.int32)
+    else:
+        req = rng.integers(1, p // 4, r).astype(np.int32)
+    if bits == "equal":
+        bh, bl = np.full(r, 1 << 3, np.int32), np.full(r, 1 << 9, np.int32)
+    else:
+        bh, bl = rng.integers(0, 2**30, (2, r)).astype(np.int32)
+    req[rng.random(r) < 0.2] = -1
+    return pages, words, req, bh, bl
+
+
+@pytest.mark.parametrize("dtype,bits", [(np.int32, "distinct"),
+                                        (np.float32, "distinct"),
+                                        (np.int32, "equal")])
+def test_k2_design_matches_pallas(dtype, bits):
+    """P 70 in slices of 16, R 40 in passes of 16, rows of 400 bytes in
+    chunks of 256."""
+    args = _k2_inputs(7, 70, 100, 40, dtype, bits)
+    want = jax_fetch(*[jnp.asarray(a) for a in args], backend="pallas",
+                     interpret=True)
+    got = k2_emulate(*args, slice_pages=16, threads=16, vecs=1)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("p,e,r", [(70, 100, 40), (33, 7, 90)])
+def test_k2_design_matches_plain_with_unequal_duplicates(p, e, r):
+    """Duplicate requests OR their bits (the port's semantics); 28-byte
+    rows, as the byte path takes them, fit one chunk."""
+    args = _k2_inputs(p + r, p, e, r, np.int32, "unequal")
+    want = gcl_fetch_plain(*[torch.from_numpy(a) for a in args])
+    got = k2_emulate(*args, slice_pages=16, threads=16, vecs=1)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+
+@pytest.mark.parametrize("p,e,r", [
+    (70, 100, 40), (33, 7, 90), (17, 1030, 5), (40, 64, 1), (16, 100, 0),
+    (9, 100, 40), (200, 3, 64), (64, 512, 33)])
+def test_k2_design_at_two_vectors_a_thread_with_far_pages(p, e, r):
+    """The kernel's own chunk of 2 vectors a thread (here 16 threads, so
+    512-byte chunks), with two empty slots naming pages far past P
+    (2^30 and 2^31 - 1) instead of -1: they stay empty slots, and no
+    merge slice takes their bits."""
+    args = _k2_inputs(p * r + e, p, e, r, np.int32, "unequal")
+    want = gcl_fetch_plain(*[torch.from_numpy(a) for a in args])
+    far = args[2].copy()
+    empty = np.flatnonzero(far < 0)[:2]
+    far[empty] = np.array([2**30, 2**31 - 1], np.int32)[:len(empty)]
+    got = k2_emulate(args[0], args[1], far, *args[3:], slice_pages=16,
+                     threads=16, vecs=2)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w.numpy())
