@@ -37,7 +37,29 @@ Phases (any failure exits non-zero; nothing is caught):
    (Mamba2); then, at full width and 4 layers, hold a 512-token prefill
    against its token-by-token replay through ``decode_step`` (the plain
    decode path) and time the fp32 head product of a decode step;
-5. print the ``kernels`` JSON line, then the result line.
+5. the B-link tree at full scale (``benchmarks/fig10_btree_rounds.py``'s
+   geometry: fanout 16, 4 nodes, write-through; ``n_lines`` 2^21):
+   2^24 keys loaded as a tree image (:func:`btree_image`, leaves of 12
+   keys, height 7) carried onto the card and adopted by
+   ``DeviceBTree.open``; YCSB C (16 batches of 1024 lookups), YCSB A (4
+   batches, half upserts) and one YCSB E ``scan_batch`` (64 starts, up
+   to 100 pairs each), zipf 0.99, each result checked against the
+   oracle, every upserted key read back and the loaded plane's
+   coherence invariants checked; then 4096 uniform keys in batches of
+   64 into a fresh tree, ``items()`` and ``check_invariants()`` against
+   a dict; print walls, rates, rounds per batch and the K1/K2 launches;
+6. device transactions at full scale (``fig11_tpcc_rounds.py``'s
+   geometry with 2^20 GCLs of 8 tuples, 72-byte rows, 4 nodes, at most
+   4 lines a txn, zipf 0.6): 8 batches of 1024 txns under 2PL and 8
+   under TO, each batch's decisions and the final tuple image checked
+   against a serial numpy replay of the generated txns in the device's
+   completion order;
+   print commits/s, aborts by reason, iterations, rounds and the K1/K2
+   launches.  Phase 2 also holds K1 and K2 at these two paths' shapes
+   (K1 at the tree's descent round and the txn FINALIZE spin's 4096
+   slots, K2 at both paths' rows);
+7. print the ``kernels`` JSON line (``launches`` counts every path:
+   the serve, the tree and the transactions), then the result line.
 
 Needs one CUDA device; exits 1 without one, before printing anything
 on standard output.
@@ -158,6 +180,18 @@ def ptxas_functions(text: str) -> list:
                                timeout=60).stdout.splitlines()
         out = [(nm, r, sp) for nm, (_, r, sp) in zip(names, out)]
     return out
+
+
+def device_busy_us(events) -> float:
+    """Device time in a ``torch.profiler`` ``key_averages()``: the CUDA
+    events' own durations (kernels, copies, fills), as the profiler's
+    table totals them.  The aten op that issued a copy carries the
+    copy's device time too, so a sum over every entry counts each copy
+    twice."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation)
 
 
 def bound_ms(n_bytes: float, n_flops: float = 0.0, peak=FP32_FLOPS):
@@ -296,6 +330,138 @@ def check_fetch(dev, K):
         f"rotating rows {100 * bms / row['ms_graph20_rotating']:.2f} % of "
         f"the dense bound")
     return row
+
+
+def latch_app_inputs(n, r, pattern, seed=SEED + 7):
+    """K1's inputs at an application's shape, as numpy arrays ``(words
+    [n, 2], req)``.  ``descent`` (the B-tree's round): R reader FAAs
+    (each slot's node bit), the root requested by all four nodes and
+    every other slot by one request a line.  ``finalize`` (the txn
+    FINALIZE spin, B x G = R slots, slot i of node (i // 4) % 4): about
+    half the slots empty; the rest write CASes of the node's writer
+    field (an upgrade compares against the node's own reader bit and
+    hits, a fresh write against a free word, or a word another node
+    holds), one in eight a reader FAA; the lines distinct but for 8 hot
+    ones, each named by all four nodes in four request tiles of 1024
+    (``csrc/latch_ops.cu``'s RT), so a word carries from tile to tile."""
+    from repro_torch.core import coherence as co
+    rng = np.random.default_rng(seed)
+    if pattern == "descent":
+        words = rng.integers(0, 2**24, (n, 2)).astype(np.int32)
+        line = (1 + rng.choice(n - 1, r, replace=False)).astype(np.int32)
+        line[:4] = 0                               # the root, four nodes
+        zeros = np.zeros(r, np.int32)
+        return words, {"line": line, "op": np.ones(r, np.int32),
+                       "arg_hi": zeros,
+                       "arg_lo": (1 << (np.arange(r) % 4)).astype(np.int32),
+                       "cmp_hi": zeros, "cmp_lo": zeros}
+    assert pattern == "finalize" and r >= 4096 and r % 4 == 0, pattern
+    node = torch.arange(r) // 4 % 4
+    bit_hi, bit_lo = (t.numpy() for t in co.bit_lanes(node))
+    wf = co.writer_field_hi(node).numpy()
+    other = co.writer_field_hi((node + 1) % 4).numpy()
+    words = np.zeros((n, 2), np.int32)
+    words[:, 1] = rng.integers(0, 16, n)           # reader bits of 4 nodes
+    drawn = rng.choice(n, r + 8, replace=False).astype(np.int32)
+    line, hot = drawn[:r].copy(), drawn[r:]
+    line[rng.random(r) < 0.5] = -1
+    cas = rng.random(r) >= 0.125
+    upgrade = cas & (rng.random(r) < 0.5)
+    held = cas & ~upgrade & (rng.random(r) < 0.25)
+    tile = r // 4
+    for h, hl in enumerate(hot):                   # node k in tile k
+        at = np.arange(4) * tile + 4 * np.arange(4) + 16 * h
+        line[at] = hl
+        cas[at] = [True, True, False, True]
+        upgrade[at] = held[at] = False
+    valid = line >= 0
+    words[line[valid & upgrade]] = np.stack(
+        [bit_hi, bit_lo], 1)[valid & upgrade]
+    fresh = valid & cas & ~upgrade
+    words[line[fresh]] = 0
+    words[line[valid & held], 0] = other[valid & held]
+    cmp_hi = np.where(upgrade, bit_hi, 0).astype(np.int32)
+    cmp_lo = np.where(upgrade, bit_lo, 0).astype(np.int32)
+    return words, {"line": line, "op": (~cas).astype(np.int32),
+                   "arg_hi": np.where(cas, wf, bit_hi).astype(np.int32),
+                   "arg_lo": np.where(cas, 0, bit_lo).astype(np.int32),
+                   "cmp_hi": cmp_hi, "cmp_lo": cmp_lo}
+
+
+def latch_app_case(dev, K, n=1 << 21, r=1024, tag="btree",
+                   pattern="descent"):
+    """K1 on :func:`latch_app_inputs` (``n`` words, ``r`` requests,
+    ``pattern``); exact against the plain version, timed on both timers.
+    The bound reads and writes the whole words table once;
+    ``words_share`` is its part of the bound's bytes.  Keys carry the
+    suffix ``_<tag>``."""
+    from repro_torch.kernels.latch_ops import latch_apply_plain, REQ_KEYS
+    words, req_np = latch_app_inputs(n, r, pattern)
+    w = torch.from_numpy(words).to(dev)
+    req = {k: torch.from_numpy(v).to(dev) for k, v in req_np.items()}
+    got = K.apply_batch(w, req)
+    want = latch_apply_plain(w, *[req[k] for k in REQ_KEYS])
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    assert err == 0, f"latch_ops disagrees at N={n}, R={r} ({err})"
+    words_bytes = 2 * n * 8
+    n_bytes = words_bytes + 6 * r * 4 + 3 * r * 4
+    return {f"max_abs_err_{tag}": float(err),
+            f"ms_{tag}": graph_ms(lambda: K.apply_batch(w, req)),
+            f"ms_graph20_{tag}": graph20_ms(lambda: K.apply_batch(w, req)),
+            f"bound_ms_{tag}": bound_ms(n_bytes)[0],
+            f"words_share_{tag}": words_bytes / n_bytes}
+
+
+def fetch_app_case(dev, K, p, e, r, empty, tag):
+    """K2 on ``r`` requests over ``p`` pages of ``e`` int32 lanes, a
+    fraction ``empty`` of the slots empty and the first four naming one
+    page, with random reader bits (so the merge has work); exact against
+    the plain version and timed on both timers beside ``index_select``
+    over the same rows.  The bound reads the rows and the whole words
+    table once and writes both; ``words_share`` is the words table's
+    part of the bound's bytes.  Keys carry the suffix ``_<tag>``."""
+    from repro_torch.kernels.gcl_fetch import gcl_fetch_plain
+    rng = np.random.default_rng(SEED + 8)
+    pages = torch.from_numpy(rng.integers(-2**31, 2**31, (p, e))
+                             .astype(np.int32)).to(dev)
+    words_np = rng.integers(0, 2**20, (p, 2)).astype(np.int32)
+    req_np = rng.choice(p, r, replace=False).astype(np.int32)
+    req_np[:4] = req_np[0]
+    req_np[rng.random(r) < empty] = -1
+    args = [torch.from_numpy(a).to(dev) for a in (
+        words_np, req_np, rng.integers(0, 2**30, r).astype(np.int32),
+        rng.integers(0, 2**30, r).astype(np.int32))]
+    got = K.fetch(pages, *args)
+    want = gcl_fetch_plain(pages, *args)
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    assert err == 0, f"gcl_fetch disagrees at P={p}, E={e}, R={r} ({err})"
+    n_valid = int((req_np >= 0).sum())
+    words_bytes = 2 * p * 8
+    n_bytes = n_valid * e * 4 + r * e * 4 + words_bytes + 6 * r * 4
+    idx = args[1].long().clamp(min=0)
+    return {f"max_abs_err_{tag}": float(err), f"valid_rows_{tag}": n_valid,
+            f"ms_{tag}": graph_ms(lambda: K.fetch(pages, *args)),
+            f"ms_graph20_{tag}": graph20_ms(lambda: K.fetch(pages, *args)),
+            f"bound_ms_{tag}": bound_ms(n_bytes)[0],
+            f"words_share_{tag}": words_bytes / n_bytes,
+            f"library_ms_{tag}": graph_ms(
+                lambda: torch.index_select(pages, 0, idx)),
+            f"library_ms_graph20_{tag}": graph20_ms(
+                lambda: torch.index_select(pages, 0, idx))}
+
+
+def fetch_app_cases(dev, K):
+    """K2 at the two applications' shapes (:func:`fetch_app_case`): the
+    B-tree's round (P = 2^21 pages of 40 int32 lanes, 160-byte rows,
+    R = 1024, every slot granted) and the txn FINALIZE spin's (P = 2^20
+    pages of 18 lanes, 72-byte rows that take the byte path, R = 4096,
+    half the slots empty)."""
+    return {**fetch_app_case(dev, K, 1 << 21, 40, 1024, 0.0, "btree"),
+            **fetch_app_case(dev, K, 1 << 20, 18, 4096, 0.5, "txn")}
 
 
 def attention_inputs(dev, mp=16):
@@ -655,6 +821,323 @@ def replay_check(dev, arch, n_layers=4, s=512):
     return out
 
 
+# ------------------------------------------------------- phase 5: B-tree
+
+BTREE_NODES = 4                    # benchmarks/fig10_btree_rounds.py:56-61
+BTREE_FANOUT = 16                  # W = 40 lanes: 160-byte rows
+BTREE_LINES = 1 << 21
+BTREE_KEYS = 1 << 24
+BTREE_FILL = 12                    # keys a leaf: 75 % of fanout 16
+YCSB_THETA = 0.99                  # YCSB's default zipf constant
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rounds_run() -> int:
+    """Coherence rounds executed so far (the engine counts each round
+    under its shape key)."""
+    from repro_torch.core.rounds.engine import TRACE_COUNTS
+    return sum(n for k, n in TRACE_COUNTS.items() if k[0] == "round")
+
+
+def btree_image(n_keys, n_lines, fanout=BTREE_FANOUT, fill=BTREE_FILL):
+    """The payload image ``[n_lines, W]`` of a B-link tree over keys
+    ``0 .. n_keys-1`` with values ``key * 7 + 1``, in the port's
+    ``NodeCodec`` layout, built bottom up in numpy: leaves of ``fill``
+    keys (spread evenly, so none is short), internal nodes of ``fill +
+    1`` children, each level chained by right links with high keys, and
+    line 0 the tree's metadata.  Returns ``(image, root, height, top)``."""
+    from repro_torch.index.codec import (HAS_HIGH, HIGH, KEYS_OFF, LEAF,
+                                         NKEYS, RIGHT, NodeCodec)
+    from repro_torch.index.tree import (M_FANOUT, M_HEIGHT, M_MAGIC,
+                                        M_ROOT, M_TOP, META_MAGIC)
+    codec = NodeCodec(fanout)
+    img = np.zeros((n_lines, codec.width), np.int32)
+    # entries of the level being built: (min key, value or child line)
+    mins = np.arange(n_keys, dtype=np.int64)
+    ents = mins * 7 + 1
+    top, height, per, leaf = 1, 0, fill, True
+    while True:
+        m = -(-len(mins) // per)
+        counts = len(mins) // m + (np.arange(m) < len(mins) % m)
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        lines = top + np.arange(m)
+        assert lines[-1] < n_lines, "the tree does not fit the plane"
+        rows = img[lines[0]:lines[-1] + 1]
+        slot = np.arange(per)
+        ok = slot[None, :] < counts[:, None]
+        at = np.minimum(start[:, None] + slot[None, :], len(mins) - 1)
+        rows[:, LEAF] = int(leaf)
+        rows[:, RIGHT] = np.append(lines[1:], -1)
+        rows[:-1, HAS_HIGH] = 1
+        rows[:-1, HIGH] = mins[start[1:]]
+        if leaf:
+            rows[:, NKEYS] = counts
+            rows[:, KEYS_OFF:KEYS_OFF + per] = np.where(ok, mins[at], 0)
+            rows[:, codec.vals_off:codec.vals_off + per] = \
+                np.where(ok, ents[at], 0)
+        else:                          # keys: the mins of children 1..
+            rows[:, NKEYS] = counts - 1
+            kat = np.minimum(at + 1, len(mins) - 1)
+            rows[:, KEYS_OFF:KEYS_OFF + per - 1] = np.where(
+                ok[:, 1:], mins[kat[:, :-1]], 0)
+            rows[:, codec.vals_off:codec.vals_off + per] = \
+                np.where(ok, ents[at], 0)
+        top += m
+        height += 1
+        if m == 1:
+            break
+        mins, ents = mins[start], lines.astype(np.int64)
+        per, leaf = fill + 1, False
+    root = int(lines[0])
+    img[0, [M_MAGIC, M_ROOT, M_FANOUT, M_HEIGHT, M_TOP]] = \
+        [META_MAGIC, root, fanout, height, top]
+    return img, root, height, top
+
+
+def load_btree(dev, n_keys=BTREE_KEYS, n_lines=BTREE_LINES):
+    """:func:`btree_image` carried onto ``dev`` as round state (a
+    ``make_state``-shaped dict of numpy leaves through
+    ``convert.to_torch``), adopted by ``DeviceBTree.open``.  Returns the
+    tree and the oracle: ``value[key]`` for every key."""
+    from repro_torch import convert
+    from repro_torch.core.rounds import make_state
+    from repro_torch.index import DeviceBTree
+    img, root, height, top = btree_image(n_keys, n_lines)
+    n, w = BTREE_NODES, img.shape[1]
+    state = {"words": np.zeros((n_lines, 2), np.int32),
+             "cache_state": np.zeros((n, n_lines), np.int8),
+             "cache_version": np.zeros((n, n_lines), np.int32),
+             "mem_version": np.zeros(n_lines, np.int32),
+             "mem_data": img,
+             "cache_data": np.zeros((n, n_lines, w), np.int32)}
+    like = convert.to_numpy(make_state(n, 2, payload_width=w, device="cpu"))
+    assert {k: (v.dtype, v.ndim) for k, v in like.items()} == \
+        {k: (v.dtype, v.ndim) for k, v in state.items()}, \
+        "the loaded state's leaves differ from make_state's"
+    tree = DeviceBTree.open(convert.to_torch(state, dev), n_nodes=n)
+    assert (tree.root, tree.height, tree.alloc.top) == (root, height, top)
+    return tree, np.arange(n_keys, dtype=np.int64) * 7 + 1
+
+
+def run_ycsb(tree, oracle, batches, n_nodes=BTREE_NODES):
+    """One YCSB batch after another, the nodes taking turns: each
+    batch's lookups (checked against ``oracle`` before the batch's
+    writes), then its upserts (``oracle`` updated in slot order: the
+    last write of a key wins, as the tree's per-leaf steps apply them).
+    Returns walls, counts and rounds."""
+    out = {"lookups": 0, "upserts": 0, "lookup_s": 0.0, "upsert_s": 0.0,
+           "batch_s": [], "rounds": []}
+    for i, (keys, is_read, vals) in enumerate(batches):
+        node = i % n_nodes
+        r0, t0 = rounds_run(), time.perf_counter()
+        if is_read.any():
+            got, found = tree.lookup_batch(keys[is_read], node=node)
+            out["lookup_s"] += time.perf_counter() - t0
+            want_found = keys[is_read] < len(oracle)
+            assert np.array_equal(found, want_found), "lookup found flags"
+            assert np.array_equal(
+                got[found], oracle[keys[is_read][found]]), "lookup values"
+            out["lookups"] += int(is_read.sum())
+        t1 = time.perf_counter()
+        if (~is_read).any():
+            tree.insert_batch(keys[~is_read], vals[~is_read], node=node)
+            out["upsert_s"] += time.perf_counter() - t1
+            for k, v in zip(keys[~is_read], vals[~is_read]):
+                oracle[k] = v
+            out["upserts"] += int((~is_read).sum())
+        out["batch_s"].append(time.perf_counter() - t0)
+        out["rounds"].append(rounds_run() - r0)
+    return out
+
+
+def check_upserts(tree, oracle, batches, slots):
+    """Reads back every key the YCSB A ``batches`` upserted, in lookups
+    of at most ``slots`` keys with the nodes in turn, and holds each
+    value to ``oracle``; returns the count of keys read back."""
+    keys = np.unique(np.concatenate([k[~r] for k, r, _ in batches]))
+    for i in range(0, len(keys), slots):
+        part = keys[i:i + slots]
+        got, found = tree.lookup_batch(part,
+                                       node=i // slots % BTREE_NODES)
+        assert found.all(), "an upserted key is missing"
+        assert np.array_equal(got, oracle[part]), \
+            "an upserted key reads back another value"
+    return len(keys)
+
+
+def btree_phase(dev, n_keys=BTREE_KEYS, n_lines=BTREE_LINES, slots=1024,
+                c_batches=16, a_batches=4, scan_keys=64, scan_count=100,
+                split_keys=4096, split_batch=64, split_lines=1 << 16):
+    """Phase 5: the B-link tree at full scale.  Loads ``n_keys`` keys
+    (:func:`load_btree`), runs YCSB C (lookups) and A (half upserts of
+    existing keys) in batches of ``slots``, zipf 0.99, and one YCSB E
+    ``scan_batch`` of ``scan_keys`` starts of up to ``scan_count`` pairs,
+    each result checked against the oracle, every upserted key read back
+    (:func:`check_upserts`) and the loaded plane's coherence invariants
+    held (``rounds.check_invariants``); then a split-heavy pass:
+    ``split_keys`` uniform keys in batches of ``split_batch`` into a
+    fresh tree, ``items()`` and ``check_invariants()`` held against a
+    dict."""
+    from repro_torch.apps import BTreeBatchConfig, btree_kv_batches
+    from repro_torch.core import rounds
+    from repro_torch.index import DeviceBTree
+    t0 = time.perf_counter()
+    tree, oracle = load_btree(dev, n_keys, n_lines)
+    sync(dev)
+    res = {"keys": n_keys, "lines": n_lines, "lines_used": tree.alloc.top,
+           "height": tree.height, "load_s": time.perf_counter() - t0}
+    for name, ratio, iters, seed in (("c", 1.0, c_batches, SEED + 9),
+                                     ("a", 0.5, a_batches, SEED + 10)):
+        batches = btree_kv_batches(BTreeBatchConfig(
+            n_keys=n_keys, r_slots=slots, read_ratio=ratio,
+            zipf_theta=YCSB_THETA, iters=iters), seed=seed)
+        out = run_ycsb(tree, oracle, batches)
+        if name == "a":
+            res["upserted_keys_checked"] = check_upserts(
+                tree, oracle, batches, slots)
+        res[f"ycsb_{name}"] = {
+            "batches": iters, "batch_s": out["batch_s"],
+            "rounds_per_batch": out["rounds"],
+            "lookups_per_s": out["lookups"] / max(out["lookup_s"], 1e-9),
+            "upserts_per_s": (out["upserts"] / out["upsert_s"]
+                              if out["upserts"] else None),
+            "lookups": out["lookups"], "upserts": out["upserts"]}
+    starts = btree_kv_batches(BTreeBatchConfig(
+        n_keys=n_keys, r_slots=scan_keys, read_ratio=1.0,
+        zipf_theta=YCSB_THETA, iters=1), seed=SEED + 11)[0][0]
+    r0, t1 = rounds_run(), time.perf_counter()
+    scans = tree.scan_batch(starts, scan_count, node=1)
+    res["ycsb_e"] = {"scans": scan_keys, "count": scan_count,
+                     "wall_s": time.perf_counter() - t1,
+                     "rounds": rounds_run() - r0,
+                     "pairs": sum(len(x) for x in scans)}
+    for k0, got in zip(starts, scans):
+        ks = np.arange(k0, min(k0 + scan_count, n_keys))
+        assert got == list(zip(ks.tolist(), oracle[ks].tolist())), \
+            f"scan from {k0} differs from the oracle"
+    t1 = time.perf_counter()
+    rounds.check_invariants(tree.state)
+    res["plane_check_s"] = time.perf_counter() - t1
+    # the split-heavy pass: the bench's N_KEYS and R_SLOTS, fresh tree
+    rng = np.random.default_rng(SEED + 12)
+    keys = rng.permutation(split_keys).astype(np.int32)
+    vals = rng.integers(1, 1 << 20, split_keys).astype(np.int32)
+    small = DeviceBTree.create(BTREE_NODES, split_lines,
+                               fanout=BTREE_FANOUT, device=dev)
+    r0, t1 = rounds_run(), time.perf_counter()
+    for i in range(0, split_keys, split_batch):
+        small.insert_batch(keys[i:i + split_batch], vals[i:i + split_batch],
+                           node=(i // split_batch) % BTREE_NODES)
+    sync(dev)
+    res["splits"] = {"keys": split_keys, "batch": split_batch,
+                     "wall_s": time.perf_counter() - t1,
+                     "rounds": rounds_run() - r0,
+                     "splits": small.stats["splits"],
+                     "height": small.height}
+    assert small.items() == sorted(zip(keys.tolist(), vals.tolist())), \
+        "split pass: items() differ from the dict"
+    small.check_invariants()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+# ---------------------------------------------------- phase 6: transactions
+
+TXN_GCLS = 1 << 20                 # fig11_tpcc_rounds.py:45-50, n_gcls up
+TXN_TUPLES = 8                     # W = 18 lanes: 72-byte rows
+TXN_LINES_MAX = 4
+TXN_THETA = 0.6
+TXN_NODES = 4
+
+
+def replay_txn(image, sets, ts, algo, tuples):
+    """One txn applied to ``image`` [GCLs, W] the way the host engine runs
+    it, serially: 2PL commits and bumps each written GCL's counter; TO
+    checks each tuple in ascending order (a write needs ts >= rts and
+    ts >= wts and sets wts; a read needs ts >= wts and raises rts) and
+    aborts at the first failure, keeping the updates made before it.
+    ``sets`` is the txn's ``(reads, writes)`` as generated.  Returns the
+    decision."""
+    reads, writes = sets
+    wset = set(writes)
+    if algo == "2pl":
+        for g in sorted({t // tuples for t in wset}):
+            image[g, 1] += 1
+        return True
+    for t in sorted(set(reads) | wset):
+        g, s = divmod(t, tuples)
+        rts, wts = image[g, 2 + 2 * s], image[g, 3 + 2 * s]
+        if t in wset:
+            if ts < rts or ts < wts:
+                return False
+            image[g, 3 + 2 * s] = ts
+        else:
+            if ts < wts:
+                return False
+            image[g, 2 + 2 * s] = max(rts, ts)
+    return True
+
+
+def txn_phase(dev, n_gcls=TXN_GCLS, batch=1024, n_batches=8):
+    """Phase 6: device transactions at full scale, 2PL no-wait and then
+    TO, each on a fresh plane of ``n_gcls`` GCLs: ``n_batches`` batches
+    of ``batch`` txns from ``device_txn_batches`` (zipf 0.6, at most 4
+    lines a txn, 4 nodes).  Each batch's decisions are held against a
+    serial numpy replay of the generated txns (which the engine must not
+    trim) in the device's completion order (exec_step, slot), and the
+    final tuple image against the replay's."""
+    from repro_torch.apps import (DeviceTxnConfig, DeviceTxnEngine,
+                                  TxnBatchConfig, device_txn_batches)
+    from repro_torch.core.rounds import (DevicePlane, make_state,
+                                         txn_payload_width)
+    w = txn_payload_width(TXN_TUPLES)
+    res = {"gcls": n_gcls, "tuples": n_gcls * TXN_TUPLES, "batch": batch}
+    for algo, seed in (("2pl", SEED + 13), ("to", SEED + 14)):
+        batches = device_txn_batches(TxnBatchConfig(
+            n_gcls=n_gcls, tuples_per_gcl=TXN_TUPLES, batch=batch,
+            iters=n_batches, max_group_lines=TXN_LINES_MAX,
+            zipf_theta=TXN_THETA, n_nodes=TXN_NODES), seed=seed)
+        eng = DeviceTxnEngine(
+            DevicePlane.open(make_state(TXN_NODES, n_gcls, payload_width=w,
+                                        device=dev)),
+            DeviceTxnConfig(algo=algo, tuples_per_gcl=TXN_TUPLES,
+                            max_group_lines=TXN_LINES_MAX))
+        image = np.zeros((n_gcls, w), np.int32)
+        out = {"batch_s": [], "iters": [], "rounds": [], "retries": 0}
+        for txns, node, ts in batches:
+            t0 = time.perf_counter()
+            r, eff = eng.run_batch(node, txns, ts=ts)
+            out["batch_s"].append(time.perf_counter() - t0)
+            out["iters"].append(r.iters)
+            out["rounds"].append(r.rounds)
+            out["retries"] += int(r.retries.sum())
+            order = sorted(range(len(txns)),
+                           key=lambda i: (int(r.exec_step[i]), i))
+            sets = [(sorted(set(rd)), sorted(set(wr))) for rd, wr in txns]
+            assert list(eff) == sets, \
+                f"{algo}: the engine's encoded sets differ from the txns"
+            for i in order:
+                want = replay_txn(image, sets[i], int(ts[i]), algo,
+                                  TXN_TUPLES)
+                assert bool(r.decision[i]) == want, \
+                    f"{algo}: txn {i} decided {bool(r.decision[i])}"
+        final = eng.plane.state["mem_data"].cpu().numpy()
+        assert np.array_equal(final, image), \
+            f"{algo}: the final tuple image differs from the replay"
+        eng.plane.check()
+        st = eng.stats
+        out.update({"commits": st.commits,
+                    "commits_per_s": st.commits / sum(out["batch_s"]),
+                    "aborts_by_reason": dict(st.abort_reasons)})
+        res[algo] = out
+        del eng
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -713,6 +1196,18 @@ def main() -> int:
     rows = [check_latch(dev, K), check_fetch(dev, K),
             check_attention(dev, K), check_flash(dev, K),
             check_ssd(dev, K)]
+    rows[0].update(latch_app_case(dev, K))
+    rows[0].update(latch_app_case(dev, K, 1 << 20, 4096, "txn", "finalize"))
+    rows[1].update(fetch_app_cases(dev, K))
+    for row in rows[:2]:
+        log(f"{row['name']} at the applications' shapes: " + ", ".join(
+            f"{tag}: ms_graph20 {row[f'ms_graph20_{tag}']}, bound "
+            f"{row[f'bound_ms_{tag}']} ({100 * row[f'words_share_{tag}']:.2f}"
+            f" % of its bytes the words table)"
+            + (f", index_select ms_graph20 "
+               f"{row[f'library_ms_graph20_{tag}']}"
+               if f"library_ms_graph20_{tag}" in row else "")
+            for tag in ("btree", "txn") if f"ms_graph20_{tag}" in row))
     floor = launch_floor()
     log(f"launch floor (x.add_(1) on 1 element): ms {floor['ms']} "
         f"ms_graph20 {floor['ms_graph20']}")
@@ -744,6 +1239,21 @@ def main() -> int:
         counts[name] = res["launches"][name]
     for arch in ("qwen3-1.7b", "mamba2-2.7b"):
         replay_check(dev, arch)
+
+    by_path = {"serve": {k: counts[k] for k in ("latch_ops", "gcl_fetch")}}
+    for path, phase in (("btree", btree_phase), ("txn", txn_phase)):
+        K.reset_launch_counts()
+        res = phase(dev)
+        got = K.launch_counts()
+        by_path[path] = {k: got[k] for k in ("latch_ops", "gcl_fetch")}
+        log(f"{path}: " + json.dumps(res))
+        log(f"{path} launches: " + json.dumps(by_path[path]))
+        for name, n in by_path[path].items():
+            assert n > 0, f"kernel {name} never launched on the {path} path"
+            counts[name] += n
+    for row in rows[:2]:
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in by_path.items()}
 
     kernels = []
     for row in rows:

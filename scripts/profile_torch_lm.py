@@ -14,9 +14,10 @@ of 512 tokens, the cache grown by 32 slots, then decode steps, as
 1. plain: the prefill's wall time and the mean wall time of 16 decode
    steps (host clock around work that ends in a synchronize);
 2. under ``torch.profiler`` (CPU + CUDA), one prefill and 8 decode
-   steps: the device's busy time (sum of kernel and copy durations)
-   against the wall time, the device kernels launched per decode step,
-   and the top device kernels and host ops;
+   steps: the device's busy time (sum of kernel and copy durations,
+   each counted once: ``chip_smoke.device_busy_us``) against the wall
+   time, the device kernels launched per decode step, and the top
+   device kernels and host ops;
 3. under ``torch.profiler``, one prefill alone: its device time and the
    share of it spent in the prefill's kernel (K4 ``flash_attention``
    for dense, K5 ``ssd_intra`` for ssm).
@@ -87,7 +88,7 @@ def profile_arch(arch, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    dev_us = chip_smoke.device_busy_us(events)
     n_kernels = sum(1 for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     lines.append(f"{arch}: profiled prefill + {n_dec} decode steps: wall "
@@ -107,7 +108,7 @@ def profile_arch(arch, dev):
         prefill()
         torch.cuda.synchronize()
     ev2 = prof2.key_averages()
-    pf_us = sum(e.self_device_time_total for e in ev2)
+    pf_us = chip_smoke.device_busy_us(ev2)
     needle = ("flash_attention" if cfg.family == "dense" else "ssd_intra")
     k_us = sum(e.self_device_time_total for e in ev2 if needle in e.key)
     lines.append(f"{arch}: one prefill's device time {pf_us / 1e3:.3f} ms, "

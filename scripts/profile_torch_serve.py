@@ -8,7 +8,8 @@ times after the kernels are built:
 
 1. plain, for the wall time;
 2. under ``torch.profiler`` (CPU + CUDA): the device's busy time (sum of
-   kernel and copy durations) against the wall time, and the top device
+   kernel and copy durations, each counted once:
+   ``chip_smoke.device_busy_us``) against the wall time, and the top device
    kernels and host ops, and the device time and its share spent in
    each of the serve's kernels, K1 (``latch_apply_kernel``), K2
    (``gcl_fetch_kernel``) and K3 (``paged_attention_kernel``);
@@ -61,7 +62,7 @@ def main() -> int:
         chip_smoke.serve(dev)
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    dev_us = chip_smoke.device_busy_us(events)
     kernel_us = {k: sum(e.self_device_time_total for e in events
                         if f"{fn}_kernel" in e.key)
                  for k, fn in (("K1", "latch_apply"), ("K2", "gcl_fetch"),

@@ -1,15 +1,16 @@
 """`DevicePlane` — the facade over the flat device coherence plane.
 
 Counterpart of ``repro/core/rounds/plane.py`` for the flat geometry:
-``open`` adopts a round state, the verbs ``ops`` / ``rmw`` / ``evict``
-drive it, and each of ``ops`` and ``rmw`` returns one
-:class:`PlaneResult` whose fields are host numpy arrays, as in the
-reference.  Every verb mutates ``plane.state`` (its leaves in place),
-raises ``RuntimeError`` when the round bound was hit, and reports the
-loop's counters as a typed :class:`PlaneTelemetry`.
+``open`` adopts a round state, the verbs ``ops`` / ``rmw`` /
+``descent`` / ``txn`` / ``evict`` drive it, and ``ops``, ``rmw`` and
+``descent`` each return one :class:`PlaneResult` whose fields are host
+numpy arrays, as in the reference (``txn`` returns a
+``TxnBatchResult``).  Every verb mutates ``plane.state`` (its leaves in
+place), raises ``RuntimeError`` when the round or step bound was hit,
+and reports the loop's counters as a typed :class:`PlaneTelemetry`.
 
-Not ported yet: the mesh-sharded plane, ``descent``, ``txn``,
-``rehome``, ``replicate`` and the flight-recorder spans.
+Not ported yet: the mesh-sharded plane, ``rehome``, ``replicate`` and
+the flight-recorder spans.
 """
 
 from __future__ import annotations
@@ -122,6 +123,40 @@ class DevicePlane:
                                f"rounds per phase")
         return PlaneResult(versions.cpu().numpy(), data.cpu().numpy(),
                            rounds, {}, self._telemetry(tele))
+
+    def descent(self, node_id, key, root, *, transition,
+                path_cap: int = 16,
+                max_steps: int | None = None) -> PlaneResult:
+        """Whole pointer-chase walk: ``transition(data, key) -> (at_leaf,
+        hop, nxt)`` advances every slot on the device.  ``data`` is each
+        slot's LEAF lanes; ``stats`` carries ``line``, ``levels``,
+        ``hops``, ``paths``, ``path_len``; ``rounds`` counts the steps
+        (one coherence round each)."""
+        from .descent import run_descent
+        ms = self.max_rounds if max_steps is None else max_steps
+        (state, line, lanes, levels, hops, paths, plen, steps, done,
+         tele) = run_descent(self.state, node_id, key, root,
+                             transition=transition, n_nodes=self.n_nodes,
+                             max_steps=ms, path_cap=path_cap)
+        self.state = state
+        if not done:
+            raise RuntimeError(f"descent did not settle after {ms} "
+                               f"steps (broken links?)")
+        stats = {"line": line, "levels": levels, "hops": hops,
+                 "paths": paths, "path_len": plen}
+        return PlaneResult(None, lanes.cpu().numpy(), steps,
+                           {k: v.cpu().numpy() for k, v in stats.items()},
+                           self._telemetry(tele))
+
+    def txn(self, node_id, glines, rmask, wmask, ts, *, algo: str,
+            max_iters: int | None = None, max_rounds: int | None = None):
+        """Run one transaction batch through the device CC scheduler
+        (:mod:`repro_torch.core.rounds.txn`); returns a
+        ``TxnBatchResult``."""
+        from .txn import run_txn_batch
+        return run_txn_batch(self, node_id, glines, rmask, wmask, ts,
+                             algo=algo, max_iters=max_iters,
+                             max_rounds=max_rounds)
 
     def evict(self, node_id, line) -> None:
         """Evict (node, line) pairs: release holder latches, flushing

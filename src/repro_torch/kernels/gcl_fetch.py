@@ -13,6 +13,11 @@ implementation writes with ``.at[].set``, whose result for duplicate
 indices is implementation-defined, so the two agree whenever duplicate
 requests carry equal bits; the round engine passes zero bits, so no
 caller of the port sees a difference.
+
+A page at or past P is an empty slot (zero payload, zero old lanes, not
+granted, no bits merged), in the kernel and in the plain version alike.
+Here the port differs from the JAX package, whose reference clamps such
+a read to the last page and drops the write; no caller passes one.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ WRITER_MASK_HI = -16777216      # int32 view of 0xFF000000
 def gcl_fetch_plain(pages, words, req_page, bit_hi, bit_lo):
     """Plain PyTorch version; the OR merge runs rank by rank so that
     duplicate requests combine instead of overwriting each other."""
-    valid = req_page >= 0
-    idx = req_page.long().clamp(min=0)
+    valid = (req_page >= 0) & (req_page < pages.shape[0])
+    idx = torch.where(valid, req_page, 0).long()
     payload = torch.where(valid.view(-1, *([1] * (pages.dim() - 1))),
                           pages[idx], 0).to(pages.dtype)
     old = words[idx]

@@ -10,6 +10,10 @@ kernel launches.
 Semantics: requests apply in request order per word; each returns the
 word as it was before it; CAS compares all 64 bits; FAA carries lo into
 hi and wraps mod 2**64; ``line = -1`` is an empty slot (zeros, not ok).
+A line at or past N is an empty slot too, in the kernel and in the plain
+version alike.  Here the port differs from the JAX package, whose
+reference clamps such a read to the last word and drops the write; no
+caller passes one.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def latch_apply_plain(words, line, op, arg_hi, arg_lo, cmp_hi, cmp_lo):
     old_hi = torch.zeros(r, dtype=torch.int32, device=dev)
     old_lo = torch.zeros(r, dtype=torch.int32, device=dev)
     ok = torch.zeros(r, dtype=torch.int32, device=dev)
-    valid = line >= 0
+    valid = (line >= 0) & (line < words.shape[0])
     if r == 0:
         return new, old_hi, old_lo, ok
     rank = chain_rank(line, valid)

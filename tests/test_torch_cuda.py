@@ -364,6 +364,129 @@ def test_serve_on_gpu_matches_cpu(cuda):
                                   "paged_attention")) > 0
 
 
+def test_btree_on_gpu_matches_cpu(cuda):
+    """The B-link tree on the card (fused descent, RMW inserts, splits,
+    scans, write-back) against the same trace on the CPU: identical
+    results, stats and state leaves, and K1 and K2 launched."""
+    from repro_torch.index import DeviceBTree
+    rng = np.random.default_rng(8)
+    keys = rng.choice(3000, 120, replace=False).astype(np.int32)
+    vals = rng.integers(1, 1 << 20, 120).astype(np.int32)
+    runs = []
+    for dev in ("cpu", cuda):
+        K.reset_launch_counts()
+        tree = DeviceBTree.create(4, 256, fanout=4, write_back=True,
+                                  device=dev)
+        out = []
+        for i in range(0, 120, 24):
+            tree.insert_batch(keys[i:i + 24], vals[i:i + 24], node=i % 4)
+            v, f = tree.lookup_batch(keys[:i + 30], node=(i + 1) % 4)
+            out.append((v.tolist(), f.tolist()))
+        out.append(tree.scan_batch(keys[:5], 9, node=2))
+        tree.check_invariants()
+        state = {k: v.cpu() for k, v in tree.state.items()}
+        runs.append((out, dict(tree.stats), tree.items(), state,
+                     K.launch_counts()))
+    (out_c, st_c, it_c, s_c, n_c), (out_g, st_g, it_g, s_g, n_g) = runs
+    assert out_g == out_c and st_g == st_c and it_g == it_c
+    assert st_c["splits"] > 0
+    for k in s_c:
+        assert torch.equal(s_g[k], s_c[k]), k
+    assert set(n_c.values()) == {0}
+    assert n_g["latch_ops"] > 0 and n_g["gcl_fetch"] > 0
+
+
+@pytest.mark.parametrize("algo", ["2pl", "to"])
+def test_txn_engine_on_gpu_matches_cpu(cuda, algo):
+    """The transaction engine on the card against the CPU on the same
+    batches: identical decisions, completion order, retries, rounds and
+    state, and K1 and K2 launched."""
+    from repro_torch.apps import (DeviceTxnConfig, DeviceTxnEngine,
+                                  TxnBatchConfig, device_txn_batches)
+    from repro_torch.core.rounds import (DevicePlane, make_state,
+                                         txn_payload_width)
+    cfg = TxnBatchConfig(n_gcls=12, tuples_per_gcl=4, batch=8, iters=3,
+                         max_group_lines=4, zipf_theta=0.9, n_nodes=3)
+    runs = []
+    for dev in ("cpu", cuda):
+        K.reset_launch_counts()
+        eng = DeviceTxnEngine(
+            DevicePlane.open(make_state(3, 12, payload_width=
+                                        txn_payload_width(4), device=dev)),
+            DeviceTxnConfig(algo=algo, tuples_per_gcl=4))
+        out = []
+        for txns, node, ts in device_txn_batches(cfg, seed=3):
+            r, _ = eng.run_batch(node, txns, ts=ts)
+            out.append((r.decision.tolist(), r.exec_step.tolist(),
+                        r.retries.tolist(), r.iters, r.rounds))
+        state = {k: v.cpu() for k, v in eng.plane.state.items()}
+        runs.append((out, state, K.launch_counts()))
+    (out_c, s_c, n_c), (out_g, s_g, n_g) = runs
+    assert out_g == out_c
+    for k in s_c:
+        assert torch.equal(s_g[k], s_c[k]), k
+    assert set(n_c.values()) == {0}
+    assert n_g["latch_ops"] > 0 and n_g["gcl_fetch"] > 0
+
+
+def test_latch_kernel_at_the_btree_shape(cuda):
+    """K1 at the B-tree plane's size: N = 2^21 words, R = 1024 reader
+    FAAs, the root named by four nodes and every other slot by one
+    request a line; exact."""
+    rng = np.random.default_rng(21)
+    n, r = 1 << 21, 1024
+    words = torch.from_numpy(rng.integers(0, 2**24, (n, 2))
+                             .astype(np.int32))
+    line = (1 + rng.choice(n - 1, r, replace=False)).astype(np.int32)
+    line[:4] = 0
+    zeros = np.zeros(r, np.int32)
+    req = {"line": line, "op": np.ones(r, np.int32), "arg_hi": zeros,
+           "arg_lo": (1 << (np.arange(r) % 4)).astype(np.int32),
+           "cmp_hi": zeros, "cmp_lo": zeros}
+    req = {k: torch.from_numpy(v) for k, v in req.items()}
+    want = latch_apply_plain(words, *[req[k] for k in REQ_KEYS])
+    got = K.apply_batch(words.to(cuda), {k: v.to(cuda)
+                                         for k, v in req.items()})
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_latch_kernel_at_the_txn_finalize_shape(cuda):
+    """K1 at the txn plane's FINALIZE spin: N = 2^20 words, R = 4096
+    slots over four request tiles, about half empty, write CASes that
+    hit and miss, reader FAAs, and hot lines whose word carries from
+    tile to tile (``chip_smoke.latch_app_inputs``); exact."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    words, req = cs.latch_app_inputs(1 << 20, 4096, "finalize")
+    words = torch.from_numpy(words)
+    req = {k: torch.from_numpy(v) for k, v in req.items()}
+    want = latch_apply_plain(words, *[req[k] for k in REQ_KEYS])
+    got = K.apply_batch(words.to(cuda), {k: v.to(cuda)
+                                         for k, v in req.items()})
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("p,e,r,n_valid", [
+    (1 << 21, 40, 1024, 1024),     # the B-tree round: 160-byte rows
+    (1 << 20, 18, 4096, 2048),     # the txn FINALIZE spin: byte path
+])
+def test_fetch_kernel_at_the_application_shapes(cuda, p, e, r, n_valid):
+    pages, words, req, bits = _fetch_inputs(p + e, p, e, r, n_valid)
+    want = gcl_fetch_plain(pages, words, req, *bits)
+    got = K.fetch(*[t.to(cuda) for t in (pages, words, req, *bits)])
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
 def _bf16_err(got, want):
     """Largest |got - want| / max(1, |want|): a bf16 output's rounding
     step grows with its magnitude, so two correct results of size 4 may

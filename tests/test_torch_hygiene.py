@@ -1,10 +1,10 @@
 """The port stands alone: no JAX, no ``repro``, no quiet CPU fallback.
 
 * an AST scan finds no import of ``jax`` or ``repro`` anywhere under
-  ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling script;
+  ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling scripts;
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
-  imports the port, serves a small trace on the CPU and runs the LM
-  serve of both families;
+  imports the port, serves a small trace on the CPU, runs the LM serve
+  of both families, the B-link tree and a transaction batch;
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -25,6 +25,7 @@ import numpy as np  # noqa: E402
 from repro_torch import convert, kernels  # noqa: E402
 from repro_torch.core.rounds import make_state  # noqa: E402
 from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool  # noqa: E402
+from repro_torch.index import DeviceBTree  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -50,7 +51,8 @@ def test_port_imports_neither_jax_nor_repro():
     root = PORT.parents[1]
     files = sorted(PORT.rglob("*.py")) + [
         root / "chip_smoke.py", root / "scripts" / "profile_torch_serve.py",
-        root / "scripts" / "profile_torch_lm.py"]
+        root / "scripts" / "profile_torch_lm.py",
+        root / "scripts" / "profile_torch_apps.py"]
     assert len(files) > 25
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_roots(f)
@@ -81,6 +83,22 @@ def test_port_serves_with_jax_blocked():
                         "--requests", "2", "--prompt-len", "32",
                         "--gen", "2"])
             assert res["tokens"] == 4 and res["finite"]
+        from repro_torch.index import DeviceBTree
+        tree = DeviceBTree.create(4, 64, fanout=4, device="cpu")
+        tree.insert_batch(list(range(40, 0, -3)), list(range(14)))
+        assert tree.lookup_batch([40, 1, 2])[1].tolist() == [True, True,
+                                                             False]
+        tree.check_invariants()
+        from repro_torch.apps import (DeviceTxnConfig, DeviceTxnEngine,
+                                      TxnBatchConfig, device_txn_batches)
+        from repro_torch.core.rounds import (DevicePlane, make_state,
+                                             txn_payload_width)
+        cfg = TxnBatchConfig(n_gcls=12, tuples_per_gcl=4, batch=8, iters=1)
+        eng = DeviceTxnEngine(DevicePlane.open(make_state(
+            4, 12, payload_width=txn_payload_width(4), device="cpu")),
+            DeviceTxnConfig(algo="to", tuples_per_gcl=4))
+        txns, node, ts = device_txn_batches(cfg)[0]
+        assert len(eng.run_batch(node, txns, ts)[0].decision) == 8
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("PORT_WITHOUT_JAX_OK")
@@ -99,6 +117,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
         make_state(2, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_state(2, 4, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceBTree.create(4, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.to_torch({"words": np.zeros((4, 2), np.int32)})
     assert make_state(2, 4, device="cpu")["words"].device.type == "cpu"
@@ -131,6 +151,9 @@ def test_cpu_run_launches_no_kernel():
     loop.submit([4, 5, 6], 3)
     assert loop.drain(timeout=60)
     assert loop.stats().attend_calls > 0
+    tree = DeviceBTree.create(4, 32, fanout=4, device="cpu")
+    tree.insert_batch([3, 1, 2, 9, 7], [30, 10, 20, 90, 70])
+    assert tree.scan_batch([2], 3)[0] == [(2, 20), (3, 30), (7, 70)]
     assert kernels.launch_counts() == {"latch_ops": 0, "gcl_fetch": 0,
                                        "paged_attention": 0,
                                        "flash_attention": 0,

@@ -172,6 +172,35 @@ def test_fetch_duplicate_requests_or_their_bits():
         [1, 1, 0, 1, 1]
 
 
+def test_plain_versions_treat_out_of_range_as_empty():
+    """Port-only: a K1 line at or past N, or a K2 page at or past P, is
+    an empty slot in the plain versions, as in the kernels (the JAX
+    references clamp the read and drop the write instead): every output
+    equals the one for the same batch with those slots at -1."""
+    words, req = _latch_inputs(4, 16, 24, 6)
+    far = req["line"].copy()
+    far[[1, 5, 9, 13]] = [16, 19, 16, 19]          # N and N + 3
+    cut = far.copy()
+    cut[[1, 5, 9, 13]] = -1
+    got = _port_latch(words, {**req, "line": far})
+    want = _port_latch(words, {**req, "line": cut})
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[3][[1, 5, 9, 13]] == 0).all() and got[3].any()
+    pages, words, req_page, bit_hi, bit_lo = _fetch_inputs(
+        6, 8, 16, 12, np.int32, False)
+    far = req_page.copy()
+    far[[0, 3, 7]] = [2**30, 2**31 - 1, 2**30]
+    cut = far.copy()
+    cut[[0, 3, 7]] = -1
+    got, want = (gcl_fetch_plain(*[torch.from_numpy(a) for a in
+                                   (pages, words, p, bit_hi, bit_lo)])
+                 for p in (far, cut))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert (got[3][[0, 3, 7]] == 0).all() and got[3].any()
+
+
 # ----------------------------------------------------- K3 paged_attention
 
 def _attn_inputs(seed, b, hq, hkv, hd, page, mp, pool, tails=True):
