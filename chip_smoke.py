@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
    P 64), K4's, K3's and K5's achieved rates, their share of the bound
    and K3's and K4's time against SDPA's, and fp32 K4's time at K4's
    shape; K2 also at the serve's own mix of granted and empty rows and
-   with rotating rows, and K2-K4's library calls on both timers;
+   with rotating rows, and K2-K4's library calls on both timers; K4 also
+   at recurrentgemma-2b's windowed shapes (hd 256, 10 q heads over one
+   kv head, window 2048: its 512-token prefill and S 4096, where the
+   window bites; :func:`flash_window_cases`);
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
    the attention width of Qwen3-1.7B (16 query heads, 8 kv heads, head
    dim 128; ``src/repro/configs/qwen3_1p7b.py``) over the default pool
@@ -28,15 +31,26 @@ Phases (any failure exits non-zero; nothing is caught):
    the plain kernel over the oracle bytes, the coherence invariants,
    the page accounting, and that every kernel launched during the run,
    each K2 call once; print K2's calls counted by (R, valid rows);
-4. serve Qwen3-1.7B and then Mamba2-2.7B at full published width and
-   depth (``src/repro/configs/qwen3_1p7b.py``, ``mamba2_2p7b.py``; random
-   bf16 weights from a seeded ``torch.Generator`` on the card) through
-   the port's ``launch.serve.main``: 16 and 8 requests, batch 4, prompt
-   512, 32 generated tokens each; check finite logits, every token, and
-   that K4 ran once per layer per prefill (Qwen3) and K5 likewise
-   (Mamba2); then, at full width and 4 layers, hold a 512-token prefill
+4. serve Qwen3-1.7B, Mamba2-2.7B, deepseek-moe-16b, starcoder2-7b and
+   recurrentgemma-2b at full published width and depth
+   (``src/repro/configs/*.py``; random bf16 weights from a seeded
+   ``torch.Generator`` on the card) through the port's
+   ``launch.serve.main``: 16 requests (Qwen3) or 8, batch 4, prompt 512,
+   32 generated tokens each; check finite logits, every token, and that
+   K4 ran once per attention layer per prefill (28, 28, 32 and the 8
+   local-attention layers of recurrentgemma-2b) and K5 once per layer
+   (Mamba2); then, at full width and reduced depth, hold a prefill
    against its token-by-token replay through ``decode_step`` (the plain
-   decode path) and time the fp32 head product of a decode step;
+   decode path; 4 layers and 512 tokens for Qwen3, Mamba2, deepseek and
+   starcoder2, 2 layers and 128 tokens for dbrx-132b,
+   command-r-plus-104b and llama3-405b, which one card does not hold
+   whole, moe configs at the no-drop capacity factor), recurrentgemma-2b
+   at 3 layers (r, r, a) and 2304 tokens, past its 2048 window and not a
+   multiple of it, plus 8 ring decode steps after the prefill against
+   the longer prefills; time the fp32 head product of a decode step;
+   and hold one full-width deepseek ``moe_ffn`` on 2048 tokens against
+   an independent per-token fp32 loop, drop sets equal
+   (:func:`moe_card_check`);
 5. the B-link tree at full scale (``benchmarks/fig10_btree_rounds.py``'s
    geometry: fanout 16, 4 nodes, write-through; ``n_lines`` 2^21):
    2^24 keys loaded as a tree image (:func:`btree_image`, leaves of 12
@@ -59,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (K1 at the tree's descent round and the txn FINALIZE spin's 4096
    slots, K2 at both paths' rows);
 7. print the ``kernels`` JSON line (``launches`` counts every path:
-   the serve, the tree and the transactions), then the result line.
+   the serve, the LM serves, the tree and the transactions, split by
+   path in ``launches_by_path``), then the result line.
 
 Needs one CUDA device; exits 1 without one, before printing anything
 on standard output.
@@ -594,6 +609,90 @@ def check_flash(dev, K):
     return row
 
 
+def window_pairs(s: int, window: int) -> int:
+    """Visible (query, key) pairs of causal attention over the last
+    ``window`` positions: row i sees min(i + 1, window) keys."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_window_cases(dev, K):
+    """K4 at recurrentgemma-2b's shapes (``src/repro/configs/
+    recurrentgemma_2b.py``: 10 q heads over one kv head, hd 256, local
+    window 2048), bf16, read through the model's [B, S, H, hd] layout:
+    its prefill, B 4, S 512, window 2048 (tag ``rg512``: the window
+    covers the prompt), and B 4, S 4096, window 2048 (tag ``w4096``:
+    each q tile walks at most 33 key tiles of 64).  Held against the
+    plain version (2e-2 of max(1, |want|), as :func:`check_flash`; and
+    each output row within 1e-2 of its want's L2 norm: at S 4096 a row
+    averages up to 2048 values and |want| is near 0.03, where the
+    elementwise bound alone would pass a key too many or too few at the
+    window's edge, which moves a row by about 1 % of its norm and by
+    tens of % where that key's score is high), timed beside its bound
+    (operations over the pairs the window leaves) and SDPA's time
+    (``is_causal`` for the first, a boolean [S, S] mask for the
+    second).  Returns the K4 row's keys for both tags."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(SEED + 8)
+    b, hq, hkv, hd, window = 4, 10, 1, 256, 2048
+    out = {}
+    for tag, s in (("rg512", 512), ("w4096", 4096)):
+        q, k, v = [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                                    .astype(np.float32))
+                   .to(dev, torch.bfloat16).transpose(1, 2)
+                   for h in (hq, hkv, hkv)]
+
+        def run(q=q, k=k, v=v):
+            return K.flash_attention(q, k, v, causal=True, window=window)
+        got = run()
+        want = flash_attention_plain(q, k, v, causal=True,
+                                     window=window).float()
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        rel = float((diff / want.abs().clamp(min=1.0)).max())
+        assert rel < 2e-2, f"windowed flash_attention off by {rel} of " \
+            f"max(1, |want|) at S={s} (tol 2e-2)"
+        row_rel = float((torch.linalg.vector_norm(diff, dim=-1)
+                         / torch.linalg.vector_norm(want, dim=-1)
+                         .clamp(min=1e-6)).max())
+        assert row_rel < 1e-2, f"windowed flash_attention: a row off by " \
+            f"{row_rel} of its L2 norm at S={s} (tol 1e-2)"
+        del want
+        if s > window:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            def lib(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+        n_bytes = b * s * (2 * hq + 2 * hkv) * hd * 2
+        n_flops = 4.0 * b * hq * hd * window_pairs(s, window)
+        bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS)
+        row = {"max_abs_err": float(diff.max()), "ms": graph_ms(run),
+               "ms_graph20": graph20_ms(run),
+               "plain_ms": eager_ms(lambda q=q, k=k, v=v:
+                                    flash_attention_plain(
+                                        q, k, v, causal=True,
+                                        window=window), iters=5),
+               "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(lib),
+               "library_ms_graph20": graph20_ms(lib)}
+        log(f"rate flash_attention {tag} (B {b}, S {s}, Hq {hq}, Hkv "
+            f"{hkv}, hd {hd}, window {window}): "
+            f"{n_flops / row['ms'] / 1e9:.3f} TFLOP/s, "
+            f"{100 * bms / row['ms']:.2f} % of its bound, "
+            f"{row['ms'] / row['library_ms']:.3f}x SDPA's time; error "
+            f"{rel} of max(1, |want|) (tolerance 2e-2), {row_rel} of a "
+            f"row's L2 norm (tolerance 1e-2)")
+        out.update({f"{key}_{tag}": val for key, val in row.items()})
+    return out
+
+
 def check_ssd(dev, K):
     """K5 at the Mamba2-2.7B prefill shape: B*nc 8 (batch 4, two chunks),
     Q 256, H 80, P 64, fp32, with a cumsum steep enough that exp
@@ -781,43 +880,193 @@ def lm_serve(K, arch, requests, kernel, per_prefill, batch=4, prompt=512,
             "launches": counts}
 
 
-def replay_check(dev, arch, n_layers=4, s=512):
-    """Full width, ``n_layers`` layers: the last logits of a prefill (K4
-    or K5) against a token-by-token replay through ``decode_step`` (plain
-    decode path), compared as ``tests/test_archs_smoke.py`` does, with
-    the error stated relative to max |logit|; plus the time of the fp32
-    head product one decode step pays (batch 4)."""
-    from repro_torch.configs import get_config
+@contextlib.contextmanager
+def dispatch_calls():
+    """Collects (router logits, route) of every ``moe._dispatch`` call
+    into the list it yields (the tensors themselves: no copy, no
+    sync)."""
+    from repro_torch.models import moe
+    got, real = [], moe._dispatch
+
+    def recording(x, logits, *a):
+        res = real(x, logits, *a)
+        got.append((logits, res[1]))
+        return res
+    moe._dispatch = recording
+    try:
+        yield got
+    finally:
+        moe._dispatch = real
+
+
+def _replay(dev, cfg, s, ring):
+    """One prefill of ``s`` random tokens against its token-by-token
+    decode replay (decode cache in the model's dtype), then ``ring``
+    decode steps on the prefill's cache, each against a prefill of the
+    tokens so far."""
     from repro_torch.models import lm
-    cfg = get_config(arch).replace(n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     params = lm.init_params(cfg, gen, dev)
-    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev)
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    toks = torch.randint(0, cfg.vocab, (1, s + ring), generator=gen,
+                         device=dev)
     ctx = lm.NO_PARALLEL
-    logits_pf, _ = lm.prefill(params, {"tokens": toks}, cfg, ctx)
-    cache = lm.init_decode_cache(cfg, 1, s, device=dev)
+    logits_pf, cache_pf = lm.prefill(params, {"tokens": toks[:, :s]}, cfg,
+                                     ctx)
+    cache = lm.init_decode_cache(cfg, 1, s, dtype=dt, device=dev)
     t0 = time.perf_counter()
     for i in range(s):
         logits_dec, cache = lm.decode_step(params, cache, toks[:, i:i + 1],
                                            cfg, ctx)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / s * 1e3
+    del cache
     err = float((logits_pf - logits_dec).abs().max())
     scale = float(logits_dec.abs().max())
+    out = {"dtype": cfg.dtype, "max_abs_err": err, "max_abs_logit": scale,
+           "rel_err": err / scale,
+           f"decode_step_ms_{cfg.n_layers}_layers": step_ms}
+    ring_err = 0.0
+    for i in range(ring):
+        logits_dec, cache_pf = lm.decode_step(
+            params, cache_pf, toks[:, s + i:s + i + 1], cfg, ctx)
+        want, _ = lm.prefill(params, {"tokens": toks[:, :s + i + 1]}, cfg,
+                             ctx)
+        ring_err = max(ring_err, float((logits_dec - want).abs().max())
+                       / float(want.abs().max()))
+    if ring:
+        out.update({"ring_steps": ring, "window": cfg.local_window,
+                    "ring_rel_err": ring_err})
     x = torch.randn((4, cfg.d_model), generator=gen, device=dev,
                     dtype=torch.bfloat16)
+    if cfg.dtype == "bfloat16":
+        out.update({"head_fp32_ms": graph_ms(
+            lambda: lm._logits(params, x, cfg), iters=20),
+            "head_bf16_ms": graph_ms(lambda: x @ lm._head(params, cfg),
+                                     iters=20)})
+    del params, cache_pf
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_check(dev, arch, n_layers=4, s=512, ring=0):
+    """Full width, ``n_layers`` layers: the last logits of a prefill (K4
+    or K5) against a token-by-token replay through ``decode_step`` (plain
+    decode path), compared as ``tests/test_archs_smoke.py`` does, with
+    the error stated relative to max |logit|; plus the time of the fp32
+    head product one decode step pays (batch 4).  With ``ring`` > 0 (the
+    hybrid family), the prefill's cache then takes ``ring`` decode
+    steps, each held against a prefill of the tokens so far: with S
+    above the window and not a multiple of it, position p must sit at
+    ring slot p % window.
+
+    A moe config runs at the capacity factor n_experts / top_k, where
+    the capacity exceeds the token count and nothing drops: at the
+    published 1.25 a 512-token prefill drops assignments (deepseek-moe-
+    16b: capacity 64 an expert at 512 tokens) that a one-token decode
+    step (capacity 4) never drops, so the two would differ by design.
+    It runs in fp32 (weights and decode cache): in bf16 the prefill's
+    and the replay's router inputs differ by the rounding of two
+    attention orders, every top-k choice closer than that flips, and a
+    flipped token's new hidden state moves the router inputs of the
+    layers above it (PERF.md, Findings)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k,
+                          dtype="float32")
+    res = _replay(dev, cfg, s, ring)
     out = {"arch": arch, "layers": n_layers, "prompt": s,
-           "max_abs_err": err, "max_abs_logit": scale,
-           "rel_err": err / scale, "tolerance_rel": REPLAY_TOL,
-           "decode_step_ms_4_layers": step_ms,
-           "head_fp32_ms": graph_ms(lambda: lm._logits(params, x, cfg),
-                                    iters=20),
-           "head_bf16_ms": graph_ms(
-               lambda: x @ lm._head(params, cfg), iters=20)}
+           "capacity_factor": cfg.capacity_factor, **res,
+           "tolerance_rel": REPLAY_TOL}
     log(f"replay {arch}: " + json.dumps(out))
+    err, scale = res["max_abs_err"], res["max_abs_logit"]
     assert np.isfinite(err) and err <= REPLAY_TOL * scale, \
         f"{arch}: prefill vs decode replay off by {err} (max |logit| " \
         f"{scale}, tolerance {REPLAY_TOL} x max |logit|)"
+    assert res.get("ring_rel_err", 0.0) <= REPLAY_TOL, \
+        f"{arch}: prefill of {s} + {ring} ring decode steps off the " \
+        f"longer prefill by {res['ring_rel_err']} x max |logit| " \
+        f"(tol {REPLAY_TOL})"
+    return out
+
+
+def moe_card_check(dev, n_tokens=2048):
+    """``moe_ffn`` of one deepseek-moe-16b layer at full width
+    (``src/repro/configs/deepseek_moe_16b.py``: d 2048, 64 routed experts
+    of 1408, top 6, 2 shared) on ``n_tokens`` bf16 tokens that share a
+    common direction, so the router crowds some experts past the
+    published capacity (1.25: 244 slots) and assignments drop; against
+    an independent reference: a per-token loop that ranks the fp32
+    gates (the same router product, stable order), takes each
+    assignment's slot from a running count per expert and drops it past
+    the capacity, then applies every kept assignment in fp32 (per
+    expert, over its kept tokens) with the shared experts.  The drop
+    sets must be equal; the output within 2e-2 of the reference's scale
+    (bf16 operands and a bf16 rounding of every product in the model's
+    path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    p = moe.init_moe(gen, cfg, torch.bfloat16)
+    d, k, n_exp = cfg.d_model, cfg.top_k, cfg.n_experts
+    x = (torch.randn((1, n_tokens, d), generator=gen, device=dev)
+         + 1.5 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+    with dispatch_calls() as calls:
+        t0 = time.perf_counter()
+        y, _ = moe.moe_ffn(x, p, cfg)
+        torch.cuda.synchronize()
+        port_s = time.perf_counter() - t0
+    keep = calls[0][1][4]
+    cap = moe._capacity(n_tokens, k, n_exp, cfg.capacity_factor)
+    xt = x.reshape(n_tokens, d)
+    gates = torch.softmax(xt.float() @ p["router"].float(), -1).cpu().numpy()
+    count = np.zeros(n_exp, np.int64)
+    kept = {e: ([], []) for e in range(n_exp)}       # tokens, weights
+    ref_keep = np.zeros((n_tokens, k), bool)
+    for t in range(n_tokens):
+        order = np.argsort(-gates[t], kind="stable")[:k]
+        w = gates[t][order] / max(float(gates[t][order].sum()), 1e-9)
+        for j, e in enumerate(order):
+            if count[e] < cap:
+                kept[int(e)][0].append(t)
+                kept[int(e)][1].append(float(w[j]))
+                ref_keep[t, j] = True
+            count[e] += 1
+    port_keep = keep.cpu().numpy().reshape(n_tokens, k)
+    assert np.array_equal(port_keep, ref_keep), \
+        f"moe_ffn drops {int((~port_keep).sum())} assignments, the " \
+        f"reference {int((~ref_keep).sum())}; they differ at " \
+        f"{int((port_keep != ref_keep).sum())}"
+    xf = xt.float()
+    want = torch.zeros((n_tokens, d), device=dev)
+    for e, (tok, w) in kept.items():
+        if not tok:
+            continue
+        idx = torch.tensor(tok, device=dev)
+        xe = xf[idx]
+        h = torch.nn.functional.silu(xe @ p["we_g"][e].float()) \
+            * (xe @ p["we_u"][e].float())
+        want.index_add_(0, idx, (h @ p["we_d"][e].float())
+                        * torch.tensor(w, device=dev)[:, None])
+    sh = torch.nn.functional.silu(xf @ p["s_wg"].float()) \
+        * (xf @ p["s_wu"].float())
+    want += sh @ p["s_wd"].float()
+    err = float((y.reshape(n_tokens, d).float() - want).abs().max())
+    scale = float(want.abs().max())
+    out = {"tokens": n_tokens, "capacity": cap,
+           "dropped": int((~ref_keep).sum()),
+           "experts_over_capacity": int((count > cap).sum()),
+           "max_abs_err": err, "scale": scale, "rel_err": err / scale,
+           "tolerance_rel": 2e-2, "port_s": port_s}
+    log("moe_ffn card check: " + json.dumps(out))
+    assert out["dropped"] > 0, "the check's tokens overflowed no expert"
+    assert np.isfinite(err) and err <= 2e-2 * scale, \
+        f"moe_ffn off the fp32 reference by {err} (scale {scale}, " \
+        f"tolerance 2e-2 of it)"
+    del p
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1169,9 +1418,10 @@ def main() -> int:
     if "flash_attention" in _build.BUILD_LOG:
         tc128 = [sp for fn, _, sp in ptxas_functions(
             _build.BUILD_LOG["flash_attention"])
-            if "flash_attention_bf16_kernel<128>" in fn
+            if "flash_attention_bf16_kernel<128," in fn
             or "flash_attention_bf16_kernelILi128E" in fn]
-        assert tc128 == [0], f"K4 bf16 at hd 128 spills: {tc128}"
+        # with and without a window
+        assert tc128 == [0, 0], f"K4 bf16 at hd 128 spills: {tc128}"
     if "ssd_intra" in _build.BUILD_LOG:
         f32p64 = [sp for fn, _, sp in ptxas_functions(
             _build.BUILD_LOG["ssd_intra"])
@@ -1196,6 +1446,7 @@ def main() -> int:
     rows = [check_latch(dev, K), check_fetch(dev, K),
             check_attention(dev, K), check_flash(dev, K),
             check_ssd(dev, K)]
+    rows[3].update(flash_window_cases(dev, K))
     rows[0].update(latch_app_case(dev, K))
     rows[0].update(latch_app_case(dev, K, 1 << 20, 4096, "txn", "finalize"))
     rows[1].update(fetch_app_cases(dev, K))
@@ -1232,13 +1483,24 @@ def main() -> int:
     assert counts["gcl_fetch"] == sum(calls.values()), \
         "a K2 call of the serve did not launch its kernel exactly once"
 
-    for arch, n_req, name, per in (("qwen3-1.7b", 16, "flash_attention", 28),
-                                   ("mamba2-2.7b", 8, "ssd_intra", 64)):
+    lm_paths = {}
+    for arch, n_req, name, per in (
+            ("qwen3-1.7b", 16, "flash_attention", 28),
+            ("mamba2-2.7b", 8, "ssd_intra", 64),
+            ("deepseek-moe-16b", 8, "flash_attention", 28),
+            ("starcoder2-7b", 8, "flash_attention", 32),
+            ("recurrentgemma-2b", 8, "flash_attention", 8)):
         res = lm_serve(K, arch, n_req, name, per)
         log(f"lm {arch}: " + json.dumps(res))
-        counts[name] = res["launches"][name]
-    for arch in ("qwen3-1.7b", "mamba2-2.7b"):
-        replay_check(dev, arch)
+        lm_paths[arch] = res["launches"][name]
+        counts[name] = counts.get(name, 0) + res["launches"][name]
+    for arch, n_layers, s, ring in (
+            ("qwen3-1.7b", 4, 512, 0), ("mamba2-2.7b", 4, 512, 0),
+            ("deepseek-moe-16b", 4, 512, 0), ("starcoder2-7b", 4, 512, 0),
+            ("dbrx-132b", 2, 128, 0), ("command-r-plus-104b", 2, 128, 0),
+            ("llama3-405b", 2, 128, 0), ("recurrentgemma-2b", 3, 2304, 8)):
+        replay_check(dev, arch, n_layers, s, ring)
+    moe_card_check(dev)
 
     by_path = {"serve": {k: counts[k] for k in ("latch_ops", "gcl_fetch")}}
     for path, phase in (("btree", btree_phase), ("txn", txn_phase)):
@@ -1254,6 +1516,9 @@ def main() -> int:
     for row in rows[:2]:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
+    rows[3]["launches_by_path"] = {a: n for a, n in lm_paths.items()
+                                   if a != "mamba2-2.7b"}
+    rows[4]["launches_by_path"] = {"mamba2-2.7b": lm_paths["mamba2-2.7b"]}
 
     kernels = []
     for row in rows:

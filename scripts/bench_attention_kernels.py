@@ -2,7 +2,7 @@
 one NVIDIA GPU at the main path's shapes.
 
     python3 scripts/bench_attention_kernels.py [--src DIR] [--label NAME]
-        [--out-dir build/bench] [--phases]
+        [--out-dir build/bench] [--phases] [--only k4 ...]
 
 Builds the CUDA kernels of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``; point it at an unpacked older commit
@@ -28,6 +28,9 @@ Qwen3-1.7B prefill shape: a copy of ``csrc/flash_attention.cu`` that
 reads ``clock64`` at each ``// PHASE <name>`` line of its loop (summed
 over warp 0 of every block) is built beside the package's libraries
 and run once.
+
+``--only`` runs just the named kernels' checks (k1-k5; the launch floor
+always runs).
 
 Prints the card's name and power limit, then one JSON line, also
 written to ``<out-dir>/bench_attention_<label>.json``.
@@ -145,10 +148,13 @@ def k4_phases(dev, src_dir):
     strides = (ctypes.c_longlong * 12)(*[x for t in (q, k, v, o)
                                           for x in t.stride()[:3]])
     assert lib.zero_phases() == 0
+    # causal, then (a source with a window argument) window 0, then bf16
+    flags = [1, 0, 1] if len(_SIGNATURES["flash_attention_launch"]) == 15 \
+        else [1, 1]
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         ctypes.addressof(strides), b, hq, hkv, s, hd, 1.0 / math.sqrt(hd),
-        1, 1, _build.stream_of(q)), "flash_attention (phases)")
+        *flags, _build.stream_of(q)), "flash_attention (phases)")
     torch.cuda.synchronize()
     h = (ctypes.c_ulonglong * 8)()
     assert lib.read_phases(h) == 0
@@ -162,6 +168,9 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "build", "bench"))
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--only", nargs="+",
+                    choices=("k1", "k2", "k3", "k4", "k5"),
+                    default=("k1", "k2", "k3", "k4", "k5"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_attention_kernels: needs a CUDA device",
@@ -177,14 +186,19 @@ def main() -> int:
     print(card, flush=True)
     _build.build_all()
     res = {"label": args.label, "src": os.path.abspath(args.src),
-           "card": card, "launch_floor": chip_smoke.launch_floor(),
-           "k3": chip_smoke.check_attention(dev, K),
-           "k4": chip_smoke.check_flash(dev, K),
-           "k2": chip_smoke.check_fetch(dev, K),
-           "k2_floor": fetch_floor(dev),
-           "k1": chip_smoke.check_latch(dev, K),
-           "k5": chip_smoke.check_ssd(dev, K)}
-    if hasattr(PA, "cluster_size"):
+           "card": card, "launch_floor": chip_smoke.launch_floor()}
+    if "k3" in args.only:
+        res["k3"] = chip_smoke.check_attention(dev, K)
+    if "k4" in args.only:
+        res["k4"] = chip_smoke.check_flash(dev, K)
+    if "k2" in args.only:
+        res["k2"] = chip_smoke.check_fetch(dev, K)
+        res["k2_floor"] = fetch_floor(dev)
+    if "k1" in args.only:
+        res["k1"] = chip_smoke.check_latch(dev, K)
+    if "k5" in args.only:
+        res["k5"] = chip_smoke.check_ssd(dev, K)
+    if "k3" in args.only and hasattr(PA, "cluster_size"):
         res["k3_clusters"] = cluster_sweep(dev)
     if args.phases:
         res["k4_phase_cycles_per_tile"] = k4_phases(dev, args.src)

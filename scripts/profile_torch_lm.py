@@ -16,11 +16,11 @@ of 512 tokens, the cache grown by 32 slots, then decode steps, as
 2. under ``torch.profiler`` (CPU + CUDA), one prefill and 8 decode
    steps: the device's busy time (sum of kernel and copy durations,
    each counted once: ``chip_smoke.device_busy_us``) against the wall
-   time, the device kernels launched per decode step, and the top
-   device kernels and host ops;
+   time, the device kernels launched in one decode step and its device
+   busy time, and the top device kernels and host ops;
 3. under ``torch.profiler``, one prefill alone: its device time and the
    share of it spent in the prefill's kernel (K4 ``flash_attention``
-   for dense, K5 ``ssd_intra`` for ssm).
+   for the dense, moe and hybrid families, K5 ``ssd_intra`` for ssm).
 
 Needs a CUDA device; prints the card's name and power limit first.
 Writes the full tables to ``<out-dir>/profile_lm_<arch>.txt``.
@@ -101,15 +101,17 @@ def profile_arch(arch, dev):
         torch.cuda.synchronize()
     per_step = sum(1 for e in prof1.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    step_us = chip_smoke.device_busy_us(prof1.key_averages())
     lines.append(f"{arch}: one decode step launches {per_step} device "
-                 f"kernels and copies ({cfg.n_layers} layers)")
+                 f"kernels and copies ({cfg.n_layers} layers), device busy "
+                 f"{step_us / 1e3:.4f} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof2:
         prefill()
         torch.cuda.synchronize()
     ev2 = prof2.key_averages()
     pf_us = chip_smoke.device_busy_us(ev2)
-    needle = ("flash_attention" if cfg.family == "dense" else "ssd_intra")
+    needle = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
     k_us = sum(e.self_device_time_total for e in ev2 if needle in e.key)
     lines.append(f"{arch}: one prefill's device time {pf_us / 1e3:.3f} ms, "
                  f"of which {needle} kernels {k_us / 1e3:.3f} ms "

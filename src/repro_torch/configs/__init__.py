@@ -3,9 +3,9 @@
 ``get_config(name)`` returns the full published config;
 ``get_smoke_config(name)`` returns the reduced same-family config the
 CPU tests use (tiny widths, few layers, small vocab).  The names are the
-JAX package's; the port has the ``dense`` and ``ssm`` families so far,
-and any other architecture raises ``NotImplementedError`` naming the
-ROADMAP item that ports its family.
+JAX package's; the port has the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` families, and the vlm and encdec architectures raise
+``NotImplementedError`` naming the ROADMAP item that ports their family.
 """
 from __future__ import annotations
 
@@ -38,21 +38,13 @@ CANON = {
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
-PORTED = ("qwen3_1p7b", "mamba2_2p7b")
+PORTED = ("deepseek_moe_16b", "dbrx_132b", "command_r_plus_104b",
+          "qwen3_1p7b", "starcoder2_7b", "llama3_405b", "recurrentgemma_2b",
+          "mamba2_2p7b")
 
 # where each family not yet ported waits (ROADMAP.md, queue 1)
 WAITS = {
-    "deepseek_moe_16b": "queue 1 item 1 (moe family, models/moe.py)",
-    "dbrx_132b": "queue 1 item 1 (moe family, models/moe.py)",
-    "command_r_plus_104b": "queue 1 item 1 (dense configs beyond "
-                           "qwen3-1.7b: use_bias, their own config files)",
-    "starcoder2_7b": "queue 1 item 1 (dense configs beyond qwen3-1.7b: "
-                     "gelu FFN with biases, its own config file)",
-    "llama3_405b": "queue 1 item 1 (dense configs beyond qwen3-1.7b; "
-                   "needs the sharded stack of queue 4)",
     "llava_next_mistral_7b": "queue 1 item 3 (vlm family)",
-    "recurrentgemma_2b": "queue 1 item 2 (hybrid family: models/rglru.py "
-                         "and windowed attention)",
     "seamless_m4t_medium": "queue 1 item 3 (encdec family: "
                            "cross-attention)",
 }

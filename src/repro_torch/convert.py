@@ -54,14 +54,17 @@ def _leaf_to_torch(a, dev):
 
 
 def lm_params_to_torch(params_np, device=None):
-    """A JAX ``lm.init_params`` tree (nested dicts of arrays, e.g. after
-    ``jax.tree.map(np.asarray, params)``) -> the port's tree of tensors
-    on ``device`` (``cuda`` unless ``"cpu"`` is asked for), every dtype
-    and bit kept (bf16 included)."""
+    """A JAX ``lm.init_params`` tree (nested dicts and lists of arrays,
+    e.g. after ``jax.tree.map(np.asarray, params)``; the hybrid family's
+    ``blocks`` is a list of per-layer dicts) -> the port's tree of
+    tensors on ``device`` (``cuda`` unless ``"cpu"`` is asked for), the
+    same structure, every dtype and bit kept (bf16 included)."""
     dev = resolve_device(device)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
         return _leaf_to_torch(node, dev)
     return walk(params_np)

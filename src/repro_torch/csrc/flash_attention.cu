@@ -9,14 +9,18 @@
 //
 // What it computes: for each batch b, query head h and query row i,
 // softmax_j(q[b,h,i] . k[b,h/G,j] / sqrt(hd)) over the keys j < S (and
-// j <= i when causal), times v; the output has q's dtype.  Any S: the
-// ragged last tile is masked.  q, k, v and out are read and written
+// j <= i when causal, and j > i - W when a window W is given: JAX's
+// _mask in src/repro/models/attention.py), times v; the output has q's
+// dtype.  Any S: the ragged last tile is masked.  q, k, v and out are read and written
 // through (batch, head, sequence) strides with a contiguous last
 // dimension, so the model passes its [B, S, H, hd] tensors as
 // transposed views and nothing is copied.  A masked score's probability
 // is selected to 0, never computed (exp(NEG - NEG) would be 1 in a
 // fully masked row of a tile).  Key tiles wholly above the causal
-// diagonal are never visited, like the Pallas kernel's pl.when skip.
+// diagonal are never visited, like the Pallas kernel's pl.when skip, nor
+// those wholly below the window of the q tile's first row: a q tile's
+// walk starts at the key tile that holds key q0 - W + 1, so the work per
+// q tile is bounded by (W + 64) / 64 key tiles whatever S is.
 // GQA is an index: the kv head is h / G, K/V are never expanded.
 //
 // What bounds it on the H100: bytes, on the tensor cores.  At the
@@ -38,7 +42,8 @@
 // fragments; the online softmax runs on them in fp32 registers, a row's
 // max reduced over the 4 lanes that share it (its sum once, at the
 // end), exp2 on the MUFU unit.  Only a tile that crosses the causal
-// diagonal or the ragged end applies the mask, behind one branch that
+// diagonal, the window's lower edge for one of the warp's rows, or the
+// ragged end applies the mask, behind one branch that
 // is uniform over the warp, with bitwise predicates and selects: a
 // branch per score element (what `||` and a conditional exp compile
 // to) cost more than both products together.  The fp32 probabilities
@@ -115,7 +120,7 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, Strides qs, Strides ks,
     Strides vs, Strides os, int hq, int hkv, int s, float scale,
-    int causal) {
+    int causal, int window) {
   constexpr int QS = HD + 1;         // padded row stride of q and k tiles
   constexpr int DPT = HD / 16;       // output dims per thread
   extern __shared__ float smem[];
@@ -151,8 +156,11 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
   }
 
+  const int wnd = window > 0 ? window : s + BQ;  // 0: no window
   const int k_end = causal ? min(s, q0 + BQ) : s;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // the first key tile holding a key that row q0 sees
+  const int k_begin = max(0, q0 - wnd + 1) / BK * BK;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                 // q tile staged / last tile consumed
     for (int i = tid; i < BK * HD; i += NT) {
       const int r = i / HD, d = i % HD;
@@ -190,7 +198,7 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < s && (!causal || kpos <= qpos);
+        ok[j] = kpos < s && (!causal || kpos <= qpos) && kpos > qpos - wnd;
         sc[i][j] = ok[j] ? sc[i][j] * scale : NEG;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -242,7 +250,7 @@ template <typename T, int HD>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  Strides qs, Strides ks, Strides vs, Strides os, int b,
                  int hq, int hkv, int s, float scale, int causal,
-                 cudaStream_t stream) {
+                 int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;    // the attribute is per function
   if (!configured) {
@@ -256,7 +264,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   flash_attention_f32_kernel<T, HD><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, hq,
-      hkv, s, scale, causal);
+      hkv, s, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -264,17 +272,17 @@ template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               void* out, Strides qs, Strides ks, Strides vs, Strides os,
               int b, int hq, int hkv, int s, float scale, int causal,
-              cudaStream_t stream) {
+              int window, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch_typed<T, 64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv,
-                                 s, scale, causal, stream);
+                                 s, scale, causal, window, stream);
     case 128:
       return launch_typed<T, 128>(q, k, v, out, qs, ks, vs, os, b, hq,
-                                  hkv, s, scale, causal, stream);
+                                  hkv, s, scale, causal, window, stream);
     case 256:
       return launch_typed<T, 256>(q, k, v, out, qs, ks, vs, os, b, hq,
-                                  hkv, s, scale, causal, stream);
+                                  hkv, s, scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -366,23 +374,24 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // One score tile's online-softmax step on a warp's C fragments (rows
-// qrow0 / qrow1 for elements 0-1 / 2-3): scale into the log2 domain,
+// qrow0 / qrow1 for elements 0-1 / 2-3; wnd the window, read only when
+// WND): scale into the log2 domain,
 // raise the running max (reduced over the 4 lanes of a row), rescale
 // the row's sum and accumulator, and leave the probabilities in sc.
 // MASK selects a masked score's probability to 0 (never exp(NEG - NEG),
 // which is 1 in a row with no key yet); the predicates are bitwise, so
 // no element branches.
-template <bool MASK, int NN, int ND>
+template <bool MASK, bool WND, int NN, int ND>
 __device__ __forceinline__ void softmax_tile(float (&sc)[NN][4],
                                              float (&m)[2], float (&l)[2],
                                              float (&acc)[ND][4], int k0,
-                                             int s, int causal, int qrow0,
-                                             int qrow1, int lane,
+                                             int s, int causal, int wnd,
+                                             int qrow0, int qrow1, int lane,
                                              float scale_log2) {
   auto ok = [&](int n, int e) {
     const int key = k0 + 8 * n + 2 * (lane & 3) + (e & 1);
     const int row = e < 2 ? qrow0 : qrow1;
-    return (key < s) & (!causal | (key <= row));
+    return (key < s) & (!causal | (key <= row)) & (!WND | (key > row - wnd));
   };
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -443,12 +452,14 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
   }
 }
 
-template <int HD>
+// WND: a window is given (chosen per launch, so the unwindowed kernel
+// pays no compare for it)
+template <int HD, bool WND>
 __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, Strides qs,
     Strides ks, Strides vs, Strides os, int hq, int hkv, int s,
-    float scale_log2, int causal) {
+    float scale_log2, int causal, int window) {
   constexpr int KC = HD / 8;         // 16-byte chunks of a row
   constexpr int KS = HD / 16;        // k-steps of Q.K^T
   constexpr int NN = BK / 8;         // 8-key n-tiles of a score tile
@@ -472,15 +483,18 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   const bf16* vb = v + b * vs.b + kh * vs.h;
 
   const int k_end = causal ? min(s, q0 + BQ) : s;
-  const int n_tiles = (k_end + BK - 1) / BK;
+  // the first key tile holding a key that row q0 sees
+  const int k_begin = WND ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
-  // prologue: group t = k/v tile t of the ring (group 0 with the q tile)
+  // prologue: group t = k/v tile t of the walk (group 0 with the q tile)
   load_tile<HD, BQ>(sq, qb, qs.s, q0, s, tid);
 #pragma unroll
   for (int t = 0; t < STAGES; ++t) {
     if (t < n_tiles) {
-      load_tile<HD, BK>(sk + t * BK * HD * 2, kb, ks.s, t * BK, s, tid);
-      load_tile<HD, BK>(sv + t * BK * HD * 2, vb, vs.s, t * BK, s, tid);
+      const int kt = k_begin + t * BK;
+      load_tile<HD, BK>(sk + t * BK * HD * 2, kb, ks.s, kt, s, tid);
+      load_tile<HD, BK>(sv + t * BK * HD * 2, vb, vs.s, kt, s, tid);
     }
     cp_commit();
   }
@@ -502,7 +516,7 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     // PHASE wait
     cp_wait<STAGES - 1>();            // tile j's group has landed
     __syncthreads();
-    const int k0 = j * BK;
+    const int k0 = k_begin + j * BK;
     const int st = j % STAGES;
     const uint32_t k_addr = smem_u32(sk + st * BK * HD * 2);
     const uint32_t v_addr = smem_u32(sv + st * BK * HD * 2);
@@ -545,14 +559,16 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     // PHASE softmax
     // online softmax on the C fragments: element e of n-tile n is row
     // (e < 2 ? qrow0 : qrow1), key k0 + 8n + 2 (lane & 3) + (e & 1).
-    // Only a tile that crosses the diagonal or the ragged end takes the
-    // masked path; the branch is uniform over the warp.
-    if (k0 + BK > s || (causal && k0 + BK - 1 > q0 + wrow))
-      softmax_tile<true>(sc, m, l, acc, k0, s, causal, qrow0, qrow1, lane,
-                         scale_log2);
+    // Only a tile that crosses the diagonal, the window's lower edge
+    // (key q - window + 1 of the warp's last row q) or the ragged end takes
+    // the masked path; the branch is uniform over the warp.
+    if (k0 + BK > s || (causal && k0 + BK - 1 > q0 + wrow) ||
+        (WND && k0 <= q0 + wrow + 15 - window))
+      softmax_tile<true, WND>(sc, m, l, acc, k0, s, causal, window, qrow0,
+                              qrow1, lane, scale_log2);
     else
-      softmax_tile<false>(sc, m, l, acc, k0, s, causal, qrow0, qrow1, lane,
-                          scale_log2);
+      softmax_tile<false, WND>(sc, m, l, acc, k0, s, causal, window, qrow0,
+                               qrow1, lane, scale_log2);
 
     // PHASE pv
     // O += P V: P's C fragments repacked as bf16 A fragments
@@ -614,41 +630,53 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool WND>
 int launch(const void* q, const void* k, const void* v, void* out,
            Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
-           int hkv, int s, float scale, int causal, cudaStream_t stream) {
+           int hkv, int s, float scale, int causal, int window,
+           cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;    // the attribute is per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<HD>,
+        flash_attention_bf16_kernel<HD, WND>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid(b * hq, (s + BQ - 1) / BQ);
-  flash_attention_bf16_kernel<HD><<<grid, NT, bytes, stream>>>(
+  flash_attention_bf16_kernel<HD, WND><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os,
-      hq, hkv, s, scale * 1.4426950408889634f, causal);
+      hq, hkv, s, scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_w(const void* q, const void* k, const void* v, void* out,
+             Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
+             int hkv, int s, float scale, int causal, int window,
+             cudaStream_t stream) {
+  return window ? launch<HD, true>(q, k, v, out, qs, ks, vs, os, b, hq, hkv,
+                                   s, scale, causal, window, stream)
+                : launch<HD, false>(q, k, v, out, qs, ks, vs, os, b, hq,
+                                    hkv, s, scale, causal, window, stream);
 }
 
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               void* out, Strides qs, Strides ks, Strides vs, Strides os,
               int b, int hq, int hkv, int s, float scale, int causal,
-              cudaStream_t stream) {
+              int window, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s, scale,
-                        causal, stream);
+      return launch_w<64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
+                          scale, causal, window, stream);
     case 128:
-      return launch<128>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s, scale,
-                         causal, stream);
+      return launch_w<128>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
+                           scale, causal, window, stream);
     case 256:
-      return launch<256>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s, scale,
-                         causal, stream);
+      return launch_w<256>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
+                           scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -659,15 +687,19 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // strides: 12 element strides, (batch, head, sequence) for q, k, v, out
-// in that order.  bf16: 1 = all four tensors bfloat16 (the tensor-core
-// kernel; every stride a multiple of 8 and every base 16-byte aligned),
-// 0 = float32 (the FMA kernel).  Returns a CUDA error code (0 = none);
-// hd outside {64, 128, 256} is cudaErrorInvalidValue.
+// in that order.  window: 0 = none, else 1 <= W <= S (key j visible to
+// query i only if j > i - W).  bf16: 1 = all four tensors bfloat16 (the
+// tensor-core kernel; every stride a multiple of 8 and every base
+// 16-byte aligned), 0 = float32 (the FMA kernel).  Returns a CUDA error
+// code (0 = none); hd outside {64, 128, 256} or a window outside
+// [0, S] is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const long long* strides, int b, int hq, int hkv, int s, int hd,
-    float scale, int causal, int bf16, void* stream) {
+    float scale, int causal, int window, int bf16, void* stream) {
   if (b == 0 || s == 0) return 0;
+  if (window < 0 || window > s)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
@@ -675,7 +707,7 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return tc::launch_hd(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                         scale, causal, st);
+                         scale, causal, window, st);
   return launch_hd<float>(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                          scale, causal, st);
+                          scale, causal, window, st);
 }

@@ -16,7 +16,11 @@ model's [B, S, H, hd] tensors goes in without a copy.  Scores, softmax
 and accumulation are fp32, the scale is 1/sqrt(hd), the output has q's
 dtype and the [B, S, Hq, hd] memory layout (returned as its
 [B, Hq, S, hd] view).  Any S: unlike the Pallas kernel, S need not be a
-multiple of a block size.
+multiple of a block size.  ``window=W`` limits each query i to the keys
+j > i - W (JAX's ``_mask`` in ``repro/models/attention.py``: with
+``causal``, the W positions i - W + 1 .. i); the Pallas kernel has no
+window, so this one is the port's own route for the hybrid family's
+local attention.  Key tiles wholly outside the window are not visited.
 """
 
 from __future__ import annotations
@@ -33,16 +37,28 @@ _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
-    """Plain PyTorch version (the JAX ``ref.py``): fp32 logits for every
-    (query, key) pair, the causal mask as -1e30, softmax, cast back."""
+def _check_window(window):
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"window must be a positive integer, got {window}")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+    """Plain PyTorch version (the JAX ``ref.py``, with JAX's window mask):
+    fp32 logits for every (query, key) pair, the mask as -1e30, softmax,
+    cast back."""
+    _check_window(window)
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     qg = q.reshape(b, hkv, g, s, hd).float()
     logits = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
-    if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    if causal or window is not None:
+        pos = torch.arange(s, device=q.device)
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= pos[:, None] >= pos[None, :]
+        if window is not None:
+            mask &= pos[None, :] > pos[:, None] - window
         logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
@@ -51,7 +67,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 
 _SIGNATURES = {"flash_attention_launch": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])}
 
 
 def _check(q, k, v):
@@ -70,12 +86,14 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """Attention of every query row over the keys of its sequence:
-    returns [B, Hq, S, hd] in q's dtype."""
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Attention of every query row over the keys of its sequence (the
+    last ``window`` positions up to it when ``window`` is given): returns
+    [B, Hq, S, hd] in q's dtype."""
     _check(q, k, v)
+    _check_window(window)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s, hd = q.shape
@@ -104,6 +122,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.addressof(strides), b, hq, hkv, s, hd,
             1.0 / math.sqrt(hd), int(causal),
+            0 if window is None else int(min(window, s)),
             int(q.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1

@@ -54,7 +54,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError("the production mesh waits for the "
-                                  "sharded stack (ROADMAP.md queue 4)")
+                                  "sharded stack (ROADMAP.md queue 1 "
+                                  "item 9)")
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(

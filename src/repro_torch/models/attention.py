@@ -4,9 +4,14 @@ Port of ``repro.models.attention``.  On the CPU, :func:`attention`
 dispatches as the JAX module does: ``dense_attention`` at or below
 ``dense_threshold`` tokens, ``blockwise_attention`` above.  On the card
 it runs kernel K4 (``kernels.flash_attention``) for every call K4
-serves, which is self-attention without a window or a query offset; a
-call it cannot serve (windowed, offset, or cross-attention) raises
+serves, which is self-attention with or without a window and without a
+query offset; a call it cannot serve (offset or cross-attention) raises
 ``NotImplementedError`` and never falls back to the plain paths.
+``blockwise_attention`` visits the (q block, k block) pairs that hold a
+visible key, counted in token positions: JAX's ``_block_pairs``
+compares block indices of two sizes and with a window drops pairs it
+needs whenever ``block_q != block_k`` (its defaults are 512 and 1024),
+so the port does not copy it (ROADMAP.md, "Semantics the port fixed").
 ``decode_attention`` is plain PyTorch on both devices, as the JAX
 package computes it outside any Pallas kernel.
 """
@@ -59,14 +64,20 @@ def dense_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.reshape(b, sq, hq, hd).to(q.dtype)
 
 
-def _block_pairs(n_q: int, n_k: int, causal: bool, window_blocks):
-    """Static list of (iq, ik) block pairs inside the attention footprint."""
+def _block_pairs(n_q: int, n_k: int, block_q: int, block_k: int,
+                 causal: bool, window, q_offset: int = 0):
+    """Static list of (iq, ik) block pairs inside the attention footprint:
+    a pair is skipped only when every key of block ik is masked for every
+    query of block iq (a skipped pair would have added exactly 0)."""
     pairs = []
     for iq in range(n_q):
+        q_lo = q_offset + iq * block_q
+        q_hi = q_lo + block_q - 1
         for ik in range(n_k):
-            if causal and ik > iq:
+            k_lo, k_hi = ik * block_k, (ik + 1) * block_k - 1
+            if causal and k_lo > q_hi:
                 continue
-            if window_blocks is not None and ik < iq - window_blocks:
+            if window is not None and k_hi <= q_lo - window:
                 continue
             pairs.append((iq, ik))
     return pairs
@@ -85,11 +96,8 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     block_k = min(block_k, sk)
     assert sq % block_q == 0 and sk % block_k == 0
     n_q, n_k = sq // block_q, sk // block_k
-    wb = None
-    if window is not None:
-        # a k-block can contribute if any of its keys is within the window
-        wb = (window + block_k - 1) // block_k + (block_q // block_k)
-    pairs = _block_pairs(n_q, n_k, causal and q_offset == 0 and sq == sk, wb)
+    pairs = _block_pairs(n_q, n_k, block_q, block_k, causal, window,
+                         q_offset)
 
     qg = _group(q, n_kv) * (1.0 / math.sqrt(hd))
     acc = torch.zeros((b, sq, n_kv, g, hd), dtype=torch.float32,
@@ -149,18 +157,14 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
     """q:[B,Sq,Hq,hd] k,v:[B,Sk,Hkv,hd] -> [B,Sq,Hq,hd].  On the card:
     kernel K4; on the CPU: dense for small S, blockwise beyond."""
     if q.device.type == "cuda":
-        if window is not None:
-            raise NotImplementedError(
-                "windowed attention on the GPU waits for ROADMAP.md queue 1 "
-                "item 2 (hybrid family: a window in kernel K4)")
         if q_offset != 0 or q.shape[1] != k.shape[1]:
             raise NotImplementedError(
                 "attention with a query offset or cross-attention on the "
                 "GPU waits for ROADMAP.md queue 1 item 3 (vlm/encdec "
                 "families)")
         return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2),
-                               causal=causal).transpose(1, 2)
+                               v.transpose(1, 2), causal=causal,
+                               window=window).transpose(1, 2)
     if q.shape[1] <= dense_threshold and k.shape[1] <= dense_threshold:
         return dense_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)

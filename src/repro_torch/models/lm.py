@@ -1,43 +1,52 @@
-"""Model assembly for serving: init / prefill / decode, dense and ssm
-families.
+"""Model assembly for serving: init / prefill / decode, for the dense,
+moe, ssm and hybrid families.
 
 Port of the serving half of ``repro.models.lm``.  Parameters are the
-JAX package's tree of plain dicts with layer-stacked ``[L, ...]`` leaves
+JAX package's tree of plain dicts with layer-stacked ``[L, ...]`` leaves,
+and for the hybrid family a list of per-layer dicts
 (``convert.lm_params_to_torch`` carries a JAX tree across); where JAX
 scans over layers, a Python loop indexes layer ``l`` of each leaf.
 
 Caches are plain dicts of tensors, as in JAX:
   attention : k, v [L, B, Smax, Hkv, hd], pos [B]
   ssm       : state [L,B,H,P,N], conv [L,B,K-1,Cc], pos [B]
+  hybrid    : hrec [Lr,B,W] fp32, conv [Lr,B,K-1,W], k,v [La,B,Wnd,Hkv,hd]
+              (ring buffer of the local window), pos [B]
 RoPE is applied to K at write time, so cached keys are position-baked.
+In the ring, position p lives at slot ``p % Wnd`` after a prefill as
+after a decode step.  (JAX's prefill keeps the last Wnd keys at slots
+0..Wnd-1, which agrees only when S <= Wnd or S % Wnd == 0; ROADMAP.md,
+"Semantics the port fixed".)
 :func:`decode_step` updates the large leaves in place (the attention
-k/v rows of the new token, the ssm state) instead of copying the whole
-cache each token, and returns the cache dict with ``pos`` advanced;
-the caller must not keep using the cache it passed in as a snapshot.
+k/v rows of the new token, the ssm state, the recurrent state) instead
+of copying the whole cache each token, and returns the cache dict with
+``pos`` advanced; the caller must not keep using the cache it passed in
+as a snapshot.
 
-The moe, hybrid, vlm and encdec families wait for ROADMAP.md queue 1.
+The vlm and encdec families wait for ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
 from .. import resolve_device
-from . import layers, ssm
+from . import layers, moe, rglru, ssm
 from .attention import attention, decode_attention
 from .config import LMConfig
 from .rope import apply_rope
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
 class ParallelCtx:
     """What the model knows about sharding.  On one device there is none:
     ``c(tensor, kind)`` is the identity.  The sharded stack, whose
-    context constrains, waits for ROADMAP.md queue 4."""
+    context constrains, waits for ROADMAP.md queue 1 item 9."""
 
     def c(self, t, kind):
         return t
@@ -54,7 +63,7 @@ def _check_family(cfg):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported to PyTorch yet "
-            f"(ROADMAP.md queue 1)")
+            f"(ROADMAP.md queue 1 item 3)")
 
 
 def _layer(blocks, i):
@@ -82,22 +91,41 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None):
     L = cfg.n_layers
     if cfg.family == "dense":
         params["blocks"] = _init_dense_stack(gen, cfg, dt, L)
-    else:
+    elif cfg.family == "moe":
+        blk = _init_dense_stack(gen, cfg, dt, L, ffn=False)
+        blk.update(moe.init_moe(gen, cfg, dt, stack=(L,)))
+        params["blocks"] = blk
+    elif cfg.family == "ssm":
         blk = {"ln1": layers.zeros(gen, (L, d), dt)}
         blk.update(ssm.init_mamba2(gen, cfg, dt, stack=(L,)))
         params["blocks"] = blk
+    else:                                              # hybrid
+        params["blocks"] = []
+        for i in range(L):
+            p = {"ln1": layers.zeros(gen, (d,), dt),
+                 "ln2": layers.zeros(gen, (d,), dt)}
+            if cfg.pattern_at(i) == "r":
+                p["rec"] = rglru.init_recurrent(gen, cfg, dt)
+            else:
+                p["attn"] = layers.init_attn(gen, d, cfg.n_heads,
+                                             cfg.n_kv_heads, cfg.hd,
+                                             cfg.qk_norm, cfg.use_bias, dt)
+            p["ffn"] = layers.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type,
+                                       cfg.use_bias, dt)
+            params["blocks"].append(p)
     return params
 
 
-def _init_dense_stack(gen, cfg, dt, L):
+def _init_dense_stack(gen, cfg, dt, L, ffn=True):
     d = cfg.d_model
     blk = {"ln1": layers.zeros(gen, (L, d), dt),
            "ln2": layers.zeros(gen, (L, d), dt)}
     blk.update(layers.init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.hd, cfg.qk_norm, cfg.use_bias, dt,
                                 stack=(L,)))
-    blk.update(layers.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type,
-                               cfg.use_bias, dt, stack=(L,)))
+    if ffn:
+        blk.update(layers.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type,
+                                   cfg.use_bias, dt, stack=(L,)))
     return blk
 
 
@@ -119,10 +147,11 @@ def _project_qkv(x, p, cfg, positions):
     return q, k, v
 
 
-def _attn_sub(x, p, cfg, ctx, *, cache=None, pos=None):
-    """Causal self-attention sub-block (no residual).  cache: (k_l, v_l)
-    for decode, written in place at ``pos``.  (The hybrid family's
-    window waits for ROADMAP.md queue 1 item 2.)"""
+def _attn_sub(x, p, cfg, ctx, *, window=None, cache=None, pos=None):
+    """Causal self-attention sub-block (no residual), over the last
+    ``window`` positions when one is given.  cache: (k_l, v_l) for
+    decode, written in place at ``pos`` (at ``pos % Wnd`` in the ring
+    of a windowed layer)."""
     b, s, _ = x.shape
     if cache is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -130,16 +159,18 @@ def _attn_sub(x, p, cfg, ctx, *, cache=None, pos=None):
         q = ctx.c(q, "attn_q")
         k = ctx.c(k, "attn_kv")
         v = ctx.c(v, "attn_kv")
-        o = attention(q, k, v, causal=True)
+        o = attention(q, k, v, causal=True, window=window)
         o = ctx.c(o, "attn_out")
         return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), (k, v)
     k_l, v_l = cache                                  # [B, Smax, Hkv, hd]
     q, k_new, v_new = _project_qkv(x, p, cfg, pos[:, None])
-    slot = pos.long()
+    slot = pos.long() if window is None else pos.long() % k_l.shape[1]
     bidx = torch.arange(b, device=x.device)
     k_l[bidx, slot] = k_new[:, 0].to(k_l.dtype)
     v_l[bidx, slot] = v_new[:, 0].to(v_l.dtype)
-    o = decode_attention(q, k_l, v_l, pos + 1)
+    kv_len = pos + 1 if window is None else \
+        torch.clamp(pos + 1, max=k_l.shape[1])       # the ring bounds it
+    o = decode_attention(q, k_l, v_l, kv_len)
     return (layers.dense(o.reshape(b, 1, -1), p["wo"], p.get("bo")),
             (k_l, v_l))
 
@@ -159,16 +190,46 @@ def dense_block(x, p, cfg, ctx, cache=None, pos=None):
     return x, kv
 
 
+def moe_block(x, p, cfg, ctx, cache=None, pos=None):
+    h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
+                      cache=cache, pos=pos)
+    x = x + h
+    y, _ = moe.moe_ffn(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg)
+    return x + y, kv
+
+
 def ssm_block(x, p, cfg, ctx, cache=None):
     h, new_cache = ssm.mamba2_block(
         layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, cache=cache)
     return x + h, new_cache
 
 
+def hybrid_block(x, p, cfg, ctx, kind, cache=None, pos=None):
+    if kind == "r":
+        h, new_cache = rglru.recurrent_block(
+            layers.rms_norm(x, p["ln1"], cfg.rms_eps), p["rec"], cfg,
+            cache=cache)
+    else:
+        h, new_cache = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps),
+                                 p["attn"], cfg, ctx,
+                                 window=cfg.local_window, cache=cache,
+                                 pos=pos)
+    x = x + h
+    x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p["ffn"],
+                     cfg, ctx)
+    return x, new_cache
+
+
+_BLOCK = {"dense": dense_block, "moe": moe_block}
+
+
 # ============================================================ serving paths
 
-def embed_tokens(params, tokens):
-    return params["embed"][tokens]
+def embed_tokens(params, tokens, cfg):
+    x = params["embed"][tokens]
+    if cfg.family == "hybrid":                        # gemma-style scaling
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def _head(params, cfg):
@@ -189,9 +250,21 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     _check_family(cfg)
     L = cfg.n_layers
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "pos": pos}
+    if cfg.family == "hybrid":
+        w = cfg.lru_width or cfg.d_model
+        n_r = sum(1 for i in range(L) if cfg.pattern_at(i) == "r")
+        shape = (L - n_r, batch, min(cfg.local_window, max_len),
+                 cfg.n_kv_heads, cfg.hd)
+        return {"hrec": torch.zeros((n_r, batch, w), dtype=torch.float32,
+                                    device=dev),
+                "conv": torch.zeros((n_r, batch, cfg.conv_width - 1, w),
+                                    dtype=dtype, device=dev),
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev),
                 "pos": pos}
     cc = cfg.d_inner + 2 * cfg.ssm_state
@@ -206,14 +279,34 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 def decode_step(params, cache, tokens, cfg, ctx):
     """One token for every sequence.  tokens [B,1] -> logits [B, V]."""
     _check_family(cfg)
-    x = ctx.c(embed_tokens(params, tokens), "resid_decode")
+    x = ctx.c(embed_tokens(params, tokens, cfg), "resid_decode")
     pos = cache["pos"]
     blocks = params["blocks"]
-    if cfg.family == "dense":
+    if cfg.family in _BLOCK:
+        block = _BLOCK[cfg.family]
         for i in range(cfg.n_layers):
-            x, _ = dense_block(x, _layer(blocks, i), cfg, ctx,
-                               cache=(cache["k"][i], cache["v"][i]), pos=pos)
+            x, _ = block(x, _layer(blocks, i), cfg, ctx,
+                         cache=(cache["k"][i], cache["v"][i]), pos=pos)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    elif cfg.family == "hybrid":
+        tails = []
+        ir = ia = 0
+        for i in range(cfg.n_layers):
+            kind = cfg.pattern_at(i)
+            if kind == "r":
+                x, (h_new, tail) = hybrid_block(
+                    x, blocks[i], cfg, ctx, kind,
+                    cache=(cache["hrec"][ir], cache["conv"][ir]))
+                cache["hrec"][ir].copy_(h_new)
+                tails.append(tail)
+                ir += 1
+            else:
+                x, _ = hybrid_block(x, blocks[i], cfg, ctx, kind,
+                                    cache=(cache["k"][ia], cache["v"][ia]),
+                                    pos=pos)
+                ia += 1
+        new_cache = {"hrec": cache["hrec"], "conv": torch.stack(tails),
+                     "k": cache["k"], "v": cache["v"], "pos": pos + 1}
     else:
         tails = []
         for i in range(cfg.n_layers):
@@ -236,16 +329,31 @@ def prefill(params, batch, cfg, ctx):
     _check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = ctx.c(embed_tokens(params, tokens), "resid")
+    x = ctx.c(embed_tokens(params, tokens, cfg), "resid")
     blocks = params["blocks"]
-    if cfg.family == "dense":
+    if cfg.family in _BLOCK:
+        block = _BLOCK[cfg.family]
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, (k, v) = dense_block(ctx.c(x, "resid"), _layer(blocks, i),
-                                    cfg, ctx)
+            x, (k, v) = block(ctx.c(x, "resid"), _layer(blocks, i), cfg, ctx)
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    elif cfg.family == "hybrid":
+        hrec, conv, ks, vs = [], [], [], []
+        wnd = min(cfg.local_window, s)
+        for i in range(cfg.n_layers):
+            kind = cfg.pattern_at(i)
+            x, c = hybrid_block(x, blocks[i], cfg, ctx, kind)
+            if kind == "r":
+                hrec.append(c[0])
+                conv.append(c[1])
+            else:
+                # the last wnd positions, position p at ring slot p % wnd
+                ks.append(torch.roll(c[0][:, -wnd:], s % wnd, dims=1))
+                vs.append(torch.roll(c[1][:, -wnd:], s % wnd, dims=1))
+        cache = {"hrec": torch.stack(hrec), "conv": torch.stack(conv),
+                 "k": torch.stack(ks), "v": torch.stack(vs)}
     else:
         states, tails = [], []
         for i in range(cfg.n_layers):

@@ -1,9 +1,9 @@
 """Serve step builder; port of ``repro.train.step.build_serve_step``.
 
 There is no mesh: the port runs on one device, and the sharded stack
-waits for ROADMAP.md queue 4.  The training half of the JAX module
-(``build_train_step`` and its optimizer wiring) waits for ROADMAP.md
-queue 1.
+waits for ROADMAP.md queue 1 item 9.  The training half of the JAX
+module (``build_train_step`` and its optimizer wiring) waits for
+ROADMAP.md queue 1 item 4.
 """
 
 from __future__ import annotations

@@ -540,6 +540,35 @@ def test_flash_attention_bf16_ragged_and_wide(cuda, hd, group, causal, s):
     assert _bf16_err(got, want) < 2e-2
 
 
+@pytest.mark.parametrize("wsel", ["one", "inside", "beyond"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [64, 500, 4096])
+@pytest.mark.parametrize("group", [1, 10])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_window_matches_plain(cuda, hd, group, s, dtype,
+                                              wsel):
+    """Windowed K4 (key j visible to query i iff j <= i and j > i - W)
+    against its plain version: W = 1 (the diagonal alone), W inside S
+    (S // 3 + 5: q tiles whose walk starts past key 0, tiles crossing
+    the window's lower edge) and W >= S (no key is cut), over head dims,
+    GQA groups of 1 and 10 (recurrentgemma-2b's 10 q heads over one kv
+    head), ragged and long S and both dtypes."""
+    rng = np.random.default_rng(hd + group + s)
+    window = {"one": 1, "inside": s // 3 + 5, "beyond": s + 7}[wsel]
+    b, hkv = 1, 1
+    ins = [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                            .astype(np.float32)).to(cuda, dtype)
+           .transpose(1, 2) for h in (hkv * group, hkv, hkv)]
+    want = flash_attention_plain(*ins, causal=True, window=window)
+    got = K.flash_attention(*ins, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.bfloat16:
+        assert _bf16_err(got, want) < 2e-2
+    else:
+        assert (got - want).abs().max().item() < 2e-5
+
+
 @pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 24),
                                       (4, 32, 6, 16), (2, 256, 3, 128),
                                       (2, 37, 3, 10)])
@@ -599,6 +628,9 @@ def test_lm_wrappers_count_and_reject(cuda):
     xb = torch.zeros((1, 2, 64, 68), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         K.flash_attention(*[xb[..., :64]] * 3)
+    for bad in (0, -3, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            K.flash_attention(x, x[:, :1], x[:, :1], window=bad)
     with pytest.raises(ValueError, match="too large"):
         K.ssd_intra(torch.zeros((1, 512, 512), device=cuda),
                     torch.zeros((1, 512, 1), device=cuda),
@@ -611,37 +643,53 @@ def test_lm_wrappers_count_and_reject(cuda):
 
 
 def test_lm_attention_raises_where_k4_cannot_serve(cuda):
+    """A query offset and cross-attention raise on the card; a window no
+    longer does: it launches K4."""
     from repro_torch.models.attention import attention
     q = torch.zeros((1, 16, 4, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention(q, q[:, :, :2], q[:, :, :2], window=8)
+    K.reset_launch_counts()
+    assert attention(q, q[:, :, :2], q[:, :, :2], window=8).shape == q.shape
+    assert K.launch_counts()["flash_attention"] == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention(q, q[:, :, :2], q[:, :, :2], q_offset=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention(q, q[:, :8, :2], q[:, :8, :2], causal=False)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b"])
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b",
+                                  "deepseek-moe-16b", "starcoder2-7b",
+                                  "recurrentgemma-2b"])
 def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
     """A small prefill + 4 decode steps in fp32, same weights, on the
     card (K4 or K5 in the prefill) and on the CPU (plain versions):
     logits within 1e-3 of their scale, caches likewise (bf16 leaves also
-    within one bf16 rounding step, 2**-7 relative)."""
+    within one bf16 rounding step, 2**-7 relative).  The hybrid model's
+    window (48) is shorter than the 64-token prompt and does not divide
+    it: the windowed K4 and the ring both work on the card."""
     from repro_torch import configs
     from repro_torch.launch.serve import grow_cache
     from repro_torch.models import lm
     cfg = configs.get_smoke_config(arch).replace(dtype="float32", d_model=128)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         cfg = cfg.replace(n_heads=4, n_kv_heads=2, head_dim=64)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_heads=2, n_kv_heads=1, head_dim=64,
+                          lru_width=128, local_window=48)
     params = lm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     toks = torch.randint(0, cfg.vocab, (2, 64),
                          generator=torch.Generator().manual_seed(2))
     runs = []
     for dev in ("cpu", cuda):
         K.reset_launch_counts()
-        p = {k: (v.to(dev) if torch.is_tensor(v) else
-                 {kk: vv.to(dev) for kk, vv in v.items()})
-             for k, v in params.items()}
+        p = _tree_to(params, dev)
         logits, cache = lm.prefill(p, {"tokens": toks.to(dev)}, cfg,
                                    lm.NO_PARALLEL)
         cache = grow_cache(cfg, cache, 68)
@@ -661,5 +709,7 @@ def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
         allow = 1e-3 * max(1.0, cc[k].abs().max().item()) \
             + (cc[k].abs() * 2.0 ** -7 if dtypes[k] == torch.bfloat16 else 0)
         assert ((cc[k] - cg[k]).abs() <= allow).all(), k
-    name = "flash_attention" if cfg.family == "dense" else "ssd_intra"
-    assert set(nc.values()) == {0} and ng[name] == cfg.n_layers
+    name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
+    per_prefill = sum(cfg.pattern_at(i) == "a" for i in range(
+        cfg.n_layers)) if cfg.family == "hybrid" else cfg.n_layers
+    assert set(nc.values()) == {0} and ng[name] == per_prefill

@@ -4,7 +4,8 @@
   ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling scripts;
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
   imports the port, serves a small trace on the CPU, runs the LM serve
-  of both families, the B-link tree and a transaction batch;
+  of the dense, ssm, moe and hybrid families (the moe FFN and the
+  RG-LRU modules with them), the B-link tree and a transaction batch;
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -78,7 +79,8 @@ def test_port_serves_with_jax_blocked():
         assert loop.drain(timeout=60)
         assert [len(r.generated) for r in reqs] == [4, 2]
         from repro_torch.launch.serve import main
-        for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+        for arch in ("qwen3-1.7b", "mamba2-2.7b", "deepseek-moe-16b",
+                     "starcoder2-7b", "recurrentgemma-2b"):
             res = main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "2", "--prompt-len", "32",
                         "--gen", "2"])
@@ -133,6 +135,11 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
         serve_main(["--arch", "qwen3-1.7b", "--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.lm_params_to_torch({"embed": np.zeros((4, 2), np.float32)})
+    for arch in ("deepseek-moe-16b", "recurrentgemma-2b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.init_params(get_smoke_config(arch), torch.Generator())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve_main(["--arch", arch, "--smoke", "--requests", "1"])
     step, prefill, _ = build_serve_step(cfg, device="cpu")
     params = lm.init_params(cfg, torch.Generator(), device="cpu")
     logits, _ = prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
@@ -154,6 +161,10 @@ def test_cpu_run_launches_no_kernel():
     tree = DeviceBTree.create(4, 32, fanout=4, device="cpu")
     tree.insert_batch([3, 1, 2, 9, 7], [30, 10, 20, 90, 70])
     assert tree.scan_batch([2], 3)[0] == [(2, 20), (3, 30), (7, 70)]
+    for arch in ("deepseek-moe-16b", "recurrentgemma-2b"):
+        assert serve_main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--requests", "1", "--prompt-len", "8",
+                           "--gen", "2"])["tokens"] == 2
     assert kernels.launch_counts() == {"latch_ops": 0, "gcl_fetch": 0,
                                        "paged_attention": 0,
                                        "flash_attention": 0,

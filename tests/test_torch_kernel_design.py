@@ -9,7 +9,14 @@ the numbers is pinned down here, against the JAX package's kernels:
   rounded to bf16 before the P.V product (the Pallas kernel keeps P in
   fp32).  Held against the Pallas kernel in interpret mode at
   ``tests/test_kernels.py``'s bf16 shapes and at ragged S, within that
-  file's bf16 tolerance of 2e-2.
+  file's bf16 tolerance of 2e-2.  With a window W, a q tile's walk
+  starts at the key tile holding key q0 - W + 1 and a tile takes the
+  masked path when it crosses the causal diagonal, the window's lower
+  edge of one of a warp's rows or the ragged end: the walk is checked to
+  cover every visible key and no wholly masked tile, the predicate to be
+  true wherever a key of the (warp, tile) is masked, and the windowed
+  emulation is held against JAX's ``dense_attention`` (the Pallas kernel
+  has no window) within 2e-2.
 * K3 (``csrc/paged_attention.cu``): the window's valid pages split into
   per-block slices of a cluster of 1/2/4/8 blocks, each slice split
   again over the block's lane groups (chunks of 4 tokens); every part
@@ -60,6 +67,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention.ops import \
     attention as jax_flash  # noqa: E402
+from repro.models.attention import dense_attention  # noqa: E402
 from repro.kernels.gcl_fetch.ops import fetch as jax_fetch  # noqa: E402
 from repro.kernels.latch_ops.ops import \
     apply_batch as jax_apply_batch  # noqa: E402
@@ -76,6 +84,8 @@ from repro_torch.kernels.paged_attention import \
 from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
 
 K4_TILE = 64              # keys per tile of the bf16 kernel
+K4_ROWS = 64              # q rows per block of the bf16 kernel
+K4_WARP_ROWS = 16         # q rows per warp
 K3_LANE_GROUPS = 16       # lane groups of a block (bf16 rows at hd 128)
 K3_TOKENS = 4             # tokens a lane group has in flight
 NEG = -1e30
@@ -90,14 +100,68 @@ def _t(a):
 
 # ------------------------------------------------------------------ K4
 
-def k4_emulate(q, k, v, *, causal, p_bf16=True):
+def k4_walk(q0, s, causal, window):
+    """The key tiles the bf16 K4 walks for the q tile at row q0
+    (``csrc/flash_attention.cu``: k_begin, k_end, n_tiles; the kernel's
+    WND is whether a window is given)."""
+    k_end = min(s, q0 + K4_ROWS) if causal else s
+    k_begin = max(0, q0 - window + 1) // K4_TILE * K4_TILE if window else 0
+    return list(range(k_begin, k_end, K4_TILE))
+
+
+def k4_masked_path(k0, q0, wrow, s, causal, window):
+    """The kernel's branch to the masked softmax for the warp whose rows
+    start at q0 + wrow and the key tile at k0."""
+    return (k0 + K4_TILE > s or (causal and k0 + K4_TILE - 1 > q0 + wrow)
+            or bool(window)
+            and k0 <= q0 + wrow + K4_WARP_ROWS - 1 - window)
+
+
+def _visible(rows, keys, s, causal, window):
+    ok = (keys[None, :] < s) & np.ones((len(rows), 1), bool)
+    if causal:
+        ok = ok & (keys[None, :] <= rows[:, None])
+    if window:
+        ok = ok & (keys[None, :] > rows[:, None] - window)
+    return ok
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,window", [
+    (64, 1), (500, 1), (500, 37), (500, 64), (500, 65), (500, 171),
+    (500, 500), (500, None), (4096, 2048), (2304, 2048), (17, 3),
+    (1000, 999), (640, 128)])
+def test_k4_window_walk_and_mask_predicate(s, window, causal):
+    """For every q tile: the walk covers every key a row of the tile
+    sees, visits no tile in which no row sees a key, and the masked-path
+    predicate holds wherever a (warp rows, tile) block has a masked
+    element (the unmasked path would read it)."""
+    for q0 in range(0, s, K4_ROWS):
+        rows = np.arange(q0, min(q0 + K4_ROWS, s))
+        walk = k4_walk(q0, s, causal, window)
+        seen = _visible(rows, np.arange(s), s, causal, window)
+        need = {k // K4_TILE * K4_TILE for k in np.nonzero(seen.any(0))[0]}
+        assert need == set(walk), (q0, sorted(need), walk)
+        for k0 in walk:
+            keys = np.arange(k0, k0 + K4_TILE)
+            for wrow in range(0, K4_ROWS, K4_WARP_ROWS):
+                wr = np.arange(q0 + wrow, q0 + wrow + K4_WARP_ROWS)
+                masked = ~_visible(wr, keys, s, causal, window)
+                masked &= (wr < s)[:, None]         # rows past S never stored
+                if masked.any():
+                    assert k4_masked_path(k0, q0, wrow, s, causal, window), \
+                        (q0, k0, wrow)
+
+
+def k4_emulate(q, k, v, *, causal, p_bf16=True, window=None):
     """The bf16 K4's arithmetic on [B, H, S, hd] tensors: fp32 scores of
     the inputs, scaled into the log2 domain, an online softmax over
     64-key tiles (a masked probability selected to 0), P rounded to
     bf16 when ``p_bf16``, fp32 sums.  Returns the fp32 output before
     the kernel's final cast.  The kernel skips tiles above the causal
-    diagonal; here they are visited fully masked, which changes
-    nothing (max unchanged, probabilities 0)."""
+    diagonal and below the window; here every row walks from its own
+    q tile's first tile (``k4_walk``), and a tile visited fully masked
+    changes nothing (max unchanged, probabilities 0)."""
     b, hq, s, hd = q.shape
     g = hq // k.shape[1]
     qf = q.float()
@@ -108,10 +172,14 @@ def k4_emulate(q, k, v, *, causal, p_bf16=True):
     m = torch.full((b, hq, s, 1), NEG)
     l = torch.zeros((b, hq, s, 1))
     acc = torch.zeros((b, hq, s, hd))
-    for k0 in range(0, s, K4_TILE):
+    first = min(k4_walk(q0, s, causal, window)[0]
+                for q0 in range(0, s, K4_ROWS))
+    for k0 in range(first, s, K4_TILE):
         keys = torch.arange(k0, min(k0 + K4_TILE, s))[None, :]
         x = qf @ kf[:, :, k0:k0 + K4_TILE].transpose(-1, -2) * scale_log2
         ok = keys <= rows if causal else torch.ones_like(keys, dtype=bool)
+        if window:
+            ok = ok & (keys > rows - window)
         x = torch.where(ok, x, NEG)
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
@@ -143,6 +211,25 @@ def test_k4_design_matches_pallas(b, s, hq, hkv, hd, causal):
     err = np.abs(got.transpose(1, 2).float().numpy()
                  - np.asarray(want, np.float32)).max()
     assert err < 2e-2
+
+
+@pytest.mark.parametrize("s,window,hd,g", [(256, 1, 64, 1), (256, 70, 128, 10),
+                                           (300, 128, 256, 10),
+                                           (100, 400, 64, 2)])
+def test_k4_window_design_matches_dense_attention(s, window, hd, g):
+    """The windowed bf16 K4 (tiles below a q tile's window skipped, the
+    window's edge masked, P rounded to bf16) against JAX's
+    ``dense_attention`` with the window, on bf16 inputs: within 2e-2 of
+    max(1, |want|)."""
+    rng = np.random.default_rng(s + window)
+    q, k, v = [jnp.asarray(rng.normal(size=(1, s, h, hd)), jnp.bfloat16)
+               for h in (g, 1, 1)]
+    want = np.asarray(dense_attention(q, k, v, causal=True, window=window),
+                      np.float32)
+    got = k4_emulate(*[_t(a).transpose(1, 2) for a in (q, k, v)],
+                     causal=True, window=window).to(torch.bfloat16)
+    got = got.transpose(1, 2).float().numpy()
+    assert (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max() < 2e-2
 
 
 @pytest.mark.parametrize("causal", [True, False])
