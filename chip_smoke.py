@@ -21,7 +21,11 @@ Phases (any failure exits non-zero; nothing is caught):
    with rotating rows, and K2-K4's library calls on both timers; K4 also
    at recurrentgemma-2b's windowed shapes (hd 256, 10 q heads over one
    kv head, window 2048: its 512-token prefill and S 4096, where the
-   window bites; :func:`flash_window_cases`);
+   window bites; :func:`flash_window_cases`), and at the vlm and encdec
+   families' shapes (:func:`flash_cross_cases`: llava-next-mistral-7b's
+   1664-position prefill; seamless-m4t-medium's cross-attention, 512
+   rows over 128 encoder keys, and its decode step, 1 row; 512 rows at
+   query offset 1152 over 1664 keys), each beside SDPA;
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
    the attention width of Qwen3-1.7B (16 query heads, 8 kv heads, head
    dim 128; ``src/repro/configs/qwen3_1p7b.py``) over the default pool
@@ -31,15 +35,20 @@ Phases (any failure exits non-zero; nothing is caught):
    the plain kernel over the oracle bytes, the coherence invariants,
    the page accounting, and that every kernel launched during the run,
    each K2 call once; print K2's calls counted by (R, valid rows);
-4. serve Qwen3-1.7B, Mamba2-2.7B, deepseek-moe-16b, starcoder2-7b and
-   recurrentgemma-2b at full published width and depth
-   (``src/repro/configs/*.py``; random bf16 weights from a seeded
-   ``torch.Generator`` on the card) through the port's
-   ``launch.serve.main``: 16 requests (Qwen3) or 8, batch 4, prompt 512,
-   32 generated tokens each; check finite logits, every token, and that
-   K4 ran once per attention layer per prefill (28, 28, 32 and the 8
-   local-attention layers of recurrentgemma-2b) and K5 once per layer
-   (Mamba2); then, at full width and reduced depth, hold a prefill
+4. serve Qwen3-1.7B, Mamba2-2.7B, deepseek-moe-16b, starcoder2-7b,
+   recurrentgemma-2b, llava-next-mistral-7b and seamless-m4t-medium at
+   full published width and depth (``src/repro/configs/*.py``; random
+   bf16 weights from a seeded ``torch.Generator`` on the card) through
+   the port's ``launch.serve.main``: 16 requests (Qwen3) or 8, batch 4,
+   prompt 512, 32 generated tokens each (llava's prompts after 1152 zero
+   patch embeddings, seamless's over 128 zero frames, the JAX driver's
+   stand-ins); check finite logits, every token, and that K4 ran exactly
+   once per attention layer per prefill (28, 28, 32, the 8
+   local-attention layers of recurrentgemma-2b, 32 for llava, and 36
+   for seamless: 12 encoder, 12 decoder self- and 12 cross-attention
+   layers) plus 12 times a decode step for seamless (cross-attention),
+   and K5 once per layer (Mamba2); then, at full width and reduced
+   depth, hold a prefill
    against its token-by-token replay through ``decode_step`` (the plain
    decode path; 4 layers and 512 tokens for Qwen3, Mamba2, deepseek and
    starcoder2, 2 layers and 128 tokens for dbrx-132b,
@@ -47,7 +56,13 @@ Phases (any failure exits non-zero; nothing is caught):
    whole, moe configs at the no-drop capacity factor), recurrentgemma-2b
    at 3 layers (r, r, a) and 2304 tokens, past its 2048 window and not a
    multiple of it, plus 8 ring decode steps after the prefill against
-   the longer prefills; time the fp32 head product of a decode step;
+   the longer prefills; llava at 4 layers: 1152 random patch embeddings
+   and 512 tokens, then 8 decode steps on the grown cache against
+   prefills of the same patches and the tokens so far
+   (:func:`vlm_continuation`); seamless at full depth over 128 random
+   frames: a 512-token decode replay from the prefill's cross K/V, then
+   8 steps on the grown cache against longer prefills
+   (:func:`encdec_replay`); time the fp32 head product of a decode step;
    and hold one full-width deepseek ``moe_ffn`` on 2048 tokens against
    an independent per-token fp32 loop, drop sets equal
    (:func:`moe_card_check`);
@@ -693,6 +708,101 @@ def flash_window_cases(dev, K):
     return out
 
 
+def visible_pairs(sq, sk, causal, q_offset=0, window=None) -> int:
+    """(query, key) pairs K4 computes: query row i at position q_offset +
+    i sees the keys j < sk with j <= q_offset + i when causal and j >
+    q_offset + i - window when a window is given."""
+    pos = q_offset + np.arange(sq)
+    hi = np.minimum(sk, pos + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+# K4 at the vlm and encdec families' shapes: tag -> (B, Sq, Sk, Hq, Hkv,
+# hd, causal, q_offset)
+FLASH_CROSS_CASES = {
+    # llava-next-mistral-7b's prefill: 1152 patches + 512 tokens
+    "llava": (4, 1664, 1664, 32, 8, 128, True, 0),
+    # seamless-m4t-medium's cross-attention: 512 decoder rows over the
+    # encoder's 128 frames, and the same at a decode step
+    "xattn": (4, 512, 128, 16, 16, 64, False, 0),
+    "xdec": (4, 1, 128, 16, 16, 64, False, 0),
+    # the prompt's 512 rows after llava's 1152 patches (the offset route:
+    # a prefill of the prompt over a cache that already holds the image)
+    "offset": (4, 512, 1664, 32, 8, 128, True, 1152),
+}
+
+
+def flash_cross_cases(dev, K):
+    """K4 at :data:`FLASH_CROSS_CASES`, bf16, read through the model's
+    [B, S, H, hd] layout: held against the plain version (2e-2 of
+    max(1, |want|) elementwise and each row within 1e-2 of its want's
+    L2 norm, as :func:`flash_window_cases`), timed beside its bound (the
+    pairs :func:`visible_pairs` counts) and SDPA's time for the same call
+    (``is_causal`` where the queries and keys line up, no mask for the
+    cross-attention, a boolean [Sq, Sk] mask for the offset).  Returns
+    the K4 row's keys for each tag."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(SEED + 10)
+    out = {}
+    for tag, (b, sq, sk, hq, hkv, hd, causal, off) in \
+            FLASH_CROSS_CASES.items():
+        q, k, v = [torch.from_numpy(rng.normal(size=(b, n, h, hd))
+                                    .astype(np.float32))
+                   .to(dev, torch.bfloat16).transpose(1, 2)
+                   for n, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+
+        def run(q=q, k=k, v=v, causal=causal, off=off):
+            return K.flash_attention(q, k, v, causal=causal, q_offset=off)
+        got = run()
+        want = flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=off).float()
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        rel = float((diff / want.abs().clamp(min=1.0)).max())
+        assert rel < 2e-2, f"flash_attention {tag} off by {rel} of " \
+            f"max(1, |want|) (tol 2e-2)"
+        row_rel = float((torch.linalg.vector_norm(diff, dim=-1)
+                         / torch.linalg.vector_norm(want, dim=-1)
+                         .clamp(min=1e-6)).max())
+        assert row_rel < 1e-2, f"flash_attention {tag}: a row off by " \
+            f"{row_rel} of its L2 norm (tol 1e-2)"
+        del want
+        if off:
+            pos = torch.arange(sk, device=dev)
+            mask = pos[None, :] <= off + torch.arange(sq, device=dev)[:, None]
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            def lib(q=q, k=k, v=v, causal=causal):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+        n_bytes = 2 * b * hd * (2 * sq * hq + 2 * sk * hkv)
+        n_flops = 4.0 * b * hq * hd * visible_pairs(sq, sk, causal, off)
+        bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS)
+        row = {"max_abs_err": float(diff.max()), "ms": graph_ms(run),
+               "ms_graph20": graph20_ms(run),
+               "plain_ms": eager_ms(lambda q=q, k=k, v=v, causal=causal,
+                                    off=off: flash_attention_plain(
+                                        q, k, v, causal=causal,
+                                        q_offset=off), iters=5),
+               "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(lib),
+               "library_ms_graph20": graph20_ms(lib)}
+        log(f"rate flash_attention {tag} (B {b}, Sq {sq}, Sk {sk}, Hq {hq}, "
+            f"Hkv {hkv}, hd {hd}, causal {causal}, q_offset {off}): "
+            f"{n_flops / row['ms'] / 1e9:.3f} TFLOP/s, "
+            f"{n_bytes / row['ms'] / 1e6:.3f} GB/s, "
+            f"{100 * bms / row['ms']:.2f} % of its bound ({by}), "
+            f"{row['ms'] / row['library_ms']:.3f}x SDPA's time; error "
+            f"{rel} of max(1, |want|) (tolerance 2e-2), {row_rel} of a "
+            f"row's L2 norm (tolerance 1e-2)")
+        out.update({f"{key}_{tag}": val for key, val in row.items()})
+    return out
+
+
 def check_ssd(dev, K):
     """K5 at the Mamba2-2.7B prefill shape: B*nc 8 (batch 4, two chunks),
     Q 256, H 80, P 64, fp32, with a cumsum steep enough that exp
@@ -850,10 +960,12 @@ def fetch_histogram():
 
 # ------------------------------------------------------ phase 4: LM serve
 
-def lm_serve(K, arch, requests, kernel, per_prefill, batch=4, prompt=512,
-             gen=32):
+def lm_serve(K, arch, requests, kernel, per_prefill, per_step=0, batch=4,
+             prompt=512, gen=32):
     """The port's ``launch.serve.main`` at the full config of ``arch``;
-    returns its counts and the kernels it launched."""
+    returns its counts and the kernels it launched.  ``kernel`` must have
+    launched ``per_prefill`` times a prefill and ``per_step`` times a
+    decode step, exactly."""
     from repro_torch.launch.serve import main as serve_main
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -869,9 +981,10 @@ def lm_serve(K, arch, requests, kernel, per_prefill, batch=4, prompt=512,
     assert res["finite"], f"{arch}: non-finite logits"
     assert res["tokens"] == requests * gen and \
         res["generated"].shape == (requests, gen), f"{arch}: tokens missing"
-    assert counts[kernel] == per_prefill * prefills, \
+    want = (per_prefill + per_step * gen) * prefills
+    assert counts[kernel] == want, \
         f"{arch}: {kernel} launched {counts[kernel]} times, expected " \
-        f"{per_prefill} x {prefills}"
+        f"({per_prefill} + {per_step} x {gen}) x {prefills} = {want}"
     return {"arch": arch, "requests": res["requests"],
             "tokens": res["tokens"], "serve_s": res["seconds"],
             "tok_per_s": res["tokens"] / res["seconds"],
@@ -988,6 +1101,115 @@ def replay_check(dev, arch, n_layers=4, s=512, ring=0):
         f"{arch}: prefill of {s} + {ring} ring decode steps off the " \
         f"longer prefill by {res['ring_rel_err']} x max |logit| " \
         f"(tol {REPLAY_TOL})"
+    return out
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def vlm_continuation(dev, n_layers=4, s=512, steps=8):
+    """llava-next-mistral-7b at full width and ``n_layers`` layers, bf16:
+    a prefill of its 1152 seeded random patch embeddings (drawn at the
+    token embeddings' scale, std 0.02) and ``s`` random tokens, the cache
+    grown by ``launch.serve.grow_cache`` to the patches + ``s`` +
+    ``steps`` slots, then ``steps`` decode steps, each held against a
+    prefill of the same patches and the tokens so far (within
+    ``REPLAY_TOL`` of max |logit|).  No token-by-token replay can feed
+    the patches through ``decode_step``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import grow_cache, prefix_len
+    from repro_torch.models import lm
+    cfg = get_config("llava-next-mistral-7b").replace(n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    params = lm.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (1, s + steps), generator=gen,
+                         device=dev)
+    patches = (0.02 * torch.randn((1, cfg.n_patches, cfg.d_model),
+                                  generator=gen, device=dev)).bfloat16()
+    ctx = lm.NO_PARALLEL
+
+    def prefill(n):
+        return lm.prefill(params, {"tokens": toks[:, :n],
+                                   "patch_embeds": patches}, cfg, ctx)
+    _, cache = prefill(s)
+    assert cache["pos"].tolist() == [cfg.n_patches + s]
+    cache = grow_cache(cfg, cache, prefix_len(cfg) + s + steps)
+    worst = 0.0
+    for i in range(steps):
+        logits, cache = lm.decode_step(params, cache,
+                                       toks[:, s + i:s + i + 1], cfg, ctx)
+        worst = max(worst, _rel_err(logits, prefill(s + i + 1)[0]))
+    out = {"arch": cfg.name, "layers": n_layers, "patches": cfg.n_patches,
+           "prompt": s, "steps": steps, "rel_err": worst,
+           "tolerance_rel": REPLAY_TOL}
+    log("continuation llava-next-mistral-7b: " + json.dumps(out))
+    assert np.isfinite(worst) and worst <= REPLAY_TOL, \
+        f"llava: decode after patches + {s} tokens off the longer " \
+        f"prefills by {worst} x max |logit| (tol {REPLAY_TOL})"
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_replay(dev, s=512, frames=128, steps=8):
+    """seamless-m4t-medium at full width and depth, bf16, over
+    ``frames`` seeded random frame embeddings: the last logits of a
+    prefill of ``s`` random tokens against a token-by-token
+    ``decode_step`` replay from a cache whose ``cross_k`` and ``cross_v``
+    are the prefill's (the decoder's self-attention cache in bf16); then
+    the prefill's cache grown by ``launch.serve.grow_cache`` (cross
+    leaves kept) takes ``steps`` decode steps, each held against a
+    prefill of the tokens so far over the same frames.  Both within
+    ``REPLAY_TOL`` of max |logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models import lm
+    cfg = get_config("seamless-m4t-medium")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    params = lm.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (1, s + steps), generator=gen,
+                         device=dev)
+    enc = torch.randn((1, frames, cfg.d_model), generator=gen,
+                      device=dev).bfloat16()
+    ctx = lm.NO_PARALLEL
+
+    def prefill(n):
+        return lm.prefill(params, {"tokens": toks[:, :n],
+                                   "enc_embeds": enc}, cfg, ctx)
+    logits_pf, cache_pf = prefill(s)
+    cache = lm.init_decode_cache(cfg, 1, s, device=dev)
+    cache["cross_k"], cache["cross_v"] = cache_pf["cross_k"], \
+        cache_pf["cross_v"]
+    t0 = time.perf_counter()
+    for i in range(s):
+        logits, cache = lm.decode_step(params, cache, toks[:, i:i + 1], cfg,
+                                       ctx)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / s * 1e3
+    replay_err = _rel_err(logits, logits_pf)
+    del cache
+    cache = grow_cache(cfg, cache_pf, s + steps)
+    assert cache["cross_k"].shape[2] == frames
+    worst = 0.0
+    for i in range(steps):
+        logits, cache = lm.decode_step(params, cache,
+                                       toks[:, s + i:s + i + 1], cfg, ctx)
+        worst = max(worst, _rel_err(logits, prefill(s + i + 1)[0]))
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers, "frames": frames, "prompt": s,
+           "replay_rel_err": replay_err, "steps": steps,
+           "continuation_rel_err": worst, "decode_step_ms": step_ms,
+           "tolerance_rel": REPLAY_TOL}
+    log("replay seamless-m4t-medium: " + json.dumps(out))
+    assert np.isfinite(replay_err) and replay_err <= REPLAY_TOL, \
+        f"seamless: prefill vs decode replay off by {replay_err} x max " \
+        f"|logit| (tol {REPLAY_TOL})"
+    assert np.isfinite(worst) and worst <= REPLAY_TOL, \
+        f"seamless: decode on the grown cache off the longer prefills by " \
+        f"{worst} x max |logit| (tol {REPLAY_TOL})"
+    del params, cache, cache_pf
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1420,8 +1642,9 @@ def main() -> int:
             _build.BUILD_LOG["flash_attention"])
             if "flash_attention_bf16_kernel<128," in fn
             or "flash_attention_bf16_kernelILi128E" in fn]
-        # with and without a window
-        assert tc128 == [0, 0], f"K4 bf16 at hd 128 spills: {tc128}"
+        # with and without a window, each with and without Sq != Sk or
+        # an offset
+        assert tc128 == [0] * 4, f"K4 bf16 at hd 128 spills: {tc128}"
     if "ssd_intra" in _build.BUILD_LOG:
         f32p64 = [sp for fn, _, sp in ptxas_functions(
             _build.BUILD_LOG["ssd_intra"])
@@ -1447,6 +1670,7 @@ def main() -> int:
             check_attention(dev, K), check_flash(dev, K),
             check_ssd(dev, K)]
     rows[3].update(flash_window_cases(dev, K))
+    rows[3].update(flash_cross_cases(dev, K))
     rows[0].update(latch_app_case(dev, K))
     rows[0].update(latch_app_case(dev, K, 1 << 20, 4096, "txn", "finalize"))
     rows[1].update(fetch_app_cases(dev, K))
@@ -1484,13 +1708,17 @@ def main() -> int:
         "a K2 call of the serve did not launch its kernel exactly once"
 
     lm_paths = {}
-    for arch, n_req, name, per in (
-            ("qwen3-1.7b", 16, "flash_attention", 28),
-            ("mamba2-2.7b", 8, "ssd_intra", 64),
-            ("deepseek-moe-16b", 8, "flash_attention", 28),
-            ("starcoder2-7b", 8, "flash_attention", 32),
-            ("recurrentgemma-2b", 8, "flash_attention", 8)):
-        res = lm_serve(K, arch, n_req, name, per)
+    for arch, n_req, name, per, per_step in (
+            ("qwen3-1.7b", 16, "flash_attention", 28, 0),
+            ("mamba2-2.7b", 8, "ssd_intra", 64, 0),
+            ("deepseek-moe-16b", 8, "flash_attention", 28, 0),
+            ("starcoder2-7b", 8, "flash_attention", 32, 0),
+            ("recurrentgemma-2b", 8, "flash_attention", 8, 0),
+            ("llava-next-mistral-7b", 8, "flash_attention", 32, 0),
+            # 12 encoder, 12 decoder self and 12 cross layers a prefill;
+            # the 12 cross layers at every decode step
+            ("seamless-m4t-medium", 8, "flash_attention", 36, 12)):
+        res = lm_serve(K, arch, n_req, name, per, per_step)
         log(f"lm {arch}: " + json.dumps(res))
         lm_paths[arch] = res["launches"][name]
         counts[name] = counts.get(name, 0) + res["launches"][name]
@@ -1500,6 +1728,8 @@ def main() -> int:
             ("dbrx-132b", 2, 128, 0), ("command-r-plus-104b", 2, 128, 0),
             ("llama3-405b", 2, 128, 0), ("recurrentgemma-2b", 3, 2304, 8)):
         replay_check(dev, arch, n_layers, s, ring)
+    vlm_continuation(dev)
+    encdec_replay(dev)
     moe_card_check(dev)
 
     by_path = {"serve": {k: counts[k] for k in ("latch_ops", "gcl_fetch")}}

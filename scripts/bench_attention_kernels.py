@@ -148,13 +148,17 @@ def k4_phases(dev, src_dir):
     strides = (ctypes.c_longlong * 12)(*[x for t in (q, k, v, o)
                                           for x in t.stride()[:3]])
     assert lib.zero_phases() == 0
-    # causal, then (a source with a window argument) window 0, then bf16
-    flags = [1, 0, 1] if len(_SIGNATURES["flash_attention_launch"]) == 15 \
-        else [1, 1]
+    # the C entry point's arguments as the source under test takes them:
+    # (Sq, Sk, q_offset) or one S; causal, then window 0 where it has a
+    # window argument, then bf16
+    n_args = len(_SIGNATURES["flash_attention_launch"])
+    lens = [s, s, 0] if n_args == 17 else [s]
+    flags = [1, 1] if n_args == 14 else [1, 0, 1]
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        ctypes.addressof(strides), b, hq, hkv, s, hd, 1.0 / math.sqrt(hd),
-        *flags, _build.stream_of(q)), "flash_attention (phases)")
+        ctypes.addressof(strides), b, hq, hkv, *lens, hd,
+        1.0 / math.sqrt(hd), *flags, _build.stream_of(q)),
+        "flash_attention (phases)")
     torch.cuda.synchronize()
     h = (ctypes.c_ulonglong * 8)()
     assert lib.read_phases(h) == 0

@@ -8,8 +8,9 @@ an unpacked older commit, instead of this checkout's.)
 
 For each architecture, at its full published config with random bf16
 weights (the port's ``init_params``, seed 0): one prefill of 4 prompts
-of 512 tokens, the cache grown by 32 slots, then decode steps, as
-``repro_torch.launch.serve`` runs them.  Reports
+of 512 tokens (with the serve driver's zero patch or frame embeddings
+for the vlm and encdec families), the cache grown by 32 slots, then
+decode steps, as ``repro_torch.launch.serve`` runs them.  Reports
 
 1. plain: the prefill's wall time and the mean wall time of 16 decode
    steps (host clock around work that ends in a synchronize);
@@ -20,7 +21,7 @@ of 512 tokens, the cache grown by 32 slots, then decode steps, as
    busy time, and the top device kernels and host ops;
 3. under ``torch.profiler``, one prefill alone: its device time and the
    share of it spent in the prefill's kernel (K4 ``flash_attention``
-   for the dense, moe and hybrid families, K5 ``ssd_intra`` for ssm).
+   for the attention families, K5 ``ssd_intra`` for ssm).
 
 Needs a CUDA device; prints the card's name and power limit first.
 Writes the full tables to ``<out-dir>/profile_lm_<arch>.txt``.
@@ -45,18 +46,24 @@ BATCH, PROMPT, GEN = 4, 512, 32
 
 def profile_arch(arch, dev):
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import grow_cache
+    from repro_torch.launch import serve
     from repro_torch.models import lm
     cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, gen, dev)
     toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                          device=dev)
+    batch = {"tokens": toks}
+    # (an older package under --src has neither helper nor these families)
+    if hasattr(serve, "frontend_stubs"):
+        batch.update(serve.frontend_stubs(cfg, BATCH, PROMPT, dev))
+    max_len = PROMPT + GEN + (serve.prefix_len(cfg) if hasattr(
+        serve, "prefix_len") else 0)
     ctx = lm.NO_PARALLEL
 
     def prefill():
-        logits, cache = lm.prefill(params, {"tokens": toks}, cfg, ctx)
-        return logits, grow_cache(cfg, cache, PROMPT + GEN)
+        logits, cache = lm.prefill(params, batch, cfg, ctx)
+        return logits, serve.grow_cache(cfg, cache, max_len)
 
     def decode(cache, nxt, n):
         for _ in range(n):

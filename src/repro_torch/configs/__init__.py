@@ -3,9 +3,9 @@
 ``get_config(name)`` returns the full published config;
 ``get_smoke_config(name)`` returns the reduced same-family config the
 CPU tests use (tiny widths, few layers, small vocab).  The names are the
-JAX package's; the port has the ``dense``, ``moe``, ``ssm`` and
-``hybrid`` families, and the vlm and encdec architectures raise
-``NotImplementedError`` naming the ROADMAP item that ports their family.
+JAX package's, and the port runs every one of its architectures: the
+``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``encdec``
+families.
 """
 from __future__ import annotations
 
@@ -38,25 +38,9 @@ CANON = {
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
-PORTED = ("deepseek_moe_16b", "dbrx_132b", "command_r_plus_104b",
-          "qwen3_1p7b", "starcoder2_7b", "llama3_405b", "recurrentgemma_2b",
-          "mamba2_2p7b")
-
-# where each family not yet ported waits (ROADMAP.md, queue 1)
-WAITS = {
-    "llava_next_mistral_7b": "queue 1 item 3 (vlm family)",
-    "seamless_m4t_medium": "queue 1 item 3 (encdec family: "
-                           "cross-attention)",
-}
-
-
 def _module(name: str):
     mod = CANON.get(name, name).replace("-", "_")
-    if mod not in PORTED:
-        if mod in WAITS:
-            raise NotImplementedError(
-                f"{name} is not ported to PyTorch yet: ROADMAP.md "
-                f"{WAITS[mod]}")
+    if mod not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

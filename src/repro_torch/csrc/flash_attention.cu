@@ -5,22 +5,31 @@
 // (flash_attention, the pallas_call at line 90); the wrapper is
 // src/repro_torch/kernels/flash_attention.py:flash_attention, which the
 // model's attention() (src/repro_torch/models/attention.py) calls for
-// every prefill self-attention on the card.
+// every attention of a prefill on the card, self and cross, and for the
+// encoder-decoder's cross-attention at every decode step.
 //
-// What it computes: for each batch b, query head h and query row i,
-// softmax_j(q[b,h,i] . k[b,h/G,j] / sqrt(hd)) over the keys j < S (and
-// j <= i when causal, and j > i - W when a window W is given: JAX's
-// _mask in src/repro/models/attention.py), times v; the output has q's
-// dtype.  Any S: the ragged last tile is masked.  q, k, v and out are read and written
+// What it computes: for each batch b, query head h and query row i < Sq
+// at position p = q_offset + i, softmax_j(q[b,h,i] . k[b,h/G,j] /
+// sqrt(hd)) over the keys j < Sk (and j <= p when causal, and j > p - W
+// when a window W is given: JAX's _mask in src/repro/models/
+// attention.py with qpos = q_offset + i), times v; the output has q's
+// dtype.  Sq and Sk may differ (cross-attention: the decoder's queries
+// over the encoder's keys), and any of them may be ragged: the last
+// tiles are masked.  Every query row must see at least one key (the
+// wrapper and flash_attention_launch refuse a call where one does not,
+// which takes a window: with q_offset >= 0 a causal row always sees key
+// 0).  q, k, v and out are read and written
 // through (batch, head, sequence) strides with a contiguous last
 // dimension, so the model passes its [B, S, H, hd] tensors as
 // transposed views and nothing is copied.  A masked score's probability
 // is selected to 0, never computed (exp(NEG - NEG) would be 1 in a
 // fully masked row of a tile).  Key tiles wholly above the causal
 // diagonal are never visited, like the Pallas kernel's pl.when skip, nor
-// those wholly below the window of the q tile's first row: a q tile's
-// walk starts at the key tile that holds key q0 - W + 1, so the work per
-// q tile is bounded by (W + 64) / 64 key tiles whatever S is.
+// those wholly below the window of the q tile's first row: a q tile
+// whose first row is at position p0 walks from the key tile that holds
+// key p0 - W + 1 up to the key of its last row below Sq (causal) or to
+// Sk, so the work per q tile is bounded by (W + 64) / 64 key tiles
+// whatever Sk is.
 // GQA is an index: the kv head is h / G, K/V are never expanded.
 //
 // What bounds it on the H100: bytes, on the tensor cores.  At the
@@ -29,7 +38,13 @@
 // traffic: 4.4 us at the bf16 tensor-core rate against 7.5 us of bytes
 // at 3.35 TB/s.  With no more than 8 q tiles of work per head, the
 // practical limit is latency: how fast one block streams its k/v tiles
-// through the tensor cores.
+// through the tensor cores.  The llava-next-mistral-7b prefill (1664
+// positions, 32 q heads) is bound by operations.  The encoder-decoder's
+// cross-attention (seamless-m4t-medium: 512 decoder rows over 128
+// encoder keys, not causal) is bound by bytes, and its decode step
+// (Sq 1) fills one row of a 64-row q tile: the other 63 compute on zero
+// rows and are not stored.  A split of Sk across blocks for Sq 1, as K3
+// splits its window, is left for later.
 //
 // bf16 inputs (the model's whole card path) run flash_attention_bf16_
 // kernel, in FlashAttention-2 shape.  A block of 4 warps owns a 64-row
@@ -72,6 +87,7 @@
 // runs fp32 K4; the model's fp32 tests on the card do.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -119,14 +135,14 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, Strides qs, Strides ks,
-    Strides vs, Strides os, int hq, int hkv, int s, float scale,
-    int causal, int window) {
+    Strides vs, Strides os, int hq, int hkv, int sq, int sk, int q_offset,
+    float scale, int causal, int window) {
   constexpr int QS = HD + 1;         // padded row stride of q and k tiles
   constexpr int DPT = HD / 16;       // output dims per thread
   extern __shared__ float smem[];
-  float* sq = smem;                  // [BQ][QS]
-  float* sk = sq + BQ * QS;          // [BK][QS]
-  float* sv = sk + BK * QS;          // [BK][HD]
+  float* sqt = smem;                 // [BQ][QS]
+  float* skt = sqt + BQ * QS;        // [BK][QS]
+  float* sv = skt + BK * QS;         // [BK][HD]
   float* sp = sv + BK * HD;          // [BQ][PS]
 
   const int tid = threadIdx.x;
@@ -144,7 +160,7 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, d = i % HD;
     const int pos = q0 + r;
-    sq[r * QS + d] = pos < s ? to_f(qb[pos * qs.s + d]) : 0.f;
+    sqt[r * QS + d] = pos < sq ? to_f(qb[pos * qs.s + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][DPT];
@@ -156,21 +172,22 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
   }
 
-  const int wnd = window > 0 ? window : s + BQ;  // 0: no window
-  const int k_end = causal ? min(s, q0 + BQ) : s;
-  // the first key tile holding a key that row q0 sees
-  const int k_begin = max(0, q0 - wnd + 1) / BK * BK;
+  const int p0 = q_offset + q0;      // position of the tile's first row
+  // causal: up to the key of the tile's last row (its last row < Sq)
+  const int k_end = causal ? min(sk, p0 + min(BQ, sq - q0)) : sk;
+  // the first key tile holding a key that row q0 sees (window 0: none)
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                 // q tile staged / last tile consumed
     for (int i = tid; i < BK * HD; i += NT) {
       const int r = i / HD, d = i % HD;
       const int pos = k0 + r;
       float kf = 0.f, vf = 0.f;
-      if (pos < s) {
+      if (pos < sk) {
         kf = to_f(kb[pos * ks.s + d]);
         vf = to_f(vb[pos * vs.s + d]);
       }
-      sk[r * QS + d] = kf;
+      skt[r * QS + d] = kf;
       sv[r * HD + d] = vf;
     }
     __syncthreads();
@@ -180,11 +197,11 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      const float k0f = sk[tx * QS + d];
-      const float k1f = sk[(tx + 16) * QS + d];
+      const float k0f = skt[tx * QS + d];
+      const float k1f = skt[(tx + 16) * QS + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float qf = sq[(ty * 4 + i) * QS + d];
+        const float qf = sqt[(ty * 4 + i) * QS + d];
         sc[i][0] += qf * k0f;
         sc[i][1] += qf * k1f;
       }
@@ -192,13 +209,14 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+      const int qpos = p0 + ty * 4 + i;
       bool ok[2];
       float mx = NEG;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < s && (!causal || kpos <= qpos) && kpos > qpos - wnd;
+        ok[j] = kpos < sk && (!causal || kpos <= qpos) &&
+                (window == 0 || kpos > qpos - window);
         sc[i][j] = ok[j] ? sc[i][j] * scale : NEG;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -238,7 +256,7 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int pos = q0 + ty * 4 + i;
-    if (pos >= s) continue;
+    if (pos >= sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
@@ -249,8 +267,8 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
 template <typename T, int HD>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  Strides qs, Strides ks, Strides vs, Strides os, int b,
-                 int hq, int hkv, int s, float scale, int causal,
-                 int window, cudaStream_t stream) {
+                 int hq, int hkv, int sq, int sk, int q_offset, float scale,
+                 int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;    // the attribute is per function
   if (!configured) {
@@ -260,29 +278,32 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid((s + BQ - 1) / BQ, b * hq);
+  dim3 grid((sq + BQ - 1) / BQ, b * hq);
   flash_attention_f32_kernel<T, HD><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, hq,
-      hkv, s, scale, causal, window);
+      hkv, sq, sk, q_offset, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               void* out, Strides qs, Strides ks, Strides vs, Strides os,
-              int b, int hq, int hkv, int s, float scale, int causal,
-              int window, cudaStream_t stream) {
+              int b, int hq, int hkv, int sq, int sk, int q_offset,
+              float scale, int causal, int window, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch_typed<T, 64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv,
-                                 s, scale, causal, window, stream);
+                                 sq, sk, q_offset, scale, causal, window,
+                                 stream);
     case 128:
       return launch_typed<T, 128>(q, k, v, out, qs, ks, vs, os, b, hq,
-                                  hkv, s, scale, causal, window, stream);
+                                  hkv, sq, sk, q_offset, scale, causal,
+                                  window, stream);
     case 256:
       return launch_typed<T, 256>(q, k, v, out, qs, ks, vs, os, b, hq,
-                                  hkv, s, scale, causal, window, stream);
+                                  hkv, sq, sk, q_offset, scale, causal,
+                                  window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -373,9 +394,9 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// One score tile's online-softmax step on a warp's C fragments (rows
-// qrow0 / qrow1 for elements 0-1 / 2-3; wnd the window, read only when
-// WND): scale into the log2 domain,
+// One score tile's online-softmax step on a warp's C fragments (query
+// positions qrow0 / qrow1 for elements 0-1 / 2-3; wnd the window, read
+// only when WND; sk the key count): scale into the log2 domain,
 // raise the running max (reduced over the 4 lanes of a row), rescale
 // the row's sum and accumulator, and leave the probabilities in sc.
 // MASK selects a masked score's probability to 0 (never exp(NEG - NEG),
@@ -385,13 +406,14 @@ template <bool MASK, bool WND, int NN, int ND>
 __device__ __forceinline__ void softmax_tile(float (&sc)[NN][4],
                                              float (&m)[2], float (&l)[2],
                                              float (&acc)[ND][4], int k0,
-                                             int s, int causal, int wnd,
+                                             int sk, int causal, int wnd,
                                              int qrow0, int qrow1, int lane,
                                              float scale_log2) {
   auto ok = [&](int n, int e) {
     const int key = k0 + 8 * n + 2 * (lane & 3) + (e & 1);
     const int row = e < 2 ? qrow0 : qrow1;
-    return (key < s) & (!causal | (key <= row)) & (!WND | (key > row - wnd));
+    return (key < sk) & (!causal | (key <= row)) &
+           (!WND | (key > row - wnd));
   };
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -452,14 +474,15 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
   }
 }
 
-// WND: a window is given (chosen per launch, so the unwindowed kernel
-// pays no compare for it)
-template <int HD, bool WND>
+// WND: a window is given; XQ: Sq != Sk or a query offset (each chosen
+// per launch, so self-attention at offset 0 without a window runs
+// code that compares nothing for either: one length, positions = rows)
+template <int HD, bool WND, bool XQ>
 __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, Strides qs,
-    Strides ks, Strides vs, Strides os, int hq, int hkv, int s,
-    float scale_log2, int causal, int window) {
+    Strides ks, Strides vs, Strides os, int hq, int hkv, int sq_len,
+    int sk_len, int q_offset, float scale_log2, int causal, int window) {
   constexpr int KC = HD / 8;         // 16-byte chunks of a row
   constexpr int KS = HD / 16;        // k-steps of Q.K^T
   constexpr int NN = BK / 8;         // 8-key n-tiles of a score tile
@@ -478,29 +501,34 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   const int h = bh % hq;
   const int kh = h / (hq / hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // most work first
+  const int skl = XQ ? sk_len : sq_len;              // keys
+  const int p0 = (XQ ? q_offset : 0) + q0;  // position of the tile's row 0
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + kh * ks.h;
   const bf16* vb = v + b * vs.b + kh * vs.h;
 
-  const int k_end = causal ? min(s, q0 + BQ) : s;
+  // causal: up to the key of the tile's last row below Sq (with Sq = Sk
+  // at offset 0, min(Sk, q0 + BQ) is the same bound)
+  const int k_end = causal ? min(skl, p0 + (XQ ? min(BQ, sq_len - q0) : BQ))
+                           : skl;
   // the first key tile holding a key that row q0 sees
-  const int k_begin = WND ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int k_begin = WND ? max(0, p0 - window + 1) / BK * BK : 0;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
   // prologue: group t = k/v tile t of the walk (group 0 with the q tile)
-  load_tile<HD, BQ>(sq, qb, qs.s, q0, s, tid);
+  load_tile<HD, BQ>(sq, qb, qs.s, q0, sq_len, tid);
 #pragma unroll
   for (int t = 0; t < STAGES; ++t) {
     if (t < n_tiles) {
       const int kt = k_begin + t * BK;
-      load_tile<HD, BK>(sk + t * BK * HD * 2, kb, ks.s, kt, s, tid);
-      load_tile<HD, BK>(sv + t * BK * HD * 2, vb, vs.s, kt, s, tid);
+      load_tile<HD, BK>(sk + t * BK * HD * 2, kb, ks.s, kt, skl, tid);
+      load_tile<HD, BK>(sv + t * BK * HD * 2, vb, vs.s, kt, skl, tid);
     }
     cp_commit();
   }
 
   const int wrow = warp * 16;                       // the warp's first row
-  const int qrow0 = q0 + wrow + (lane >> 2);        // rows of c0,c1 / c2,c3
+  const int qrow0 = p0 + wrow + (lane >> 2);  // positions of c0,c1 / c2,c3
   const int qrow1 = qrow0 + 8;
   const uint32_t q_addr = smem_u32(sq);
 
@@ -560,15 +588,16 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     // online softmax on the C fragments: element e of n-tile n is row
     // (e < 2 ? qrow0 : qrow1), key k0 + 8n + 2 (lane & 3) + (e & 1).
     // Only a tile that crosses the diagonal, the window's lower edge
-    // (key q - window + 1 of the warp's last row q) or the ragged end takes
-    // the masked path; the branch is uniform over the warp.
-    if (k0 + BK > s || (causal && k0 + BK - 1 > q0 + wrow) ||
-        (WND && k0 <= q0 + wrow + 15 - window))
-      softmax_tile<true, WND>(sc, m, l, acc, k0, s, causal, window, qrow0,
-                              qrow1, lane, scale_log2);
+    // (key p - window + 1 of the warp's last row, at position p) or the
+    // ragged end of the keys takes the masked path; the branch is uniform
+    // over the warp.
+    if (k0 + BK > skl || (causal && k0 + BK - 1 > p0 + wrow) ||
+        (WND && k0 <= p0 + wrow + 15 - window))
+      softmax_tile<true, WND>(sc, m, l, acc, k0, skl, causal, window,
+                              qrow0, qrow1, lane, scale_log2);
     else
-      softmax_tile<false, WND>(sc, m, l, acc, k0, s, causal, window, qrow0,
-                               qrow1, lane, scale_log2);
+      softmax_tile<false, WND>(sc, m, l, acc, k0, skl, causal, window,
+                               qrow0, qrow1, lane, scale_log2);
 
     // PHASE pv
     // O += P V: P's C fragments repacked as bf16 A fragments
@@ -594,8 +623,8 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     __syncthreads();                  // every warp is done with stage st
     if (j + STAGES < n_tiles) {
       const int k1 = k0 + STAGES * BK;
-      load_tile<HD, BK>(sk + st * BK * HD * 2, kb, ks.s, k1, s, tid);
-      load_tile<HD, BK>(sv + st * BK * HD * 2, vb, vs.s, k1, s, tid);
+      load_tile<HD, BK>(sk + st * BK * HD * 2, kb, ks.s, k1, skl, tid);
+      load_tile<HD, BK>(sv + st * BK * HD * 2, vb, vs.s, k1, skl, tid);
     }
     cp_commit();                      // possibly empty: keeps the count
     // PHASE end
@@ -624,59 +653,66 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   for (int i = lane; i < 16 * KC; i += 32) {
     const int r = wrow + i / KC, c = i % KC;
     const int pos = q0 + r;
-    if (pos < s)
+    if (pos < sq_len)
       *reinterpret_cast<uint4*>(ob + pos * os.s + c * 8) =
           *reinterpret_cast<const uint4*>(sq + swz<HD>(r, c));
   }
 }
 
-template <int HD, bool WND>
+template <int HD, bool WND, bool XQ>
 int launch(const void* q, const void* k, const void* v, void* out,
            Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
-           int hkv, int s, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int hkv, int sq, int sk, int q_offset, float scale, int causal,
+           int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;    // the attribute is per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<HD, WND>,
+        flash_attention_bf16_kernel<HD, WND, XQ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid(b * hq, (s + BQ - 1) / BQ);
-  flash_attention_bf16_kernel<HD, WND><<<grid, NT, bytes, stream>>>(
+  dim3 grid(b * hq, (sq + BQ - 1) / BQ);
+  flash_attention_bf16_kernel<HD, WND, XQ><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os,
-      hq, hkv, s, scale * 1.4426950408889634f, causal, window);
+      hq, hkv, sq, sk, q_offset, scale * 1.4426950408889634f, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_w(const void* q, const void* k, const void* v, void* out,
              Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
-             int hkv, int s, float scale, int causal, int window,
-             cudaStream_t stream) {
-  return window ? launch<HD, true>(q, k, v, out, qs, ks, vs, os, b, hq, hkv,
-                                   s, scale, causal, window, stream)
-                : launch<HD, false>(q, k, v, out, qs, ks, vs, os, b, hq,
-                                    hkv, s, scale, causal, window, stream);
+             int hkv, int sq, int sk, int q_offset, float scale, int causal,
+             int window, cudaStream_t stream) {
+  auto go = [&](auto wnd, auto xq) {
+    return launch<HD, decltype(wnd)::value, decltype(xq)::value>(
+        q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk, q_offset, scale,
+        causal, window, stream);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (sq != sk || q_offset != 0)
+    return window ? go(T{}, T{}) : go(F{}, T{});
+  return window ? go(T{}, F{}) : go(F{}, F{});
 }
 
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               void* out, Strides qs, Strides ks, Strides vs, Strides os,
-              int b, int hq, int hkv, int s, float scale, int causal,
-              int window, cudaStream_t stream) {
+              int b, int hq, int hkv, int sq, int sk, int q_offset,
+              float scale, int causal, int window, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_w<64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                          scale, causal, window, stream);
+      return launch_w<64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk,
+                          q_offset, scale, causal, window, stream);
     case 128:
-      return launch_w<128>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                           scale, causal, window, stream);
+      return launch_w<128>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk,
+                           q_offset, scale, causal, window, stream);
     case 256:
-      return launch_w<256>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                           scale, causal, window, stream);
+      return launch_w<256>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk,
+                           q_offset, scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -687,18 +723,23 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // strides: 12 element strides, (batch, head, sequence) for q, k, v, out
-// in that order.  window: 0 = none, else 1 <= W <= S (key j visible to
-// query i only if j > i - W).  bf16: 1 = all four tensors bfloat16 (the
-// tensor-core kernel; every stride a multiple of 8 and every base
-// 16-byte aligned), 0 = float32 (the FMA kernel).  Returns a CUDA error
-// code (0 = none); hd outside {64, 128, 256} or a window outside
-// [0, S] is cudaErrorInvalidValue.
+// in that order.  sq query rows at positions q_offset .. q_offset + sq - 1
+// over sk keys.  window: 0 = none, else 1 <= W <= q_offset + sq (key j
+// visible to the query at position p only if j > p - W).  bf16: 1 = all
+// four tensors bfloat16 (the tensor-core kernel; every stride a multiple
+// of 8 and every base 16-byte aligned), 0 = float32 (the FMA kernel).
+// Returns a CUDA error code (0 = none); hd outside {64, 128, 256}, sk < 1,
+// q_offset < 0, a window outside [0, q_offset + sq], or a query row
+// with no visible key (a window whose last row starts at or past key sk)
+// is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
-    const long long* strides, int b, int hq, int hkv, int s, int hd,
-    float scale, int causal, int window, int bf16, void* stream) {
-  if (b == 0 || s == 0) return 0;
-  if (window < 0 || window > s)
+    const long long* strides, int b, int hq, int hkv, int sq, int sk,
+    int q_offset, int hd, float scale, int causal, int window, int bf16,
+    void* stream) {
+  if (b == 0 || sq == 0) return 0;
+  if (sk < 1 || q_offset < 0 || window < 0 || window > q_offset + sq ||
+      (window > 0 && q_offset + sq - window >= sk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
@@ -706,8 +747,8 @@ extern "C" int flash_attention_launch(
   const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return tc::launch_hd(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                         scale, causal, window, st);
-  return launch_hd<float>(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, s,
-                          scale, causal, window, st);
+    return tc::launch_hd(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq,
+                         sk, q_offset, scale, causal, window, st);
+  return launch_hd<float>(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq,
+                          sk, q_offset, scale, causal, window, st);
 }

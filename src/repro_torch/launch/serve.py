@@ -6,7 +6,18 @@ serve step builders; port of ``repro.launch.serve``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are
 random, drawn from a ``torch.Generator`` seeded 0 on the device; the
-prompts are the JAX driver's (numpy seed 0).
+prompts are the JAX driver's (numpy seed 0), and so are the stand-ins of
+the modality frontends: zero bf16 ``patch_embeds`` [b, n_patches, d] for
+the vlm family and zero bf16 ``enc_embeds`` [b, max(1, prompt //
+enc_ratio), d] for the encdec family.
+
+The cache grows as the JAX driver grows it, with two differences (ROADMAP.md,
+"Semantics the port fixed"): a vlm cache grows to n_patches + prompt +
+gen slots, since its prefill already holds n_patches + prompt positions
+(JAX grows it to prompt + gen and fails when gen < n_patches), and the
+encoder's ``cross_k`` and ``cross_v`` are kept at the prefill's Se rows
+(JAX pads them to (prompt + gen) // enc_ratio with zero keys that every
+decode step attends to).
 """
 
 from __future__ import annotations
@@ -23,19 +34,46 @@ from ..models import lm
 from ..train.step import build_serve_step
 
 
+# leaves a decode step reads whole: never padded
+KEEP = ("pos", "cross_k", "cross_v")
+
+
 def grow_cache(cfg, cache, max_len):
     """The prefill cache (prompt-sized) copied into a decode cache of
     ``max_len`` slots (bf16, as ``init_decode_cache`` makes it); leaves
-    whose shape does not grow are kept as they are."""
+    whose shape does not grow, and the ``KEEP`` leaves, are kept as they
+    are."""
     b = cache["pos"].shape[0]
     full = lm.init_decode_cache(cfg, b, max_len, device=cache["pos"].device)
     for k in cache:
-        if k in full and k != "pos" and cache[k].shape != full[k].shape \
+        if k in full and k not in KEEP and cache[k].shape != full[k].shape \
                 and cache[k].dim() == full[k].dim():
             full[k][tuple(slice(0, s) for s in cache[k].shape)] = cache[k]
         else:
             full[k] = cache[k]
     return full
+
+
+def frontend_stubs(cfg, batch: int, prompt_len: int, device) -> dict:
+    """The JAX driver's stand-ins for the modality frontends: zero bf16
+    ``patch_embeds`` [batch, n_patches, d] (vlm) or ``enc_embeds``
+    [batch, max(1, prompt_len // enc_ratio), d] (encdec); none for the
+    other families."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.n_patches, cfg.d_model)
+        key = "patch_embeds"
+    elif cfg.family == "encdec":
+        shape = (batch, max(1, prompt_len // cfg.enc_ratio), cfg.d_model)
+        key = "enc_embeds"
+    else:
+        return {}
+    return {key: torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def prefix_len(cfg) -> int:
+    """Positions a prefill puts before the prompt's tokens (the vlm
+    family's image patches)."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
 
 
 def main(argv=None) -> dict:
@@ -77,9 +115,12 @@ def main(argv=None) -> dict:
         pending = pending[args.batch:]
         b = len(batch_reqs)
         toks = torch.tensor(batch_reqs, dtype=torch.int32, device=dev)
-        logits, cache = serve_prefill(params, {"tokens": toks})
-        # grow the cache to prompt+gen (prefill returns prompt-sized)
-        cache = grow_cache(cfg, cache, args.prompt_len + args.gen)
+        logits, cache = serve_prefill(params, {
+            "tokens": toks, **frontend_stubs(cfg, b, args.prompt_len, dev)})
+        # grow the cache to prompt+gen (prefill returns prompt-sized),
+        # after the patches of a vlm prompt
+        cache = grow_cache(cfg, cache, prefix_len(cfg) + args.prompt_len
+                           + args.gen)
         finite &= torch.isfinite(logits).all()
         nxt = logits.argmax(-1)[:, None].to(torch.int32)
         out = []

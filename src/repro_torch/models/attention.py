@@ -3,10 +3,11 @@
 Port of ``repro.models.attention``.  On the CPU, :func:`attention`
 dispatches as the JAX module does: ``dense_attention`` at or below
 ``dense_threshold`` tokens, ``blockwise_attention`` above.  On the card
-it runs kernel K4 (``kernels.flash_attention``) for every call K4
-serves, which is self-attention with or without a window and without a
-query offset; a call it cannot serve (offset or cross-attention) raises
-``NotImplementedError`` and never falls back to the plain paths.
+every call runs kernel K4 (``kernels.flash_attention``): self-attention
+with or without a window, a query offset, and cross-attention (Sq !=
+Sk); it never falls back to the plain paths.  A call in which some query
+row sees no key (a window past the keys) raises ``ValueError`` there,
+where JAX's dense path returns the mean of all V rows.
 ``blockwise_attention`` visits the (q block, k block) pairs that hold a
 visible key, counted in token positions: JAX's ``_block_pairs``
 compares block indices of two sizes and with a window drops pairs it
@@ -157,14 +158,10 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
     """q:[B,Sq,Hq,hd] k,v:[B,Sk,Hkv,hd] -> [B,Sq,Hq,hd].  On the card:
     kernel K4; on the CPU: dense for small S, blockwise beyond."""
     if q.device.type == "cuda":
-        if q_offset != 0 or q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                "attention with a query offset or cross-attention on the "
-                "GPU waits for ROADMAP.md queue 1 item 3 (vlm/encdec "
-                "families)")
         return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               window=window).transpose(1, 2)
+                               window=window,
+                               q_offset=q_offset).transpose(1, 2)
     if q.shape[1] <= dense_threshold and k.shape[1] <= dense_threshold:
         return dense_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)

@@ -1,5 +1,5 @@
 """Model assembly for serving: init / prefill / decode, for the dense,
-moe, ssm and hybrid families.
+moe, ssm, hybrid, vlm and encdec families.
 
 Port of the serving half of ``repro.models.lm``.  Parameters are the
 JAX package's tree of plain dicts with layer-stacked ``[L, ...]`` leaves,
@@ -9,6 +9,9 @@ scans over layers, a Python loop indexes layer ``l`` of each leaf.
 
 Caches are plain dicts of tensors, as in JAX:
   attention : k, v [L, B, Smax, Hkv, hd], pos [B]
+  encdec    : k, v as attention, cross_k, cross_v [L, B, Se, Hkv, hd]
+              (the encoder's output projected per layer; decode attends
+              to every one of its Se rows), pos [B]
   ssm       : state [L,B,H,P,N], conv [L,B,K-1,Cc], pos [B]
   hybrid    : hrec [Lr,B,W] fp32, conv [Lr,B,K-1,W], k,v [La,B,Wnd,Hkv,hd]
               (ring buffer of the local window), pos [B]
@@ -17,13 +20,13 @@ In the ring, position p lives at slot ``p % Wnd`` after a prefill as
 after a decode step.  (JAX's prefill keeps the last Wnd keys at slots
 0..Wnd-1, which agrees only when S <= Wnd or S % Wnd == 0; ROADMAP.md,
 "Semantics the port fixed".)
+A vlm prefill puts the patch embeddings before the tokens, so its cache
+holds n_patches + S positions and its ``pos`` is n_patches + S.
 :func:`decode_step` updates the large leaves in place (the attention
 k/v rows of the new token, the ssm state, the recurrent state) instead
 of copying the whole cache each token, and returns the cache dict with
 ``pos`` advanced; the caller must not keep using the cache it passed in
 as a snapshot.
-
-The vlm and encdec families wait for ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from .attention import attention, decode_attention
 from .config import LMConfig
 from .rope import apply_rope
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 @dataclass(frozen=True)
@@ -61,9 +64,7 @@ def _dt(cfg):
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported to PyTorch yet "
-            f"(ROADMAP.md queue 1 item 3)")
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _layer(blocks, i):
@@ -89,7 +90,7 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None):
     if not cfg.tie_embeddings:
         params["head"] = layers.normal(gen, (d, v), d ** -0.5, dt)
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         params["blocks"] = _init_dense_stack(gen, cfg, dt, L)
     elif cfg.family == "moe":
         blk = _init_dense_stack(gen, cfg, dt, L, ffn=False)
@@ -99,6 +100,16 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None):
         blk = {"ln1": layers.zeros(gen, (L, d), dt)}
         blk.update(ssm.init_mamba2(gen, cfg, dt, stack=(L,)))
         params["blocks"] = blk
+    elif cfg.family == "encdec":
+        params["enc_blocks"] = _init_dense_stack(gen, cfg, dt,
+                                                 cfg.n_enc_layers)
+        dec = _init_dense_stack(gen, cfg, dt, L)
+        dec.update({f"x_{k}": t for k, t in layers.init_attn(
+            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qk_norm,
+            cfg.use_bias, dt, stack=(L,)).items()})
+        dec["ln3"] = layers.zeros(gen, (L, d), dt)
+        params["dec_blocks"] = dec
+        params["enc_norm"] = layers.zeros(gen, (d,), dt)
     else:                                              # hybrid
         params["blocks"] = []
         for i in range(L):
@@ -147,19 +158,28 @@ def _project_qkv(x, p, cfg, positions):
     return q, k, v
 
 
-def _attn_sub(x, p, cfg, ctx, *, window=None, cache=None, pos=None):
-    """Causal self-attention sub-block (no residual), over the last
-    ``window`` positions when one is given.  cache: (k_l, v_l) for
-    decode, written in place at ``pos`` (at ``pos % Wnd`` in the ring
-    of a windowed layer)."""
+def _attn_sub(x, p, cfg, ctx, *, causal=True, window=None, cache=None,
+              pos=None, cross_kv=None):
+    """Attention sub-block (no residual): self-attention, causal unless
+    asked, over the last ``window`` positions when one is given; or,
+    with ``cross_kv`` = (k, v) [B, Se, Hkv, hd], cross-attention of x's
+    queries (no rope, no qk norm, not causal) over every row of them.
+    cache: (k_l, v_l) for decode, written in place at ``pos`` (at
+    ``pos % Wnd`` in the ring of a windowed layer)."""
     b, s, _ = x.shape
+    if cross_kv is not None:                          # cross-attention (dec)
+        q = layers.dense(x, p["wq"], p.get("bq")).reshape(
+            b, s, cfg.n_heads, cfg.hd)
+        k, v = cross_kv
+        o = ctx.c(attention(q, k, v, causal=False), "attn_out")
+        return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), None
     if cache is None:
         positions = torch.arange(s, device=x.device)[None, :]
         q, k, v = _project_qkv(x, p, cfg, positions)
         q = ctx.c(q, "attn_q")
         k = ctx.c(k, "attn_kv")
         v = ctx.c(v, "attn_kv")
-        o = attention(q, k, v, causal=True, window=window)
+        o = attention(q, k, v, causal=causal, window=window)
         o = ctx.c(o, "attn_out")
         return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), (k, v)
     k_l, v_l = cache                                  # [B, Smax, Hkv, hd]
@@ -220,7 +240,59 @@ def hybrid_block(x, p, cfg, ctx, kind, cache=None, pos=None):
     return x, new_cache
 
 
-_BLOCK = {"dense": dense_block, "moe": moe_block}
+_BLOCK = {"dense": dense_block, "vlm": dense_block, "moe": moe_block}
+
+
+# ============================================================ enc-dec
+
+def _xattn_params(p):
+    """The cross-attention weights of a decoder layer (its ``x_`` leaves,
+    prefix dropped)."""
+    return {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+
+
+def _enc_forward(params, enc_embeds, cfg, ctx):
+    """The encoder over the frame embeddings [B, Se, d]: per layer a
+    non-causal self-attention (rope over arange(Se)) and the FFN, then
+    ``enc_norm``."""
+    x = enc_embeds
+    blocks = params["enc_blocks"]
+    for i in range(cfg.n_enc_layers):
+        p = _layer(blocks, i)
+        h, _ = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg,
+                         ctx, causal=False)
+        x = x + h
+        x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg,
+                         ctx)
+    return layers.rms_norm(x, params["enc_norm"], cfg.rms_eps)
+
+
+def _dec_block(x, p, cfg, ctx, cross_kv, cache=None, pos=None):
+    """Decoder layer: causal self-attention, cross-attention over the
+    encoder's K/V (the ``x_`` weights, after ``ln3``), then the FFN."""
+    h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
+                      cache=cache, pos=pos)
+    x = x + h
+    h, _ = _attn_sub(layers.rms_norm(x, p["ln3"], cfg.rms_eps),
+                     _xattn_params(p), cfg, ctx, cross_kv=cross_kv)
+    x = x + h
+    x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg, ctx)
+    return x, kv
+
+
+def _cross_kv(params, enc_out, cfg):
+    """Every decoder layer's cross K/V of the encoder output:
+    ([L, B, Se, Hkv, hd], [L, B, Se, Hkv, hd])."""
+    b, se, _ = enc_out.shape
+    dec = params["dec_blocks"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        xp = _xattn_params(_layer(dec, i))
+        ks.append(layers.dense(enc_out, xp["wk"], xp.get("bk")).reshape(
+            b, se, cfg.n_kv_heads, cfg.hd))
+        vs.append(layers.dense(enc_out, xp["wv"], xp.get("bv")).reshape(
+            b, se, cfg.n_kv_heads, cfg.hd))
+    return torch.stack(ks), torch.stack(vs)
 
 
 # ============================================================ serving paths
@@ -250,11 +322,18 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     _check_family(cfg)
     L = cfg.n_layers
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe", "encdec"):
         shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "pos": pos}
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "pos": pos}
+        if cfg.family == "encdec":    # JAX's size; a serve keeps the
+            # prefill's own cross leaves (launch.serve.grow_cache)
+            shape = (L, batch, max(1, max_len // cfg.enc_ratio),
+                     cfg.n_kv_heads, cfg.hd)
+            cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        return cache
     if cfg.family == "hybrid":
         w = cfg.lru_width or cfg.d_model
         n_r = sum(1 for i in range(L) if cfg.pattern_at(i) == "r")
@@ -281,13 +360,20 @@ def decode_step(params, cache, tokens, cfg, ctx):
     _check_family(cfg)
     x = ctx.c(embed_tokens(params, tokens, cfg), "resid_decode")
     pos = cache["pos"]
-    blocks = params["blocks"]
+    blocks = params.get("blocks")
     if cfg.family in _BLOCK:
         block = _BLOCK[cfg.family]
         for i in range(cfg.n_layers):
             x, _ = block(x, _layer(blocks, i), cfg, ctx,
                          cache=(cache["k"][i], cache["v"][i]), pos=pos)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    elif cfg.family == "encdec":
+        blocks = params["dec_blocks"]
+        for i in range(cfg.n_layers):
+            x, _ = _dec_block(x, _layer(blocks, i), cfg, ctx,
+                              (cache["cross_k"][i], cache["cross_v"][i]),
+                              cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        new_cache = dict(cache, pos=pos + 1)
     elif cfg.family == "hybrid":
         tails = []
         ir = ia = 0
@@ -325,13 +411,33 @@ def decode_step(params, cache, tokens, cfg, ctx):
 def prefill(params, batch, cfg, ctx):
     """Process the full prompt; returns last-token logits + a decode
     cache sized to the prompt (``launch.serve.grow_cache`` makes room
-    for the tokens to come)."""
+    for the tokens to come).  ``batch`` holds ``tokens`` [B, S] and, for
+    the vlm family, optionally ``patch_embeds`` [B, n_patches, d]
+    (prepended to the token embeddings in their dtype), for the encdec
+    family ``enc_embeds`` [B, Se, d] (the encoder's input, taken in the
+    embedding table's dtype)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = ctx.c(embed_tokens(params, tokens, cfg), "resid")
-    blocks = params["blocks"]
-    if cfg.family in _BLOCK:
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    x = ctx.c(x, "resid")
+    blocks = params.get("blocks")
+    if cfg.family == "encdec":
+        enc_out = _enc_forward(
+            params, batch["enc_embeds"].to(params["embed"].dtype), cfg, ctx)
+        cross_k, cross_v = _cross_kv(params, enc_out, cfg)
+        dec = params["dec_blocks"]
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, (k, v) = _dec_block(x, _layer(dec, i), cfg, ctx,
+                                   (cross_k[i], cross_v[i]))
+            ks.append(k)
+            vs.append(v)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "cross_k": cross_k, "cross_v": cross_v}
+    elif cfg.family in _BLOCK:
         block = _BLOCK[cfg.family]
         ks, vs = [], []
         for i in range(cfg.n_layers):
@@ -362,6 +468,7 @@ def prefill(params, batch, cfg, ctx):
             states.append(st)
             tails.append(tail)
         cache = {"state": torch.stack(states), "conv": torch.stack(tails)}
-    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    cache["pos"] = torch.full((b,), x.shape[1], dtype=torch.int32,
+                              device=x.device)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(params, x[:, -1], cfg), cache

@@ -15,8 +15,9 @@ from ..models.config import LMConfig
 
 def build_serve_step(cfg: LMConfig, device=None):
     """Returns ``(serve_step, serve_prefill, ctx)`` for ``cfg`` on
-    ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Token ids are
-    moved to the device; parameters and caches must already live there.
+    ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Token ids, and a
+    prefill's ``patch_embeds`` and ``enc_embeds``, are moved to the
+    device; parameters and caches must already live there.
     """
     dev = resolve_device(device)
     ctx = lm.NO_PARALLEL
@@ -25,7 +26,9 @@ def build_serve_step(cfg: LMConfig, device=None):
         return lm.decode_step(params, cache, tokens.to(dev), cfg, ctx)
 
     def serve_prefill(params, batch):
-        batch = dict(batch, tokens=batch["tokens"].to(dev))
+        batch = {k: v.to(dev) if k in ("tokens", "patch_embeds",
+                                        "enc_embeds") else v
+                 for k, v in batch.items()}
         return lm.prefill(params, batch, cfg, ctx)
 
     return serve_step, serve_prefill, ctx

@@ -569,6 +569,85 @@ def test_flash_attention_window_matches_plain(cuda, hd, group, s, dtype,
         assert (got - want).abs().max().item() < 2e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_offset", [0, 37])
+@pytest.mark.parametrize("sk", [128, 500])
+@pytest.mark.parametrize("sq", [1, 17, 512])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_unequal_lengths_and_offset(cuda, hd, sq, sk,
+                                                    q_offset, causal, dtype):
+    """K4 with Sq != Sk (the encoder-decoder's cross-attention and its
+    decode step, Sq 1; Sq 512 over fewer keys than queries too) and with
+    query row i at position q_offset + i, causal or not, over head dims
+    and both dtypes, against its plain version."""
+    rng = np.random.default_rng(hd + sq + sk + q_offset)
+    b, hkv, group = 2, 2, 2
+    ins = [torch.from_numpy(rng.normal(size=(b, n, h, hd))
+                            .astype(np.float32)).to(cuda, dtype)
+           .transpose(1, 2)
+           for n, h in ((sq, hkv * group), (sk, hkv), (sk, hkv))]
+    want = flash_attention_plain(*ins, causal=causal, q_offset=q_offset)
+    got = K.flash_attention(*ins, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape == (b, 4, sq, hd)
+    if dtype == torch.bfloat16:
+        assert _bf16_err(got, want) < 2e-2
+    else:
+        assert (got - want).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,q_offset,window,causal", [
+    (17, 128, 100, 30, True), (512, 500, 0, 64, True),
+    (17, 128, 120, 20, False), (64, 300, 200, 150, True),
+    (1, 128, 200, 80, False)])
+def test_flash_attention_offset_with_a_window(cuda, sq, sk, q_offset, window,
+                                              causal, dtype):
+    """K4 with a query offset and a window together (a q tile's walk then
+    starts at the key tile holding q_offset + q0 - W + 1), hd 128."""
+    rng = np.random.default_rng(sq + sk + window)
+    ins = [torch.from_numpy(rng.normal(size=(1, n, h, 128))
+                            .astype(np.float32)).to(cuda, dtype)
+           .transpose(1, 2) for n, h in ((sq, 4), (sk, 1), (sk, 1))]
+    kw = {"causal": causal, "q_offset": q_offset, "window": window}
+    want = flash_attention_plain(*ins, **kw)
+    got = K.flash_attention(*ins, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert _bf16_err(got, want) < 2e-2
+    else:
+        assert (got - want).abs().max().item() < 2e-5
+
+
+def test_flash_attention_refuses_a_row_with_no_visible_key(cuda):
+    """A window whose last query row starts at or past the last key
+    leaves that row nothing to attend to: the wrapper raises before any
+    launch, and the C entry point refuses such a call itself."""
+    import ctypes
+    import math
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _SIGNATURES
+    x = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 1, 40, 64), device=cuda, dtype=torch.bfloat16)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="sees no key"):
+        K.flash_attention(x, kv, kv, causal=False, q_offset=40, window=8)
+    with pytest.raises(ValueError, match="sees no key"):
+        K.flash_attention(x, kv[:, :, :0], kv[:, :, :0], causal=False)
+    assert K.launch_counts()["flash_attention"] == 0
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = torch.empty_like(x)
+    strides = (ctypes.c_longlong * 12)(*[
+        st for t in (x, kv, kv, out) for st in t.stride()[:3]])
+    for sk, off, window in ((40, 40, 8), (0, 0, 0), (40, -1, 0)):
+        rc = lib.flash_attention_launch(
+            x.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(),
+            ctypes.addressof(strides), 1, 2, 1, 8, sk, off, 64,
+            1.0 / math.sqrt(64), 0, window, 1, _build.stream_of(x))
+        assert rc != 0, (sk, off, window)
+
+
 @pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 24),
                                       (4, 32, 6, 16), (2, 256, 3, 128),
                                       (2, 37, 3, 10)])
@@ -643,17 +722,28 @@ def test_lm_wrappers_count_and_reject(cuda):
 
 
 def test_lm_attention_raises_where_k4_cannot_serve(cuda):
-    """A query offset and cross-attention raise on the card; a window no
-    longer does: it launches K4."""
+    """Nothing the models call raises on the card any more: a window, a
+    query offset and cross-attention (Sq != Sk) each launch K4 once and
+    agree with the CPU's ``attention()``; only a row with no visible key
+    raises, before any launch."""
     from repro_torch.models.attention import attention
-    q = torch.zeros((1, 16, 4, 64), device=cuda)
+    rng = np.random.default_rng(9)
+    q, kv = [torch.from_numpy(rng.normal(size=(1, n, h, 64))
+                              .astype(np.float32)) for n, h in ((16, 4),
+                                                                (24, 2))]
+    for kw, k in (({"window": 8}, q[:, :, :2]), ({"q_offset": 4}, kv),
+                  ({"causal": False}, kv[:, :8])):
+        want = attention(q, k, k, **kw)
+        K.reset_launch_counts()
+        got = attention(q.to(cuda), k.to(cuda), k.to(cuda), **kw)
+        assert K.launch_counts()["flash_attention"] == 1, kw
+        assert got.shape == q.shape
+        assert (got.cpu() - want).abs().max().item() < 2e-5, kw
     K.reset_launch_counts()
-    assert attention(q, q[:, :, :2], q[:, :, :2], window=8).shape == q.shape
-    assert K.launch_counts()["flash_attention"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention(q, q[:, :, :2], q[:, :, :2], q_offset=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention(q, q[:, :8, :2], q[:, :8, :2], causal=False)
+    with pytest.raises(ValueError, match="sees no key"):
+        attention(q.to(cuda), kv[:, :8].to(cuda), kv[:, :8].to(cuda),
+                  causal=False, q_offset=8, window=8)
+    assert K.launch_counts()["flash_attention"] == 0
 
 
 def _tree_to(tree, dev):
@@ -666,33 +756,48 @@ def _tree_to(tree, dev):
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b",
                                   "deepseek-moe-16b", "starcoder2-7b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-medium"])
 def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
     """A small prefill + 4 decode steps in fp32, same weights, on the
     card (K4 or K5 in the prefill) and on the CPU (plain versions):
     logits within 1e-3 of their scale, caches likewise (bf16 leaves also
     within one bf16 rounding step, 2**-7 relative).  The hybrid model's
     window (48) is shorter than the 64-token prompt and does not divide
-    it: the windowed K4 and the ring both work on the card."""
+    it: the windowed K4 and the ring both work on the card.  The vlm
+    prompt carries 16 seeded patch embeddings, the encdec prompt 16
+    seeded frames: K4 serves the encoder, the decoder's self- and
+    cross-attention in the prefill and the cross-attention of every
+    decode step."""
     from repro_torch import configs
     from repro_torch.launch.serve import grow_cache
     from repro_torch.models import lm
     cfg = configs.get_smoke_config(arch).replace(dtype="float32", d_model=128)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         cfg = cfg.replace(n_heads=4, n_kv_heads=2, head_dim=64)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(n_heads=2, n_kv_heads=2, head_dim=64)
     if cfg.family == "hybrid":
         cfg = cfg.replace(n_heads=2, n_kv_heads=1, head_dim=64,
                           lru_width=128, local_window=48)
+    gen = torch.Generator().manual_seed(2)
     params = lm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    toks = torch.randint(0, cfg.vocab, (2, 64),
-                         generator=torch.Generator().manual_seed(2))
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((2, cfg.n_patches, 128),
+                                            generator=gen)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((2, 16, 128), generator=gen)
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
     runs = []
     for dev in ("cpu", cuda):
         K.reset_launch_counts()
         p = _tree_to(params, dev)
-        logits, cache = lm.prefill(p, {"tokens": toks.to(dev)}, cfg,
+        logits, cache = lm.prefill(p, _tree_to(batch, dev), cfg,
                                    lm.NO_PARALLEL)
-        cache = grow_cache(cfg, cache, 68)
+        cache = grow_cache(cfg, cache, prefix + 68)
         out = [logits]
         for i in range(4):
             logits, cache = lm.decode_step(p, cache, toks[:, i:i + 1].to(dev),
@@ -710,6 +815,9 @@ def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
             + (cc[k].abs() * 2.0 ** -7 if dtypes[k] == torch.bfloat16 else 0)
         assert ((cc[k] - cg[k]).abs() <= allow).all(), k
     name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
-    per_prefill = sum(cfg.pattern_at(i) == "a" for i in range(
+    launches = sum(cfg.pattern_at(i) == "a" for i in range(
         cfg.n_layers)) if cfg.family == "hybrid" else cfg.n_layers
-    assert set(nc.values()) == {0} and ng[name] == per_prefill
+    if cfg.family == "encdec":      # the prefill's encoder, decoder self-
+        # and cross-attention, then cross-attention in 4 decode steps
+        launches = cfg.n_enc_layers + 2 * cfg.n_layers + 4 * cfg.n_layers
+    assert set(nc.values()) == {0} and ng[name] == launches

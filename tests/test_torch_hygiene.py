@@ -4,8 +4,9 @@
   ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling scripts;
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
   imports the port, serves a small trace on the CPU, runs the LM serve
-  of the dense, ssm, moe and hybrid families (the moe FFN and the
-  RG-LRU modules with them), the B-link tree and a transaction batch;
+  of the dense, ssm, moe, hybrid, vlm and encdec families (the moe FFN
+  and the RG-LRU modules with them), the B-link tree and a transaction
+  batch;
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -80,7 +81,8 @@ def test_port_serves_with_jax_blocked():
         assert [len(r.generated) for r in reqs] == [4, 2]
         from repro_torch.launch.serve import main
         for arch in ("qwen3-1.7b", "mamba2-2.7b", "deepseek-moe-16b",
-                     "starcoder2-7b", "recurrentgemma-2b"):
+                     "starcoder2-7b", "recurrentgemma-2b",
+                     "llava-next-mistral-7b", "seamless-m4t-medium"):
             res = main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "2", "--prompt-len", "32",
                         "--gen", "2"])
@@ -161,7 +163,8 @@ def test_cpu_run_launches_no_kernel():
     tree = DeviceBTree.create(4, 32, fanout=4, device="cpu")
     tree.insert_batch([3, 1, 2, 9, 7], [30, 10, 20, 90, 70])
     assert tree.scan_batch([2], 3)[0] == [(2, 20), (3, 30), (7, 70)]
-    for arch in ("deepseek-moe-16b", "recurrentgemma-2b"):
+    for arch in ("deepseek-moe-16b", "recurrentgemma-2b",
+                 "llava-next-mistral-7b", "seamless-m4t-medium"):
         assert serve_main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--requests", "1", "--prompt-len", "8",
                            "--gen", "2"])["tokens"] == 2

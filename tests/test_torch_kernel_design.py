@@ -9,14 +9,18 @@ the numbers is pinned down here, against the JAX package's kernels:
   rounded to bf16 before the P.V product (the Pallas kernel keeps P in
   fp32).  Held against the Pallas kernel in interpret mode at
   ``tests/test_kernels.py``'s bf16 shapes and at ragged S, within that
-  file's bf16 tolerance of 2e-2.  With a window W, a q tile's walk
-  starts at the key tile holding key q0 - W + 1 and a tile takes the
-  masked path when it crosses the causal diagonal, the window's lower
-  edge of one of a warp's rows or the ragged end: the walk is checked to
-  cover every visible key and no wholly masked tile, the predicate to be
-  true wherever a key of the (warp, tile) is masked, and the windowed
-  emulation is held against JAX's ``dense_attention`` (the Pallas kernel
-  has no window) within 2e-2.
+  file's bf16 tolerance of 2e-2.  Query row i sits at position
+  q_offset + i over Sk keys (Sq != Sk for cross-attention).  With a
+  window W, the walk of a q tile whose first row is at position p0
+  starts at the key tile holding key p0 - W + 1; causal, it ends at the
+  key of the tile's last row below Sq; a tile takes the masked path when
+  it crosses the causal diagonal, the window's lower edge of one of a
+  warp's rows or the keys' ragged end.  The walk is checked to cover
+  every visible key and no tile that no row sees, the predicate to be
+  true wherever a key of the (warp, tile) is masked, over Sq = Sk with
+  and without a window and over Sq != Sk with offsets; the windowed and
+  the cross / offset emulations are held against JAX's
+  ``dense_attention`` (the Pallas kernel has neither) within 2e-2.
 * K3 (``csrc/paged_attention.cu``): the window's valid pages split into
   per-block slices of a cluster of 1/2/4/8 blocks, each slice split
   again over the block's lane groups (chunks of 4 tokens); every part
@@ -100,24 +104,28 @@ def _t(a):
 
 # ------------------------------------------------------------------ K4
 
-def k4_walk(q0, s, causal, window):
+def k4_walk(q0, sq, sk, causal, window, q_offset=0):
     """The key tiles the bf16 K4 walks for the q tile at row q0
-    (``csrc/flash_attention.cu``: k_begin, k_end, n_tiles; the kernel's
-    WND is whether a window is given)."""
-    k_end = min(s, q0 + K4_ROWS) if causal else s
-    k_begin = max(0, q0 - window + 1) // K4_TILE * K4_TILE if window else 0
+    (``csrc/flash_attention.cu``: p0, k_begin, k_end, n_tiles; the
+    kernel's WND is whether a window is given, its XQ whether Sq != Sk
+    or q_offset > 0: without XQ it bounds a causal walk by min(S, q0 +
+    64), the same bound as this one's when Sq = Sk at offset 0)."""
+    p0 = q_offset + q0
+    k_end = min(sk, p0 + min(K4_ROWS, sq - q0)) if causal else sk
+    k_begin = max(0, p0 - window + 1) // K4_TILE * K4_TILE if window else 0
     return list(range(k_begin, k_end, K4_TILE))
 
 
-def k4_masked_path(k0, q0, wrow, s, causal, window):
+def k4_masked_path(k0, p0, wrow, sk, causal, window):
     """The kernel's branch to the masked softmax for the warp whose rows
-    start at q0 + wrow and the key tile at k0."""
-    return (k0 + K4_TILE > s or (causal and k0 + K4_TILE - 1 > q0 + wrow)
+    start at position p0 + wrow and the key tile at k0."""
+    return (k0 + K4_TILE > sk or (causal and k0 + K4_TILE - 1 > p0 + wrow)
             or bool(window)
-            and k0 <= q0 + wrow + K4_WARP_ROWS - 1 - window)
+            and k0 <= p0 + wrow + K4_WARP_ROWS - 1 - window)
 
 
 def _visible(rows, keys, s, causal, window):
+    """Which of ``keys`` the query positions ``rows`` see, of s keys."""
     ok = (keys[None, :] < s) & np.ones((len(rows), 1), bool)
     if causal:
         ok = ok & (keys[None, :] <= rows[:, None])
@@ -136,46 +144,73 @@ def test_k4_window_walk_and_mask_predicate(s, window, causal):
     sees, visits no tile in which no row sees a key, and the masked-path
     predicate holds wherever a (warp rows, tile) block has a masked
     element (the unmasked path would read it)."""
-    for q0 in range(0, s, K4_ROWS):
-        rows = np.arange(q0, min(q0 + K4_ROWS, s))
-        walk = k4_walk(q0, s, causal, window)
-        seen = _visible(rows, np.arange(s), s, causal, window)
+    _check_walk(s, s, 0, causal, window)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (1, 128, 0, None), (1, 128, 127, None), (17, 128, 0, None),
+    (512, 128, 0, None), (512, 128, 37, None), (17, 500, 37, None),
+    (512, 500, 37, None), (1, 500, 499, None), (17, 128, 100, 30),
+    (64, 300, 200, 150), (1, 128, 200, 80), (512, 1664, 1152, None),
+    (100, 1000, 900, 64), (70, 200, 10, 1)])
+def test_k4_walk_with_offset_and_unequal_lengths(sq, sk, q_offset, window,
+                                                 causal):
+    """The walk and the masked-path predicate with Sq != Sk and query
+    row i at position q_offset + i (cross-attention, its Sq 1 decode
+    step, an offset suffix of a longer key range), with and without a
+    window: no visible key is skipped, no tile that no row below Sq sees
+    is visited, and every masked element takes the masked path.  The
+    cases with a window sit where every row still sees a key, which the
+    wrapper requires."""
+    _check_walk(sq, sk, q_offset, causal, window)
+
+
+def _check_walk(sq, sk, q_offset, causal, window):
+    for q0 in range(0, sq, K4_ROWS):
+        p0 = q_offset + q0
+        rows = p0 + np.arange(min(K4_ROWS, sq - q0))
+        walk = k4_walk(q0, sq, sk, causal, window, q_offset)
+        seen = _visible(rows, np.arange(sk), sk, causal, window)
+        assert seen.any(1).all(), q0                # every row sees a key
         need = {k // K4_TILE * K4_TILE for k in np.nonzero(seen.any(0))[0]}
         assert need == set(walk), (q0, sorted(need), walk)
         for k0 in walk:
             keys = np.arange(k0, k0 + K4_TILE)
             for wrow in range(0, K4_ROWS, K4_WARP_ROWS):
-                wr = np.arange(q0 + wrow, q0 + wrow + K4_WARP_ROWS)
-                masked = ~_visible(wr, keys, s, causal, window)
-                masked &= (wr < s)[:, None]         # rows past S never stored
+                idx = q0 + wrow + np.arange(K4_WARP_ROWS)
+                masked = ~_visible(q_offset + idx, keys, sk, causal, window)
+                masked &= (idx < sq)[:, None]    # rows past Sq never stored
                 if masked.any():
-                    assert k4_masked_path(k0, q0, wrow, s, causal, window), \
-                        (q0, k0, wrow)
+                    assert k4_masked_path(k0, p0, wrow, sk, causal,
+                                          window), (q0, k0, wrow)
 
 
-def k4_emulate(q, k, v, *, causal, p_bf16=True, window=None):
-    """The bf16 K4's arithmetic on [B, H, S, hd] tensors: fp32 scores of
-    the inputs, scaled into the log2 domain, an online softmax over
-    64-key tiles (a masked probability selected to 0), P rounded to
-    bf16 when ``p_bf16``, fp32 sums.  Returns the fp32 output before
-    the kernel's final cast.  The kernel skips tiles above the causal
-    diagonal and below the window; here every row walks from its own
-    q tile's first tile (``k4_walk``), and a tile visited fully masked
-    changes nothing (max unchanged, probabilities 0)."""
-    b, hq, s, hd = q.shape
+def k4_emulate(q, k, v, *, causal, p_bf16=True, window=None, q_offset=0):
+    """The bf16 K4's arithmetic on q [B, H, Sq, hd] and k, v
+    [B, Hkv, Sk, hd] tensors, query row i at position q_offset + i:
+    fp32 scores of the inputs, scaled into the log2 domain, an online
+    softmax over 64-key tiles (a masked probability selected to 0), P
+    rounded to bf16 when ``p_bf16``, fp32 sums.  Returns the fp32 output
+    before the kernel's final cast.  The kernel skips tiles above the
+    causal diagonal and below the window; here every row walks from the
+    first tile any q tile walks (``k4_walk``), and a tile visited fully
+    masked changes nothing (max unchanged, probabilities 0)."""
+    b, hq, sq, hd = q.shape
+    sk = k.shape[2]
     g = hq // k.shape[1]
     qf = q.float()
     kf = k.float().repeat_interleave(g, 1)
     vf = v.float().repeat_interleave(g, 1)
     scale_log2 = math.log2(math.e) / math.sqrt(hd)
-    rows = torch.arange(s)[:, None]
-    m = torch.full((b, hq, s, 1), NEG)
-    l = torch.zeros((b, hq, s, 1))
-    acc = torch.zeros((b, hq, s, hd))
-    first = min(k4_walk(q0, s, causal, window)[0]
-                for q0 in range(0, s, K4_ROWS))
-    for k0 in range(first, s, K4_TILE):
-        keys = torch.arange(k0, min(k0 + K4_TILE, s))[None, :]
+    rows = q_offset + torch.arange(sq)[:, None]
+    m = torch.full((b, hq, sq, 1), NEG)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, hd))
+    first = min(k4_walk(q0, sq, sk, causal, window, q_offset)[0]
+                for q0 in range(0, sq, K4_ROWS))
+    for k0 in range(first, sk, K4_TILE):
+        keys = torch.arange(k0, min(k0 + K4_TILE, sk))[None, :]
         x = qf @ kf[:, :, k0:k0 + K4_TILE].transpose(-1, -2) * scale_log2
         ok = keys <= rows if causal else torch.ones_like(keys, dtype=bool)
         if window:
@@ -228,6 +263,27 @@ def test_k4_window_design_matches_dense_attention(s, window, hd, g):
                       np.float32)
     got = k4_emulate(*[_t(a).transpose(1, 2) for a in (q, k, v)],
                      causal=True, window=window).to(torch.bfloat16)
+    got = got.transpose(1, 2).float().numpy()
+    assert (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max() < 2e-2
+
+
+@pytest.mark.parametrize("sq,sk,kw", [
+    (512, 128, {"causal": False}),     # seamless's cross-attention
+    (1, 128, {"causal": False}),       # ... and its decode step
+    (17, 200, {"q_offset": 150}),
+    (100, 300, {"q_offset": 180, "window": 70}),
+])
+def test_k4_cross_and_offset_design_matches_dense_attention(sq, sk, kw):
+    """The bf16 K4 with Sq != Sk and a query offset against JAX's
+    ``dense_attention`` (the model's own route for them) on bf16 inputs,
+    hd 64, 16 q heads over 16 kv heads: within 2e-2 of max(1, |want|)."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = [jnp.asarray(rng.normal(size=(1, n, 16, 64)), jnp.bfloat16)
+               for n in (sq, sk, sk)]
+    want = np.asarray(dense_attention(q, k, v, **kw), np.float32)
+    got = k4_emulate(*[_t(a).transpose(1, 2) for a in (q, k, v)],
+                     causal=kw.get("causal", True), window=kw.get("window"),
+                     q_offset=kw.get("q_offset", 0)).to(torch.bfloat16)
     got = got.transpose(1, 2).float().numpy()
     assert (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max() < 2e-2
 

@@ -11,11 +11,15 @@ The same numpy inputs (and the same JAX-initialised weights, carried by
   mode (fp32 2e-4, bf16 5e-2) and against the model's einsum branch;
 * ``attention()``, ``ssd_chunked`` and ``mamba2_block`` against JAX;
 * ``prefill`` and 8 ``decode_step``s for the smoke config of every
-  ported architecture (dense, moe, ssm, hybrid): in fp32 within 1e-4 of
+  architecture (dense, moe, ssm, hybrid, vlm with seeded patch
+  embeddings, encdec with seeded frame embeddings): in fp32 within 1e-4 of
   the logits' scale (max |logit|; the algorithm, with the decode cache
   in bf16 as in JAX), in bf16 within 5e-2 of it (the two frameworks
-  round bf16 at other points).  Each decode step is held against JAX's
-  free-running decode and against JAX's step on the port's own cache;
+  round bf16 at other points).  Both sides grow the prefill's cache as
+  the port's driver does (the vlm cache by its patches, the encoder's
+  cross K/V kept at its own length).  Each decode step is held against
+  JAX's free-running decode and against JAX's step on the port's own
+  cache;
   command-r-plus-104b in fp32 only against the latter
   (``TEACHER_FORCED_ONLY``).  The caches are held against JAX's
   free-running ones.
@@ -24,7 +28,8 @@ The same numpy inputs (and the same JAX-initialised weights, carried by
   margin below the bf16 noise of the router's input.  starcoder2-7b
   also runs with nonzero biases (JAX initialises every bias to zero);
 * ``launch.serve.main`` on the CPU gives the same greedy tokens in fp32
-  as the same loop run in JAX (dense, ssm, moe, hybrid).
+  as the same loop run in JAX (dense, ssm, moe, hybrid, vlm, encdec; the
+  vlm and encdec prompts take the JAX driver's zero stand-ins).
 """
 
 import dataclasses
@@ -54,7 +59,7 @@ from repro_torch.models import ssm as tssm  # noqa: E402
 
 ARCHS = ("qwen3-1.7b", "mamba2-2.7b", "deepseek-moe-16b", "dbrx-132b",
          "command-r-plus-104b", "starcoder2-7b", "llama3-405b",
-         "recurrentgemma-2b")
+         "recurrentgemma-2b", "llava-next-mistral-7b", "seamless-m4t-medium")
 MOE_ARCHS = ("deepseek-moe-16b", "dbrx-132b")
 # Held only to JAX's step on the port's own cache: command-r-plus-104b's
 # smoke heads (8 dims) move its fp32 logits by 1.35e-4 of their scale
@@ -253,12 +258,15 @@ def test_mamba2_block_matches_jax():
 # ------------------------------------------------------- whole model
 
 def _jax_grow(jcfg, cache, max_len):
-    """``repro/launch/serve.py``'s cache-growth step."""
+    """``repro/launch/serve.py``'s cache-growth step as the port's
+    ``grow_cache`` takes it: the encoder's cross K/V are kept at their
+    own length (the JAX driver pads them with zero keys; the caller
+    passes the vlm's patches in ``max_len``)."""
     b = cache["pos"].shape[0]
     full = jlm.init_decode_cache(jcfg, b, max_len)
     for k in cache:
         if k in full and cache[k].shape != full[k].shape \
-                and cache[k].ndim == full[k].ndim and k != "pos":
+                and cache[k].ndim == full[k].ndim and k not in tserve.KEEP:
             sl = tuple(slice(0, s) for s in cache[k].shape)
             full[k] = full[k].at[sl].set(cache[k])
         else:
@@ -315,24 +323,43 @@ def test_starcoder2_with_nonzero_biases_matches_jax():
     _prefill_and_decode_match_jax(jcfg, params, tcfg, tparams, 1e-4)
 
 
+def _embeds(rng, cfg, b, s):
+    """Seeded stand-ins of the modality frontends, as numpy arrays: the
+    vlm's patch embeddings (fp32; each side casts them to its token
+    embeddings' dtype) and the encdec's frame embeddings (in the
+    model's dtype, as the encoder takes them)."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": rng.normal(
+            size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "encdec":
+        e = rng.normal(size=(b, max(1, s // cfg.enc_ratio), cfg.d_model))
+        return {"enc_embeds": np.asarray(jnp.asarray(
+            e, jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32))}
+    return {}
+
+
 def _prefill_and_decode_match_jax(jcfg, params, tcfg, tparams, tol,
                                   free_running=True):
     rng = np.random.default_rng(11)
     b, s, n_dec = 2, 64, 8
     toks = rng.integers(0, tcfg.vocab, (b, s)).astype(np.int32)
+    extra = _embeds(rng, tcfg, b, s)
     ctx = jlm.NO_PARALLEL
-    jl, jc = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t}, jcfg, ctx))(
-        params, jnp.asarray(toks))
-    tl, tc = tlm.prefill(tparams, {"tokens": _t(toks).long()}, tcfg,
-                         tlm.NO_PARALLEL)
+    jl, jc = jax.jit(lambda p, bt: jlm.prefill(p, bt, jcfg, ctx))(
+        params, {"tokens": jnp.asarray(toks),
+                 **{k: jnp.asarray(a) for k, a in extra.items()}})
+    tl, tc = tlm.prefill(tparams, {"tokens": _t(toks).long(),
+                                   **{k: _t(a) for k, a in extra.items()}},
+                         tcfg, tlm.NO_PARALLEL)
     scale = float(np.abs(np.asarray(jl, np.float32)).max())
     assert _maxdiff(_np(tl), jl) < tol * scale
     for key in jc:
         assert tuple(tc[key].shape) == jc[key].shape, key
         _leaf_close(tc[key], jc[key], tol)
 
-    jc = _jax_grow(jcfg, jc, s + n_dec)
-    tc = tserve.grow_cache(tcfg, tc, s + n_dec)
+    max_len = tserve.prefix_len(tcfg) + s + n_dec
+    jc = _jax_grow(jcfg, jc, max_len)
+    tc = tserve.grow_cache(tcfg, tc, max_len)
     jstep = jax.jit(lambda p, c, t: jlm.decode_step(p, c, t, jcfg, ctx))
     dec = rng.integers(0, tcfg.vocab, (n_dec, b, 1)).astype(np.int32)
     for i in range(n_dec):
@@ -355,10 +382,16 @@ def _prefill_and_decode_match_jax(jcfg, params, tcfg, tparams, tol,
 @pytest.mark.parametrize("arch,prompt", [("qwen3-1.7b", 16),
                                          ("mamba2-2.7b", 32),
                                          ("deepseek-moe-16b", 16),
-                                         ("recurrentgemma-2b", 16)])
+                                         ("recurrentgemma-2b", 16),
+                                         ("llava-next-mistral-7b", 16),
+                                         ("seamless-m4t-medium", 16)])
 def test_serve_main_matches_jax_loop(arch, prompt, monkeypatch):
     """``launch.serve.main`` on the CPU, in fp32 with JAX's weights,
-    emits JAX's greedy tokens: prefill -> grow cache -> decode."""
+    emits JAX's greedy tokens: prefill -> grow cache -> decode.  The JAX
+    loop feeds the JAX driver's zero stand-ins (in the model's dtype:
+    JAX's encoder scan keeps its input's dtype) and grows as the port
+    does; with 5 tokens to generate under 16 patches, the JAX driver's
+    own growth would fail for the vlm."""
     jcfg, params, tcfg, tparams = _jax_params(arch)
     monkeypatch.setattr(tserve, "get_smoke_config", lambda name: tcfg)
     monkeypatch.setattr(tserve.lm, "init_params",
@@ -371,16 +404,26 @@ def test_serve_main_matches_jax_loop(arch, prompt, monkeypatch):
     assert res["finite"] and res["generated"].shape == (n_req, gen)
 
     ctx = jlm.NO_PARALLEL
-    jprefill = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t}, jcfg, ctx))
+    jprefill = jax.jit(lambda p, bt: jlm.prefill(p, bt, jcfg, ctx))
     jstep = jax.jit(lambda p, c, t: jlm.decode_step(p, c, t, jcfg, ctx))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab, prompt).tolist()
                for _ in range(n_req)]
     want = []
     for i in range(0, n_req, batch):
-        logits, cache = jprefill(params, jnp.asarray(prompts[i:i + batch],
-                                                     jnp.int32))
-        cache = _jax_grow(jcfg, cache, prompt + gen)
+        toks = jnp.asarray(prompts[i:i + batch], jnp.int32)
+        bt = {"tokens": toks}
+        b = toks.shape[0]
+        if jcfg.family == "vlm":
+            bt["patch_embeds"] = jnp.zeros(
+                (b, jcfg.n_patches, jcfg.d_model), jnp.bfloat16)
+        if jcfg.family == "encdec":
+            bt["enc_embeds"] = jnp.zeros(
+                (b, max(1, prompt // jcfg.enc_ratio), jcfg.d_model),
+                jnp.float32)
+        logits, cache = jprefill(params, bt)
+        cache = _jax_grow(jcfg, cache, tserve.prefix_len(tcfg) + prompt
+                          + gen)
         nxt = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
         out = []
         for _ in range(gen):
@@ -400,16 +443,24 @@ def test_prefill_then_decode_consistency(arch):
     the published 1.25 a 32-token prefill may drop assignments that a
     one-token decode step (capacity 4) never drops, so the two would
     differ by design (``tests/test_torch_moe.py`` holds the drop mask
-    at the published factor against JAX)."""
+    at the published factor against JAX).  The encdec model encodes 8
+    seeded frames once: the replay starts from a cache whose cross K/V
+    are the prefill's.  The vlm model runs on tokens alone (no
+    ``decode_step`` takes patches)."""
     cfg = configs.get_smoke_config(arch)
     if cfg.family == "moe":
         cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
     gen = torch.Generator().manual_seed(0)
     params = tlm.init_params(cfg, gen, "cpu")
     toks = torch.randint(0, cfg.vocab, (1, 32), generator=gen)
-    logits_pf, _ = tlm.prefill(params, {"tokens": toks}, cfg,
-                               tlm.NO_PARALLEL)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((1, 8, cfg.d_model), generator=gen)
+    logits_pf, cache_pf = tlm.prefill(params, batch, cfg, tlm.NO_PARALLEL)
     cache = tlm.init_decode_cache(cfg, 1, 48, device="cpu")
+    if cfg.family == "encdec":
+        cache["cross_k"], cache["cross_v"] = (cache_pf["cross_k"],
+                                              cache_pf["cross_v"])
     for i in range(toks.shape[1]):
         logits_dec, cache = tlm.decode_step(params, cache, toks[:, i:i + 1],
                                             cfg, tlm.NO_PARALLEL)
@@ -443,11 +494,19 @@ def test_configs_and_init_match_jax(arch):
 
 
 def test_unported_archs_name_their_roadmap_item():
+    """No architecture is left unported: every one of the JAX package's
+    has a config here (held against JAX's by
+    ``test_configs_and_init_match_jax``, for which ``ARCHS`` is the whole
+    list) and none raises ``NotImplementedError``; an unknown name is a
+    ``KeyError``."""
+    from repro.configs import all_arch_ids as jax_arch_ids
+    assert configs.all_arch_ids() == jax_arch_ids()
+    assert sorted(configs.all_arch_ids()) == sorted(ARCHS)
     for arch in configs.all_arch_ids():
-        if arch in ARCHS:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-            configs.get_config(arch)
+        assert configs.get_config(arch).name == arch
+        assert configs.get_smoke_config(arch).name == arch
+    with pytest.raises(KeyError):
+        configs.get_config("no-such-arch")
 
 
 def test_lm_params_to_torch_keeps_bits():
