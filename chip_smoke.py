@@ -25,7 +25,13 @@ Phases (any failure exits non-zero; nothing is caught):
    families' shapes (:func:`flash_cross_cases`: llava-next-mistral-7b's
    1664-position prefill; seamless-m4t-medium's cross-attention, 512
    rows over 128 encoder keys, and its decode step, 1 row; 512 rows at
-   query offset 1152 over 1664 keys), each beside SDPA;
+   query offset 1152 over 1664 keys), each beside SDPA; then the
+   backward kernels of the training path: K4's (:func:`check_flash_bwd`:
+   Qwen3-1.7B's training shape, seamless's cross-attention, a window at
+   hd 128 and llava's offset, from the forward's own log-sum-exp, beside
+   autograd of SDPA; K4's forward with and without that output) and
+   K5's at Mamba2-2.7B's training shape (:func:`check_ssd_bwd`), each
+   against its plain backward, with no register spill in either;
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
    the attention width of Qwen3-1.7B (16 query heads, 8 kv heads, head
    dim 128; ``src/repro/configs/qwen3_1p7b.py``) over the default pool
@@ -87,9 +93,22 @@ Phases (any failure exits non-zero; nothing is caught):
    launches.  Phase 2 also holds K1 and K2 at these two paths' shapes
    (K1 at the tree's descent round and the txn FINALIZE spin's 4096
    slots, K2 at both paths' rows);
-7. print the ``kernels`` JSON line (``launches`` counts every path:
-   the serve, the LM serves, the tree and the transactions, split by
-   path in ``launches_by_path``), then the result line.
+7. train Qwen3-1.7B and Mamba2-2.7B at full published width and depth
+   through the port's ``launch.train.main`` (batch 4, seq 512, 8 steps,
+   ``--micro 1``, remat, fp32 AdamW states; :func:`train_run`): finite
+   losses and grad norms, a gradient for every parameter leaf, exactly
+   2 forward and 1 backward launches of K4 (Qwen3) or K5 (Mamba2) a
+   layer a step and nothing else; print step times, tokens/s, peak
+   memory beside 12 bytes a parameter, and the device's busy share over
+   one more step under ``torch.profiler``; at full width and 4 layers,
+   one step through the kernels against the same step with the plain
+   versions forced on the card (:func:`train_plain_check`); and a
+   checkpoint saved and resumed on the card (:func:`train_resume_check`,
+   Mamba2-2.7B at 1 layer);
+8. print the ``kernels`` JSON line (``launches`` counts every path:
+   the serve, the LM serves, the tree, the transactions and the
+   training runs, split by path in ``launches_by_path``), then the
+   result line.
 
 Needs one CUDA device; exits 1 without one, before printing anything
 on standard output.
@@ -837,6 +856,201 @@ def check_ssd(dev, K):
         f"(3xTF32), {100 * bms / row['ms']:.2f} % of its bound; error "
         f"{err / scale} of the scale (tolerance 2e-4); the fp32 FMA bound "
         f"of the first port: {bound_ms(n_bytes, n_flops, FP32_FLOPS)[0]} ms")
+    return row
+
+
+# K4's backward at the training path's shapes: tag -> (B, Sq, Sk, Hq, Hkv,
+# hd, causal, q_offset, window)
+FLASH_BWD_CASES = {
+    # Qwen3-1.7B training: batch 4, seq 512 (the row's unsuffixed keys)
+    "": (4, 512, 512, 16, 8, 128, True, 0, None),
+    # seamless-m4t-medium's cross-attention: 512 rows over 128 frames
+    "xattn": (4, 512, 128, 16, 16, 64, False, 0, None),
+    # a window that bites at hd 128 (Qwen3's heads, S 1024, window 256)
+    "window": (4, 1024, 1024, 16, 8, 128, True, 0, 256),
+    # llava's prompt after its 1152 patches (the offset route)
+    "offset": (4, 512, 1664, 32, 8, 128, True, 1152, None),
+}
+BWD_TOL = 3e-2     # K4 backward, bf16: x max(1, max |want|) per gradient
+BWD_ROW_TOL = 1e-2  # K4 backward, bf16: x each gradient row's L2 norm
+ROW_FLOOR = 0.1     # ... floored at this share of the tensor's RMS row norm
+
+
+def _grad_rel(got, want) -> float:
+    """Largest error of the gradient tensors, each over max(1, its max
+    |want|)."""
+    return max(float((g.float() - w.float()).abs().max()
+                     / max(1.0, float(w.float().abs().max())))
+               for g, w in zip(got, want))
+
+
+def grad_row_rel(got, want) -> float:
+    """Largest error of any gradient row (one (b, h, s) of a [B, H, S,
+    hd] gradient) over that row's L2 norm, the norm floored at
+    :data:`ROW_FLOOR` of the tensor's RMS row norm.  The bound over the
+    tensor's max alone is as large as a typical entry where a few early
+    rows hold the largest values, and would pass a tile or head walked
+    wrong.  The floor is for rows whose exact gradient cancels: a causal
+    query row that sees one key has P = 1 and dS = dP - D = 0, so its dq
+    is zero and both versions give rounding noise there."""
+    out = 0.0
+    for g, w in zip(got, want):
+        norm = torch.linalg.vector_norm(w.float(), dim=-1)
+        floor = ROW_FLOOR * float(norm.square().mean().sqrt())
+        err = torch.linalg.vector_norm(g.float() - w.float(), dim=-1)
+        out = max(out, float((err / norm.clamp(min=max(floor, 1e-30)))
+                             .max()))
+    return out
+
+
+def check_flash_bwd(dev, K):
+    """K4's backward at :data:`FLASH_BWD_CASES`, bf16, through the
+    model's [B, S, H, hd] layout, from the forward's own output and
+    log-sum-exp (``flash_attention_lse_launch``; the log-sum-exp held
+    against the plain one within 1e-3): (dq, dk, dv) held against
+    ``flash_attention_bwd_plain`` (:data:`BWD_TOL`: P and dS are rounded
+    to bf16 before their products; and each gradient row within
+    :data:`BWD_ROW_TOL` of its L2 norm, :func:`grad_row_rel`), timed beside its bound (5 products
+    of 2 pairs hd operations over the bf16 peak, or its bytes: q, k, v,
+    out, dout and lse read, dq, dk, dv written) and the library's time:
+    autograd of ``F.scaled_dot_product_attention`` (forward and backward
+    in one graph, less its forward alone).  At the Qwen3 shape also
+    K4's forward with and without the log-sum-exp output (the serve
+    passes none)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, _visible, flash_attention_bwd_plain,
+        flash_attention_plain)
+    rng = np.random.default_rng(SEED + 11)
+    row = {"name": "flash_attention_bwd"}
+    for tag, (b, sq, sk, hq, hkv, hd, causal, off, window) in \
+            FLASH_BWD_CASES.items():
+        q, k, v, do = [torch.from_numpy(rng.normal(size=(b, n, h, hd))
+                                        .astype(np.float32))
+                       .to(dev, torch.bfloat16).transpose(1, 2)
+                       for n, h in ((sq, hq), (sk, hkv), (sk, hkv),
+                                    (sq, hq))]
+        kw = dict(causal=causal, window=window, q_offset=off)
+        out, lse = _launch_fwd(q, k, v, causal, window, off, True)
+        _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+        lse_err = float((lse - want_lse).abs().max())
+        assert lse_err < 1e-3, f"K4 log-sum-exp {tag} off by {lse_err}"
+
+        def run(q=q, k=k, v=v, out=out, lse=lse, do=do, kw=kw):
+            return K.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        got = run()
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        rel = _grad_rel(got, want)
+        assert rel < BWD_TOL, f"flash_attention_bwd {tag} off by {rel} " \
+            f"of max(1, |want|) (tol {BWD_TOL})"
+        row_rel = grad_row_rel(got, want)
+        assert row_rel < BWD_ROW_TOL, f"flash_attention_bwd {tag}: a " \
+            f"gradient row off by {row_rel} of its L2 norm (tol {BWD_ROW_TOL})"
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        del want
+        pairs = visible_pairs(sq, sk, causal, off, window)
+        n_bytes = 2 * b * hd * (4 * sq * hq + 4 * sk * hkv) + 4 * b * hq * sq
+        n_flops = 5 * 2.0 * b * hq * hd * pairs
+        bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS)
+        # SDPA's is_causal aligns the diagonal at the top left: a window or
+        # an offset goes in as a boolean mask
+        mask = _visible(sq, sk, causal, window, off, dev) \
+            if (window or off) else None
+        qg, kg, vg = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def lib_fwd(mask=mask, causal=causal, qg=qg, kg=kg, vg=vg):
+            return F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        def lib_fwd_bwd(lib_fwd=lib_fwd, qg=qg, kg=kg, vg=vg, do=do):
+            return torch.autograd.grad(lib_fwd(), (qg, kg, vg), do)
+        lib_fb = graph_ms(lib_fwd_bwd, iters=50)
+        lib_f = graph_ms(lib_fwd, iters=50)
+        sfx = f"_{tag}" if tag else ""
+        case = {"max_abs_err": err, "row_err": row_rel,
+                "ms": graph_ms(run, iters=50),
+                "ms_graph20": graph_ms(run, iters=10, calls=20),
+                "plain_ms": eager_ms(lambda q=q, k=k, v=v, out=out, lse=lse,
+                                     do=do, kw=kw: flash_attention_bwd_plain(
+                                         q, k, v, out, lse, do, **kw),
+                                     iters=3),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": lib_fb - lib_f, "library_fwd_bwd_ms": lib_fb}
+        row.update({f"{key}{sfx}": val for key, val in case.items()})
+        log(f"rate flash_attention_bwd {tag or 'qwen3'} (B {b}, Sq {sq}, "
+            f"Sk {sk}, Hq {hq}, Hkv {hkv}, hd {hd}, causal {causal}, "
+            f"q_offset {off}, window {window}): "
+            f"{n_flops / case['ms'] / 1e9:.3f} TFLOP/s, "
+            f"{100 * bms / case['ms']:.2f} % of its bound ({by}), "
+            f"{case['ms'] / case['library_ms']:.3f}x SDPA's backward; error "
+            f"{rel} of max(1, |want|) (tolerance {BWD_TOL}), {row_rel} of a "
+            f"row's L2 norm (tolerance {BWD_ROW_TOL}); log-sum-exp error "
+            f"{lse_err}")
+        if not tag:
+            row["fwd_ms_graph20"] = graph20_ms(
+                lambda: _launch_fwd(q, k, v, True, None, 0, False))
+            row["fwd_lse_ms_graph20"] = graph20_ms(
+                lambda: _launch_fwd(q, k, v, True, None, 0, True))
+            log(f"K4 forward at the Qwen3 shape: ms_graph20 "
+                f"{row['fwd_ms_graph20']} without the log-sum-exp, "
+                f"{row['fwd_lse_ms_graph20']} with it")
+        del q, k, v, do, out, lse, qg, kg, vg, got
+    return row
+
+
+def check_ssd_bwd(dev, K):
+    """K5's backward at the Mamba2-2.7B training shape (batch 4, seq 512:
+    8 chunks of Q 256, H 80, P 64, fp32), from the forward kernel's own
+    output, with a cumsum steep enough that exp overflows above the
+    diagonal: (dcb, dcs, dwin) held against ``ssd_intra_bwd_plain``
+    within 1e-4 of max(1, each gradient's max |want|) (fp32 sums of up to
+    256 terms in another order; dcs a difference of two such sums), timed
+    beside its bound (the function's bytes: cb, cs, win and dy read, dcb,
+    dcs and dwin written; or its operations, 2 products of 2 P per (q, k,
+    h) pair of the triangle, over the TF32 tensor-core peak, as
+    :func:`check_ssd` bounds the forward; the kernel also reads the
+    forward's output, which the bound does not count).  No single
+    PyTorch call computes it: library_ms is null."""
+    from repro_torch.kernels.ssd_intra import ssd_intra_bwd_plain
+    rng = np.random.default_rng(SEED + 12)
+    bc, q, h, p = 8, 256, 80, 64
+    cb, cs, win, dy = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                       for a in (rng.normal(size=(bc, q, q)),
+                                 -np.abs(rng.normal(size=(bc, q, h)))
+                                 .cumsum(axis=1),
+                                 rng.normal(size=(bc, q, h, p)),
+                                 rng.normal(size=(bc, q, h, p)))]
+    y = K.ssd_intra(cb, cs, win)
+
+    def run():
+        return K.ssd_intra_bwd(cb, cs, win, dy, y)
+    got = run()
+    want = ssd_intra_bwd_plain(cb, cs, win, dy)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got), \
+        "ssd_intra_bwd gave non-finite"
+    rel = _grad_rel(got, want)
+    assert rel < 1e-4, f"ssd_intra_bwd off by {rel} (tol 1e-4)"
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del want
+    n_bytes = 4 * (2 * bc * q * q + 2 * bc * q * h + 3 * bc * q * h * p)
+    n_flops = bc * h * q * (q + 1) / 2 * (4.0 * p + 6)
+    bms, by = bound_ms(n_bytes, n_flops, TF32_FLOPS)
+    row = {"name": "ssd_intra_bwd", "max_abs_err": err,
+           "ms": graph_ms(run, iters=50),
+           "ms_graph20": graph_ms(run, iters=10, calls=20),
+           "plain_ms": eager_ms(lambda: ssd_intra_bwd_plain(cb, cs, win, dy),
+                                iters=3),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    log(f"rate ssd_intra_bwd: {n_flops / row['ms'] / 1e9:.3f} TFLOP/s "
+        f"(fp32 FMA), {n_bytes / row['ms'] / 1e6:.3f} GB/s, "
+        f"{100 * bms / row['ms']:.2f} % of its bound ({by}); error {rel} of "
+        f"max(1, |want|) (tolerance 1e-4); the fp32 FMA bound: "
+        f"{bound_ms(n_bytes, n_flops, FP32_FLOPS)[0]} ms")
     return row
 
 
@@ -1609,6 +1823,233 @@ def txn_phase(dev, n_gcls=TXN_GCLS, batch=1024, n_batches=8):
     return res
 
 
+# ------------------------------------------------------ phase 7: training
+
+# arch -> (forward kernel, its launches a layer a step: the forward and
+# the remat recompute; the backward kernel launches once a layer)
+TRAIN_ARCHS = {"qwen3-1.7b": ("flash_attention", 28),
+               "mamba2-2.7b": ("ssd_intra", 64)}
+TRAIN_TOL = 5e-2   # kernels vs plain step, bf16: x each leaf's max |want|
+
+
+def _train_cfg(steps):
+    """``launch.train.main``'s TrainConfig for ``--steps steps --micro 1
+    --lr 3e-4`` at a full config (remat on, fp32 AdamW states)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    return TrainConfig(micro_batches=1, remat=True, opt=AdamWConfig(
+        lr=3e-4, warmup_steps=max(5, steps // 20), total_steps=steps))
+
+
+def train_run(dev, K, arch, steps=8, batch=4, seq=512):
+    """The port's ``launch.train.main`` at the full config of ``arch``
+    (random bf16 weights, fp32 AdamW m and v, remat, ``--micro 1``):
+    finite losses and grad norms, no parameter leaf without a gradient on
+    the first step, and exactly the kernel launches of the path at every
+    step (the forward kernel twice a layer, its backward once, nothing
+    else); then one more step under ``torch.profiler`` for the device's
+    busy share.  Returns the run's numbers and its launch counts."""
+    from repro_torch import tree as pt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import build_train_step
+    name, layers = TRAIN_ARCHS[arch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = train_main(["--arch", arch, "--steps", str(steps), "--batch",
+                      str(batch), "--seq", str(seq), "--micro", "1",
+                      "--lr", "3e-4", "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    state = rec.pop("state")
+    assert np.isfinite(rec["losses"]).all() and \
+        np.isfinite(rec["grad_norms"]).all(), f"{arch}: non-finite training"
+    assert rec["grads_missing"] == 0, \
+        f"{arch}: {rec['grads_missing']} parameter leaves got no gradient"
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update({name: 2 * layers, f"{name}_bwd": layers})
+    for i, got in enumerate(rec["launches"]):
+        assert got == want, f"{arch} step {i}: launches {got}, want {want}"
+    n_params = sum(t.numel() for t in pt.leaves(state["params"]))
+    cfg = get_config(arch)
+    step_fn, _, _ = build_train_step(cfg, _train_cfg(steps),
+                                     global_batch=batch, device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=batch,
+                                  seq_len=seq))
+    b = data.batch_at(steps)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    events = prof.key_averages()
+    busy = device_busy_us(events) / (prof_wall * 1e6)
+    top = _top_device(events)
+    assert np.isfinite(float(metrics["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    ms = rec["step_ms"]
+    steady = float(np.median(ms[1:]))
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "steps": steps, "losses": rec["losses"],
+           "grad_norms": rec["grad_norms"], "step_ms": ms,
+           "steady_step_ms": steady,
+           "tokens_per_s": rec["tokens_per_step"] / steady * 1e3,
+           "peak_mem_gb": peak / 1e9, "params": n_params,
+           "reckoned_state_gb": 12 * n_params / 1e9,
+           "device_busy_share": busy, "profiled_step_ms": prof_wall * 1e3,
+           "top_device_ms": top,
+           "wall_s_with_init": wall, "launches_per_step": want}
+    log(f"train {arch}: " + json.dumps(out))
+    return out, {k: v * steps for k, v in want.items()}
+
+
+def _top_device(events, n=10) -> dict:
+    """The ``n`` device events with the most device time in a
+    ``key_averages()`` (ms, over the profiled window), and the rest."""
+    from torch.autograd import DeviceType
+    dev = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation), key=lambda kv: -kv[1])
+    out = {k[:80]: ms for k, ms in dev[:n]}
+    out["rest"] = sum(ms for _, ms in dev[n:])
+    return out
+
+
+@contextlib.contextmanager
+def plain_paths():
+    """The model's two kernel call sites (``attention`` in
+    ``models/lm.py``, ``ssd_intra`` in ``models/ssm.py``) routed to the
+    plain PyTorch versions, on any device, for a comparison run."""
+    from repro_torch.kernels.ssd_intra import ssd_intra_plain
+    from repro_torch.models import lm, ssm
+    from repro_torch.models.attention import dense_attention
+    real = lm.attention, ssm.ssd_intra
+    lm.attention = lambda q, k, v, causal=True, window=None, q_offset=0: \
+        dense_attention(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    ssm.ssd_intra = ssd_intra_plain
+    try:
+        yield
+    finally:
+        lm.attention, ssm.ssd_intra = real
+
+
+def train_plain_check(dev, K, arch, n_layers=4, batch=4, seq=512):
+    """Full width, ``n_layers`` layers: one training step's loss and
+    every gradient leaf through the kernels (forward, recompute and
+    backward) against the same step with the plain versions forced on the
+    card (:func:`plain_paths`), bf16: the loss within 1e-2 of itself and
+    each leaf within :data:`TRAIN_TOL` of its max |want| (the kernels
+    round P, and in the backward dS, to bf16 where the plain attention
+    keeps fp32, and the difference passes through the layers)."""
+    from repro_torch import tree as pt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train.step import value_and_grad
+    name, _ = TRAIN_ARCHS[arch]
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 13), dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, batch=batch, seq_len=seq)).batch_at(0).items()}
+
+    def loss_fn(p, bt):
+        return lm.train_loss(p, bt, cfg, lm.NO_PARALLEL, remat=True)
+    K.reset_launch_counts()
+    loss, grads, missing = value_and_grad(loss_fn, params, b)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert missing == 0
+    assert counts[name] == 2 * n_layers and \
+        counts[f"{name}_bwd"] == n_layers, counts
+    with plain_paths():
+        want_loss, want, _ = value_and_grad(loss_fn, params, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == counts, "the plain step launched a kernel"
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(pt.leaves(grads), pt.leaves(want))):
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert np.isfinite(err) and err <= TRAIN_TOL * scale, \
+            f"{arch}: gradient leaf {i} off by {err} (max |want| {scale}, " \
+            f"tol {TRAIN_TOL})"
+        worst = max(worst, err / max(scale, 1e-30))
+    assert loss_rel < 1e-2, f"{arch}: loss {float(loss)} vs plain " \
+        f"{float(want_loss)}"
+    out = {"arch": arch, "layers": n_layers, "loss": float(loss),
+           "plain_loss": float(want_loss), "loss_rel_err": loss_rel,
+           "worst_leaf_rel_err": worst, "leaves": len(pt.leaves(grads)),
+           "tolerance": TRAIN_TOL}
+    log(f"train kernels vs plain {arch}: " + json.dumps(out))
+    del params, grads, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resume_check(dev, arch="mamba2-2.7b", n_layers=1, steps=6,
+                       batch=4, seq=512):
+    """Checkpoints on the card, full width and ``n_layers`` layers: 6
+    steps with an async save after step 3 (``CheckpointManager``, under
+    the checkout's git-ignored ``build/``); a fresh state restored from
+    it (``restore`` of step 3: its manifest's crc32s checked once) runs
+    steps 4 and 5, whose losses must equal the uninterrupted run's within
+    1e-3 (printed: whether bit for bit)."""
+    from repro_torch.checkpoint import CheckpointManager, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import build_train_step, init_train_state
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    tcfg = _train_cfg(steps)
+    step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=batch,
+                                     device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=batch,
+                                  seq_len=seq))
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(ckdir)
+
+    def fresh():
+        return init_train_state(cfg, tcfg, torch.Generator(
+            device=dev).manual_seed(SEED + 14), dev)
+    state, losses = fresh(), []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        state, m = step_fn(state, data.batch_at(step))
+        losses.append(float(m["loss"]))
+        if step == 3:
+            mgr.save(state, step)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    del state
+    t0 = time.perf_counter()
+    state, start = restore(fresh(), ckdir, step=3)
+    restore_s = time.perf_counter() - t0
+    resumed = []
+    for step in range(start + 1, steps):
+        state, m = step_fn(state, data.batch_at(step))
+        resumed.append(float(m["loss"]))
+    del state
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    assert start == 3 and np.allclose(resumed, losses[4:], rtol=1e-3), \
+        (resumed, losses[4:])
+    out = {"arch": arch, "layers": n_layers, "losses": losses,
+           "resumed_losses": resumed,
+           "bit_for_bit": resumed == losses[4:],
+           "train_and_save_s": save_s, "restore_s": restore_s}
+    log("train resume: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -1634,7 +2075,8 @@ def main() -> int:
         log(f"  ptxas {name}: {len(funcs)} kernels, at most "
             f"{max((r for _, r, _ in funcs), default=0)} registers, "
             f"{sum(sp for _, _, sp in funcs)} spill bytes")
-        if name in ("flash_attention", "paged_attention", "ssd_intra"):
+        if name in ("flash_attention", "paged_attention", "ssd_intra",
+                    "flash_attention_bwd", "ssd_intra_bwd"):
             for fn, r, sp in funcs:
                 log(f"    {fn}: {r} registers, {sp} spill bytes")
     if "flash_attention" in _build.BUILD_LOG:
@@ -1642,9 +2084,17 @@ def main() -> int:
             _build.BUILD_LOG["flash_attention"])
             if "flash_attention_bf16_kernel<128," in fn
             or "flash_attention_bf16_kernelILi128E" in fn]
-        # with and without a window, each with and without Sq != Sk or
-        # an offset
-        assert tc128 == [0] * 4, f"K4 bf16 at hd 128 spills: {tc128}"
+        # with and without a window, with and without Sq != Sk or an
+        # offset, each with and without the log-sum-exp output
+        assert tc128 == [0] * 8, f"K4 bf16 at hd 128 spills: {tc128}"
+    for name in ("flash_attention_bwd", "ssd_intra_bwd"):
+        if name in _build.BUILD_LOG:
+            spills = [sp for _, _, sp in ptxas_functions(
+                _build.BUILD_LOG[name])]
+            # K4's backward: dQ and dK/dV at hd 64 and 128, bf16 and fp32;
+            # K5's: P 16, 32, 64 and 128
+            assert spills == [0] * (8 if name == "flash_attention_bwd"
+                                    else 4), f"{name} spills: {spills}"
     if "ssd_intra" in _build.BUILD_LOG:
         f32p64 = [sp for fn, _, sp in ptxas_functions(
             _build.BUILD_LOG["ssd_intra"])
@@ -1665,10 +2115,17 @@ def main() -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:90"),
         "ssd_intra": ("src/repro_torch/csrc/ssd_intra.cu",
                       "src/repro/kernels/ssd_intra/ssd_intra.py:52"),
+        # the backward of the TPU kernel's function (forward-only there)
+        "flash_attention_bwd": (
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:90"),
+        "ssd_intra_bwd": ("src/repro_torch/csrc/ssd_intra_bwd.cu",
+                          "src/repro/kernels/ssd_intra/ssd_intra.py:52"),
     }
     rows = [check_latch(dev, K), check_fetch(dev, K),
             check_attention(dev, K), check_flash(dev, K),
-            check_ssd(dev, K)]
+            check_ssd(dev, K), check_flash_bwd(dev, K),
+            check_ssd_bwd(dev, K)]
     rows[3].update(flash_window_cases(dev, K))
     rows[3].update(flash_cross_cases(dev, K))
     rows[0].update(latch_app_case(dev, K))
@@ -1743,12 +2200,26 @@ def main() -> int:
         for name, n in by_path[path].items():
             assert n > 0, f"kernel {name} never launched on the {path} path"
             counts[name] += n
+    train = {}
+    for arch in TRAIN_ARCHS:
+        _, got = train_run(dev, K, arch)
+        for name, n in got.items():
+            if n:
+                train[name] = n
+                counts[name] = counts.get(name, 0) + n
+    for arch in TRAIN_ARCHS:
+        train_plain_check(dev, K, arch)
+    train_resume_check(dev)
+
     for row in rows[:2]:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
     rows[3]["launches_by_path"] = {a: n for a, n in lm_paths.items()
                                    if a != "mamba2-2.7b"}
     rows[4]["launches_by_path"] = {"mamba2-2.7b": lm_paths["mamba2-2.7b"]}
+    for row in rows[3:]:
+        row["launches_by_path"] = dict(row.get("launches_by_path", {}),
+                                       train=train[row["name"]])
 
     kernels = []
     for row in rows:

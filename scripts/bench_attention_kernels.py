@@ -130,8 +130,9 @@ def k4_phases(dev, src_dir):
     out.mkdir(parents=True, exist_ok=True)
     (out / "flash_attention_phases.cu").write_text(text)
     lib_path = out / "libflash_attention_phases.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                    str(lib_path), str(out / "flash_attention_phases.cu")],
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                    os.path.dirname(src), "-o", str(lib_path),
+                    str(out / "flash_attention_phases.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in _SIGNATURES.items():

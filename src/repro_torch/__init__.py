@@ -10,9 +10,12 @@ is found by name:
   the flat ``DevicePlane`` facade;
 * ``dsm/kvpool.py`` — the rounds-plane KV-page pool;
 * ``serve/`` — the continuous-batching ``ServeLoop`` and its oracle;
+* ``models/``, ``launch/serve.py`` — LM serving for every family;
+* ``optim/``, ``train/``, ``data/``, ``checkpoint/``, ``runtime/``,
+  ``launch/train.py`` — the training stack on one device;
 * ``kernels/`` — the hand-written Hopper kernels (CUDA C++ under
   ``csrc/``) that replace the TPU's Pallas kernels, each with its plain
-  PyTorch version beside it.
+  PyTorch version beside it, and the backward kernels of K4 and K5.
 
 Devices: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise ``RuntimeError`` when no GPU is present and

@@ -6,7 +6,11 @@ state) becomes a dict of numpy arrays with ``{k: np.asarray(v)}``, and
 int8 ``cache_state``, bool ``dirty``, int32 lanes.  :func:`to_numpy`
 goes back.  :func:`pool_from_arrays` rebuilds a serving pool from a
 rounds state and its allocator's bump pointer and free list.
-:func:`lm_params_to_torch` carries a JAX LM parameter tree across.
+:func:`lm_params_to_torch` carries a JAX LM parameter tree across, and
+:func:`train_state_to_torch` / :func:`train_state_to_numpy` a whole
+train state (params, the AdamW ``mu`` in any tier, ``step``, the
+error-feedback tree) both ways; the port's numpy side keeps bf16 as its
+raw ``uint16`` bits (it has no ``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,
 
 def _leaf_to_torch(a, dev):
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16: move the bits
+    # ml_dtypes' bf16, or the port's numpy form of bf16 (its raw uint16
+    # bits: no tree this module carries holds a true uint16 leaf)
+    if a.dtype.name in ("bfloat16", "uint16"):
         t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
         return t.view(torch.bfloat16).to(dev)
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
@@ -68,3 +74,29 @@ def lm_params_to_torch(params_np, device=None):
             return [walk(v) for v in node]
         return _leaf_to_torch(node, dev)
     return walk(params_np)
+
+
+def train_state_to_torch(state_np, device=None):
+    """A JAX train state (``init_train_state``'s tree after
+    ``jax.tree.map(np.asarray, ...)``: {"params", "opt": {"mu", "step"}}
+    and "err" with compression; mu's m and v fp32, bf16 or int8
+    {"q", "scale"} blocks), or :func:`train_state_to_numpy`'s output ->
+    the port's tree of tensors on ``device``, every leaf's dtype and bits
+    kept (a uint16 leaf is bf16 bits)."""
+    return lm_params_to_torch(state_np, device)
+
+
+def train_state_to_numpy(state):
+    """The port's train state (or any tree of tensors) -> the same tree of
+    host numpy arrays, bit for bit; bf16 leaves as their raw ``uint16``
+    bits (view them as ``ml_dtypes.bfloat16`` where that is installed)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).copy()
+        return t.numpy().copy()
+    return walk(state)

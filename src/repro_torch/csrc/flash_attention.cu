@@ -80,6 +80,12 @@
 // scripts/bench_attention_kernels.py --phases, which reads the clock at
 // each: keep them at the phase boundaries.
 //
+// The training path's forward (flash_attention_lse_launch) also writes
+// each row's log-sum-exp, fp32 [B, Hq, Sq], for the backward
+// (flash_attention_bwd.cu); the serve passes a null pointer, and the
+// bf16 kernel is then the instantiation without LSE, whose code has no
+// log-sum-exp store and no branch for it.
+//
 // fp32 inputs keep the first port's kernel, flash_attention_f32_kernel:
 // scalar fp32 FMAs on the CUDA cores from fp32 shared-memory tiles.
 // The tensor cores would take fp32 only as TF32, whose 10-bit mantissa
@@ -90,6 +96,8 @@
 #include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -122,9 +130,7 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-struct Strides {
-  long long b, h, s;
-};
+using mma_bf16::Strides;
 
 template <int HD>
 constexpr int smem_bytes() {
@@ -134,9 +140,9 @@ constexpr int smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, Strides qs, Strides ks,
-    Strides vs, Strides os, int hq, int hkv, int sq, int sk, int q_offset,
-    float scale, int causal, int window) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    Strides qs, Strides ks, Strides vs, Strides os, int hq, int hkv, int sq,
+    int sk, int q_offset, float scale, int causal, int window) {
   constexpr int QS = HD + 1;         // padded row stride of q and k tiles
   constexpr int DPT = HD / 16;       // output dims per thread
   extern __shared__ float smem[];
@@ -261,14 +267,17 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
       from_f(acc[i][e] * inv, &ob[pos * os.s + tx + 16 * e]);
+    if (lse != nullptr && tx == 0)   // the row's log-sum-exp, natural log
+      lse[static_cast<long long>(bh) * sq + pos] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int HD>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 Strides qs, Strides ks, Strides vs, Strides os, int b,
-                 int hq, int hkv, int sq, int sk, int q_offset, float scale,
-                 int causal, int window, cudaStream_t stream) {
+                 float* lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int b, int hq, int hkv, int sq, int sk,
+                 int q_offset, float scale, int causal, int window,
+                 cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;    // the attribute is per function
   if (!configured) {
@@ -281,27 +290,28 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   dim3 grid((sq + BQ - 1) / BQ, b * hq);
   flash_attention_f32_kernel<T, HD><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, hq,
-      hkv, sq, sk, q_offset, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, qs, ks, vs, os,
+      hq, hkv, sq, sk, q_offset, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              void* out, Strides qs, Strides ks, Strides vs, Strides os,
-              int b, int hq, int hkv, int sq, int sk, int q_offset,
-              float scale, int causal, int window, cudaStream_t stream) {
+              void* out, float* lse, Strides qs, Strides ks, Strides vs,
+              Strides os, int b, int hq, int hkv, int sq, int sk,
+              int q_offset, float scale, int causal, int window,
+              cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_typed<T, 64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv,
-                                 sq, sk, q_offset, scale, causal, window,
-                                 stream);
+      return launch_typed<T, 64>(q, k, v, out, lse, qs, ks, vs, os, b, hq,
+                                 hkv, sq, sk, q_offset, scale, causal,
+                                 window, stream);
     case 128:
-      return launch_typed<T, 128>(q, k, v, out, qs, ks, vs, os, b, hq,
+      return launch_typed<T, 128>(q, k, v, out, lse, qs, ks, vs, os, b, hq,
                                   hkv, sq, sk, q_offset, scale, causal,
                                   window, stream);
     case 256:
-      return launch_typed<T, 256>(q, k, v, out, qs, ks, vs, os, b, hq,
+      return launch_typed<T, 256>(q, k, v, out, lse, qs, ks, vs, os, b, hq,
                                   hkv, sq, sk, q_offset, scale, causal,
                                   window, stream);
     default:
@@ -320,78 +330,11 @@ constexpr int NW = 4;                // warps per block, 16 q rows each
 constexpr int NT = NW * 32;
 constexpr int STAGES = 2;            // k/v tiles in the cp.async ring
 
-using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
 
 template <int HD>
 constexpr int smem_bytes() {
   return (BQ + 2 * STAGES * BK) * HD * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk c of row r in a [rows][HD] bf16 tile,
-// the chunk index XOR-swizzled by the row's low three bits
-template <int HD>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * HD * 2 + ((c ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  // src-size 0 writes 16 zero bytes: rows past S come in as zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a . b for one m16n8k16 tile: bf16 operands, fp32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the MUFU unit, one instruction (denormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One score tile's online-softmax step on a warp's C fragments (query
@@ -456,32 +399,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[NN][4],
   }
 }
 
-// ROWS rows of HD bf16 starting at sequence position row0, by cp.async
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
-                                          long long stride, int row0, int s,
-                                          int tid) {
-  constexpr int KC = HD / 8;
-  static_assert(ROWS * KC % NT == 0, "whole passes over the tile");
-#pragma unroll
-  for (int it = 0; it < ROWS * KC / NT; ++it) {
-    const int i = tid + it * NT;
-    const int r = i / KC, c = i % KC;
-    const int pos = row0 + r;
-    const bool ok = pos < s;
-    const bf16* g = ok ? src + pos * stride + c * 8 : src;
-    cp_async16(smem_u32(dst + swz<HD>(r, c)), g, ok);
-  }
-}
-
-// WND: a window is given; XQ: Sq != Sk or a query offset (each chosen
-// per launch, so self-attention at offset 0 without a window runs
-// code that compares nothing for either: one length, positions = rows)
-template <int HD, bool WND, bool XQ>
+// WND: a window is given; XQ: Sq != Sk or a query offset; LSE: each
+// row's log-sum-exp is written (each chosen per launch, so serving
+// self-attention at offset 0 without a window runs code that compares
+// nothing for any of them: one length, positions = rows, no lse)
+template <int HD, bool WND, bool XQ, bool LSE>
 __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out, Strides qs,
-    Strides ks, Strides vs, Strides os, int hq, int hkv, int sq_len,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+    int hq, int hkv, int sq_len,
     int sk_len, int q_offset, float scale_log2, int causal, int window) {
   constexpr int KC = HD / 8;         // 16-byte chunks of a row
   constexpr int KS = HD / 16;        // k-steps of Q.K^T
@@ -516,13 +443,13 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
   // prologue: group t = k/v tile t of the walk (group 0 with the q tile)
-  load_tile<HD, BQ>(sq, qb, qs.s, q0, sq_len, tid);
+  load_tile<HD, BQ, NT>(sq, qb, qs.s, q0, sq_len, tid);
 #pragma unroll
   for (int t = 0; t < STAGES; ++t) {
     if (t < n_tiles) {
       const int kt = k_begin + t * BK;
-      load_tile<HD, BK>(sk + t * BK * HD * 2, kb, ks.s, kt, skl, tid);
-      load_tile<HD, BK>(sv + t * BK * HD * 2, vb, vs.s, kt, skl, tid);
+      load_tile<HD, BK, NT>(sk + t * BK * HD * 2, kb, ks.s, kt, skl, tid);
+      load_tile<HD, BK, NT>(sv + t * BK * HD * 2, vb, vs.s, kt, skl, tid);
     }
     cp_commit();
   }
@@ -623,8 +550,8 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     __syncthreads();                  // every warp is done with stage st
     if (j + STAGES < n_tiles) {
       const int k1 = k0 + STAGES * BK;
-      load_tile<HD, BK>(sk + st * BK * HD * 2, kb, ks.s, k1, skl, tid);
-      load_tile<HD, BK>(sv + st * BK * HD * 2, vb, vs.s, k1, skl, tid);
+      load_tile<HD, BK, NT>(sk + st * BK * HD * 2, kb, ks.s, k1, skl, tid);
+      load_tile<HD, BK, NT>(sv + st * BK * HD * 2, vb, vs.s, k1, skl, tid);
     }
     cp_commit();                      // possibly empty: keeps the count
     // PHASE end
@@ -640,6 +567,17 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
   const int r0 = wrow + (lane >> 2);
+  if (LSE && (lane & 3) == 0) {
+    // the row's log-sum-exp of scale * q.k, natural log: m is in the
+    // log2 domain, so lse = (m + log2 l) ln 2
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pos = q0 + r0 + 8 * r;
+      if (pos < sq_len)
+        lse[static_cast<long long>(bh) * sq_len + pos] =
+            (m[r] + __log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     *reinterpret_cast<uint32_t*>(sq + swz<HD>(r0, n) + (lane & 3) * 4) =
@@ -659,66 +597,95 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   }
 }
 
-template <int HD, bool WND, bool XQ>
+template <int HD, bool WND, bool XQ, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* out,
-           Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
-           int hkv, int sq, int sk, int q_offset, float scale, int causal,
-           int window, cudaStream_t stream) {
+           float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+           int b, int hq, int hkv, int sq, int sk, int q_offset, float scale,
+           int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool configured = false;    // the attribute is per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<HD, WND, XQ>,
+        flash_attention_bf16_kernel<HD, WND, XQ, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid(b * hq, (sq + BQ - 1) / BQ);
-  flash_attention_bf16_kernel<HD, WND, XQ><<<grid, NT, bytes, stream>>>(
+  flash_attention_bf16_kernel<HD, WND, XQ, LSE><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os,
-      hq, hkv, sq, sk, q_offset, scale * 1.4426950408889634f, causal,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, qs, ks, vs,
+      os, hq, hkv, sq, sk, q_offset, scale * 1.4426950408889634f, causal,
       window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_w(const void* q, const void* k, const void* v, void* out,
-             Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
-             int hkv, int sq, int sk, int q_offset, float scale, int causal,
-             int window, cudaStream_t stream) {
-  auto go = [&](auto wnd, auto xq) {
-    return launch<HD, decltype(wnd)::value, decltype(xq)::value>(
-        q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk, q_offset, scale,
-        causal, window, stream);
+             float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+             int b, int hq, int hkv, int sq, int sk, int q_offset,
+             float scale, int causal, int window, cudaStream_t stream) {
+  auto go = [&](auto wnd, auto xq, auto has_lse) {
+    return launch<HD, decltype(wnd)::value, decltype(xq)::value,
+                  decltype(has_lse)::value>(
+        q, k, v, out, lse, qs, ks, vs, os, b, hq, hkv, sq, sk, q_offset,
+        scale, causal, window, stream);
   };
-  using T = std::true_type;
-  using F = std::false_type;
-  if (sq != sk || q_offset != 0)
-    return window ? go(T{}, T{}) : go(F{}, T{});
-  return window ? go(T{}, F{}) : go(F{}, F{});
+  auto go_xq = [&](auto has_lse) {
+    using T = std::true_type;
+    using F = std::false_type;
+    if (sq != sk || q_offset != 0)
+      return window ? go(T{}, T{}, has_lse) : go(F{}, T{}, has_lse);
+    return window ? go(T{}, F{}, has_lse) : go(F{}, F{}, has_lse);
+  };
+  return lse != nullptr ? go_xq(std::true_type{}) : go_xq(std::false_type{});
 }
 
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              void* out, Strides qs, Strides ks, Strides vs, Strides os,
-              int b, int hq, int hkv, int sq, int sk, int q_offset,
-              float scale, int causal, int window, cudaStream_t stream) {
+              void* out, float* lse, Strides qs, Strides ks, Strides vs,
+              Strides os, int b, int hq, int hkv, int sq, int sk,
+              int q_offset, float scale, int causal, int window,
+              cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_w<64>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk,
-                          q_offset, scale, causal, window, stream);
+      return launch_w<64>(q, k, v, out, lse, qs, ks, vs, os, b, hq, hkv,
+                          sq, sk, q_offset, scale, causal, window, stream);
     case 128:
-      return launch_w<128>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk,
-                           q_offset, scale, causal, window, stream);
+      return launch_w<128>(q, k, v, out, lse, qs, ks, vs, os, b, hq, hkv,
+                           sq, sk, q_offset, scale, causal, window, stream);
     case 256:
-      return launch_w<256>(q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq, sk,
-                           q_offset, scale, causal, window, stream);
+      return launch_w<256>(q, k, v, out, lse, qs, ks, vs, os, b, hq, hkv,
+                           sq, sk, q_offset, scale, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace tc
+
+}  // namespace
+
+namespace {
+
+int launch_any(const void* q, const void* k, const void* v, void* out,
+               float* lse, const long long* strides, int b, int hq, int hkv,
+               int sq, int sk, int q_offset, int hd, float scale, int causal,
+               int window, int bf16, void* stream) {
+  if (b == 0 || sq == 0) return 0;
+  if (sk < 1 || q_offset < 0 || window < 0 || window > q_offset + sq ||
+      (window > 0 && q_offset + sq - window >= sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{strides[0], strides[1], strides[2]};
+  const Strides ks{strides[3], strides[4], strides[5]};
+  const Strides vs{strides[6], strides[7], strides[8]};
+  const Strides os{strides[9], strides[10], strides[11]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return tc::launch_hd(hd, q, k, v, out, lse, qs, ks, vs, os, b, hq, hkv,
+                         sq, sk, q_offset, scale, causal, window, st);
+  return launch_hd<float>(hd, q, k, v, out, lse, qs, ks, vs, os, b, hq, hkv,
+                          sq, sk, q_offset, scale, causal, window, st);
+}
 
 }  // namespace
 
@@ -731,24 +698,25 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 // Returns a CUDA error code (0 = none); hd outside {64, 128, 256}, sk < 1,
 // q_offset < 0, a window outside [0, q_offset + sq], or a query row
 // with no visible key (a window whose last row starts at or past key sk)
-// is cudaErrorInvalidValue.
+// is cudaErrorInvalidValue.  The serving path: no log-sum-exp is written.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const long long* strides, int b, int hq, int hkv, int sq, int sk,
     int q_offset, int hd, float scale, int causal, int window, int bf16,
     void* stream) {
-  if (b == 0 || sq == 0) return 0;
-  if (sk < 1 || q_offset < 0 || window < 0 || window > q_offset + sq ||
-      (window > 0 && q_offset + sq - window >= sk))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{strides[0], strides[1], strides[2]};
-  const Strides ks{strides[3], strides[4], strides[5]};
-  const Strides vs{strides[6], strides[7], strides[8]};
-  const Strides os{strides[9], strides[10], strides[11]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return tc::launch_hd(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq,
-                         sk, q_offset, scale, causal, window, st);
-  return launch_hd<float>(hd, q, k, v, out, qs, ks, vs, os, b, hq, hkv, sq,
-                          sk, q_offset, scale, causal, window, st);
+  return launch_any(q, k, v, out, nullptr, strides, b, hq, hkv, sq, sk,
+                    q_offset, hd, scale, causal, window, bf16, stream);
+}
+
+// The training path's forward: flash_attention_launch's arguments plus
+// lse, a contiguous fp32 [B, Hq, Sq] that receives each query row's
+// log-sum-exp (natural log) of scale * q.k over its visible keys, which
+// flash_attention_bwd_launch (flash_attention_bwd.cu) reads.
+extern "C" int flash_attention_lse_launch(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    const long long* strides, int b, int hq, int hkv, int sq, int sk,
+    int q_offset, int hd, float scale, int causal, int window, int bf16,
+    void* stream) {
+  return launch_any(q, k, v, out, lse, strides, b, hq, hkv, sq, sk,
+                    q_offset, hd, scale, causal, window, bf16, stream);
 }

@@ -6,7 +6,11 @@
   ``paged_attention``;
 * ``flash_attention.flash_attention`` (K4) replaces the TPU's
   ``flash_attention``;
-* ``ssd_intra.ssd_intra`` (K5) replaces the TPU's ``ssd_intra``.
+* ``ssd_intra.ssd_intra`` (K5) replaces the TPU's ``ssd_intra``;
+* ``flash_attention.flash_attention_bwd`` and ``ssd_intra.ssd_intra_bwd``
+  are K4's and K5's backward kernels (the TPU kernels are forward-only);
+  the forward wrappers call them through their autograd Functions on the
+  card.
 
 The CUDA sources live in ``../csrc`` and build on first launch
 (``_build``).  A wrapper launches its kernel for CUDA tensors, runs the
@@ -14,15 +18,17 @@ plain version for CPU tensors, and counts its launches in
 ``<wrapper>.launches``.
 """
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .gcl_fetch import fetch
 from .latch_ops import apply_batch
 from .paged_attention import decode_paged
-from .ssd_intra import ssd_intra
+from .ssd_intra import ssd_intra, ssd_intra_bwd
 
 WRAPPERS = {"latch_ops": apply_batch, "gcl_fetch": fetch,
             "paged_attention": decode_paged,
-            "flash_attention": flash_attention, "ssd_intra": ssd_intra}
+            "flash_attention": flash_attention, "ssd_intra": ssd_intra,
+            "flash_attention_bwd": flash_attention_bwd,
+            "ssd_intra_bwd": ssd_intra_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -35,5 +41,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["WRAPPERS", "apply_batch", "decode_paged", "fetch",
-           "flash_attention", "launch_counts", "reset_launch_counts",
-           "ssd_intra"]
+           "flash_attention", "flash_attention_bwd", "launch_counts",
+           "reset_launch_counts", "ssd_intra", "ssd_intra_bwd"]

@@ -14,7 +14,9 @@ compares block indices of two sizes and with a window drops pairs it
 needs whenever ``block_q != block_k`` (its defaults are 512 and 1024),
 so the port does not copy it (ROADMAP.md, "Semantics the port fixed").
 ``decode_attention`` is plain PyTorch on both devices, as the JAX
-package computes it outside any Pallas kernel.
+package computes it outside any Pallas kernel.  Training differentiates
+:func:`attention` on both devices: on the card through K4's autograd
+Function and its backward kernel, on the CPU through autograd.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Model assembly for serving: init / prefill / decode, for the dense,
+"""Model assembly: init / train loss / prefill / decode, for the dense,
 moe, ssm, hybrid, vlm and encdec families.
 
-Port of the serving half of ``repro.models.lm``.  Parameters are the
+Port of ``repro.models.lm``.  Parameters are the
 JAX package's tree of plain dicts with layer-stacked ``[L, ...]`` leaves,
 and for the hybrid family a list of per-layer dicts
 (``convert.lm_params_to_torch`` carries a JAX tree across); where JAX
@@ -27,6 +27,16 @@ k/v rows of the new token, the ssm state, the recurrent state) instead
 of copying the whole cache each token, and returns the cache dict with
 ``pos`` advanced; the caller must not keep using the cache it passed in
 as a snapshot.
+
+Training (:func:`train_loss`): where JAX scans over layers under
+``jax.checkpoint`` when ``remat``, the port runs each layer under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so a
+layer's activations are recomputed in the backward pass (and its K4 or
+K5 forward launched a second time on the card).  The stacked leaves are
+split per layer with ``unbind``, whose backward stacks the layers'
+gradients in one copy.  :func:`xent_loss` checkpoints each chunk of its
+fp32 logits, so [B, S, V] is never held whole.  The blocks return the
+moe aux loss (0.0 for the other families), as JAX's do.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import layers, moe, rglru, ssm
@@ -67,8 +78,21 @@ def _check_family(cfg):
         raise ValueError(f"unknown model family {cfg.family!r}")
 
 
-def _layer(blocks, i):
-    return {k: v[i] for k, v in blocks.items()}
+def _layers(blocks, n):
+    """The n per-layer dicts of a stacked block tree, by ``unbind``; in
+    training its backward stacks the per-layer gradients once, where
+    indexing each layer would add a zero-filled copy of the whole stack
+    per layer."""
+    cols = {k: v.unbind(0) for k, v in blocks.items()}
+    return [{k: cols[k][i] for k in cols} for i in range(n)]
+
+
+def _maybe_remat(fn, remat, *args):
+    """``fn(*args)``, under a non-reentrant activation checkpoint when
+    ``remat`` (JAX's ``jax.checkpoint`` of the scanned body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ============================================================ param init
@@ -207,21 +231,21 @@ def dense_block(x, p, cfg, ctx, cache=None, pos=None):
                       cache=cache, pos=pos)
     x = x + h
     x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg, ctx)
-    return x, kv
+    return x, kv, 0.0
 
 
 def moe_block(x, p, cfg, ctx, cache=None, pos=None):
     h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
                       cache=cache, pos=pos)
     x = x + h
-    y, _ = moe.moe_ffn(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg)
-    return x + y, kv
+    y, aux = moe.moe_ffn(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg)
+    return x + y, kv, aux
 
 
 def ssm_block(x, p, cfg, ctx, cache=None):
     h, new_cache = ssm.mamba2_block(
         layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, cache=cache)
-    return x + h, new_cache
+    return x + h, new_cache, 0.0
 
 
 def hybrid_block(x, p, cfg, ctx, kind, cache=None, pos=None):
@@ -241,6 +265,7 @@ def hybrid_block(x, p, cfg, ctx, kind, cache=None, pos=None):
 
 
 _BLOCK = {"dense": dense_block, "vlm": dense_block, "moe": moe_block}
+_TRAIN_BLOCK = dict(_BLOCK, ssm=ssm_block)
 
 
 # ============================================================ enc-dec
@@ -251,19 +276,21 @@ def _xattn_params(p):
     return {k[2:]: v for k, v in p.items() if k.startswith("x_")}
 
 
-def _enc_forward(params, enc_embeds, cfg, ctx):
+def _enc_layer(x, p, cfg, ctx):
+    h, _ = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
+                     causal=False)
+    x = x + h
+    return x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg,
+                        ctx)
+
+
+def _enc_forward(params, enc_embeds, cfg, ctx, remat=False):
     """The encoder over the frame embeddings [B, Se, d]: per layer a
-    non-causal self-attention (rope over arange(Se)) and the FFN, then
-    ``enc_norm``."""
+    non-causal self-attention (rope over arange(Se)) and the FFN (each
+    layer checkpointed when ``remat``), then ``enc_norm``."""
     x = enc_embeds
-    blocks = params["enc_blocks"]
-    for i in range(cfg.n_enc_layers):
-        p = _layer(blocks, i)
-        h, _ = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg,
-                         ctx, causal=False)
-        x = x + h
-        x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg,
-                         ctx)
+    for p in _layers(params["enc_blocks"], cfg.n_enc_layers):
+        x = _maybe_remat(lambda x, p=p: _enc_layer(x, p, cfg, ctx), remat, x)
     return layers.rms_norm(x, params["enc_norm"], cfg.rms_eps)
 
 
@@ -284,15 +311,122 @@ def _cross_kv(params, enc_out, cfg):
     """Every decoder layer's cross K/V of the encoder output:
     ([L, B, Se, Hkv, hd], [L, B, Se, Hkv, hd])."""
     b, se, _ = enc_out.shape
-    dec = params["dec_blocks"]
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        xp = _xattn_params(_layer(dec, i))
+    for p in _layers(params["dec_blocks"], cfg.n_layers):
+        xp = _xattn_params(p)
         ks.append(layers.dense(enc_out, xp["wk"], xp.get("bk")).reshape(
             b, se, cfg.n_kv_heads, cfg.hd))
         vs.append(layers.dense(enc_out, xp["wv"], xp.get("bv")).reshape(
             b, se, cfg.n_kv_heads, cfg.hd))
     return torch.stack(ks), torch.stack(vs)
+
+
+# ============================================================ training
+
+def _run_stack(x, blocks, cfg, ctx, remat=False):
+    """The decoder stack for training: a loop over layers (each under an
+    activation checkpoint when ``remat``; the hybrid family's unrolled
+    layers never, as in JAX).  Returns (x, summed moe aux)."""
+    if cfg.family == "hybrid":
+        for i, p in enumerate(blocks):
+            x, _ = hybrid_block(x, p, cfg, ctx, cfg.pattern_at(i))
+        return x, 0.0
+    block = _TRAIN_BLOCK[cfg.family]
+
+    def body(x, p):
+        x, _, a = block(ctx.c(x, "resid"), p, cfg, ctx)
+        return x, a
+
+    aux = 0.0
+    for p in _layers(blocks, cfg.n_layers):
+        x, a = _maybe_remat(body, remat, x, p)
+        aux = aux + a
+    return x, aux
+
+
+def forward_hidden(params, tokens, cfg, ctx, *, patch_embeds=None,
+                   remat=False):
+    """Token ids -> final hidden states [B, S, d] and the moe aux."""
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    x = ctx.c(x, "resid")
+    x, aux = _run_stack(x, params["blocks"], cfg, ctx, remat=remat)
+    x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x, aux
+
+
+def xent_loss(h, head_w, labels, mask, ctx, chunk: int = 512):
+    """Chunked softmax cross-entropy, as JAX's: the chunk is the largest
+    divisor of S not above ``chunk``, each chunk's logits are fp32 and
+    each chunk runs under an activation checkpoint, so its [B, chunk, V]
+    logits are recomputed in the backward pass and [B, S, V] is never
+    held.  h [B,S,d], labels/mask [B,S]."""
+    b, s, d = h.shape
+    chunk = min(chunk, s)
+    while s % chunk:            # largest divisor of s not above the target
+        chunk -= 1
+
+    def body(hs, ls, ms):
+        logits = ctx.c(hs.float() @ head_w.float(), "logits")
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, ls[..., None].long())[..., 0]
+        return ((lse - ll) * ms).sum()
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        loss_sum = loss_sum + checkpoint(body, h[:, sl], labels[:, sl],
+                                         mask[:, sl], use_reentrant=False)
+        cnt = cnt + mask[:, sl].sum()
+    return loss_sum / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params, batch, cfg, ctx, *, remat=True, aux_weight=0.01,
+               loss_chunk=512):
+    """batch: tokens [B,S] and labels [B,S] (a label < 0 is masked out);
+    the vlm family's optional patch_embeds [B, n_patches, d] (their
+    positions carry no loss), the encdec family's enc_embeds [B, Se, d].
+    Returns the mean cross-entropy plus ``aux_weight`` times the summed
+    moe aux."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        return _encdec_loss(params, batch, cfg, ctx, remat=remat,
+                            loss_chunk=loss_chunk)
+    labels = batch["labels"]
+    h, aux = forward_hidden(params, batch["tokens"], cfg, ctx,
+                            patch_embeds=batch.get("patch_embeds"),
+                            remat=remat)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        h = h[:, batch["patch_embeds"].shape[1]:]
+    mask = (labels >= 0).float()
+    loss = xent_loss(h, _head(params, cfg), torch.clamp(labels, min=0),
+                     mask, ctx, chunk=loss_chunk)
+    return loss + aux_weight * aux
+
+
+def _encdec_loss(params, batch, cfg, ctx, remat=True, loss_chunk=512):
+    """The encoder over ``enc_embeds``, every layer's cross K/V of its
+    output, then the decoder over the tokens (each layer checkpointed
+    when ``remat``) and the chunked cross-entropy."""
+    enc_out = _enc_forward(params, batch["enc_embeds"], cfg, ctx,
+                           remat=remat)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    cross_k, cross_v = _cross_kv(params, enc_out, cfg)
+
+    def body(x, p, ck, cv):
+        x, _ = _dec_block(ctx.c(x, "resid"), p, cfg, ctx, (ck, cv))
+        return x
+
+    for p, ck, cv in zip(_layers(params["dec_blocks"], cfg.n_layers),
+                         cross_k.unbind(0), cross_v.unbind(0)):
+        x = _maybe_remat(body, remat, x, p, ck, cv)
+    x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    return xent_loss(x, _head(params, cfg), torch.clamp(labels, min=0),
+                     mask, ctx, chunk=loss_chunk)
 
 
 # ============================================================ serving paths
@@ -363,14 +497,13 @@ def decode_step(params, cache, tokens, cfg, ctx):
     blocks = params.get("blocks")
     if cfg.family in _BLOCK:
         block = _BLOCK[cfg.family]
-        for i in range(cfg.n_layers):
-            x, _ = block(x, _layer(blocks, i), cfg, ctx,
-                         cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        for i, p in enumerate(_layers(blocks, cfg.n_layers)):
+            x, _, _ = block(x, p, cfg, ctx,
+                            cache=(cache["k"][i], cache["v"][i]), pos=pos)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     elif cfg.family == "encdec":
-        blocks = params["dec_blocks"]
-        for i in range(cfg.n_layers):
-            x, _ = _dec_block(x, _layer(blocks, i), cfg, ctx,
+        for i, p in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
+            x, _ = _dec_block(x, p, cfg, ctx,
                               (cache["cross_k"][i], cache["cross_v"][i]),
                               cache=(cache["k"][i], cache["v"][i]), pos=pos)
         new_cache = dict(cache, pos=pos + 1)
@@ -395,10 +528,9 @@ def decode_step(params, cache, tokens, cfg, ctx):
                      "k": cache["k"], "v": cache["v"], "pos": pos + 1}
     else:
         tails = []
-        for i in range(cfg.n_layers):
-            x, (st, tail) = ssm_block(
-                x, _layer(blocks, i), cfg, ctx,
-                cache=(cache["state"][i], cache["conv"][i]))
+        for i, p in enumerate(_layers(blocks, cfg.n_layers)):
+            x, (st, tail), _ = ssm_block(
+                x, p, cfg, ctx, cache=(cache["state"][i], cache["conv"][i]))
             cache["state"][i].copy_(st)
             tails.append(tail)
         # a fresh conv leaf: its dtype follows the window's, as in JAX
@@ -428,11 +560,9 @@ def prefill(params, batch, cfg, ctx):
         enc_out = _enc_forward(
             params, batch["enc_embeds"].to(params["embed"].dtype), cfg, ctx)
         cross_k, cross_v = _cross_kv(params, enc_out, cfg)
-        dec = params["dec_blocks"]
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            x, (k, v) = _dec_block(x, _layer(dec, i), cfg, ctx,
-                                   (cross_k[i], cross_v[i]))
+        for i, p in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
+            x, (k, v) = _dec_block(x, p, cfg, ctx, (cross_k[i], cross_v[i]))
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -440,8 +570,8 @@ def prefill(params, batch, cfg, ctx):
     elif cfg.family in _BLOCK:
         block = _BLOCK[cfg.family]
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            x, (k, v) = block(ctx.c(x, "resid"), _layer(blocks, i), cfg, ctx)
+        for p in _layers(blocks, cfg.n_layers):
+            x, (k, v), _ = block(ctx.c(x, "resid"), p, cfg, ctx)
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -462,9 +592,8 @@ def prefill(params, batch, cfg, ctx):
                  "k": torch.stack(ks), "v": torch.stack(vs)}
     else:
         states, tails = [], []
-        for i in range(cfg.n_layers):
-            x, (st, tail) = ssm_block(ctx.c(x, "resid"), _layer(blocks, i),
-                                      cfg, ctx)
+        for p in _layers(blocks, cfg.n_layers):
+            x, (st, tail), _ = ssm_block(ctx.c(x, "resid"), p, cfg, ctx)
             states.append(st)
             tails.append(tail)
         cache = {"state": torch.stack(states), "conv": torch.stack(tails)}

@@ -1,2 +1,9 @@
-"""Step builders of the port: serving only (the training half waits for
-ROADMAP.md queue 1 item 4)."""
+"""Step builders of the port: the training step (gradient accumulation,
+remat, int8 gradient compression, AdamW) and the serving step, on one
+device."""
+
+from .step import (TrainConfig, build_serve_step, build_train_step,
+                   init_train_state, resolve_micro)
+
+__all__ = ["TrainConfig", "build_serve_step", "build_train_step",
+           "init_train_state", "resolve_micro"]

@@ -15,7 +15,9 @@ scaled above 1 with the output's rounding step; the bf16 kernel also
 rounds its probabilities to bf16);
 ssd_intra within 2e-4 of the output's scale (fp32 sums of up to 256
 terms in another order) and, with bf16 inputs, within 2e-2 of max(1,
-|want|) elementwise (the output's rounding step).
+|want|) elementwise (the output's rounding step).  The backward kernels
+of K4 and K5 are held against their plain versions (tolerances at
+``BWD_TOL`` and in each test).
 """
 
 import pytest
@@ -29,7 +31,7 @@ from repro_torch.kernels.gcl_fetch import gcl_fetch_plain  # noqa: E402
 from repro_torch.kernels.latch_ops import REQ_KEYS, \
     latch_apply_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import \
-    flash_attention_plain  # noqa: E402
+    flash_attention_bwd_plain, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     paged_attention_plain  # noqa: E402
 from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
@@ -320,7 +322,9 @@ def test_cuda_wrappers_count_launches(cuda):
     torch.cuda.synchronize()
     assert K.launch_counts() == {"latch_ops": 1, "gcl_fetch": 1,
                                  "paged_attention": 0,
-                                 "flash_attention": 0, "ssd_intra": 0}
+                                 "flash_attention": 0, "ssd_intra": 0,
+                                 "flash_attention_bwd": 0,
+                                 "ssd_intra_bwd": 0}
 
 
 def test_serve_on_gpu_matches_cpu(cuda):
@@ -688,6 +692,157 @@ def test_ssd_intra_kernel_bf16(cuda):
     assert rel.max().item() < 2e-2
 
 
+def _grad_err(got, want) -> float:
+    """Largest error of any of the gradient tensors, over that tensor's
+    largest |want| (at least 1)."""
+    return max(((g.float() - w.float()).abs().max()
+                / w.float().abs().max().clamp(min=1.0)).item()
+               for g, w in zip(got, want))
+
+
+# K4's backward: fp32 within 1e-4 of each gradient's scale (fp32 sums in
+# another order); bf16 within 3e-2 of it (P and dS rounded to bf16
+# before their products, bf16 inputs and outputs).  Each gradient row
+# also within 1e-4 (fp32) or 1e-2 (bf16) of its L2 norm, floored at a
+# tenth of the tensor's RMS row norm (chip_smoke.grad_row_rel): the
+# scale is set by a few early rows and keys, so the bound over it alone
+# is as large as a typical entry and would pass a tile or head walked
+# wrong.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+BWD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _bwd_case(cuda, dtype, b, sq, sk, hq, hkv, hd, seed, **mask):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = [torch.from_numpy(rng.normal(size=(b, n, h, hd))
+                                    .astype(np.float32)).to(cuda, dtype)
+                   .transpose(1, 2)
+                   for n, h in ((sq, hq), (sk, hkv), (sk, hkv), (sq, hq))]
+    out, lse = flash_attention_plain(q, k, v, return_lse=True, **mask)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **mask)
+    K.reset_launch_counts()
+    got = K.flash_attention_bwd(q, k, v, out, lse, do, **mask)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention_bwd"] == 1
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert torch.isfinite(g).all()
+    # the [B, S, H, hd] memory layout of the model's tensors
+    assert all(g.transpose(1, 2).is_contiguous() for g in got)
+    err = _grad_err(got, want)
+    assert err < BWD_TOL[dtype], err
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import grad_row_rel
+    row_err = grad_row_rel(got, want)
+    assert row_err < BWD_ROW_TOL[dtype], row_err
+    return err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [17, 64, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, hd, group, causal,
+                                                 s, dtype):
+    """K4's backward over head dims, GQA groups, masks, dtypes and
+    ragged S (tiles of 64 keys and of 32 or 64 rows)."""
+    _bwd_case(cuda, dtype, 2, s, s, 2 * group, 2, hd, hd + s + group,
+              causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,q_offset,window,causal,hd", [
+    (512, 512, 0, 2048, True, 128), (300, 300, 0, 40, True, 64),
+    (512, 128, 0, None, False, 64), (1, 128, 0, None, False, 64),
+    (512, 1664, 1152, None, True, 128), (33, 100, 67, 20, True, 64)])
+def test_flash_attention_bwd_masks(cuda, sq, sk, q_offset, window, causal,
+                                   hd, dtype):
+    """The backward with every mask the forward takes: a window (wider
+    than S and biting), cross-attention (Sq != Sk, not causal, a decode
+    row), a query offset, and an offset with a window."""
+    _bwd_case(cuda, dtype, 2, sq, sk, 4, 2, hd, sq + sk,
+              causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_and_autograd(cuda, dtype):
+    """With a gradient asked for, K4's forward writes each row's
+    log-sum-exp (held against the plain one) and autograd reaches the
+    backward kernel; the gradients match CPU autograd of the plain
+    forward.  Without one, no backward is set up."""
+    from repro_torch.kernels.flash_attention import _launch_fwd
+    rng = np.random.default_rng(3)
+    b, s, hq, hkv, hd = 2, 96, 4, 2, 64
+    cpu = [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                            .astype(np.float32)).to(dtype).transpose(1, 2)
+           for h in (hq, hkv, hkv)]
+    gpu = [t.to(cuda) for t in cpu]
+    out, lse = _launch_fwd(*gpu, True, None, 0, True)
+    _, want_lse = flash_attention_plain(*gpu, return_lse=True)
+    assert (lse - want_lse).abs().max().item() < 1e-3
+    do = torch.from_numpy(rng.normal(size=(b, hq, s, hd))
+                          .astype(np.float32)).to(dtype)
+    cpu = [t.detach().float().requires_grad_() for t in cpu]
+    (flash_attention_plain(*cpu).float() * do.float()).sum().backward()
+    gpu = [t.detach().requires_grad_() for t in gpu]
+    K.reset_launch_counts()
+    o = K.flash_attention(*gpu)
+    o.backward(do.to(cuda))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["flash_attention"] == 1 and \
+        counts["flash_attention_bwd"] == 1
+    err = _grad_err([t.grad.cpu() for t in gpu], [t.grad for t in cpu])
+    assert err < BWD_TOL[dtype], err
+    with torch.no_grad():
+        assert K.flash_attention(*gpu).grad_fn is None
+
+
+def test_flash_attention_bwd_refuses_hd_256(cuda):
+    x = torch.zeros((1, 2, 8, 256), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="hd 256"):
+        K.flash_attention_bwd(x, x, x, x, lse, x)
+
+
+@pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 32),
+                                      (4, 32, 6, 16), (2, 256, 3, 128),
+                                      (2, 37, 3, 16)])
+def test_ssd_intra_bwd_kernel_matches_plain(cuda, bc, q, h, p):
+    """K5's backward at the Mamba2-2.7B training shape, ragged chunks
+    (Q 100, 37: partial key tiles), the smoke config's chunk and P 128,
+    with a cumsum steep enough that exp overflows above the diagonal:
+    within 1e-4 of each gradient's scale (fp32 sums in another order;
+    dcs is a difference of two sums of up to 256 terms)."""
+    from repro_torch.kernels.ssd_intra import ssd_intra_bwd_plain
+    rng = np.random.default_rng(q + p)
+    cb = rng.normal(size=(bc, q, q))
+    cs = -np.abs(rng.normal(size=(bc, q, h))).cumsum(axis=1)
+    win, dy = rng.normal(size=(2, bc, q, h, p))
+    ins = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+           for a in (cb, cs, win, dy)]
+    want = ssd_intra_bwd_plain(*ins)
+    y = K.ssd_intra(*ins[:3])
+    K.reset_launch_counts()
+    got = K.ssd_intra_bwd(*ins, y)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ssd_intra_bwd"] == 1
+    assert all(torch.isfinite(g).all() for g in got)
+    err = _grad_err(got, want)
+    assert err < 1e-4, err
+    cpu = [t.cpu().requires_grad_() for t in ins[:3]]
+    gpu = [t.detach().clone().requires_grad_() for t in ins[:3]]
+    (ssd_intra_plain(*cpu) * ins[3].cpu()).sum().backward()
+    K.ssd_intra(*gpu).backward(ins[3])
+    assert _grad_err([t.grad.cpu() for t in gpu],
+                     [t.grad for t in cpu]) < 1e-4
+
+
 def test_lm_wrappers_count_and_reject(cuda):
     K.reset_launch_counts()
     x = torch.zeros((1, 2, 64, 64), device=cuda)
@@ -821,3 +976,63 @@ def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
         # and cross-attention, then cross-attention in 4 decode steps
         launches = cfg.n_enc_layers + 2 * cfg.n_layers + 4 * cfg.n_layers
     assert set(nc.values()) == {0} and ng[name] == launches
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b",
+                                  "deepseek-moe-16b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-medium"])
+def test_train_step_on_gpu_matches_cpu(cuda, arch):
+    """``train_loss`` and every gradient leaf in fp32, same weights and
+    batch, on the card (K4 or K5 forward, remat recompute and backward
+    kernels) and on the CPU (plain versions under autograd): the loss
+    within 1e-5 of itself, each leaf within 1e-3 of its max |want| (fp32
+    sums in other orders through the layers); every leaf gets a
+    gradient, and the kernels launch twice a layer forward (remat) and
+    once backward.  The moe config runs at the no-drop capacity factor
+    (a route that flips at a gate margin would move a token's
+    gradient)."""
+    from repro_torch import configs
+    from repro_torch import tree as pt
+    from repro_torch.models import lm
+    from repro_torch.train.step import value_and_grad
+    cfg = configs.get_smoke_config(arch).replace(dtype="float32",
+                                                 d_model=128)
+    if cfg.family in ("dense", "moe", "vlm"):
+        cfg = cfg.replace(n_heads=4, n_kv_heads=2, head_dim=64)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(n_heads=2, n_kv_heads=2, head_dim=64)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    gen = torch.Generator().manual_seed(4)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((2, cfg.n_patches, 128),
+                                            generator=gen)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((2, 16, 128), generator=gen)
+
+    def loss_fn(p, b):
+        return lm.train_loss(p, b, cfg, lm.NO_PARALLEL, remat=True)
+    want_loss, want, _ = value_and_grad(loss_fn, params, batch)
+    K.reset_launch_counts()
+    loss, got, missing = value_and_grad(loss_fn, _tree_to(params, cuda),
+                                        _tree_to(batch, cuda))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert missing == 0
+    if cfg.family == "ssm":
+        assert (counts["ssd_intra"], counts["ssd_intra_bwd"]) == (
+            2 * cfg.n_layers, cfg.n_layers)
+    else:
+        n_attn = cfg.n_layers if cfg.family != "encdec" else \
+            cfg.n_enc_layers + 2 * cfg.n_layers
+        assert (counts["flash_attention"],
+                counts["flash_attention_bwd"]) == (2 * n_attn, n_attn)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(
+        float(want_loss))
+    for g, w in zip(pt.leaves(got), pt.leaves(want)):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-3 * w.abs().max().item() + 1e-7, err

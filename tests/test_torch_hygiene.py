@@ -1,12 +1,15 @@
 """The port stands alone: no JAX, no ``repro``, no quiet CPU fallback.
 
-* an AST scan finds no import of ``jax`` or ``repro`` anywhere under
+* an AST scan finds no import of ``jax``, ``repro`` or ``ml_dtypes``
+  (the card's machine has none) anywhere under
   ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling scripts;
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
   imports the port, serves a small trace on the CPU, runs the LM serve
   of the dense, ssm, moe, hybrid, vlm and encdec families (the moe FFN
-  and the RG-LRU modules with them), the B-link tree and a transaction
-  batch;
+  and the RG-LRU modules with them), the B-link tree, a transaction
+  batch, and the training stack (``launch.train`` with a checkpoint and
+  a resume, the optimizer tiers, gradient compression, the fault
+  runtime, the input specs and the train-state conversions);
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -30,6 +33,7 @@ from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool  # noqa: E402
 from repro_torch.index import DeviceBTree  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import ServeLoop, ToyLM  # noqa: E402
 from repro_torch.train.step import build_serve_step  # noqa: E402
@@ -58,7 +62,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 25
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_roots(f)
-           if name in ("jax", "jaxlib", "repro")]
+           if name in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, bad
 
 
@@ -103,8 +107,40 @@ def test_port_serves_with_jax_blocked():
             DeviceTxnConfig(algo="to", tuples_per_gcl=4))
         txns, node, ts = device_txn_batches(cfg)[0]
         assert len(eng.run_batch(node, txns, ts)[0].decision) == 8
+        import tempfile
+        import torch
+        from repro_torch import convert
+        from repro_torch.launch.specs import train_inputs
+        from repro_torch.launch.train import main as train_main
+        from repro_torch.optim import AdamWConfig, compress_grads
+        from repro_torch.runtime import (FailureDetector, StragglerWatchdog,
+                                         plan_elastic_mesh)
+        from repro_torch.train import TrainConfig, init_train_state
+        with tempfile.TemporaryDirectory() as d:
+            for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+                argv = ["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "2", "--batch", "2", "--seq", "32",
+                        "--ckpt", d + "/" + arch]
+                rec = train_main(argv)
+                assert rec["grads_missing"] == 0 and len(rec["losses"]) == 2
+                assert train_main(argv + ["--resume"])["steps"] == []
+        from repro_torch.configs import get_smoke_config
+        tcfg = TrainConfig(compress_grads=True, opt=AdamWConfig(
+            m_dtype="int8", v_mode="int8"))
+        state = init_train_state(get_smoke_config("qwen3-1.7b"), tcfg,
+                                 torch.Generator(), "cpu")
+        back = convert.train_state_to_torch(
+            convert.train_state_to_numpy(state), "cpu")
+        assert back["opt"]["mu"]["embed"]["m"]["q"].dtype == torch.int8
+        compress_grads(state["params"])
+        assert plan_elastic_mesh(4, 2, [1]).new_data_size == 3
+        FailureDetector(["h0"]).sweep()
+        StragglerWatchdog().observe(1.0, 0)
+        assert train_inputs(get_smoke_config("seamless-m4t-medium"), 32,
+                            2)["enc_embeds"].shape == (2, 8, 64)
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
+        assert "ml_dtypes" not in sys.modules
         print("PORT_WITHOUT_JAX_OK")
     """)
     root = PORT.parents[1]
@@ -168,10 +204,16 @@ def test_cpu_run_launches_no_kernel():
         assert serve_main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--requests", "1", "--prompt-len", "8",
                            "--gen", "2"])["tokens"] == 2
+    for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+        rec = train_main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--steps", "1", "--batch", "2", "--seq", "32"])
+        assert rec["launches"] == [kernels.launch_counts()]
     assert kernels.launch_counts() == {"latch_ops": 0, "gcl_fetch": 0,
                                        "paged_attention": 0,
                                        "flash_attention": 0,
-                                       "ssd_intra": 0}
+                                       "ssd_intra": 0,
+                                       "flash_attention_bwd": 0,
+                                       "ssd_intra_bwd": 0}
 
 
 def test_convert_round_trip_keeps_dtypes_and_bits():
@@ -185,3 +227,38 @@ def test_convert_round_trip_keeps_dtypes_and_bits():
     for k, v in tree.items():
         assert back[k].dtype == v.dtype
         np.testing.assert_array_equal(back[k], v)
+
+
+def test_train_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.train import TrainConfig, build_train_step, \
+        init_train_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_step(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, TrainConfig(), torch.Generator())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        train_main(["--smoke", "--device", "cpu", "--production-mesh"])
+
+
+def test_train_state_round_trip_keeps_dtypes_and_bits():
+    """bf16 parameters (as raw uint16 bits on the numpy side), int8 m and
+    v blocks, fp32 scales, the int32 step and the error-feedback tree."""
+    from repro_torch import tree as pt
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state
+    tcfg = TrainConfig(compress_grads=True, opt=AdamWConfig(
+        m_dtype="int8", v_mode="int8"))
+    state = init_train_state(get_smoke_config("mamba2-2.7b"), tcfg,
+                             torch.Generator().manual_seed(1), "cpu")
+    as_np = convert.train_state_to_numpy(state)
+    assert as_np["params"]["embed"].dtype == np.uint16
+    back = convert.train_state_to_torch(as_np, "cpu")
+    for a, b in zip(pt.leaves(state), pt.leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)

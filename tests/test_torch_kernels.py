@@ -268,3 +268,180 @@ def test_wrappers_reject_bad_inputs():
                        torch.zeros((2, 4, 2, 8)),
                        torch.zeros((1, 2), dtype=torch.int32),
                        torch.zeros(1, dtype=torch.int32))
+
+
+# ------------------------------------------- K4 and K5 backward (plain)
+# The Pallas kernels are forward-only; JAX differentiates their jnp
+# references.  Each plain backward is held against jax.vjp of the
+# kernel's ref.py (and of the model's dense_attention for the masks the
+# Pallas kernel lacks) and against torch autograd of the plain forward.
+# Tolerances: fp32 within 2e-5 of each gradient's scale (max(1, |want|);
+# fp32 sums in another order), bf16 inputs within 2e-2 of it (the two
+# sides round their bf16 outputs, and the port's D reads the bf16 output).
+
+def _rel(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _torch_in(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,dtype,tol", [
+    (2, 64, 4, 2, 32, True, "float32", 2e-5),     # GQA group 2
+    (1, 50, 4, 2, 16, True, "float32", 2e-5),     # ragged S
+    (2, 33, 2, 2, 16, False, "float32", 2e-5),
+    (2, 64, 4, 2, 32, True, "bfloat16", 2e-2)])
+def test_flash_bwd_plain_matches_jax_vjp(b, s, hq, hkv, hd, causal, dtype,
+                                         tol):
+    import jax
+    from repro.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    rng = np.random.default_rng(s + hd)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, k, v = [jnp.asarray(rng.normal(size=(b, h, s, hd)), jdt)
+               for h in (hq, hkv, hkv)]
+    do = jnp.asarray(rng.normal(size=(b, hq, s, hd)), jdt)
+    _, vjp = jax.vjp(lambda q, k, v: flash_attention_ref(
+        q, k, v, causal=causal), q, k, v)
+    want = vjp(do)
+    tq, tk, tv, tdo = [_torch_in(a, tdt) for a in (q, k, v, do)]
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal,
+                                     return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo,
+                                    causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        assert _rel(g.float().numpy(), w) < tol
+    ins = [t.detach().float().requires_grad_() for t in (tq, tk, tv)]
+    (flash_attention_plain(*ins, causal=causal) * tdo.float()).sum() \
+        .backward()
+    for g, t in zip(got, ins):
+        assert _rel(g.float().numpy(), t.grad.numpy()) < tol
+
+
+@pytest.mark.parametrize("sq,sk,q_offset,window,causal", [
+    (40, 40, 0, 9, True), (24, 56, 0, None, False), (1, 56, 0, None, False),
+    (24, 56, 32, None, True), (24, 56, 32, 12, True)])
+def test_flash_bwd_plain_masks_match_dense_attention(sq, sk, q_offset,
+                                                     window, causal):
+    """Window, Sq != Sk and query offsets against jax.vjp of the model's
+    dense_attention ([B, S, H, hd] layout), fp32."""
+    import jax
+    from repro.models.attention import dense_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    rng = np.random.default_rng(sq + sk)
+    q = rng.normal(size=(2, sq, 4, 16)).astype(np.float32)
+    k, v = rng.normal(size=(2, 2, sk, 2, 16)).astype(np.float32)
+    do = rng.normal(size=(2, sq, 4, 16)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, vjp = jax.vjp(lambda q, k, v: dense_attention(q, k, v, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = [torch.from_numpy(a).transpose(1, 2)
+                       for a in (q, k, v, do)]
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, **kw)
+    for g, w in zip(got, want):
+        assert _rel(g.transpose(1, 2).numpy(), w) < 2e-5
+
+
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("bc,q,h,p", [(2, 32, 3, 16), (3, 20, 2, 8)])
+def test_ssd_bwd_plain_matches_jax_vjp(bc, q, h, p, steep):
+    """The plain K5 backward against jax.vjp and torch autograd of the
+    plain forward, fp32 (2e-5 of each gradient's scale).  With a mild
+    cumsum, against the kernel's ref.py itself; with one steep enough
+    that exp overflows above the diagonal, ref.py's vjp is NaN there
+    (``where(mask, exp(seg), 0)``: 0 times the derivative inf), so the
+    reference is the same function with the select also before the exp,
+    and the port's gradients must be finite."""
+    import jax
+    from repro.kernels.ssd_intra.ref import ssd_intra_ref
+    from repro_torch.kernels.ssd_intra import (ssd_intra_bwd_plain,
+                                               ssd_intra_plain)
+    rng = np.random.default_rng(q)
+    cb = rng.normal(size=(bc, q, q)).astype(np.float32)
+    cs = (-np.abs(rng.normal(size=(bc, q, h)) * (40 if steep else 0.1))
+          ).cumsum(1).astype(np.float32)
+    win, dy = rng.normal(size=(2, bc, q, h, p)).astype(np.float32)
+
+    def safe_ref(cb, cs, win):
+        seg = cs[:, :, None, :] - cs[:, None, :, :]
+        mask = jnp.tril(jnp.ones((q, q), bool))[None, :, :, None]
+        l_mat = jnp.where(mask, jnp.exp(jnp.where(mask, seg, 0.0)), 0.0)
+        return jnp.einsum("bqk,bqkh,bkhp->bqhp", cb, l_mat, win)
+    assert np.isfinite(np.asarray(jax.vjp(
+        ssd_intra_ref, jnp.asarray(cb), jnp.asarray(cs),
+        jnp.asarray(win))[1](jnp.asarray(dy))[1])).all() != steep
+    _, vjp = jax.vjp(safe_ref if steep else ssd_intra_ref, jnp.asarray(cb),
+                     jnp.asarray(cs), jnp.asarray(win))
+    want = vjp(jnp.asarray(dy))
+    ins = [torch.from_numpy(a) for a in (cb, cs, win)]
+    got = ssd_intra_bwd_plain(*ins, torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        assert np.isfinite(g.numpy()).all()
+        assert _rel(g.numpy(), w) < 2e-5
+    ins = [t.clone().requires_grad_() for t in ins]
+    (ssd_intra_plain(*ins) * torch.from_numpy(dy)).sum().backward()
+    for g, t in zip(got, ins):
+        assert _rel(g.numpy(), t.grad.numpy()) < 2e-5
+
+
+def test_backward_wrappers_run_plain_on_the_cpu():
+    """On CPU tensors the backward wrappers run their plain versions and
+    count no launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    K.reset_launch_counts()
+    x = torch.randn(1, 2, 8, 16)
+    out, lse = flash_attention_plain(x, x, x, return_lse=True)
+    dq, dk, dv = K.flash_attention_bwd(x, x, x, out, lse, x)
+    assert dq.shape == x.shape and torch.isfinite(dq).all()
+    cs = -torch.rand(1, 8, 2).cumsum(1)
+    cb, win = torch.randn(1, 8, 8), torch.randn(1, 8, 2, 4)
+    grads = K.ssd_intra_bwd(cb, cs, win, torch.randn(1, 8, 2, 4),
+                            K.ssd_intra(cb, cs, win))
+    assert [tuple(g.shape) for g in grads] == [(1, 8, 8), (1, 8, 2),
+                                               (1, 8, 2, 4)]
+    assert K.launch_counts() == dict.fromkeys(K.WRAPPERS, 0)
+
+
+def test_gradient_row_check_catches_a_wrong_key_tile():
+    """The card's check of K4's backward (``chip_smoke.grad_row_rel``,
+    each gradient row within 1e-2 of its L2 norm, floored at a tenth of
+    the tensor's RMS row norm) catches dK off by 30 % on the last key
+    tile of one head, which the bound over the tensor's max passes
+    (3e-2); and the floor takes the causal row that sees one key, whose
+    exact dq is zero (P = 1, dS = dP - D = 0): there both versions are
+    rounding noise."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    rng = np.random.default_rng(3)
+    b, s, hq, hkv, hd = 1, 512, 4, 2, 64
+    q, k, v, do = [torch.from_numpy(rng.normal(size=(b, n, h, hd))
+                                    .astype(np.float32)).transpose(1, 2)
+                   for n, h in ((s, hq), (s, hkv), (s, hkv), (s, hq))]
+    out, lse = flash_attention_plain(q, k, v, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do)
+    rms = float(want[0].norm(dim=-1).square().mean().sqrt())
+    assert float(want[0][:, :, 0].norm(dim=-1).max()) < 1e-5 * rms
+    dk = want[1].clone()
+    dk[:, 1, 448:] *= 0.7
+    bad = (want[0], dk, want[2])
+    assert cs._grad_rel(bad, want) < cs.BWD_TOL
+    assert cs.grad_row_rel(bad, want) > 0.29
+    noise = torch.from_numpy(rng.normal(size=want[0].shape)
+                             .astype(np.float32)) * 1e-6 * rms
+    noisy = (want[0] + noise, want[1], want[2])
+    assert cs.grad_row_rel(noisy, want) < cs.BWD_ROW_TOL

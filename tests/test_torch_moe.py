@@ -301,7 +301,7 @@ def test_moe_model_bf16_layer_by_layer(arch, monkeypatch):
         x, p, jcfg, ctx, cache=(kc, vc), pos=pos))
     jlayer = [jax.tree.map(lambda a, i=i: a[i], params["blocks"])
               for i in range(jcfg.n_layers)]
-    tlayer = [tlm._layer(tparams["blocks"], i) for i in range(jcfg.n_layers)]
+    tlayer = tlm._layers(tparams["blocks"], jcfg.n_layers)
     flips_seen = []
 
     def check_layer(step, i, y_j, y_t):
@@ -335,7 +335,7 @@ def test_moe_model_bf16_layer_by_layer(arch, monkeypatch):
     ks, vs = [], []
     for i in range(jcfg.n_layers):
         y_j, (kj, vj), _ = jblock(x, jlayer[i])
-        y_t, (kt, vt) = tlm.moe_block(_t(x), tlayer[i], tcfg, tctx)
+        y_t, (kt, vt), _ = tlm.moe_block(_t(x), tlayer[i], tcfg, tctx)
         check_layer("prefill", i, y_j, y_t)
         for a, c in ((kt, kj), (vt, vj)):
             ref = np.asarray(c, np.float32)
@@ -357,8 +357,8 @@ def test_moe_model_bf16_layer_by_layer(arch, monkeypatch):
         for i in range(jcfg.n_layers):
             y_j, (kj, vj), _ = jblock_dec(x, jlayer[i], kc[i], vc[i], pos)
             kt, vt = _t(kc[i]), _t(vc[i])
-            y_t, _ = tlm.moe_block(_t(x), tlayer[i], tcfg, tctx,
-                                   cache=(kt, vt), pos=_t(pos))
+            y_t, _, _ = tlm.moe_block(_t(x), tlayer[i], tcfg, tctx,
+                                      cache=(kt, vt), pos=_t(pos))
             check_layer(f"decode {n}", i, y_j, y_t)
             ref = np.asarray(kj, np.float32)[:, s + n]
             allow = 5e-2 * max(1.0, np.abs(ref).max()) + np.abs(ref) * 2 ** -7
