@@ -100,7 +100,8 @@ Phases (any failure exits non-zero; nothing is caught):
    2 forward and 1 backward launches of K4 (Qwen3) or K5 (Mamba2) a
    layer a step and nothing else; print step times, tokens/s, peak
    memory beside 12 bytes a parameter, and the device's busy share over
-   one more step under ``torch.profiler``; at full width and 4 layers,
+   one more step under ``torch.profiler``, with K4's and K5's forward and
+   backward device time in that step; at full width and 4 layers,
    one step through the kernels against the same step with the plain
    versions forced on the card (:func:`train_plain_check`); and a
    checkpoint saved and resumed on the card (:func:`train_resume_check`,
@@ -1047,10 +1048,12 @@ def check_ssd_bwd(dev, K):
                                 iters=3),
            "bound_ms": bms, "bound_by": by, "library_ms": None}
     log(f"rate ssd_intra_bwd: {n_flops / row['ms'] / 1e9:.3f} TFLOP/s "
-        f"(fp32 FMA), {n_bytes / row['ms'] / 1e6:.3f} GB/s, "
+        f"(3xTF32 tensor cores, each product counted once), "
+        f"{n_bytes / row['ms'] / 1e6:.3f} GB/s, "
         f"{100 * bms / row['ms']:.2f} % of its bound ({by}); error {rel} of "
-        f"max(1, |want|) (tolerance 1e-4); the fp32 FMA bound: "
-        f"{bound_ms(n_bytes, n_flops, FP32_FLOPS)[0]} ms")
+        f"max(1, |want|) (tolerance 1e-4); the TF32 tensor-core bound of "
+        f"its three TF32 products: "
+        f"{bound_ms(0, 3 * n_flops, TF32_FLOPS)[0]} ms")
     return row
 
 
@@ -1891,6 +1894,7 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512):
     events = prof.key_averages()
     busy = device_busy_us(events) / (prof_wall * 1e6)
     top = _top_device(events)
+    kernel_ms = _kernel_device_ms(events)
     assert np.isfinite(float(metrics["loss"]))
     del state
     torch.cuda.empty_cache()
@@ -1904,7 +1908,7 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512):
            "peak_mem_gb": peak / 1e9, "params": n_params,
            "reckoned_state_gb": 12 * n_params / 1e9,
            "device_busy_share": busy, "profiled_step_ms": prof_wall * 1e3,
-           "top_device_ms": top,
+           "top_device_ms": top, "kernel_device_ms": kernel_ms,
            "wall_s_with_init": wall, "launches_per_step": want}
     log(f"train {arch}: " + json.dumps(out))
     return out, {k: v * steps for k, v in want.items()}
@@ -1920,6 +1924,29 @@ def _top_device(events, n=10) -> dict:
     out = {k[:80]: ms for k, ms in dev[:n]}
     out["rest"] = sum(ms for _, ms in dev[n:])
     return out
+
+
+def _kernel_device_ms(events) -> dict:
+    """Device time (ms) of the port's K4 and K5 kernels in a
+    ``key_averages()``, forward and backward apart (a backward call
+    launches two K4 kernels, a dQ and a dK/dV pass), with their
+    launches."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        for tag, part in (("flash_attention_bwd", "flash_attention_bwd"),
+                          ("ssd_intra_bwd", "ssd_intra_bwd"),
+                          ("flash_attention", "flash_attention_"),
+                          ("ssd_intra", "ssd_intra_kernel")):
+            if part in e.key:
+                ms, n = out.get(tag, (0.0, 0))
+                out[tag] = (ms + e.self_device_time_total / 1e3,
+                            n + e.count)
+                break
+    return {k: {"ms": ms, "kernel_launches": n}
+            for k, (ms, n) in out.items()}
 
 
 @contextlib.contextmanager
@@ -2091,8 +2118,9 @@ def main() -> int:
         if name in _build.BUILD_LOG:
             spills = [sp for _, _, sp in ptxas_functions(
                 _build.BUILD_LOG[name])]
-            # K4's backward: dQ and dK/dV at hd 64 and 128, bf16 and fp32;
-            # K5's: P 16, 32, 64 and 128
+            # K4's backward: the wgmma dQ and dK/dV passes and the fp32
+            # kernel's two roles, at hd 64 and 128; K5's (3xTF32): P 16,
+            # 32, 64 and 128
             assert spills == [0] * (8 if name == "flash_attention_bwd"
                                     else 4), f"{name} spills: {spills}"
     if "ssd_intra" in _build.BUILD_LOG:

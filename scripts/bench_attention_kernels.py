@@ -1,8 +1,9 @@
-"""K3 and K4 beside SDPA, K2 beside ``index_select``, and K1 and K5, on
-one NVIDIA GPU at the main path's shapes.
+"""K3 and K4 beside SDPA, K2 beside ``index_select``, K1 and K5, and the
+backward kernels of K4 and K5, on one NVIDIA GPU at the main path's
+shapes.
 
     python3 scripts/bench_attention_kernels.py [--src DIR] [--label NAME]
-        [--out-dir build/bench] [--phases] [--only k4 ...]
+        [--out-dir build/bench] [--phases] [--only k4 k4bwd ...]
 
 Builds the CUDA kernels of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``; point it at an unpacked older commit
@@ -29,8 +30,17 @@ reads ``clock64`` at each ``// PHASE <name>`` line of its loop (summed
 over warp 0 of every block) is built beside the package's libraries
 and run once.
 
-``--only`` runs just the named kernels' checks (k1-k5; the launch floor
-always runs).
+``--only`` runs just the named kernels' checks (k1-k5, and k4bwd and
+k5bwd for the backward kernels of the training path:
+``check_flash_bwd`` at ``FLASH_BWD_CASES`` beside autograd of SDPA, and
+``check_ssd_bwd`` at the Mamba2-2.7B training shape; the launch floor
+always runs).  To compare the backward kernels with an older commit's,
+unpack it (``git archive <commit> | tar -x -C build/parent``) and run,
+in one chip call, in turns (parent, change, change, parent):
+
+    B="python3 scripts/bench_attention_kernels.py --only k4bwd k5bwd"
+    $B --src build/parent/src --label parent1; $B --label change1
+    $B --label change2; $B --src build/parent/src --label parent2
 
 Prints the card's name and power limit, then one JSON line, also
 written to ``<out-dir>/bench_attention_<label>.json``.
@@ -174,7 +184,8 @@ def main() -> int:
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "build", "bench"))
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--only", nargs="+",
-                    choices=("k1", "k2", "k3", "k4", "k5"),
+                    choices=("k1", "k2", "k3", "k4", "k5", "k4bwd",
+                             "k5bwd"),
                     default=("k1", "k2", "k3", "k4", "k5"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -203,6 +214,10 @@ def main() -> int:
         res["k1"] = chip_smoke.check_latch(dev, K)
     if "k5" in args.only:
         res["k5"] = chip_smoke.check_ssd(dev, K)
+    if "k4bwd" in args.only:
+        res["k4bwd"] = chip_smoke.check_flash_bwd(dev, K)
+    if "k5bwd" in args.only:
+        res["k5bwd"] = chip_smoke.check_ssd_bwd(dev, K)
     if "k3" in args.only and hasattr(PA, "cluster_size"):
         res["k3_clusters"] = cluster_sweep(dev)
     if args.phases:

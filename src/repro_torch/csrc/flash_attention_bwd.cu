@@ -17,27 +17,36 @@
 //   dK = scale dS^T Q,  dQ = scale dS K,
 // summed over the G = Hq / Hkv query heads of each kv head for dK and
 // dV.  No atomics: two launches, each output written by one block, so
-// the gradients are the same from run to run.
+// the gradients are the same bits from run to run.
 //   1. flash_attention_bwd_dq_kernel: a block owns a 64-row q tile of one
 //      (batch, q head) and walks its visible key tiles, as the forward
-//      does; before the walk it computes D for its rows and stores it
-//      (delta, fp32 [B, Hq, Sq]).
-//   2. flash_attention_bwd_dkdv_kernel: a block owns a 64-key tile of one
-//      (batch, kv head) and walks the q tiles of 32 rows that see it, for
-//      each of the group's q heads, reading the D the first launch wrote.
+//      does; first it computes D for its rows and stores it, and the
+//      rows' lse * log2 e, in a scratch padded to whole 64-row tiles.
+//   2. flash_attention_bwd_dkdv_kernel: a block owns 128 keys of one
+//      (batch, kv head) and walks the 64-row q tiles that see them, for
+//      each of the group's q heads in order, reading the scratch.
 // Masked pairs are selected to 0 before any product (exp of a masked
 // score is never taken), with the same predicates as the forward; only
 // the tiles that cross a mask edge evaluate them.
 //
-// bf16 inputs (the model's card path): mma.sync.m16n8k16 bf16 products
-// with fp32 sums, fragments by ldmatrix from XOR-swizzled shared tiles
-// fed by cp.async (two-stage rings), as in the forward.  P is rounded to
-// bf16 before dV = P^T dO and dS before dK and dQ, as the forward rounds
-// P before P.V; dP, D and the softmax are fp32.  Four warps; in kernel 1
-// each warp owns 16 q rows (Q fragments kept in registers, dO re-read
-// from shared memory), in kernel 2 each warp owns 16 keys and keeps its
-// dK and dV accumulators (16 x hd fp32 each) in registers.  Head dims 64
-// and 128; hd 256 (recurrentgemma-2b) is refused.
+// bf16 inputs (the model's card path), on Hopper's asynchronous units
+// (hopper.cuh): each block is one or two consumer warpgroups of 64 rows, which
+// issue wgmma (bf16 operands, fp32 sums), and a producer warp (in pass 2 a
+// whole producer warpgroup, whose registers the consumers take by setmaxnreg),
+// which keeps the tiles the walk needs in flight by TMA (4-D tensor maps over
+// the [B, S, H, hd] tensors, 128-byte swizzle, rows past S read as zeros) into
+// a ring of shared-memory stages guarded by mbarriers (full: the tile's bytes
+// have landed; empty: every consumer warp is done with it).  Pass 1 (one
+// consumer warpgroup, 2 K/V stages): S = Q K^T and dP = dO V^T from shared
+// memory, then dS in registers as the A operand of dQ += dS K.  Pass 2 (two
+// consumer warpgroups of 64 keys, 3 Q/dO/lse/D stages, K and V loaded once):
+// S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in registers as the A
+// operands of dV += P^T dO and dK += dS^T Q.  P is rounded to bf16 before dV =
+// P^T dO and dS before dK and dQ, as the forward rounds P before P.V; dP, D and
+// the softmax are fp32.  The recomputed S and dP make 7 products where the
+// function has 5; one pass with dQ added across key tiles would need an fp32
+// buffer summed in a fixed order (FlashAttention-3's deterministic mode).  Head
+// dims 64 and 128; hd 256 (recurrentgemma-2b) is refused (see pass 2).
 //
 // fp32 inputs: flash_attention_bwd_f32_kernel, scalar FMAs on the CUDA
 // cores from fp32 shared tiles of 32 rows and 32 keys (256 threads; rows
@@ -49,14 +58,19 @@
 // S 512, Hq 16, Hkv 8, hd 128, causal) bytes: q, out, dout and dq (8.4 MB
 // each), k, v, dk and dv (4.2 MB each) and lse, 50.5 MB, 15.1 us at 3.35
 // TB/s, against five products of 2 pairs hd operations, 10.8 GFLOP, 10.9
-// us at the bf16 tensor-core peak.  At llava's offset shape (512 rows
-// over 1664 keys, 32 q heads) operations bound it.  Left for later:
-// wgmma, TMA, a deeper ring, K/V fragments kept in registers in kernel 2.
+// us at the bf16 tensor-core peak (the 7 products run, 15.3 us).  At
+// llava's offset shape (512 rows over 1664 keys, 32 q heads) operations
+// bound it.  What holds it above that (PERF.md): causal dK/dV blocks are
+// uneven (the first 128 keys walk 16 q tiles, the last 4, one block an
+// SM), and the dQ pass recomputes S and dP and overlaps its steps only
+// across its two blocks an SM.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -72,7 +86,7 @@ struct Args {
   const void* o;
   const void* dout;
   const float* lse;      // [B, Hq, Sq]
-  float* delta;          // [B, Hq, Sq], written by the dQ pass
+  float* delta;          // scratch written by the dQ pass (see below)
   void* dq;
   void* dk;
   void* dv;
@@ -104,130 +118,125 @@ __device__ __forceinline__ void query_range(const Args& a, int k0, int cols,
                     : a.sq;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// ------------------------------------------------- bf16: tensor cores
+// ------------------------------------------------- bf16: wgmma and TMA
 
 namespace tc {
 
-constexpr int NW = 4;                // warps a block
-constexpr int NT = NW * 32;
-constexpr int BQ = 64;               // q rows a dQ block (16 a warp)
-constexpr int BK = 64;               // keys a tile (16 a warp in dK/dV)
-constexpr int BQ2 = 32;              // q rows a step of the dK/dV walk
-constexpr int STAGES = 2;
+using namespace hopper;
+
+constexpr int BM = 64;               // rows of a warpgroup's wgmma tile
+constexpr int WG = 128;              // threads of a warpgroup
+constexpr int KV_WGS = 2;            // consumer warpgroups of a dK/dV block
+constexpr int BKV = BM * KV_WGS;     // keys of a dK/dV block
+constexpr int DQ_STAGES = 2;         // K/V tiles in flight (dQ pass)
+constexpr int KV_STAGES = 3;         // Q/dO tiles in flight (dK/dV pass)
+constexpr int DQ_THREADS = WG + 32;  // a consumer warpgroup, a producer warp
+// two consumer warpgroups and a producer warpgroup, of which one warp
+// issues the copies: setmaxnreg moves registers only between the warps of
+// one block, and the producer group's 128 x (168 - 24) are what the
+// consumers' 256 x (240 - 168) take
+constexpr int KV_THREADS = (KV_WGS + 1) * WG;
+constexpr int PANEL = BM * 128;      // bytes of a 64-row, 64-column panel
+
+struct TcArgs {
+  CUtensorMap q, k, v, dout;         // 4-D (hd, s, h, b), 64 x 64 boxes
+  Args a;
+  float* lse2;                       // [B * Hq][sqp] lse * log2 e
+  float* dsum;                       // [B * Hq][sqp] D
+  int sqp;                           // sq rounded up to BM
+};
 
 template <int HD>
-constexpr int dq_smem() {
-  return (2 * BQ + 2 * STAGES * BK) * HD * 2 + BQ * 4;
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * HD * 2;
 }
 template <int HD>
-constexpr int dkdv_smem() {
-  return (2 * BK + 2 * STAGES * BQ2) * HD * 2 + 2 * STAGES * BQ2 * 4;
+__host__ __device__ constexpr int dq_smem() {
+  return (2 + 2 * DQ_STAGES) * tile_bytes<HD>(BM) + 1024;
+}
+template <int HD>
+__host__ __device__ constexpr int kv_smem() {
+  return 2 * tile_bytes<HD>(BKV) + 2 * KV_STAGES * tile_bytes<HD>(BM) +
+         2 * KV_STAGES * BM * 4 + 1024;
 }
 
-// the bf16 16x16 A fragment of k-step t from the C fragments of two
-// adjacent 8-column tiles
-template <int NN>
-__device__ __forceinline__ void a_frag(const float (&c)[NN][4], int t,
-                                       uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c[2 * t][0], c[2 * t][1]);
-  a[1] = pack_bf16(c[2 * t][2], c[2 * t][3]);
-  a[2] = pack_bf16(c[2 * t + 1][0], c[2 * t + 1][1]);
-  a[3] = pack_bf16(c[2 * t + 1][2], c[2 * t + 1][3]);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// acc[NN][4] += A . B^T over HD: A the warp's 16 rows of a tile at
-// a_addr (row a_row0), B the first 8 * NN rows of a tile at b_addr
-template <int HD, int NN>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[NN][4],
-                                              uint32_t a_addr, int a_row0,
-                                              uint32_t b_addr, int lane) {
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// the bf16 A fragments of the four 16-column k-steps of an m64n64
+// accumulator (blocks 2t and 2t + 1 packed pairwise)
+__device__ __forceinline__ void a_frags(const float (&c)[32],
+                                        uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    a[t][0] = pack_bf16(c[8 * t], c[8 * t + 1]);
+    a[t][1] = pack_bf16(c[8 * t + 2], c[8 * t + 3]);
+    a[t][2] = pack_bf16(c[8 * t + 4], c[8 * t + 5]);
+    a[t][3] = pack_bf16(c[8 * t + 6], c[8 * t + 7]);
+  }
+}
+
+// acc = A . B^T over HD for two 64-row tiles, both K-major: A at a_addr
+// in panels a_panel bytes apart, B (64 rows) at b_addr in 64-row panels
+template <int HD>
+__device__ __forceinline__ void tile_dot(float (&acc)[32], uint32_t a_addr,
+                                         uint32_t a_panel, uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a_addr + swz<HD>(a_row0 + (lane & 15), 2 * kk + (lane >> 4)),
-            a[0], a[1], a[2], a[3]);
-#pragma unroll
-    for (int n2 = 0; n2 < NN / 2; ++n2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(b_addr + swz<HD>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
-                               2 * kk + ((lane >> 3) & 1)),
-              b0, b1, b2, b3);
-      mma(acc[2 * n2], a, b0, b1);
-      mma(acc[2 * n2 + 1], a, b2, b3);
-    }
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64(acc, desc_k(a_addr + (kk / 4) * a_panel + col),
+                 desc_k(b_addr + (kk / 4) * PANEL + col), kk > 0);
   }
 }
 
-// out[HD/8][4] += C . B over the 8 * NN columns of c (bf16-rounded): B the
-// first 8 * NN rows of a [rows][HD] tile at b_addr, read transposed
-template <int HD, int NN>
-__device__ __forceinline__ void cols_times_tile(float (&out)[HD / 8][4],
-                                                const float (&c)[NN][4],
-                                                uint32_t b_addr, int lane) {
-#pragma unroll
-  for (int t = 0; t < NN / 2; ++t) {
-    uint32_t a[4];
-    a_frag(c, t, a);
-#pragma unroll
-    for (int d2 = 0; d2 < HD / 16; ++d2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(b_addr + swz<HD>(t * 16 + (lane & 7) +
-                                     (((lane >> 3) & 1) << 3),
-                                 2 * d2 + (lane >> 4)),
-                b0, b1, b2, b3);
-      mma(out[2 * d2], a, b0, b1);
-      mma(out[2 * d2 + 1], a, b2, b3);
-    }
-  }
-}
-
-// a warp's 16 rows of fp32 C fragments (times mul) to bf16 rows row0..
-// of the global tensor (rows at or past n are not stored), staged in the
-// warp's own 16 rows of the swizzled tile at stage
+// a warpgroup's m64nHD accumulator times mul, as bf16, to rows row0.. of
+// a [., HD] tensor (rows at or past n are not stored)
 template <int HD>
-__device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
-                                           float mul, unsigned char* stage,
-                                           int wrow, bf16* dst,
-                                           long long stride, int row0, int n,
-                                           int lane) {
-  constexpr int KC = HD / 8;
-  const int r0 = wrow + (lane >> 2);
+__device__ __forceinline__ void store_acc(const float (&acc)[HD / 2],
+                                          float mul, bf16* dst,
+                                          long long stride, int row0, int n,
+                                          int warp, int lane) {
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    *reinterpret_cast<uint32_t*>(stage + swz<HD>(r0, c) + (lane & 3) * 4) =
-        pack_bf16(acc[c][0] * mul, acc[c][1] * mul);
-    *reinterpret_cast<uint32_t*>(stage + swz<HD>(r0 + 8, c) +
-                                 (lane & 3) * 4) =
-        pack_bf16(acc[c][2] * mul, acc[c][3] * mul);
-  }
-  __syncwarp();
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 16 * warp + (lane >> 2) + 8 * half;
+    if (row >= n) continue;
+    bf16* out = dst + row * stride + 2 * (lane & 3);
 #pragma unroll
-  for (int i = lane; i < 16 * KC; i += 32) {
-    const int r = wrow + i / KC, c = i % KC;
-    const int pos = row0 + r;
-    if (pos < n)
-      *reinterpret_cast<uint4*>(dst + pos * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + swz<HD>(r, c));
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * half] * mul,
+                    acc[4 * j + 2 * half + 1] * mul);
   }
 }
 
+// Pass 1: dQ.  A block owns a 64-row q tile of one (batch, q head): one
+// consumer warpgroup and a producer warp, which brings the tile's Q and
+// dO once and the visible K/V tiles through a DQ_STAGES ring by TMA.
+// Before the walk the consumers compute D for their rows and store it,
+// and the rows' lse * log2 e, in the padded scratch of pass 2.
 template <int HD>
-__global__ void __launch_bounds__(NT) flash_attention_bwd_dq_kernel(Args a) {
-  constexpr int KS = HD / 16;
-  constexpr int NN = BK / 8;
-  constexpr int ND = HD / 8;
-  extern __shared__ __align__(128) unsigned char dq_smem_buf[];
-  unsigned char* sq = dq_smem_buf;                   // [BQ][HD]
-  unsigned char* sdo = sq + BQ * HD * 2;             // [BQ][HD]
-  unsigned char* sk = sdo + BQ * HD * 2;             // [STAGES][BK][HD]
-  unsigned char* sv = sk + STAGES * BK * HD * 2;     // [STAGES][BK][HD]
-  float* sd = reinterpret_cast<float*>(sv + STAGES * BK * HD * 2);  // [BQ]
+__global__ void __launch_bounds__(DQ_THREADS, 2)
+    flash_attention_bwd_dq_kernel(__grid_constant__ const TcArgs t) {
+  constexpr int TILE = tile_bytes<HD>(BM);
+  const Args& a = t.a;
+  extern __shared__ unsigned char dq_raw[];
+  unsigned char* sq = align1024(dq_raw);          // Q tile
+  unsigned char* sdo = sq + TILE;                 // dO tile
+  unsigned char* sk = sdo + TILE;                 // [DQ_STAGES] K tiles
+  unsigned char* sv = sk + DQ_STAGES * TILE;      // [DQ_STAGES] V tiles
+  __shared__ __align__(8) uint64_t bar_qd, full[DQ_STAGES], empty[DQ_STAGES];
+  __shared__ float s_d[BM];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -236,273 +245,391 @@ __global__ void __launch_bounds__(NT) flash_attention_bwd_dq_kernel(Args a) {
   const int b = bh / a.hq;
   const int h = bh % a.hq;
   const int kh = h / (a.hq / a.hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // most work first
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + kh * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + kh * a.vs.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // most work first
+  int k_begin, k_end;
+  key_range(a, q0, BM, BM, k_begin, k_end);
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BM - 1) / BM : 0;
+  if (tid == 0) {
+    mbar_init(&bar_qd, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);         // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                     // the producer
+    if (lane == 0) {
+      mbar_expect_tx(&bar_qd, 2 * TILE);
+      for (int p = 0; p < HD / 64; ++p) {
+        tma_load_4d(sq + p * PANEL, &t.q, &bar_qd, 64 * p, q0, h, b);
+        tma_load_4d(sdo + p * PANEL, &t.dout, &bar_qd, 64 * p, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % DQ_STAGES;
+        if (j >= DQ_STAGES) mbar_wait(&empty[s], (j / DQ_STAGES + 1) & 1);
+        const int kt = k_begin + j * BM;
+        mbar_expect_tx(&full[s], 2 * TILE);
+        for (int p = 0; p < HD / 64; ++p) {
+          tma_load_4d(sk + s * TILE + p * PANEL, &t.k, &full[s], 64 * p, kt,
+                      kh, b);
+          tma_load_4d(sv + s * TILE + p * PANEL, &t.v, &full[s], 64 * p, kt,
+                      kh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // D = rowsum(dO o O) for the warp's 16 rows from global memory while
+  // the tiles fly (a row's 16-byte chunks over HD / 8 lanes, every load of
+  // the warp in flight at once); D and lse * log2 e to the padded scratch
+  // (zeros past Sq), for pass 2
+  constexpr int CPR = HD / 8;                     // chunks of a row
+  constexpr int RPP = 32 / CPR;                   // rows of a warp pass
+  const int wrow = warp * 16;
   const bf16* ob = static_cast<const bf16*>(a.o) + b * a.os.b + h * a.os.h;
   const bf16* dob =
       static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
-  int k_begin, k_end;
-  key_range(a, q0, BQ, BK, k_begin, k_end);
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
-
-  load_tile<HD, BQ, NT>(sq, qb, a.qs.s, q0, a.sq, tid);
-  load_tile<HD, BQ, NT>(sdo, dob, a.dos.s, q0, a.sq, tid);
+  const long long srow = static_cast<long long>(bh) * t.sqp;
+  float dpart[16 / RPP];
 #pragma unroll
-  for (int t = 0; t < STAGES; ++t) {
-    if (t < n_tiles) {
-      const int kt = k_begin + t * BK;
-      load_tile<HD, BK, NT>(sk + t * BK * HD * 2, kb, a.ks.s, kt, a.sk, tid);
-      load_tile<HD, BK, NT>(sv + t * BK * HD * 2, vb, a.vs.s, kt, a.sk, tid);
-    }
-    cp_commit();
-  }
-
-  // D = rowsum(dO o O) for the warp's 16 rows, from global memory while
-  // the copies fly; stored for the dK/dV pass
-  const int wrow = warp * 16;
-  for (int r = 0; r < 16; ++r) {
-    const int i = q0 + wrow + r;
+  for (int it = 0; it < 16 / RPP; ++it) {
+    const int i = q0 + wrow + it * RPP + lane / CPR;
+    const int cc = (lane % CPR) * 8;
     float d = 0.f;
     if (i < a.sq) {
-      const __nv_bfloat162* orow =
-          reinterpret_cast<const __nv_bfloat162*>(ob + i * a.os.s);
-      const __nv_bfloat162* drow =
-          reinterpret_cast<const __nv_bfloat162*>(dob + i * a.dos.s);
+      const uint4 x = *reinterpret_cast<const uint4*>(ob + i * a.os.s + cc);
+      const uint4 y =
+          *reinterpret_cast<const uint4*>(dob + i * a.dos.s + cc);
+      const auto* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const auto* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-      for (int c = lane; c < HD / 2; c += 32) {
-        const float2 x = __bfloat1622float2(orow[c]);
-        const float2 y = __bfloat1622float2(drow[c]);
-        d += x.x * y.x + x.y * y.y;
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xp[e]);
+        const float2 yf = __bfloat1622float2(yp[e]);
+        d += xf.x * yf.x + xf.y * yf.y;
       }
     }
-    d = warp_sum(d);
-    if (lane == 0) {
-      sd[wrow + r] = d;
-      if (i < a.sq) a.delta[static_cast<long long>(bh) * a.sq + i] = d;
+    dpart[it] = d;
+  }
+#pragma unroll
+  for (int it = 0; it < 16 / RPP; ++it) {
+#pragma unroll
+    for (int o = CPR / 2; o > 0; o >>= 1)
+      dpart[it] += __shfl_xor_sync(0xffffffffu, dpart[it], o);
+    const int r = wrow + it * RPP + lane / CPR;
+    const int i = q0 + r;
+    if (lane % CPR == 0) {
+      s_d[r] = dpart[it];
+      t.dsum[srow + i] = dpart[it];
+      t.lse2[srow + i] =
+          i < a.sq ? a.lse[static_cast<long long>(bh) * a.sq + i] * LOG2E
+                   : 0.f;
     }
   }
   __syncwarp();
-
   const int r0 = wrow + (lane >> 2);
   float dr[2], l2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    dr[r] = sd[r0 + 8 * r];
+    dr[r] = s_d[r0 + 8 * r];
     const int i = min(q0 + r0 + 8 * r, a.sq - 1);
     l2[r] = a.lse[static_cast<long long>(bh) * a.sq + i] * LOG2E;
   }
   const int pw = a.q_offset + q0 + wrow;          // the warp's first row
-  const int qrow0 = pw + (lane >> 2);             // positions of c0,c1
-  const int qrow1 = qrow0 + 8;                    // and of c2,c3
   const float scale_log2 = a.scale * LOG2E;
   const uint32_t q_addr = smem_u32(sq);
   const uint32_t do_addr = smem_u32(sdo);
 
-  uint32_t qf[KS][4];
-  float acc[ND][4];
+  float dq[HD / 2];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  mbar_wait(&bar_qd, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    cp_wait<STAGES - 1>();
-    __syncthreads();
-    const int k0 = k_begin + j * BK;
-    const int st = j % STAGES;
-    const uint32_t k_addr = smem_u32(sk + st * BK * HD * 2);
-    const uint32_t v_addr = smem_u32(sv + st * BK * HD * 2);
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(q_addr + swz<HD>(wrow + (lane & 15), 2 * kk + (lane >> 4)),
-                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
-    }
+    const int s = j % DQ_STAGES;
+    mbar_wait(&full[s], (j / DQ_STAGES) & 1);
+    const int k0 = k_begin + j * BM;
+    const uint32_t k_addr = smem_u32(sk + s * TILE);
+    const uint32_t v_addr = smem_u32(sv + s * TILE);
 
-    // S = Q K^T
-    float sc[NN][4];
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < NN / 2; ++n2) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(k_addr + swz<HD>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                 2 * kk + ((lane >> 3) & 1)),
-                b0, b1, b2, b3);
-        mma(sc[2 * n2], qf[kk], b0, b1);
-        mma(sc[2 * n2 + 1], qf[kk], b2, b3);
-      }
-    }
-    // P = exp(s - lse), masked pairs selected to 0
-    const bool edge = k0 + BK > a.sk || (a.causal && k0 + BK - 1 > pw) ||
+    // S = Q K^T and dP = dO V^T, two commit groups
+    float sc[32], dp[32];
+    wg_fence();
+    tile_dot<HD>(sc, q_addr, PANEL, k_addr);
+    wg_commit();
+    tile_dot<HD>(dp, do_addr, PANEL, v_addr);
+    wg_commit();
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_wait<1>();
+    fence_regs(sc);
+
+    // P = exp(s - lse), masked pairs selected to 0, while dP runs
+    const bool edge = k0 + BM > a.sk || (a.causal && k0 + BM - 1 > pw) ||
                       (a.window > 0 && k0 <= pw + 15 - a.window);
 #pragma unroll
-    for (int n = 0; n < NN; ++n) {
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * n + 2 * (lane & 3) + (e & 1);
-        const int row = (e < 2 ? qrow0 : qrow1) - a.q_offset;
+        const int row = q0 + r0 + 8 * (e >> 1);
         const bool ok = !edge || visible(a, row, key);
-        sc[n][e] = ok ? ex2(sc[n][e] * scale_log2 - l2[e >> 1]) : 0.f;
+        sc[4 * n + e] =
+            ok ? ex2(sc[4 * n + e] * scale_log2 - l2[e >> 1]) : 0.f;
       }
     }
-    // dP = dO V^T
-    float dp[NN][4];
+    // dS = P o (dP - D)
+    wg_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int n = 0; n < NN; ++n)
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    rows_dot_rows<HD, NN>(dp, do_addr, wrow, v_addr, lane);
-    // dS = P o (dP - D);  dQ += dS K
+    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dr[(i >> 1) & 1];
+    // dQ += dS K (K read MN-major: the reduction runs along its rows)
+    uint32_t af[4][4];
+    a_frags(sc, af);
+    wg_fence();
+    fence_regs(dq);
 #pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] *= dp[n][e] - dr[e >> 1];
-    }
-    cols_times_tile<HD, NN>(acc, sc, k_addr, lane);
-
-    __syncthreads();                  // every warp is done with stage st
-    if (j + STAGES < n_tiles) {
-      const int k1 = k0 + STAGES * BK;
-      load_tile<HD, BK, NT>(sk + st * BK * HD * 2, kb, a.ks.s, k1, a.sk, tid);
-      load_tile<HD, BK, NT>(sv + st * BK * HD * 2, vb, a.vs.s, k1, a.sk, tid);
-    }
-    cp_commit();
+    for (int k16 = 0; k16 < 4; ++k16)
+      wgmma_rs<HD>(dq, af[k16], desc_mn(k_addr + k16 * 2048, PANEL));
+    wg_commit();
+    fence_regs(dq);
+    wg_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  cp_wait<0>();
-  __syncthreads();                    // no warp still reads sq (j == 0)
   bf16* dqb = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h;
-  store_rows<HD>(acc, a.scale, sq, wrow, dqb, a.dqs.s, q0, a.sq, lane);
+  store_acc<HD>(dq, a.scale, dqb, a.dqs.s, q0, a.sq, warp, lane);
 }
 
+// Pass 2: dK and dV.  A block owns BKV = 128 keys of one (batch, kv
+// head), 64 a consumer warpgroup, whose K and V come in once by TMA; a
+// producer warp brings the Q, dO, lse and D tiles of 64 rows that see
+// them, for each q head of the group in order, through a KV_STAGES ring.
+// S^T = K Q^T and dP^T = V dO^T run with K and V as A from shared
+// memory; P^T and dS^T stay in registers as the A operands of dV += P^T
+// dO and dK += dS^T Q; dK and dV are fp32 accumulators in registers.  A
+// warpgroup none of whose keys a tile's rows see skips its products.
+//
+// At hd 128 the consumers take 240 registers a thread from the producer
+// group (setmaxnreg).  hd 256 would not fit: dK and dV alone would take
+// 256 registers a thread.  It would come as a block of four consumer
+// warpgroups, two a 64-key slice, each of the pair owning one half of hd
+// for dK and dV and both computing S^T and dP^T over the whole hd (or one
+// computing them and handing P^T and dS^T to the other through shared
+// memory).
 template <int HD>
-__global__ void __launch_bounds__(NT)
-    flash_attention_bwd_dkdv_kernel(Args a) {
-  constexpr int NN = BQ2 / 8;
-  constexpr int ND = HD / 8;
-  extern __shared__ __align__(128) unsigned char dkdv_smem_buf[];
-  unsigned char* sk = dkdv_smem_buf;                 // [BK][HD]
-  unsigned char* sv = sk + BK * HD * 2;              // [BK][HD]
-  unsigned char* sq = sv + BK * HD * 2;              // [STAGES][BQ2][HD]
-  unsigned char* sdo = sq + STAGES * BQ2 * HD * 2;   // [STAGES][BQ2][HD]
-  float* sl = reinterpret_cast<float*>(sdo + STAGES * BQ2 * HD * 2);
-  float* sdl = sl + STAGES * BQ2;                    // [STAGES][BQ2] each
+__global__ void __launch_bounds__(KV_THREADS, 1)
+    flash_attention_bwd_dkdv_kernel(__grid_constant__ const TcArgs t) {
+  constexpr int TILE = tile_bytes<HD>(BM);
+  constexpr int KTILE = tile_bytes<HD>(BKV);
+  constexpr int KPANEL = BKV * 128;
+  const Args& a = t.a;
+  extern __shared__ unsigned char kv_raw[];
+  unsigned char* sk = align1024(kv_raw);          // K [HD/64][128][128 B]
+  unsigned char* sv = sk + KTILE;                 // V
+  unsigned char* sq = sv + KTILE;                 // [KV_STAGES] Q tiles
+  unsigned char* sdo = sq + KV_STAGES * TILE;     // [KV_STAGES] dO tiles
+  float* sl = reinterpret_cast<float*>(sdo + KV_STAGES * TILE);
+  float* sdl = sl + KV_STAGES * BM;               // [KV_STAGES][64] each
+  __shared__ __align__(8) uint64_t bar_kv, full[KV_STAGES], empty[KV_STAGES];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g_size = a.hq / a.hkv;
-  const int b = blockIdx.x / a.hkv;
-  const int kh = blockIdx.x % a.hkv;
-  const int k0 = blockIdx.y * BK;     // causal: the first keys, most work
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + kh * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + kh * a.vs.h;
+  const int b = blockIdx.y / a.hkv;
+  const int kh = blockIdx.y % a.hkv;
+  const int k0 = blockIdx.x * BKV;    // causal: the first keys, most work
   int ib, ie;
-  query_range(a, k0, BK, BQ2, ib, ie);
-  const int n_qt = ie > ib ? (ie - ib + BQ2 - 1) / BQ2 : 0;
+  query_range(a, k0, BKV, BM, ib, ie);
+  const int n_qt = ie > ib ? (ie - ib + BM - 1) / BM : 0;
   const int n_steps = g_size * n_qt;
-
-  // step -> (q head, q tile): Q and dO rows by cp.async, lse (log2
-  // domain) and D by plain loads (seen after the next barrier)
-  auto issue = [&](int step, int st) {
-    const int h = kh * g_size + step / n_qt;
-    const int i0 = ib + (step % n_qt) * BQ2;
-    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-    const bf16* dob =
-        static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
-    load_tile<HD, BQ2, NT>(sq + st * BQ2 * HD * 2, qb, a.qs.s, i0, a.sq, tid);
-    load_tile<HD, BQ2, NT>(sdo + st * BQ2 * HD * 2, dob, a.dos.s, i0, a.sq,
-                           tid);
-    const long long row0 = (static_cast<long long>(b) * a.hq + h) * a.sq;
-    if (tid < BQ2) {
-      const int i = i0 + tid;
-      sl[st * BQ2 + tid] = i < a.sq ? a.lse[row0 + i] * LOG2E : 0.f;
-    } else if (tid < 2 * BQ2) {
-      const int i = i0 + tid - BQ2;
-      sdl[st * BQ2 + tid - BQ2] = i < a.sq ? a.delta[row0 + i] : 0.f;
+  if (tid == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * KV_WGS);   // the consumer warps
     }
-  };
-
-  load_tile<HD, BK, NT>(sk, kb, a.ks.s, k0, a.sk, tid);
-  load_tile<HD, BK, NT>(sv, vb, a.vs.s, k0, a.sk, tid);
-#pragma unroll
-  for (int t = 0; t < STAGES; ++t) {
-    if (t < n_steps) issue(t, t);
-    cp_commit();
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  const int wrow = warp * 16;
-  const int kw = k0 + wrow;                       // the warp's first key
-  const float scale_log2 = a.scale * LOG2E;
-  const uint32_t k_addr = smem_u32(sk);
-  const uint32_t v_addr = smem_u32(sv);
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  for (int j = 0; j < n_steps; ++j) {
-    cp_wait<STAGES - 1>();
-    __syncthreads();
-    const int st = j % STAGES;
-    const int i0 = ib + (j % n_qt) * BQ2;
-    const int p0 = a.q_offset + i0;
-    const uint32_t q_addr = smem_u32(sq + st * BQ2 * HD * 2);
-    const uint32_t do_addr = smem_u32(sdo + st * BQ2 * HD * 2);
-    const float* lrow = sl + st * BQ2;
-    const float* drow = sdl + st * BQ2;
-
-    // S^T = K Q^T: rows the warp's 16 keys, columns the step's 32 rows
-    float sc[NN][4];
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-    rows_dot_rows<HD, NN>(sc, k_addr, wrow, q_addr, lane);
-    const bool edge = i0 + BQ2 > a.sq || kw + 16 > a.sk ||
-                      (a.causal && kw + 15 > p0) ||
-                      (a.window > 0 && kw <= p0 + BQ2 - 1 - a.window);
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * (lane & 3) + (e & 1);
-        const int key = kw + (lane >> 2) + 8 * (e >> 1);
-        const bool ok = !edge || visible(a, i0 + c, key);
-        sc[n][e] = ok ? ex2(sc[n][e] * scale_log2 - lrow[c]) : 0.f;
+  if (warp >= 4 * KV_WGS) {            // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (warp == 4 * KV_WGS && lane == 0) {
+      mbar_expect_tx(&bar_kv, 2 * KTILE);
+      for (int p = 0; p < HD / 64; ++p) {
+        for (int r = 0; r < KV_WGS; ++r) {
+          tma_load_4d(sk + p * KPANEL + r * PANEL, &t.k, &bar_kv, 64 * p,
+                      k0 + BM * r, kh, b);
+          tma_load_4d(sv + p * KPANEL + r * PANEL, &t.v, &bar_kv, 64 * p,
+                      k0 + BM * r, kh, b);
+        }
+      }
+      for (int j = 0; j < n_steps; ++j) {
+        const int s = j % KV_STAGES;
+        if (j >= KV_STAGES) mbar_wait(&empty[s], (j / KV_STAGES + 1) & 1);
+        const int h = kh * g_size + j / n_qt;
+        const int i0 = ib + (j % n_qt) * BM;
+        mbar_expect_tx(&full[s], 2 * TILE + 2 * BM * 4);
+        for (int p = 0; p < HD / 64; ++p) {
+          tma_load_4d(sq + s * TILE + p * PANEL, &t.q, &full[s], 64 * p, i0,
+                      h, b);
+          tma_load_4d(sdo + s * TILE + p * PANEL, &t.dout, &full[s], 64 * p,
+                      i0, h, b);
+        }
+        const long long row = (static_cast<long long>(b) * a.hq + h) * t.sqp
+                              + i0;
+        bulk_load(sl + s * BM, t.lse2 + row, BM * 4, &full[s]);
+        bulk_load(sdl + s * BM, t.dsum + row, BM * 4, &full[s]);
       }
     }
-    // dP^T = V dO^T
-    float dp[NN][4];
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    rows_dot_rows<HD, NN>(dp, v_addr, wrow, do_addr, lane);
-    // dV += P^T dO
-    cols_times_tile<HD, NN>(dv, sc, do_addr, lane);
-    // dS^T = P^T o (dP^T - D);  dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[n][e] *= dp[n][e] - drow[8 * n + 2 * (lane & 3) + (e & 1)];
-    }
-    cols_times_tile<HD, NN>(dk, sc, q_addr, lane);
-
-    __syncthreads();                  // every warp is done with stage st
-    if (j + STAGES < n_steps) issue(j + STAGES, st);
-    cp_commit();
+    return;
   }
-  cp_wait<0>();
-  // each warp reads only its own 16 rows of sk and sv: stage there
+
+  // the producer's registers to the consumers: dK, dV, S^T and dP^T
+  // alone take 192 a thread at hd 128
+  setmaxnreg_inc<240>();
+  const int wg = warp / 4;             // consumer warpgroup
+  const int wq = warp % 4;             // warp within it
+  const int kg = k0 + BM * wg;         // the warpgroup's first key
+  const int kw = kg + 16 * wq;         // the warp's first key
+  const float scale_log2 = a.scale * LOG2E;
+  const uint32_t k_addr = smem_u32(sk) + wg * PANEL;
+  const uint32_t v_addr = smem_u32(sv) + wg * PANEL;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(&bar_kv, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int s = j % KV_STAGES;
+    mbar_wait(&full[s], (j / KV_STAGES) & 1);
+    const int i0 = ib + (j % n_qt) * BM;
+    const int p0 = a.q_offset + i0;
+    const int p_last = p0 + min(BM, a.sq - i0) - 1;
+    const bool skip = kg >= a.sk || (a.causal && kg > p_last) ||
+                      (a.window > 0 && kg + BM - 1 <= p0 - a.window);
+    if (!skip) {
+      const uint32_t q_addr = smem_u32(sq + s * TILE);
+      const uint32_t do_addr = smem_u32(sdo + s * TILE);
+      // S^T = K Q^T, dP^T = V dO^T: rows the warpgroup's 64 keys,
+      // columns the tile's 64 q rows
+      float st[32], dpt[32];
+      wg_fence();
+      tile_dot<HD>(st, k_addr, KPANEL, q_addr);
+      wg_commit();
+      tile_dot<HD>(dpt, v_addr, KPANEL, do_addr);
+      wg_commit();
+      fence_regs(st);
+      fence_regs(dpt);
+      wg_wait<1>();
+      fence_regs(st);
+
+      // P^T = exp(s - lse), masked pairs selected to 0, while dP^T runs
+      const bool edge = i0 + BM > a.sq || kw + 16 > a.sk ||
+                        (a.causal && kw + 15 > p0) ||
+                        (a.window > 0 && kw <= p0 + BM - 1 - a.window);
+      const float* lrow = sl + s * BM;
+      const float* drow = sdl + s * BM;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = 8 * n + 2 * (lane & 3);
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw + (lane >> 2) + 8 * (e >> 1);
+          const bool ok = !edge || visible(a, i0 + c + (e & 1), key);
+          st[4 * n + e] = ok ? ex2(st[4 * n + e] * scale_log2 -
+                                   (e & 1 ? l2.y : l2.x))
+                             : 0.f;
+        }
+      }
+      // dS^T = P^T o (dP^T - D)
+      wg_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 dd = *reinterpret_cast<const float2*>(
+            drow + 8 * n + 2 * (lane & 3));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * n + e] =
+              st[4 * n + e] * (dpt[4 * n + e] - (e & 1 ? dd.y : dd.x));
+      }
+      // dV += P^T dO, dK += dS^T Q (dO and Q read MN-major)
+      uint32_t pa[4][4], da[4][4];
+      a_frags(st, pa);
+      a_frags(dpt, da);
+      wg_fence();
+      fence_regs(dv);
+      fence_regs(dk);
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16)
+        wgmma_rs<HD>(dv, pa[k16], desc_mn(do_addr + k16 * 2048, PANEL));
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16)
+        wgmma_rs<HD>(dk, da[k16], desc_mn(q_addr + k16 * 2048, PANEL));
+      wg_commit();
+      fence_regs(dv);
+      fence_regs(dk);
+      wg_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
   bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dks.b + kh * a.dks.h;
   bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dvs.b + kh * a.dvs.h;
-  store_rows<HD>(dk, a.scale, sk, wrow, dkb, a.dks.s, k0, a.sk, lane);
-  store_rows<HD>(dv, 1.f, sv, wrow, dvb, a.dvs.s, k0, a.sk, lane);
+  store_acc<HD>(dk, a.scale, dkb, a.dks.s, kg, a.sk, wq, lane);
+  store_acc<HD>(dv, 1.f, dvb, a.dvs.s, kg, a.sk, wq, lane);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, from the libcuda.so.1 that the CUDA
+// runtime has loaded (so the library is not linked against libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the 4-D map (hd, s, h, b) of a bf16 tensor with 64 x 64 boxes, swizzled
+// by 128 bytes; rows at or past s read as zeros
+bool make_map(CUtensorMap* map, const void* base, int hd, int s, int h,
+              int b, const Strides& st) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, BM, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
@@ -515,18 +642,28 @@ int launch(const Args& a, int b, cudaStream_t stream) {
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkdv_smem<HD>());
+                               kv_smem<HD>());
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
+  TcArgs t;
+  t.a = a;
+  t.sqp = (a.sq + BM - 1) / BM * BM;
+  t.lse2 = a.delta;
+  t.dsum = a.delta + static_cast<long long>(b) * a.hq * t.sqp;
+  if (!make_map(&t.q, a.q, HD, a.sq, a.hq, b, a.qs) ||
+      !make_map(&t.dout, a.dout, HD, a.sq, a.hq, b, a.dos) ||
+      !make_map(&t.k, a.k, HD, a.sk, a.hkv, b, a.ks) ||
+      !make_map(&t.v, a.v, HD, a.sk, a.hkv, b, a.vs))
+    return static_cast<int>(cudaErrorInvalidValue);
   flash_attention_bwd_dq_kernel<HD>
-      <<<dim3(b * a.hq, (a.sq + BQ - 1) / BQ), NT, dq_smem<HD>(), stream>>>(
-          a);
+      <<<dim3(b * a.hq, t.sqp / BM), DQ_THREADS, dq_smem<HD>(), stream>>>(
+          t);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_attention_bwd_dkdv_kernel<HD>
-      <<<dim3(b * a.hkv, (a.sk + BK - 1) / BK), NT, dkdv_smem<HD>(),
-         stream>>>(a);
+      <<<dim3((a.sk + BKV - 1) / BKV, b * a.hkv), KV_THREADS, kv_smem<HD>(),
+         stream>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -766,14 +903,16 @@ int launch(const Args& a, int b, cudaStream_t stream) {
 // strides: 24 element strides, (batch, head, sequence) for q, k, v, out,
 // dout, dq, dk, dv in that order, each with a contiguous last dimension.
 // lse: the forward's fp32 [B, Hq, Sq] (flash_attention_lse_launch);
-// delta: fp32 [B, Hq, Sq] scratch, written then read.  The mask
-// arguments are the forward's.  bf16: 1 = every tensor but lse and
-// delta bfloat16 (tensor cores; strides multiples of 8, bases 16-byte
-// aligned), 0 = float32 (FMA kernel).  Launches the dQ pass, then the
-// dK/dV pass, on the stream.  Returns a CUDA error code (0 = none); hd
-// outside {64, 128}, or the forward's refused masks, is
-// cudaErrorInvalidValue.  b == 0 or sq == 0 launches nothing (the caller
-// zero-fills dk and dv).
+// delta: fp32 scratch of 2 * B * Hq * sqp floats, sqp = Sq rounded up to
+// a multiple of 64 (bf16: lse * log2 e, then D, each [B * Hq][sqp];
+// fp32: D as [B, Hq, Sq]), written by the first launch and read by the
+// second.  The mask arguments are the forward's.  bf16: 1 = every tensor
+// but lse and delta bfloat16 (wgmma and TMA; strides multiples of 8,
+// bases 16-byte aligned), 0 = float32 (FMA kernel).  Launches the dQ
+// pass, then the dK/dV pass, on the stream.  Returns a CUDA error code
+// (0 = none); hd outside {64, 128}, the forward's refused masks, or a
+// tensor map libcuda refuses, is cudaErrorInvalidValue.  b == 0 or
+// sq == 0 launches nothing (the caller zero-fills dk and dv).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,

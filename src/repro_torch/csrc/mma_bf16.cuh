@@ -1,8 +1,9 @@
-// bf16 tensor-core primitives shared by K4's forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): cp.async
-// copies, ldmatrix fragment loads, one mma.sync.m16n8k16 (bf16 in, fp32
-// sums), the bf16 pair packing that turns C fragments into A fragments,
-// and the XOR swizzle of 16-byte chunks in a [rows][HD] bf16 tile.
+// bf16 tensor-core primitives of K4's forward (flash_attention.cu):
+// cp.async copies, ldmatrix fragment loads, one mma.sync.m16n8k16 (bf16
+// in, fp32 sums), the bf16 pair packing that turns C fragments into A
+// fragments (which the backward, flash_attention_bwd.cu, also uses, with
+// the MUFU exp2 and the stride triple), and the XOR swizzle of 16-byte
+// chunks in a [rows][HD] bf16 tile.
 //
 // Fragment layouts of m16n8k16 (row.col), lane = threadIdx.x % 32:
 //   A 16x16: a0 row lane/4, cols 2(lane%4)+{0,1}; a1 row +8; a2 cols +8;

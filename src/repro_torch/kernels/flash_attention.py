@@ -37,9 +37,10 @@ requires one) goes through :class:`_FlashAttentionFn`: its forward
 launches K4 with a log-sum-exp output (``flash_attention_lse_launch``),
 saves q, k, v, the output and the log-sum-exp, and its backward calls
 :func:`flash_attention_bwd`, which launches ``csrc/flash_attention_bwd.cu``
-(a dQ pass, then a dK/dV pass; hd 64 and 128) and counts one launch in
-``flash_attention_bwd.launches`` a call.  Gradients come back in the
-memory layout of the model's [B, S, H, hd] tensors.  A call that needs
+(a dQ pass, then a dK/dV pass, on ``wgmma`` with TMA rings; hd 64 and
+128) and counts one launch in ``flash_attention_bwd.launches`` a call.
+Gradients come back in the memory layout of the model's [B, S, H, hd]
+tensors.  A call that needs
 no gradient (the serve) launches K4 without the log-sum-exp.  On the
 CPU, the plain forward is differentiated by autograd;
 :func:`flash_attention_bwd_plain` is the same backward from the
@@ -58,6 +59,7 @@ from . import _build
 
 HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128)
+_BWD_ROWS = 64      # q rows of csrc/flash_attention_bwd.cu's tiles
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
 
@@ -319,7 +321,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if b == 0 or sq == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     _check_card((q, k, v, out, dout), BWD_HEAD_DIMS, "backward")
-    delta = torch.empty_like(lse)
+    # the first launch's D and lse * log2 e, each [B * Hq] rows padded to
+    # whole 64-row tiles, which the second launch's TMA reads as tiles
+    delta = torch.empty(2 * b * hq * -(-sq // _BWD_ROWS) * _BWD_ROWS,
+                        dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         st for t in (q, k, v, out, dout, dq, dk, dv) for st in t.stride()[:3]])
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)

@@ -20,10 +20,11 @@ einsum of its model), so the port gives K5 a backward of its own.  On
 the card, a call that needs a gradient goes through :class:`_SsdIntraFn`:
 its forward launches K5 and saves cb, cs, win and the output; its
 backward calls :func:`ssd_intra_bwd`, which launches
-``csrc/ssd_intra_bwd.cu`` (fp32, Q <= 256, P in {16, 32, 64, 128}) and
-counts ``ssd_intra_bwd.launches``.  On the CPU, the plain forward is
-differentiated by autograd; :func:`ssd_intra_bwd_plain` is the same
-backward, which the tests and ``chip_smoke.py`` hold the kernel against.
+``csrc/ssd_intra_bwd.cu`` (fp32 on the tensor cores in 3xTF32, Q <= 256,
+P in {16, 32, 64, 128}) and counts ``ssd_intra_bwd.launches``.  On the
+CPU, the plain forward is differentiated by autograd;
+:func:`ssd_intra_bwd_plain` is the same backward, which the tests and
+``chip_smoke.py`` hold the kernel against.
 """
 
 from __future__ import annotations
@@ -81,10 +82,29 @@ _SIGNATURES = {"ssd_intra_launch": (
 _BWD_SIGNATURES = {"ssd_intra_bwd_launch": (
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])}
 BWD_P = (16, 32, 64, 128)
-# csrc/ssd_intra_bwd.cu's tiling: a block owns 16 keys and 8 heads, and
-# leaves a [256, 16] dCB strip in the scratch for its key tile's last
-# block to sum
-_BWD_KT, _BWD_HPB = 16, 8
+# csrc/ssd_intra_bwd.cu's tiling: a block owns 64 keys and 8 heads, and
+# leaves a [Q, 64] dCB strip in the scratch for its key tile's last block
+# to sum
+_BWD_KT, _BWD_HPB = 64, 8
+# the kernel's per-key-tile counters, by (device, stream): zero on the
+# first call, and every call leaves them zero (the key tile's last block
+# resets its own), so no call needs a zeroing launch; calls on one
+# stream run in order and share them
+_done_counters: dict = {}
+
+
+def _counters(device, n: int):
+    """A zeroed int32 buffer of at least ``n`` counters for the current
+    stream of ``device``; under CUDA-graph capture a fresh one, whose
+    zero fill the graph replays."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _done_counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _done_counters[key] = buf
+    return buf
 
 
 def _check(cb, cs, win):
@@ -183,9 +203,9 @@ def ssd_intra_bwd(cb, cs, win, dy, y):
     cb, cs, win, y, dy = (t.contiguous() for t in (cb, cs, win, y, dy))
     dcb, dcs, dwin = (torch.empty_like(t) for t in (cb, cs, win))
     tiles = b * -(-q // _BWD_KT)
-    part = torch.empty(tiles * -(-h // _BWD_HPB) * MAX_Q * _BWD_KT,
+    part = torch.empty(tiles * -(-h // _BWD_HPB) * q * _BWD_KT,
                        dtype=torch.float32, device=win.device)
-    done = torch.zeros(tiles, dtype=torch.int32, device=win.device)
+    done = _counters(win.device, tiles)
     lib = _build.load("ssd_intra_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(win.device):
         rc = lib.ssd_intra_bwd_launch(

@@ -803,6 +803,40 @@ def test_flash_attention_lse_and_autograd(cuda, dtype):
         assert K.flash_attention(*gpu).grad_fn is None
 
 
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("sq,sk,mask", [
+    (200, 200, {"causal": True}), (130, 77, {"causal": False}),
+    (300, 300, {"causal": True, "window": 70}),
+    (100, 260, {"causal": True, "q_offset": 160}),
+    (150, 330, {"causal": True, "q_offset": 180, "window": 90}),
+    (1, 190, {"causal": False})])
+def test_flash_attention_bwd_groups_ragged_and_masks(cuda, group, sq, sk,
+                                                     mask):
+    """The bf16 backward (wgmma dQ and dK/dV passes) at GQA groups 1, 2,
+    4 and 8, with Sq and Sk not multiples of the 64-row tiles or the
+    128-key blocks, under every mask route: causal, cross-attention (Sq
+    != Sk), a window, a query offset, both, and a decode row."""
+    _bwd_case(cuda, torch.bfloat16, 2, sq, sk, 2 * group, 2,
+              64 if group % 2 else 128, sq + sk + group, **mask)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bwd_is_deterministic(cuda, hd):
+    """Two calls on the same inputs give the same bits (no value
+    atomics: each output written by one block)."""
+    rng = np.random.default_rng(hd)
+    b, s, hq, hkv = 2, 300, 8, 2
+    q, k, v, do = [torch.from_numpy(rng.normal(size=(b, s, h, hd))
+                                    .astype(np.float32))
+                   .to(cuda, torch.bfloat16).transpose(1, 2)
+                   for h in (hq, hkv, hkv, hq)]
+    out, lse = flash_attention_plain(q, k, v, return_lse=True)
+    first = K.flash_attention_bwd(q, k, v, out, lse, do)
+    second = K.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
 def test_flash_attention_bwd_refuses_hd_256(cuda):
     x = torch.zeros((1, 2, 8, 256), device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros((1, 2, 8), device=cuda)
@@ -841,6 +875,29 @@ def test_ssd_intra_bwd_kernel_matches_plain(cuda, bc, q, h, p):
     K.ssd_intra(*gpu).backward(ins[3])
     assert _grad_err([t.grad.cpu() for t in gpu],
                      [t.grad for t in cpu]) < 1e-4
+
+
+@pytest.mark.parametrize("p", [16, 32, 64, 128])
+@pytest.mark.parametrize("q", [100, 200])
+def test_ssd_intra_bwd_head_dims_and_ragged_chunks(cuda, q, p):
+    """K5's backward (3xTF32) at every head dim it takes and chunks that
+    are not a multiple of its 64-key tiles, 11 heads (a partial group of
+    8), a steep cumsum: within 1e-4 of each gradient's scale, and two
+    calls give the same bits."""
+    from repro_torch.kernels.ssd_intra import ssd_intra_bwd_plain
+    rng = np.random.default_rng(q * p)
+    cb = rng.normal(size=(2, q, q))
+    cs = -np.abs(rng.normal(size=(2, q, 11))).cumsum(axis=1)
+    win, dy = rng.normal(size=(2, 2, q, 11, p))
+    ins = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+           for a in (cb, cs, win, dy)]
+    y = K.ssd_intra(*ins[:3])
+    got = K.ssd_intra_bwd(*ins, y)
+    again = K.ssd_intra_bwd(*ins, y)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, z) for x, z in zip(got, again))
+    assert all(torch.isfinite(g).all() for g in got)
+    assert _grad_err(got, ssd_intra_bwd_plain(*ins)) < 1e-4
 
 
 def test_lm_wrappers_count_and_reject(cuda):

@@ -80,12 +80,13 @@ from repro.kernels.paged_attention.ops import \
 from repro.kernels.ssd_intra.ops import \
     intra_chunk as jax_intra_chunk  # noqa: E402
 from repro_torch.kernels.flash_attention import \
-    flash_attention_plain  # noqa: E402
+    flash_attention_bwd_plain, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.gcl_fetch import WRITER_MASK_HI, \
     gcl_fetch_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     cluster_size  # noqa: E402
-from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
+from repro_torch.kernels.ssd_intra import ssd_intra_bwd_plain, \
+    ssd_intra_plain  # noqa: E402
 
 K4_TILE = 64              # keys per tile of the bf16 kernel
 K4_ROWS = 64              # q rows per block of the bf16 kernel
@@ -306,6 +307,199 @@ def test_k4_design_rounds_only_p(causal):
     assert 0.0 < diff < 2e-2
 
 
+# ------------------------------------------------------- K4's backward
+
+K4B_KEYS = 128            # keys of a dK/dV block (two warpgroups of 64)
+K4B_ROWS = 64             # q rows of a tile (a dQ block; a dK/dV step)
+
+
+def k4_bwd_query_tiles(k0, sq, causal, window, q_offset):
+    """The q tiles the dK/dV block of keys [k0, k0 + 128) walks, for
+    each q head of its group (``csrc/flash_attention_bwd.cu``:
+    ``query_range``): from the tile of the first row whose position
+    reaches k0 when causal, up to the last row whose window still holds
+    the block's last key."""
+    ib = max(0, k0 - q_offset) // K4B_ROWS * K4B_ROWS if causal else 0
+    ie = (min(sq, k0 + K4B_KEYS - 1 + window - q_offset) if window
+          else sq)
+    return list(range(ib, ie, K4B_ROWS))
+
+
+def k4_bwd_skip(kg, i0, sq, sk, causal, window, q_offset):
+    """A warpgroup whose 64 keys start at kg skips the tile at i0."""
+    p0 = q_offset + i0
+    p_last = p0 + min(K4B_ROWS, sq - i0) - 1
+    return (kg >= sk or (causal and kg > p_last)
+            or bool(window) and kg + K4B_ROWS - 1 <= p0 - window)
+
+
+def k4_bwd_edge(kw, i0, sq, sk, causal, window, q_offset):
+    """The warp whose 16 keys start at kw evaluates the mask on the tile
+    at i0 (dK/dV pass)."""
+    p0 = q_offset + i0
+    return (i0 + K4B_ROWS > sq or kw + 16 > sk or (causal and kw + 15 > p0)
+            or bool(window) and kw <= p0 + K4B_ROWS - 1 - window)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (512, 512, 0, None), (300, 300, 0, 70), (1024, 1024, 0, 256),
+    (130, 77, 0, None), (100, 260, 160, None), (512, 1664, 1152, None),
+    (1, 128, 0, None), (200, 300, 100, 150), (64, 64, 0, 1)])
+def test_k4_bwd_walk_skip_and_mask_predicate(sq, sk, q_offset, window,
+                                            causal):
+    """Every visible (row, key) pair lies in a q tile that its key's
+    dK/dV block walks, and each walked tile holds one; a warpgroup that
+    skips a tile sees no pair of it; a warp that takes the unmasked path
+    sees every pair of its keys and the tile's rows."""
+    if window is not None and q_offset + sq - window >= sk:
+        pytest.skip("a row would see no key (the wrapper refuses it)")
+    rows = q_offset + np.arange(sq)
+    vis = _visible(rows, np.arange(sk), sk, causal, window)   # [Sq, Sk]
+    for k0 in range(0, sk, K4B_KEYS):
+        tiles = k4_bwd_query_tiles(k0, sq, causal, window, q_offset)
+        seen = np.zeros(sq, bool)
+        for i0 in tiles:
+            seen[i0:i0 + K4B_ROWS] = True
+            assert vis[i0:i0 + K4B_ROWS, k0:k0 + K4B_KEYS].any(), (k0, i0)
+            for kg in (k0, k0 + K4B_ROWS):
+                block = vis[i0:i0 + K4B_ROWS, kg:kg + K4B_ROWS]
+                if k4_bwd_skip(kg, i0, sq, sk, causal, window, q_offset):
+                    assert not block.any(), (kg, i0)
+                for kw in range(kg, kg + K4B_ROWS, 16):
+                    if not k4_bwd_edge(kw, i0, sq, sk, causal, window,
+                                       q_offset):
+                        assert vis[i0:i0 + K4B_ROWS, kw:kw + 16].all()
+        need = vis[:, k0:k0 + K4B_KEYS].any(1)
+        assert not (need & ~seen).any(), k0
+
+
+def k4_bwd_emulate(q, k, v, out, lse, dout, *, causal, window=None,
+                   q_offset=0, bf16_points=True):
+    """The bf16 K4 backward's arithmetic (fp32 before the outputs' cast):
+    pass 1 over 64-row q tiles and their walk of 64-key tiles (``k4_walk``
+    at the dQ block's 64 rows), pass 2 over 128-key blocks, each q head
+    of the group in order and the tiles of ``k4_bwd_query_tiles``, a
+    warpgroup of 64 keys skipping the tiles it shares no visible pair
+    with.  Scores and sums in fp32 from the bf16 inputs, P = exp2(s
+    scale log2 e - lse log2 e) with masked pairs selected to 0, and, when
+    ``bf16_points``, P rounded to bf16 before dV += P^T dO and dS before
+    dK += dS^T Q and dQ += dS K."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if bf16_points \
+        else (lambda x: x)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    sl2 = math.log2(math.e) / math.sqrt(hd)
+    l2 = lse.float() * math.log2(math.e)
+    dsum = (dof * out.float()).sum(-1)
+    vis = torch.from_numpy(_visible(q_offset + np.arange(sq), np.arange(sk),
+                                    sk, causal, window))
+
+    def p_ds(heads, rows, keys, kt, vt):
+        s = qf[:, heads][:, :, rows] @ kt.transpose(-1, -2)
+        p = torch.exp2(s * sl2 - l2[:, heads][:, :, rows, None])
+        p = torch.where(vis[rows][:, keys], p, 0.0)
+        dp = dof[:, heads][:, :, rows] @ vt.transpose(-1, -2)
+        return p, p * (dp - dsum[:, heads][:, :, rows, None])
+
+    dq = torch.zeros(b, hq, sq, hd)
+    for q0 in range(0, sq, K4B_ROWS):
+        rows = torch.arange(q0, min(q0 + K4B_ROWS, sq))
+        for k0 in k4_walk(q0, sq, sk, causal, window, q_offset):
+            keys = torch.arange(k0, min(k0 + 64, sk))
+            kt = kf[:, :, keys].repeat_interleave(g, 1)
+            vt = vf[:, :, keys].repeat_interleave(g, 1)
+            _, ds = p_ds(torch.arange(hq), rows, keys, kt, vt)
+            dq[:, :, rows] += rnd(ds) @ kt
+    dk = torch.zeros(b, hkv, sk, hd)
+    dv = torch.zeros(b, hkv, sk, hd)
+    for k0 in range(0, sk, K4B_KEYS):
+        for j in range(g):
+            heads = torch.arange(hkv) * g + j
+            for i0 in k4_bwd_query_tiles(k0, sq, causal, window, q_offset):
+                rows = torch.arange(i0, min(i0 + K4B_ROWS, sq))
+                qt, dot = qf[:, heads][:, :, rows], dof[:, heads][:, :, rows]
+                for kg in range(k0, min(k0 + K4B_KEYS, sk), K4B_ROWS):
+                    if k4_bwd_skip(kg, i0, sq, sk, causal, window, q_offset):
+                        continue
+                    keys = torch.arange(kg, min(kg + K4B_ROWS, sk))
+                    p, ds = p_ds(heads, rows, keys, kf[:, :, keys],
+                                 vf[:, :, keys])
+                    dv[:, :, keys] += rnd(p).transpose(-1, -2) @ dot
+                    dk[:, :, keys] += rnd(ds).transpose(-1, -2) @ qt
+    scale = 1.0 / math.sqrt(hd)
+    return dq * scale, dk * scale, dv
+
+
+def _bwd_inputs(seed, b, sq, sk, hq, hkv, hd, **mask):
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = [torch.from_numpy(rng.normal(size=(b, h, n, hd))
+                                      .astype(np.float32))
+                     .to(torch.bfloat16)
+                     for n, h in ((sq, hq), (sk, hkv), (sk, hkv), (sq, hq))]
+    out, lse = flash_attention_plain(q, k, v, return_lse=True, **mask)
+    return q, k, v, out, lse, dout
+
+
+def _row_rel(got, want):
+    """Largest error of a gradient row over its L2 norm, floored at a
+    tenth of the tensor's RMS row norm (``chip_smoke.grad_row_rel``)."""
+    out = 0.0
+    for g, w in zip(got, want):
+        norm = torch.linalg.vector_norm(w.float(), dim=-1)
+        floor = 0.1 * float(norm.square().mean().sqrt())
+        err = torch.linalg.vector_norm(g.float() - w.float(), dim=-1)
+        out = max(out, float((err / norm.clamp(min=max(floor, 1e-30)))
+                             .max()))
+    return out
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,mask", [
+    (2, 200, 200, 4, 2, 64, {"causal": True}),
+    (1, 130, 77, 8, 1, 128, {"causal": False}),         # ragged, G 8
+    (1, 300, 300, 4, 4, 64, {"causal": True, "window": 70}),
+    (1, 100, 260, 16, 2, 64, {"causal": True, "q_offset": 160}),
+    (2, 1, 128, 4, 2, 64, {"causal": False}),            # a decode row
+])
+def test_k4_bwd_design_matches_plain(b, sq, sk, hq, hkv, hd, mask):
+    """The bf16 K4 backward's design against ``flash_attention_bwd_plain``
+    on the same bf16 inputs and the forward's log-sum-exp: within
+    ``chip_smoke.BWD_TOL`` (3e-2 of max(1, |want|)) and each gradient row
+    within ``BWD_ROW_TOL`` (1e-2 of its L2 norm), the tolerances the card
+    holds the kernel to; the error is the bf16 rounding of P and dS
+    alone."""
+    ins = _bwd_inputs(sq + sk + hq, b, sq, sk, hq, hkv, hd, **mask)
+    want = flash_attention_bwd_plain(*[t.float() for t in ins], **mask)
+    got = k4_bwd_emulate(*ins, causal=mask.get("causal", True),
+                         window=mask.get("window"),
+                         q_offset=mask.get("q_offset", 0))
+    rel = max(float((g - w).abs().max() / max(1.0, float(w.abs().max())))
+              for g, w in zip(got, want))
+    assert rel < 3e-2
+    assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k4_bwd_design_rounds_only_p_and_ds(causal):
+    """With P and dS kept in fp32 the backward's tiling, its walks and
+    the log2-domain exp give the plain version's fp32 gradients (1e-4 of
+    max(1, |want|)); rounding P and dS to bf16 before their products is
+    the one deliberate difference, and stays inside 3e-2."""
+    ins = _bwd_inputs(7, 1, 200, 200, 4, 2, 64, causal=causal)
+    want = flash_attention_bwd_plain(*[t.float() for t in ins],
+                                     causal=causal)
+
+    def rel(got):
+        return max(float((g - w).abs().max()
+                         / max(1.0, float(w.abs().max())))
+                   for g, w in zip(got, want))
+    assert rel(k4_bwd_emulate(*ins, causal=causal,
+                              bf16_points=False)) < 1e-4
+    assert 1e-4 < rel(k4_bwd_emulate(*ins, causal=causal)) < 3e-2
+
+
 # ------------------------------------------------------------------ K3
 
 def _state(qh, k, v, scale):
@@ -506,6 +700,162 @@ def test_k5_design_matches_plain_with_a_steep_cumsum():
     assert (got - want).abs().max().item() < 2e-4 * scale
     one = k5_emulate(cb, cs, win, terms=1)
     assert (one.double() - exact).abs().max().item() > 2e-4 * scale
+
+
+# ------------------------------------------------------- K5's backward
+
+K5B_KEYS = 64             # keys of a block (16 a warp)
+K5B_ROWS = 64             # query rows of a step
+K5B_HEADS = 8             # heads of a block's group
+
+
+def mma3(a, b, terms=3):
+    """a @ b as the kernel's tensor cores add it for one 8-deep k-step:
+    small.big, big.small, then big.big (``terms=1``: big.big alone)."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    if terms == 1:
+        return a_big @ b_big
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def k5_bwd_emulate(cb, cs, win, dy, y, terms=3):
+    """``csrc/ssd_intra_bwd.cu``'s arithmetic, in fp32: per chunk, a
+    block of 64 keys and 8 heads walks its heads in order and, for each,
+    the query rows at or below its keys in steps of 64, each step's rows
+    in two halves of 32 (the block's two halves of 4 warps).  A half
+    takes G^T = Win dY^T in 8-deep k-steps over P and dWin += (CB o L)^T
+    dY in 8-row k-steps, both in 3xTF32 (``mma3``), with L selected to 0
+    above the diagonal before its exp; it adds L o G^T into the block's
+    dCB strip (so a strip sums its heads in head order) and (CB o L o
+    G)^T's row sums into each key's column sum of dS.  At a head's end
+    the second half's dWin and column sums come first, the first half's
+    are added to them; dcs = sum_p dY Y - the column sum.  A key tile's
+    strips are summed in group order.  Returns (dcb, dcs, dwin)."""
+    bc, q, h, p = win.shape
+    cbf, csf = cb.float(), cs.float()
+    w = win.float().permute(0, 2, 1, 3)                  # [B, H, Q, P]
+    d = dy.float().permute(0, 2, 1, 3)
+    dwin = torch.zeros(bc, h, q, p)
+    col = torch.zeros(bc, h, q)
+    groups = -(-h // K5B_HEADS)
+    dcb = torch.zeros(bc, q, q)
+    for k0 in range(0, q, K5B_KEYS):
+        keys = torch.arange(k0, min(k0 + K5B_KEYS, q))
+        strips = []
+        for gi in range(groups):
+            strip = torch.zeros(bc, q, len(keys))
+            for hh in range(gi * K5B_HEADS, min(h, (gi + 1) * K5B_HEADS)):
+                dw = [torch.zeros(bc, len(keys), p) for _ in range(2)]
+                cl = [torch.zeros(bc, len(keys)) for _ in range(2)]
+                for r0 in range(k0, q, K5B_ROWS):
+                    for half in range(2):
+                        lo = r0 + 32 * half
+                        if lo >= q:
+                            continue
+                        rows = torch.arange(lo, min(lo + 32, q))
+                        gt = torch.zeros(bc, len(keys), len(rows))
+                        for p0 in range(0, p, 8):
+                            gt = gt + mma3(w[:, hh, keys, p0:p0 + 8],
+                                           d[:, hh, rows, p0:p0 + 8]
+                                           .transpose(-1, -2), terms)
+                        ok = keys[:, None] <= rows[None, :]   # select first
+                        seg = torch.where(ok, csf[:, rows, hh][:, None, :]
+                                          - csf[:, keys, hh][:, :, None], 0.0)
+                        lt = torch.where(
+                            ok, torch.exp2(seg * math.log2(math.e)), 0.0)
+                        clt = cbf[:, rows][:, :, keys].transpose(-1, -2) * lt
+                        strip[:, rows] += (lt * gt).transpose(-1, -2)
+                        cl[half] += (clt * gt).sum(-1)
+                        for j0 in range(0, len(rows), 8):
+                            dw[half] += mma3(clt[:, :, j0:j0 + 8],
+                                             d[:, hh, rows[j0:j0 + 8]], terms)
+                dwin[:, hh, keys] = dw[1] + dw[0]
+                col[:, hh, keys] = cl[1] + cl[0]
+            strips.append(strip)
+        total = torch.zeros_like(strips[0])
+        for s in strips:                                        # group order
+            total = total + s
+        dcb[:, :, keys] = total
+    rowsum = (dy.float() * y.float()).sum(-1)                  # [B, Q, H]
+    dcs = rowsum - col.permute(0, 2, 1)
+    return dcb, dcs, dwin.permute(0, 2, 1, 3)
+
+
+def _k5_bwd_inputs(seed, bc, q, h, p):
+    rng = np.random.default_rng(seed)
+    cb, cs, win, dy = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(bc, q, q)),
+        -np.abs(rng.normal(size=(bc, q, h))).cumsum(axis=1),
+        rng.normal(size=(bc, q, h, p)), rng.normal(size=(bc, q, h, p)))]
+    return cb, cs, win, dy, ssd_intra_plain(cb, cs, win)
+
+
+def _rel(got, want):
+    return max(float((g.double() - w.double()).abs().max()
+                     / max(1.0, float(w.abs().max())))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("bc,q,h,p", [(1, 256, 9, 64), (2, 100, 3, 16),
+                                      (1, 200, 10, 32), (1, 130, 2, 128)])
+def test_k5_bwd_design_matches_plain_with_a_steep_cumsum(bc, q, h, p):
+    """The design against ``ssd_intra_bwd_plain`` on
+    ``chip_smoke.check_ssd_bwd``'s inputs (a cumsum steep enough that exp
+    overflows above the diagonal), at Q not a multiple of 64 and head
+    counts that 8 does not divide: finite, and within the card's 1e-4 of
+    max(1, |want|) for each gradient."""
+    cb, cs, win, dy, y = _k5_bwd_inputs(q + h + p, bc, q, h, p)
+    assert torch.isinf(torch.exp(cs[:, None, :, :] - cs[:, :, None, :])).any()
+    got = k5_bwd_emulate(cb, cs, win, dy, y)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert _rel(got, ssd_intra_bwd_plain(cb, cs, win, dy)) < 1e-4
+
+
+def test_k5_bwd_design_needs_three_tf32_terms():
+    """Against the function in float64 (select before exp), 3xTF32 errs
+    by under 1e-5 of max(1, |want|); one TF32 product of each pair errs
+    by more than the card's 1e-4."""
+    bc, q, h, p = 1, 256, 4, 64
+    cb, cs, win, dy, y = _k5_bwd_inputs(3, bc, q, h, p)
+    l_mat = torch.where(torch.ones(q, q, dtype=torch.bool).tril()[None, :, :,
+                                                                  None],
+                        torch.exp(torch.where(
+                            torch.ones(q, q, dtype=torch.bool)
+                            .tril()[None, :, :, None],
+                            cs.double()[:, :, None] - cs.double()[:, None],
+                            0.0)), 0.0)
+    g = torch.einsum("bqhp,bkhp->bqkh", dy.double(), win.double())
+    cbl = cb.double()[..., None] * l_mat
+    ds = cbl * g
+    exact = ((l_mat * g).sum(-1), ds.sum(2) - ds.sum(1),
+             torch.einsum("bqkh,bqhp->bkhp", cbl, dy.double()))
+    # the emulation takes sum_p dY Y from Y in float64 too, as the kernel
+    # reads the forward's own Y (a bound on K5's error is not this test's)
+    y64 = torch.einsum("bqkh,bkhp->bqhp", cbl, win.double())
+    assert _rel(k5_bwd_emulate(cb, cs, win, dy, y64), exact) < 1e-5
+    assert _rel(k5_bwd_emulate(cb, cs, win, dy, y64, terms=1), exact) > 1e-4
+
+
+def test_k5_bwd_design_sums_heads_then_groups_in_order():
+    """dCB of a key tile is each group's strip summed over its heads in
+    head order, then the groups in group order: the design's dcb equals
+    that sum taken explicitly from per-head terms, bit for bit, and two
+    runs give the same bits."""
+    bc, q, h, p = 1, 128, 20, 16
+    cb, cs, win, dy, y = _k5_bwd_inputs(9, bc, q, h, p)
+    got = k5_bwd_emulate(cb, cs, win, dy, y)[0]
+    assert torch.equal(got, k5_bwd_emulate(cb, cs, win, dy, y)[0])
+    per_head = [k5_bwd_emulate(cb, cs[:, :, [j]], win[:, :, [j]],
+                               dy[:, :, [j]], y[:, :, [j]])[0]
+                for j in range(h)]
+    want = torch.zeros_like(got)
+    for gi in range(0, h, K5B_HEADS):
+        strip = torch.zeros_like(got)
+        for j in range(gi, min(h, gi + K5B_HEADS)):
+            strip = strip + per_head[j]
+        want = want + strip
+    assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------------ K1
