@@ -28,8 +28,10 @@ Phases (any failure exits non-zero; nothing is caught):
    query offset 1152 over 1664 keys), each beside SDPA; then the
    backward kernels of the training path: K4's (:func:`check_flash_bwd`:
    Qwen3-1.7B's training shape, seamless's cross-attention, a window at
-   hd 128 and llava's offset, from the forward's own log-sum-exp, beside
-   autograd of SDPA; K4's forward with and without that output) and
+   hd 128, llava's offset and recurrentgemma-2b's windowed hd-256 heads
+   at S 512 and 4096, from the forward's own log-sum-exp, bit-equal over
+   two calls, beside autograd of SDPA; K4's forward with and without
+   that output) and
    K5's at Mamba2-2.7B's training shape (:func:`check_ssd_bwd`), each
    against its plain backward, with no register spill in either;
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
@@ -93,23 +95,28 @@ Phases (any failure exits non-zero; nothing is caught):
    launches.  Phase 2 also holds K1 and K2 at these two paths' shapes
    (K1 at the tree's descent round and the txn FINALIZE spin's 4096
    slots, K2 at both paths' rows);
-7. train Qwen3-1.7B and Mamba2-2.7B at full published width and depth
-   through the port's ``launch.train.main`` (batch 4, seq 512, 8 steps,
-   ``--micro 1``, remat, fp32 AdamW states; :func:`train_run`): finite
-   losses and grad norms, a gradient for every parameter leaf, exactly
-   2 forward and 1 backward launches of K4 (Qwen3) or K5 (Mamba2) a
-   layer a step and nothing else; print step times, tokens/s, peak
-   memory beside 12 bytes a parameter, and the device's busy share over
-   one more step under ``torch.profiler``, with K4's and K5's forward and
-   backward device time in that step; at full width and 4 layers,
-   one step through the kernels against the same step with the plain
-   versions forced on the card (:func:`train_plain_check`); and a
-   checkpoint saved and resumed on the card (:func:`train_resume_check`,
-   Mamba2-2.7B at 1 layer);
+7. train every family at full published width (:data:`TRAIN_RUNS`,
+   :func:`train_run`; batch 4, 8 steps, ``--micro 1``, remat, lr 3e-4):
+   Qwen3-1.7B, Mamba2-2.7B, recurrentgemma-2b and seamless-m4t-medium at
+   full depth through the port's ``launch.train.main`` (seq 512, fp32
+   AdamW states), llava-next-mistral-7b at full depth with int8 m and v
+   over 1152 patches and 512 tokens, and deepseek-moe-16b at 4 layers,
+   both through ``build_train_step``: finite losses and grad norms, a
+   gradient for every parameter leaf, exactly ``lm.train_launches``'
+   K4 or K5 forward and backward launches a step and nothing else; print
+   step times, tokens/s, peak memory beside the state's own bytes, and
+   the device's busy share over one more step under ``torch.profiler``,
+   with K4's and K5's forward and backward device time in that step; at
+   full width and reduced depth (:data:`TRAIN_PLAIN`), one step through
+   the kernels against the same step with the plain versions forced on
+   the card (:func:`train_plain_check`; recurrentgemma-2b at 2304
+   positions, past its window); and a checkpoint saved and resumed on
+   the card (:func:`train_resume_check`, Mamba2-2.7B at 1 layer);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the LM serves, the tree, the transactions and the
-   training runs, split by path in ``launches_by_path``), then the
-   result line.
+   training runs, split by path in ``launches_by_path`` and, for
+   training, by arch in ``train_launches_by_arch``), the script's wall
+   time before it, then the result line.
 
 Needs one CUDA device; exits 1 without one, before printing anything
 on standard output.
@@ -119,6 +126,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import itertools
 import json
 import os
@@ -871,6 +879,11 @@ FLASH_BWD_CASES = {
     "window": (4, 1024, 1024, 16, 8, 128, True, 0, 256),
     # llava's prompt after its 1152 patches (the offset route)
     "offset": (4, 512, 1664, 32, 8, 128, True, 1152, None),
+    # recurrentgemma-2b's local attention (hd 256, 10 q heads over one kv
+    # head, window 2048): phase 7's training shape, where the window does
+    # not bite, and S 4096, where it does
+    "rg512": (4, 512, 512, 10, 1, 256, True, 0, 2048),
+    "rgw4096": (4, 4096, 4096, 10, 1, 256, True, 0, 2048),
 }
 BWD_TOL = 3e-2     # K4 backward, bf16: x max(1, max |want|) per gradient
 BWD_ROW_TOL = 1e-2  # K4 backward, bf16: x each gradient row's L2 norm
@@ -904,14 +917,17 @@ def grad_row_rel(got, want) -> float:
     return out
 
 
-def check_flash_bwd(dev, K):
-    """K4's backward at :data:`FLASH_BWD_CASES`, bf16, through the
-    model's [B, S, H, hd] layout, from the forward's own output and
-    log-sum-exp (``flash_attention_lse_launch``; the log-sum-exp held
-    against the plain one within 1e-3): (dq, dk, dv) held against
-    ``flash_attention_bwd_plain`` (:data:`BWD_TOL`: P and dS are rounded
-    to bf16 before their products; and each gradient row within
-    :data:`BWD_ROW_TOL` of its L2 norm, :func:`grad_row_rel`), timed beside its bound (5 products
+def check_flash_bwd(dev, K, cases=None):
+    """K4's backward at :data:`FLASH_BWD_CASES` (or at its tags
+    ``cases``), bf16, through the model's [B, S, H, hd] layout, from the
+    forward's own output and log-sum-exp (``flash_attention_lse_launch``;
+    the log-sum-exp held against the plain one within 1e-3): (dq, dk, dv)
+    held against ``flash_attention_bwd_plain`` (:data:`BWD_TOL`: P and dS
+    are rounded to bf16 before their products; and each gradient row
+    within :data:`BWD_ROW_TOL` of its L2 norm, :func:`grad_row_rel`), the
+    same bits from a second call (``digest``: the first 16 hex digits of
+    the SHA-256 of dq, dk and dv's bytes, to compare builds), timed beside
+    its bound (5 products
     of 2 pairs hd operations over the bf16 peak, or its bytes: q, k, v,
     out, dout and lse read, dq, dk, dv written) and the library's time:
     autograd of ``F.scaled_dot_product_attention`` (forward and backward
@@ -924,8 +940,8 @@ def check_flash_bwd(dev, K):
         flash_attention_plain)
     rng = np.random.default_rng(SEED + 11)
     row = {"name": "flash_attention_bwd"}
-    for tag, (b, sq, sk, hq, hkv, hd, causal, off, window) in \
-            FLASH_BWD_CASES.items():
+    for tag in FLASH_BWD_CASES if cases is None else cases:
+        b, sq, sk, hq, hkv, hd, causal, off, window = FLASH_BWD_CASES[tag]
         q, k, v, do = [torch.from_numpy(rng.normal(size=(b, n, h, hd))
                                         .astype(np.float32))
                        .to(dev, torch.bfloat16).transpose(1, 2)
@@ -940,9 +956,16 @@ def check_flash_bwd(dev, K):
         def run(q=q, k=k, v=v, out=out, lse=lse, do=do, kw=kw):
             return K.flash_attention_bwd(q, k, v, out, lse, do, **kw)
         got = run()
+        again = run()
         want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
         assert all(bool(torch.isfinite(g).all()) for g in got)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+            f"flash_attention_bwd {tag}: two calls gave other bits"
+        digest = hashlib.sha256(b"".join(
+            g.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            for g in got)).hexdigest()[:16]
+        del again
         rel = _grad_rel(got, want)
         assert rel < BWD_TOL, f"flash_attention_bwd {tag} off by {rel} " \
             f"of max(1, |want|) (tol {BWD_TOL})"
@@ -972,7 +995,7 @@ def check_flash_bwd(dev, K):
         lib_fb = graph_ms(lib_fwd_bwd, iters=50)
         lib_f = graph_ms(lib_fwd, iters=50)
         sfx = f"_{tag}" if tag else ""
-        case = {"max_abs_err": err, "row_err": row_rel,
+        case = {"max_abs_err": err, "row_err": row_rel, "digest": digest,
                 "ms": graph_ms(run, iters=50),
                 "ms_graph20": graph_ms(run, iters=10, calls=20),
                 "plain_ms": eager_ms(lambda q=q, k=k, v=v, out=out, lse=lse,
@@ -1828,43 +1851,88 @@ def txn_phase(dev, n_gcls=TXN_GCLS, batch=1024, n_batches=8):
 
 # ------------------------------------------------------ phase 7: training
 
-# arch -> (forward kernel, its launches a layer a step: the forward and
-# the remat recompute; the backward kernel launches once a layer)
-TRAIN_ARCHS = {"qwen3-1.7b": ("flash_attention", 28),
-               "mamba2-2.7b": ("ssd_intra", 64)}
 TRAIN_TOL = 5e-2   # kernels vs plain step, bf16: x each leaf's max |want|
+# phase 7's runs, in order: arch -> train_run's keywords.  The first four
+# go through ``launch.train.main`` at the full config with fp32 AdamW
+# states; llava-next-mistral-7b's fp32 m and v would need ~87 GB, so it
+# takes the int8 tiers (both packages' ``AdamWConfig``), and its 1152
+# patch embeddings before 512 tokens (1664 positions, K4's longest
+# training shape); deepseek-moe-16b is cut to 4 layers at full width
+# (16.88 G parameters at full depth, ~7 GB of state a layer): neither is
+# a flag of the JAX driver, so both go through ``build_train_step``.
+TRAIN_RUNS = {"qwen3-1.7b": {}, "mamba2-2.7b": {},
+              "recurrentgemma-2b": {}, "seamless-m4t-medium": {},
+              "llava-next-mistral-7b": {"seq": 1664, "int8_state": True},
+              "deepseek-moe-16b": {"n_layers": 4}}
+# train_plain_check's cuts: arch -> (n_layers, seq).  recurrentgemma-2b's
+# 6 layers hold 2 attention layers, and its 2048 window bites at 2304
+# positions (the serve replay's length); seamless-m4t-medium 4 encoder
+# and 4 decoder layers.
+TRAIN_PLAIN = {"qwen3-1.7b": (4, 512), "mamba2-2.7b": (4, 512),
+               "recurrentgemma-2b": (6, 2304),
+               "seamless-m4t-medium": (4, 512)}
 
 
-def _train_cfg(steps):
+def _train_cfg(steps, state="float32"):
     """``launch.train.main``'s TrainConfig for ``--steps steps --micro 1
-    --lr 3e-4`` at a full config (remat on, fp32 AdamW states)."""
+    --lr 3e-4`` at a full config (remat on), with AdamW's m and v in
+    ``state`` ("float32", the driver's, or "int8")."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig
     return TrainConfig(micro_batches=1, remat=True, opt=AdamWConfig(
-        lr=3e-4, warmup_steps=max(5, steps // 20), total_steps=steps))
+        lr=3e-4, warmup_steps=max(5, steps // 20), total_steps=steps,
+        m_dtype=state, v_mode=state))
 
 
-def train_run(dev, K, arch, steps=8, batch=4, seq=512):
-    """The port's ``launch.train.main`` at the full config of ``arch``
-    (random bf16 weights, fp32 AdamW m and v, remat, ``--micro 1``):
-    finite losses and grad norms, no parameter leaf without a gradient on
-    the first step, and exactly the kernel launches of the path at every
-    step (the forward kernel twice a layer, its backward once, nothing
-    else); then one more step under ``torch.profiler`` for the device's
-    busy share.  Returns the run's numbers and its launch counts."""
+def train_run(dev, K, arch, steps=8, batch=4, seq=512, n_layers=None,
+              int8_state=False):
+    """One training run at the full width of ``arch`` (random bf16
+    weights, remat, ``--micro 1``, lr 3e-4): through ``launch.train.main``
+    at the full config with fp32 AdamW states, or, for ``n_layers`` layers
+    or the int8 m and v tiers, through ``build_train_step``,
+    ``init_train_state`` (parameters seeded 0) and the driver's loop
+    (``launch.train.run_steps``), ``seq`` positions a row, the vlm's
+    patches first.  Asserts finite losses and grad norms, no parameter
+    leaf without a gradient on the first step, and exactly
+    ``lm.train_launches`` at every step and nothing else; then one more
+    step under ``torch.profiler`` for the device's busy share.  Prints the
+    median step over steps 1..steps-1, tokens (positions) a second, the
+    peak memory beside the state's own bytes (parameters and optimizer
+    state, summed over the leaves).  Returns the run's numbers and its
+    launch counts."""
     from repro_torch import tree as pt
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import frontend_stand_ins
     from repro_torch.launch.train import main as train_main
-    from repro_torch.train import build_train_step
-    name, layers = TRAIN_ARCHS[arch]
+    from repro_torch.launch.train import run_steps
+    from repro_torch.models.lm import train_launches
+    from repro_torch.train import build_train_step, init_train_state
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    tcfg = _train_cfg(steps, "int8" if int8_state else "float32")
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(train_launches(cfg))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    rec = train_main(["--arch", arch, "--steps", str(steps), "--batch",
-                      str(batch), "--seq", str(seq), "--micro", "1",
-                      "--lr", "3e-4", "--log-every", "1"])
+    extra = frontend_stand_ins(cfg, seq, batch, dev)
+    toks = seq - (cfg.n_patches if "patch_embeds" in extra else 0)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=batch,
+                                  seq_len=toks))
+    if n_layers or int8_state:
+        step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=batch,
+                                         device=dev)
+        state = init_train_state(cfg, tcfg, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        rec = run_steps(step_fn, state, data, extra, steps, dev)
+        del step_fn, state
+    else:
+        rec = train_main(["--arch", arch, "--steps", str(steps), "--batch",
+                          str(batch), "--seq", str(seq), "--micro", "1",
+                          "--lr", "3e-4", "--log-every", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1873,17 +1941,13 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512):
         np.isfinite(rec["grad_norms"]).all(), f"{arch}: non-finite training"
     assert rec["grads_missing"] == 0, \
         f"{arch}: {rec['grads_missing']} parameter leaves got no gradient"
-    want = dict.fromkeys(K.WRAPPERS, 0)
-    want.update({name: 2 * layers, f"{name}_bwd": layers})
     for i, got in enumerate(rec["launches"]):
         assert got == want, f"{arch} step {i}: launches {got}, want {want}"
     n_params = sum(t.numel() for t in pt.leaves(state["params"]))
-    cfg = get_config(arch)
-    step_fn, _, _ = build_train_step(cfg, _train_cfg(steps),
-                                     global_batch=batch, device=dev)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=batch,
-                                  seq_len=seq))
-    b = data.batch_at(steps)
+    state_bytes = sum(t.numel() * t.element_size() for t in pt.leaves(state))
+    step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=batch,
+                                     device=dev)
+    b = dict(data.batch_at(steps), **extra)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1896,17 +1960,17 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512):
     top = _top_device(events)
     kernel_ms = _kernel_device_ms(events)
     assert np.isfinite(float(metrics["loss"]))
-    del state
+    del state, extra, b, step_fn
     torch.cuda.empty_cache()
     ms = rec["step_ms"]
     steady = float(np.median(ms[1:]))
     out = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "seq": seq,
-           "steps": steps, "losses": rec["losses"],
-           "grad_norms": rec["grad_norms"], "step_ms": ms,
-           "steady_step_ms": steady,
-           "tokens_per_s": rec["tokens_per_step"] / steady * 1e3,
+           "steps": steps, "optimizer_state": tcfg.opt.m_dtype,
+           "losses": rec["losses"], "grad_norms": rec["grad_norms"],
+           "step_ms": ms, "steady_step_ms": steady,
+           "tokens_per_s": batch * seq / steady * 1e3,
            "peak_mem_gb": peak / 1e9, "params": n_params,
-           "reckoned_state_gb": 12 * n_params / 1e9,
+           "state_gb": state_bytes / 1e9,
            "device_busy_share": busy, "profiled_step_ms": prof_wall * 1e3,
            "top_device_ms": top, "kernel_device_ms": kernel_ms,
            "wall_s_with_init": wall, "launches_per_step": want}
@@ -1969,24 +2033,31 @@ def plain_paths():
 
 
 def train_plain_check(dev, K, arch, n_layers=4, batch=4, seq=512):
-    """Full width, ``n_layers`` layers: one training step's loss and
-    every gradient leaf through the kernels (forward, recompute and
-    backward) against the same step with the plain versions forced on the
-    card (:func:`plain_paths`), bf16: the loss within 1e-2 of itself and
-    each leaf within :data:`TRAIN_TOL` of its max |want| (the kernels
-    round P, and in the backward dS, to bf16 where the plain attention
-    keeps fp32, and the difference passes through the layers)."""
+    """Full width, ``n_layers`` layers (the encdec family: as many in the
+    encoder and in the decoder, over the driver's seeded frame
+    stand-ins): one training step's loss and every gradient leaf through the
+    kernels (forward, recompute and backward) against the same step with
+    the plain versions forced on the card (:func:`plain_paths`), bf16:
+    the loss within 1e-2 of itself and each leaf within :data:`TRAIN_TOL`
+    of its max |want| (the kernels round P, and in the backward dS, to
+    bf16 where the plain attention keeps fp32, and the difference passes
+    through the layers); the cross-attention's key bias, whose exact
+    gradient is 0, within TRAIN_TOL of its query bias's max |want|."""
     from repro_torch import tree as pt
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import frontend_stand_ins
     from repro_torch.models import lm
     from repro_torch.train.step import value_and_grad
-    name, _ = TRAIN_ARCHS[arch]
     cfg = get_config(arch).replace(n_layers=n_layers)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(n_enc_layers=n_layers)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
         SEED + 13), dev)
     b = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(DataConfig(
         vocab=cfg.vocab, batch=batch, seq_len=seq)).batch_at(0).items()}
+    if cfg.family == "encdec":
+        b.update(frontend_stand_ins(cfg, seq, batch, dev))
 
     def loss_fn(p, bt):
         return lm.train_loss(p, bt, cfg, lm.NO_PARALLEL, remat=True)
@@ -1995,24 +2066,34 @@ def train_plain_check(dev, K, arch, n_layers=4, batch=4, seq=512):
     torch.cuda.synchronize()
     counts = K.launch_counts()
     assert missing == 0
-    assert counts[name] == 2 * n_layers and \
-        counts[f"{name}_bwd"] == n_layers, counts
+    want_counts = dict.fromkeys(K.WRAPPERS, 0)
+    want_counts.update(lm.train_launches(cfg))
+    assert counts == want_counts, (counts, want_counts)
     with plain_paths():
         want_loss, want, _ = value_and_grad(loss_fn, params, b)
     torch.cuda.synchronize()
     assert K.launch_counts() == counts, "the plain step launched a kernel"
     loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
     worst = 0.0
-    for i, (g, w) in enumerate(zip(pt.leaves(grads), pt.leaves(want))):
+    named = dict(pt.leaves_with_paths(want))
+    for (path, g), (_, w) in zip(pt.leaves_with_paths(grads),
+                                 named.items()):
         err = float((g.float() - w.float()).abs().max())
+        # the cross-attention's key bias (no rope) has an exact gradient
+        # of 0 (each row's dS sums to 0 over the keys: softmax ignores a
+        # shift along them), so both versions give rounding noise there:
+        # its scale is its query bias's
+        if path.endswith("/x_bk"):
+            w = named[path[:-2] + "bq"]
         scale = float(w.float().abs().max())
         assert np.isfinite(err) and err <= TRAIN_TOL * scale, \
-            f"{arch}: gradient leaf {i} off by {err} (max |want| {scale}, " \
-            f"tol {TRAIN_TOL})"
+            f"{arch}: gradient leaf {path} off by {err} (max |want| " \
+            f"{scale}, tol {TRAIN_TOL})"
         worst = max(worst, err / max(scale, 1e-30))
     assert loss_rel < 1e-2, f"{arch}: loss {float(loss)} vs plain " \
         f"{float(want_loss)}"
-    out = {"arch": arch, "layers": n_layers, "loss": float(loss),
+    out = {"arch": arch, "layers": n_layers, "seq": seq,
+           "loss": float(loss),
            "plain_loss": float(want_loss), "loss_rel_err": loss_rel,
            "worst_leaf_rel_err": worst, "leaves": len(pt.leaves(grads)),
            "tolerance": TRAIN_TOL}
@@ -2089,6 +2170,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2119,9 +2201,9 @@ def main() -> int:
             spills = [sp for _, _, sp in ptxas_functions(
                 _build.BUILD_LOG[name])]
             # K4's backward: the wgmma dQ and dK/dV passes and the fp32
-            # kernel's two roles, at hd 64 and 128; K5's (3xTF32): P 16,
-            # 32, 64 and 128
-            assert spills == [0] * (8 if name == "flash_attention_bwd"
+            # kernel's two roles, at hd 64, 128 and 256; K5's (3xTF32): P
+            # 16, 32, 64 and 128
+            assert spills == [0] * (12 if name == "flash_attention_bwd"
                                     else 4), f"{name} spills: {spills}"
     if "ssd_intra" in _build.BUILD_LOG:
         f32p64 = [sp for fn, _, sp in ptxas_functions(
@@ -2228,15 +2310,15 @@ def main() -> int:
         for name, n in by_path[path].items():
             assert n > 0, f"kernel {name} never launched on the {path} path"
             counts[name] += n
-    train = {}
-    for arch in TRAIN_ARCHS:
-        _, got = train_run(dev, K, arch)
+    train = collections.defaultdict(dict)     # kernel -> arch -> launches
+    for arch, kw in TRAIN_RUNS.items():
+        _, got = train_run(dev, K, arch, **kw)
         for name, n in got.items():
             if n:
-                train[name] = n
+                train[name][arch] = n
                 counts[name] = counts.get(name, 0) + n
-    for arch in TRAIN_ARCHS:
-        train_plain_check(dev, K, arch)
+    for arch, (n_layers, seq) in TRAIN_PLAIN.items():
+        train_plain_check(dev, K, arch, n_layers, seq=seq)
     train_resume_check(dev)
 
     for row in rows[:2]:
@@ -2247,7 +2329,8 @@ def main() -> int:
     rows[4]["launches_by_path"] = {"mamba2-2.7b": lm_paths["mamba2-2.7b"]}
     for row in rows[3:]:
         row["launches_by_path"] = dict(row.get("launches_by_path", {}),
-                                       train=train[row["name"]])
+                                       train=sum(train[row["name"]].values()))
+        row["train_launches_by_arch"] = train[row["name"]]
 
     kernels = []
     for row in rows:
@@ -2256,6 +2339,7 @@ def main() -> int:
                         "source": src, "replaces": replaces,
                         "launches": counts[row["name"]],
                         **{k: v for k, v in row.items() if k != "name"}})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

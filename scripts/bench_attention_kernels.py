@@ -34,7 +34,9 @@ and run once.
 k5bwd for the backward kernels of the training path:
 ``check_flash_bwd`` at ``FLASH_BWD_CASES`` beside autograd of SDPA, and
 ``check_ssd_bwd`` at the Mamba2-2.7B training shape; the launch floor
-always runs).  To compare the backward kernels with an older commit's,
+always runs; ``--bwd-cases`` names the ``FLASH_BWD_CASES`` tags to run,
+'' for the Qwen3 case, so that an older commit's kernel runs only the
+cases it takes; each case prints a ``digest`` of its gradients' bits).  To compare the backward kernels with an older commit's,
 unpack it (``git archive <commit> | tar -x -C build/parent``) and run,
 in one chip call, in turns (parent, change, change, parent):
 
@@ -187,6 +189,9 @@ def main() -> int:
                     choices=("k1", "k2", "k3", "k4", "k5", "k4bwd",
                              "k5bwd"),
                     default=("k1", "k2", "k3", "k4", "k5"))
+    ap.add_argument("--bwd-cases", nargs="+", default=None,
+                    help="k4bwd's FLASH_BWD_CASES tags (default: all; "
+                    "'' is the Qwen3 case)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_attention_kernels: needs a CUDA device",
@@ -215,7 +220,7 @@ def main() -> int:
     if "k5" in args.only:
         res["k5"] = chip_smoke.check_ssd(dev, K)
     if "k4bwd" in args.only:
-        res["k4bwd"] = chip_smoke.check_flash_bwd(dev, K)
+        res["k4bwd"] = chip_smoke.check_flash_bwd(dev, K, args.bwd_cases)
     if "k5bwd" in args.only:
         res["k5bwd"] = chip_smoke.check_ssd_bwd(dev, K)
     if "k3" in args.only and hasattr(PA, "cluster_size"):

@@ -22,9 +22,10 @@
 //      (batch, q head) and walks its visible key tiles, as the forward
 //      does; first it computes D for its rows and stores it, and the
 //      rows' lse * log2 e, in a scratch padded to whole 64-row tiles.
-//   2. flash_attention_bwd_dkdv_kernel: a block owns 128 keys of one
-//      (batch, kv head) and walks the 64-row q tiles that see them, for
-//      each of the group's q heads in order, reading the scratch.
+//   2. flash_attention_bwd_dkdv_kernel: a block owns 128 keys (64 at hd
+//      256) of one (batch, kv head) and walks the 64-row q tiles that see
+//      them, for each of the group's q heads in order, reading the
+//      scratch.
 // Masked pairs are selected to 0 before any product (exp of a masked
 // score is never taken), with the same predicates as the forward; only
 // the tiles that cross a mask edge evaluate them.
@@ -39,14 +40,17 @@
 // have landed; empty: every consumer warp is done with it).  Pass 1 (one
 // consumer warpgroup, 2 K/V stages): S = Q K^T and dP = dO V^T from shared
 // memory, then dS in registers as the A operand of dQ += dS K.  Pass 2 (two
-// consumer warpgroups of 64 keys, 3 Q/dO/lse/D stages, K and V loaded once):
-// S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in registers as the A
-// operands of dV += P^T dO and dK += dS^T Q.  P is rounded to bf16 before dV =
-// P^T dO and dS before dK and dQ, as the forward rounds P before P.V; dP, D and
-// the softmax are fp32.  The recomputed S and dP make 7 products where the
-// function has 5; one pass with dQ added across key tiles would need an fp32
-// buffer summed in a fixed order (FlashAttention-3's deterministic mode).  Head
-// dims 64 and 128; hd 256 (recurrentgemma-2b) is refused (see pass 2).
+// consumer warpgroups, K and V loaded once; at hd 64 and 128 each owns 64
+// keys, with 3 Q/dO/lse/D stages; at hd 256 both share 64 keys, each owning
+// 128 of the 256 columns of dK and dV, with 2 stages): S^T = K Q^T and dP^T =
+// V dO^T, then P^T and dS^T in registers as the A operands of dV += P^T dO
+// and dK += dS^T Q.  P is rounded to bf16 before dV = P^T dO and dS before dK
+// and dQ, as the forward rounds P before P.V; dP, D and the softmax are fp32.
+// The recomputed S and dP make 7 products where the function has 5 (9 at hd
+// 256, where both warpgroups of a key slice compute S^T and dP^T); one pass
+// with dQ added across key tiles would need an fp32 buffer summed in a fixed
+// order (FlashAttention-3's deterministic mode).  Head dims 64, 128 and 256
+// (recurrentgemma-2b).
 //
 // fp32 inputs: flash_attention_bwd_f32_kernel, scalar FMAs on the CUDA
 // cores from fp32 shared tiles of 32 rows and 32 keys (256 threads; rows
@@ -127,9 +131,7 @@ using namespace hopper;
 constexpr int BM = 64;               // rows of a warpgroup's wgmma tile
 constexpr int WG = 128;              // threads of a warpgroup
 constexpr int KV_WGS = 2;            // consumer warpgroups of a dK/dV block
-constexpr int BKV = BM * KV_WGS;     // keys of a dK/dV block
 constexpr int DQ_STAGES = 2;         // K/V tiles in flight (dQ pass)
-constexpr int KV_STAGES = 3;         // Q/dO tiles in flight (dK/dV pass)
 constexpr int DQ_THREADS = WG + 32;  // a consumer warpgroup, a producer warp
 // two consumer warpgroups and a producer warpgroup, of which one warp
 // issues the copies: setmaxnreg moves registers only between the warps of
@@ -137,6 +139,26 @@ constexpr int DQ_THREADS = WG + 32;  // a consumer warpgroup, a producer warp
 // consumers' 256 x (240 - 168) take
 constexpr int KV_THREADS = (KV_WGS + 1) * WG;
 constexpr int PANEL = BM * 128;      // bytes of a 64-row, 64-column panel
+
+// The dK/dV pass at head dim HD.  A block owns SLICES slices of 64 keys;
+// SPLIT consumer warpgroups share a slice, each owning NC = HD / SPLIT
+// columns of its dK and dV (64 + 64 fp32 accumulator registers a thread
+// at hd 128 and 256), and STAGES Q/dO/lse/D stages are in flight.
+template <int HD>
+struct KvShape {
+  static constexpr int SPLIT = HD == 256 ? 2 : 1;
+  static constexpr int SLICES = KV_WGS / SPLIT;
+  static constexpr int BKV = BM * SLICES;     // keys of a block
+  static constexpr int NC = HD / SPLIT;
+  static constexpr int STAGES = HD == 256 ? 2 : 3;
+};
+// dQ blocks an SM: the dQ accumulator takes HD / 2 registers a thread, so
+// hd 256 gets a whole SM's register file (and its 197,632 shared bytes
+// leave room for one block only)
+template <int HD>
+constexpr int dq_blocks() {
+  return HD == 256 ? 1 : 2;
+}
 
 struct TcArgs {
   CUtensorMap q, k, v, dout;         // 4-D (hd, s, h, b), 64 x 64 boxes
@@ -154,24 +176,35 @@ template <int HD>
 __host__ __device__ constexpr int dq_smem() {
   return (2 + 2 * DQ_STAGES) * tile_bytes<HD>(BM) + 1024;
 }
+// hd 64: 84,480 bytes; 128: 166,400; 256 (2 stages): 198,656
 template <int HD>
 __host__ __device__ constexpr int kv_smem() {
-  return 2 * tile_bytes<HD>(BKV) + 2 * KV_STAGES * tile_bytes<HD>(BM) +
-         2 * KV_STAGES * BM * 4 + 1024;
+  using S = KvShape<HD>;
+  return 2 * tile_bytes<HD>(S::BKV) + 2 * S::STAGES * tile_bytes<HD>(BM) +
+         2 * S::STAGES * BM * 4 + 1024;
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+// d += A . B over N columns, B MN-major at b_addr (64-column panels PANEL
+// bytes apart); N 256 as two N = 128 products, one a half of d
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
+                                         uint32_t b_addr) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, desc_mn(b_addr, PANEL));
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, desc_mn(b_addr, PANEL));
+  } else {
+    static_assert(N == 256, "N 64, 128 or 256");
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a,
+                  desc_mn(b_addr, PANEL));
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a,
+                  desc_mn(b_addr + 2 * PANEL, PANEL));
+  }
 }
 
 // the bf16 A fragments of the four 16-column k-steps of an m64n64
@@ -201,7 +234,7 @@ __device__ __forceinline__ void tile_dot(float (&acc)[32], uint32_t a_addr,
 }
 
 // a warpgroup's m64nHD accumulator times mul, as bf16, to rows row0.. of
-// a [., HD] tensor (rows at or past n are not stored)
+// HD columns of a tensor from dst (rows at or past n are not stored)
 template <int HD>
 __device__ __forceinline__ void store_acc(const float (&acc)[HD / 2],
                                           float mul, bf16* dst,
@@ -224,9 +257,11 @@ __device__ __forceinline__ void store_acc(const float (&acc)[HD / 2],
 // consumer warpgroup and a producer warp, which brings the tile's Q and
 // dO once and the visible K/V tiles through a DQ_STAGES ring by TMA.
 // Before the walk the consumers compute D for their rows and store it,
-// and the rows' lse * log2 e, in the padded scratch of pass 2.
+// and the rows' lse * log2 e, in the padded scratch of pass 2.  At hd 256
+// the dQ accumulator is 128 registers a thread, S and dP 32 each, and the
+// dS K product two N = 128 wgmmas; 6 tiles of 32 KB, 197,632 bytes.
 template <int HD>
-__global__ void __launch_bounds__(DQ_THREADS, 2)
+__global__ void __launch_bounds__(DQ_THREADS, dq_blocks<HD>())
     flash_attention_bwd_dq_kernel(__grid_constant__ const TcArgs t) {
   constexpr int TILE = tile_bytes<HD>(BM);
   const Args& a = t.a;
@@ -393,7 +428,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 2)
     fence_regs(dq);
 #pragma unroll
     for (int k16 = 0; k16 < 4; ++k16)
-      wgmma_rs<HD>(dq, af[k16], desc_mn(k_addr + k16 * 2048, PANEL));
+      wgmma_rs<HD>(dq, af[k16], k_addr + k16 * 2048);
     wg_commit();
     fence_regs(dq);
     wg_wait<0>();
@@ -405,37 +440,45 @@ __global__ void __launch_bounds__(DQ_THREADS, 2)
   store_acc<HD>(dq, a.scale, dqb, a.dqs.s, q0, a.sq, warp, lane);
 }
 
-// Pass 2: dK and dV.  A block owns BKV = 128 keys of one (batch, kv
-// head), 64 a consumer warpgroup, whose K and V come in once by TMA; a
-// producer warp brings the Q, dO, lse and D tiles of 64 rows that see
-// them, for each q head of the group in order, through a KV_STAGES ring.
-// S^T = K Q^T and dP^T = V dO^T run with K and V as A from shared
-// memory; P^T and dS^T stay in registers as the A operands of dV += P^T
-// dO and dK += dS^T Q; dK and dV are fp32 accumulators in registers.  A
-// warpgroup none of whose keys a tile's rows see skips its products.
+// Pass 2: dK and dV.  A block owns BKV keys of one (batch, kv head) in
+// KvShape's slices of 64, whose K and V come in once by TMA; a producer
+// warp brings the Q, dO, lse and D tiles of 64 rows that see them, for
+// each q head of the group in order, through a STAGES ring.  Each
+// consumer warpgroup computes S^T = K Q^T and dP^T = V dO^T for its slice
+// with K and V as A from shared memory; P^T and dS^T stay in registers as
+// the A operands of dV += P^T dO and dK += dS^T Q over its NC columns; dK
+// and dV are fp32 accumulators in registers.  A warpgroup none of whose
+// keys a tile's rows see skips its products.
 //
-// At hd 128 the consumers take 240 registers a thread from the producer
-// group (setmaxnreg).  hd 256 would not fit: dK and dV alone would take
-// 256 registers a thread.  It would come as a block of four consumer
-// warpgroups, two a 64-key slice, each of the pair owning one half of hd
-// for dK and dV and both computing S^T and dP^T over the whole hd (or one
-// computing them and handing P^T and dS^T to the other through shared
-// memory).
+// The consumers take 240 registers a thread from the producer group
+// (setmaxnreg): dK, dV, S^T and dP^T take 192.  At hd 64 and 128 a block
+// is two slices (128 keys), a warpgroup each, 3 stages.  At hd 256 dK and
+// dV alone would take 256 registers a thread, so a block is one slice of
+// 64 keys shared by the two warpgroups, each owning 128 of the 256
+// columns of dK and dV (64 + 64 registers, as at hd 128) and both
+// computing S^T and dP^T over the whole hd (2 products more than one
+// owner would; handing P^T and dS^T over through shared memory would save
+// them): 2 x 128 x 240 + 128 x 24 = 64,512 of the SM's 65,536 registers.
+// Its shared memory takes 2 stages: K and V 2 x 32 KB, Q and dO 2 x 2 x 32
+// KB, lse and D 1 KB, and 1 KB of alignment, 198,656 bytes (3 stages
+// would need 264,704).
 template <int HD>
 __global__ void __launch_bounds__(KV_THREADS, 1)
     flash_attention_bwd_dkdv_kernel(__grid_constant__ const TcArgs t) {
+  using S = KvShape<HD>;
+  constexpr int STAGES = S::STAGES;
   constexpr int TILE = tile_bytes<HD>(BM);
-  constexpr int KTILE = tile_bytes<HD>(BKV);
-  constexpr int KPANEL = BKV * 128;
+  constexpr int KTILE = tile_bytes<HD>(S::BKV);
+  constexpr int KPANEL = S::BKV * 128;
   const Args& a = t.a;
   extern __shared__ unsigned char kv_raw[];
-  unsigned char* sk = align1024(kv_raw);          // K [HD/64][128][128 B]
+  unsigned char* sk = align1024(kv_raw);          // K [HD/64][BKV][128 B]
   unsigned char* sv = sk + KTILE;                 // V
-  unsigned char* sq = sv + KTILE;                 // [KV_STAGES] Q tiles
-  unsigned char* sdo = sq + KV_STAGES * TILE;     // [KV_STAGES] dO tiles
-  float* sl = reinterpret_cast<float*>(sdo + KV_STAGES * TILE);
-  float* sdl = sl + KV_STAGES * BM;               // [KV_STAGES][64] each
-  __shared__ __align__(8) uint64_t bar_kv, full[KV_STAGES], empty[KV_STAGES];
+  unsigned char* sq = sv + KTILE;                 // [STAGES] Q tiles
+  unsigned char* sdo = sq + STAGES * TILE;        // [STAGES] dO tiles
+  float* sl = reinterpret_cast<float*>(sdo + STAGES * TILE);
+  float* sdl = sl + STAGES * BM;                  // [STAGES][64] each
+  __shared__ __align__(8) uint64_t bar_kv, full[STAGES], empty[STAGES];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -443,14 +486,14 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
   const int g_size = a.hq / a.hkv;
   const int b = blockIdx.y / a.hkv;
   const int kh = blockIdx.y % a.hkv;
-  const int k0 = blockIdx.x * BKV;    // causal: the first keys, most work
+  const int k0 = blockIdx.x * S::BKV;  // causal: the first keys, most work
   int ib, ie;
-  query_range(a, k0, BKV, BM, ib, ie);
+  query_range(a, k0, S::BKV, BM, ib, ie);
   const int n_qt = ie > ib ? (ie - ib + BM - 1) / BM : 0;
   const int n_steps = g_size * n_qt;
   if (tid == 0) {
     mbar_init(&bar_kv, 1);
-    for (int s = 0; s < KV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * KV_WGS);   // the consumer warps
     }
@@ -463,7 +506,7 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
     if (warp == 4 * KV_WGS && lane == 0) {
       mbar_expect_tx(&bar_kv, 2 * KTILE);
       for (int p = 0; p < HD / 64; ++p) {
-        for (int r = 0; r < KV_WGS; ++r) {
+        for (int r = 0; r < S::SLICES; ++r) {
           tma_load_4d(sk + p * KPANEL + r * PANEL, &t.k, &bar_kv, 64 * p,
                       k0 + BM * r, kh, b);
           tma_load_4d(sv + p * KPANEL + r * PANEL, &t.v, &bar_kv, 64 * p,
@@ -471,8 +514,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
         }
       }
       for (int j = 0; j < n_steps; ++j) {
-        const int s = j % KV_STAGES;
-        if (j >= KV_STAGES) mbar_wait(&empty[s], (j / KV_STAGES + 1) & 1);
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], (j / STAGES + 1) & 1);
         const int h = kh * g_size + j / n_qt;
         const int i0 = ib + (j % n_qt) * BM;
         mbar_expect_tx(&full[s], 2 * TILE + 2 * BM * 4);
@@ -492,23 +535,25 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
   }
 
   // the producer's registers to the consumers: dK, dV, S^T and dP^T
-  // alone take 192 a thread at hd 128
+  // alone take 192 a thread
   setmaxnreg_inc<240>();
   const int wg = warp / 4;             // consumer warpgroup
   const int wq = warp % 4;             // warp within it
-  const int kg = k0 + BM * wg;         // the warpgroup's first key
+  const int slice = wg / S::SPLIT;     // its 64 keys
+  const int col0 = (wg % S::SPLIT) * S::NC;  // its dK and dV columns
+  const int kg = k0 + BM * slice;      // the warpgroup's first key
   const int kw = kg + 16 * wq;         // the warp's first key
   const float scale_log2 = a.scale * LOG2E;
-  const uint32_t k_addr = smem_u32(sk) + wg * PANEL;
-  const uint32_t v_addr = smem_u32(sv) + wg * PANEL;
-  float dk[HD / 2], dv[HD / 2];
+  const uint32_t k_addr = smem_u32(sk) + slice * PANEL;
+  const uint32_t v_addr = smem_u32(sv) + slice * PANEL;
+  float dk[S::NC / 2], dv[S::NC / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < S::NC / 2; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(&bar_kv, 0);
 
   for (int j = 0; j < n_steps; ++j) {
-    const int s = j % KV_STAGES;
-    mbar_wait(&full[s], (j / KV_STAGES) & 1);
+    const int s = j % STAGES;
+    mbar_wait(&full[s], (j / STAGES) & 1);
     const int i0 = ib + (j % n_qt) * BM;
     const int p0 = a.q_offset + i0;
     const int p_last = p0 + min(BM, a.sq - i0) - 1;
@@ -561,19 +606,21 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
           dpt[4 * n + e] =
               st[4 * n + e] * (dpt[4 * n + e] - (e & 1 ? dd.y : dd.x));
       }
-      // dV += P^T dO, dK += dS^T Q (dO and Q read MN-major)
+      // dV += P^T dO, dK += dS^T Q over the warpgroup's columns (dO and Q
+      // read MN-major)
       uint32_t pa[4][4], da[4][4];
       a_frags(st, pa);
       a_frags(dpt, da);
+      const uint32_t cb = (col0 / 64) * PANEL;
       wg_fence();
       fence_regs(dv);
       fence_regs(dk);
 #pragma unroll
       for (int k16 = 0; k16 < 4; ++k16)
-        wgmma_rs<HD>(dv, pa[k16], desc_mn(do_addr + k16 * 2048, PANEL));
+        wgmma_rs<S::NC>(dv, pa[k16], do_addr + cb + k16 * 2048);
 #pragma unroll
       for (int k16 = 0; k16 < 4; ++k16)
-        wgmma_rs<HD>(dk, da[k16], desc_mn(q_addr + k16 * 2048, PANEL));
+        wgmma_rs<S::NC>(dk, da[k16], q_addr + cb + k16 * 2048);
       wg_commit();
       fence_regs(dv);
       fence_regs(dk);
@@ -584,10 +631,10 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
-  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dks.b + kh * a.dks.h;
-  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dvs.b + kh * a.dvs.h;
-  store_acc<HD>(dk, a.scale, dkb, a.dks.s, kg, a.sk, wq, lane);
-  store_acc<HD>(dv, 1.f, dvb, a.dvs.s, kg, a.sk, wq, lane);
+  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dks.b + kh * a.dks.h + col0;
+  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dvs.b + kh * a.dvs.h + col0;
+  store_acc<S::NC>(dk, a.scale, dkb, a.dks.s, kg, a.sk, wq, lane);
+  store_acc<S::NC>(dv, 1.f, dvb, a.dvs.s, kg, a.sk, wq, lane);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -662,8 +709,8 @@ int launch(const Args& a, int b, cudaStream_t stream) {
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_attention_bwd_dkdv_kernel<HD>
-      <<<dim3((a.sk + BKV - 1) / BKV, b * a.hkv), KV_THREADS, kv_smem<HD>(),
-         stream>>>(t);
+      <<<dim3((a.sk + KvShape<HD>::BKV - 1) / KvShape<HD>::BKV, b * a.hkv),
+         KV_THREADS, kv_smem<HD>(), stream>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,6 +724,8 @@ constexpr int T = 32;                // q rows and keys a tile
 constexpr int NT = 256;              // 16 x 16 threads
 constexpr int PS = T + 1;            // padded row of the P and dS tiles
 
+// hd 64: 41,984 bytes; 128: 74,752; 256: 140,288 (one block an SM; a
+// thread's accumulators are 4 x HD / 16 floats, 64 at hd 256)
 template <int HD>
 constexpr int smem_bytes() {
   return (4 * T * (HD + 1) + 2 * T * PS + 2 * T) * 4;
@@ -910,7 +959,7 @@ int launch(const Args& a, int b, cudaStream_t stream) {
 // but lse and delta bfloat16 (wgmma and TMA; strides multiples of 8,
 // bases 16-byte aligned), 0 = float32 (FMA kernel).  Launches the dQ
 // pass, then the dK/dV pass, on the stream.  Returns a CUDA error code
-// (0 = none); hd outside {64, 128}, the forward's refused masks, or a
+// (0 = none); hd outside {64, 128, 256}, the forward's refused masks, or a
 // tensor map libcuda refuses, is cudaErrorInvalidValue.  b == 0 or
 // sq == 0 launches nothing (the caller zero-fills dk and dv).
 extern "C" int flash_attention_bwd_launch(
@@ -952,6 +1001,8 @@ extern "C" int flash_attention_bwd_launch(
       return bf16 ? tc::launch<64>(a, b, s) : f32::launch<64>(a, b, s);
     case 128:
       return bf16 ? tc::launch<128>(a, b, s) : f32::launch<128>(a, b, s);
+    case 256:
+      return bf16 ? tc::launch<256>(a, b, s) : f32::launch<256>(a, b, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -37,8 +37,9 @@ requires one) goes through :class:`_FlashAttentionFn`: its forward
 launches K4 with a log-sum-exp output (``flash_attention_lse_launch``),
 saves q, k, v, the output and the log-sum-exp, and its backward calls
 :func:`flash_attention_bwd`, which launches ``csrc/flash_attention_bwd.cu``
-(a dQ pass, then a dK/dV pass, on ``wgmma`` with TMA rings; hd 64 and
-128) and counts one launch in ``flash_attention_bwd.launches`` a call.
+(a dQ pass, then a dK/dV pass, on ``wgmma`` with TMA rings in bf16,
+FMAs in fp32; hd 64, 128 and 256, as the forward) and counts one launch
+in ``flash_attention_bwd.launches`` a call.
 Gradients come back in the memory layout of the model's [B, S, H, hd]
 tensors.  A call that needs
 no gradient (the serve) launches K4 without the log-sum-exp.  On the
@@ -58,7 +59,6 @@ import torch
 from . import _build
 
 HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
 _BWD_ROWS = 64      # q rows of csrc/flash_attention_bwd.cu's tiles
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
@@ -290,8 +290,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     with output ``out``, its rows' log-sum-exp ``lse`` (fp32 [B, Hq,
     Sq]) and the output's gradient ``dout``, in the inputs' dtype and
     the [B, S, H, hd] memory layout.  CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (hd 64 and 128; hd 256 raises); CPU
-    tensors run :func:`flash_attention_bwd_plain`."""
+    ``csrc/flash_attention_bwd.cu`` (hd 64, 128 and 256); CPU tensors
+    run :func:`flash_attention_bwd_plain`."""
     _check(q, k, v, window, q_offset)
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != q.shape[:3]:
@@ -303,11 +303,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                                          q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[3] not in BWD_HEAD_DIMS:
-        raise ValueError(
-            f"head_dim {q.shape[3]}: the backward kernel takes hd "
-            f"{BWD_HEAD_DIMS}; hd 256 (recurrentgemma-2b) waits for "
-            f"ROADMAP.md queue 1 item 4 (hybrid training on the card)")
     if out.dtype != q.dtype or dout.dtype != q.dtype or \
             out.device != q.device or dout.device != q.device:
         raise ValueError("out and dout must have q's dtype and device")
@@ -320,7 +315,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     hkv, sk = k.shape[1], k.shape[2]
     if b == 0 or sq == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    _check_card((q, k, v, out, dout), BWD_HEAD_DIMS, "backward")
+    _check_card((q, k, v, out, dout), HEAD_DIMS, "backward")
     # the first launch's D and lse * log2 e, each [B * Hq] rows padded to
     # whole 64-row tiles, which the second launch's TMA reads as tiles
     delta = torch.empty(2 * b * hq * -(-sq // _BWD_ROWS) * _BWD_ROWS,

@@ -11,9 +11,10 @@ and at the end -> the straggler watchdog -> ``--resume`` from the newest
 valid checkpoint.  Parameters are random, drawn from a
 ``torch.Generator`` seeded 0 on the device.  The encdec family, whose
 loss needs encoder frames that the token pipeline does not make, gets
-JAX's stand-in: zero bf16 ``enc_embeds`` of ``launch.specs``'
-shape.  ``--production-mesh`` raises: the mesh waits for the sharded
-stack (ROADMAP.md queue 1 item 9).
+:func:`frontend_stand_ins`: seeded random bf16 ``enc_embeds`` of
+``launch.specs``' shape (JAX's driver passes none, and its encdec loss
+raises without them).  ``--production-mesh`` raises: the mesh waits for
+the sharded stack (ROADMAP.md queue 1 item 9).
 
 :func:`main` returns the run's record: per step the loss, grad norm,
 learning rate, wall time (ms, synchronised) and kernel launches, and the
@@ -37,9 +38,68 @@ from ..train import TrainConfig, build_train_step, init_train_state
 from .specs import train_inputs
 
 
+_STAND_IN_SEED = 1
+
+
+def frontend_stand_ins(cfg, seq: int, batch: int, device):
+    """Seeded N(0, 1) bf16 stand-ins on ``device`` for the inputs of
+    ``train_inputs(cfg, seq, batch)`` that the token pipeline does not
+    make: the vlm's patch and the encdec's frame embeddings.  Not the
+    serve's zeros: a zero row reaches every rms norm of the rows it
+    passes through as zeros, where the norm's gradient is rsqrt(eps) =
+    1e3, and through the encoder's norms (or the norms at llava's patch
+    rows) the backward overflows to NaN at full depth, in the JAX model
+    as in the port's (ROADMAP.md, "Semantics the port fixed")."""
+    gen = torch.Generator(device=device).manual_seed(_STAND_IN_SEED)
+    return {k: torch.randn(sp.shape, generator=gen, device=device)
+            .to(sp.dtype) for k, sp in train_inputs(cfg, seq, batch).items()
+            if k not in ("tokens", "labels")}
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def run_steps(step_fn, state, data, extra, steps, dev, *, start=0,
+              log_every=1, mgr=None, ckpt_every=0):
+    """The driver's loop: steps ``start`` .. ``steps - 1`` of ``step_fn``
+    on ``data.batch_at(step)`` plus ``extra``, with the launch counts
+    reset before each step, the straggler watchdog, and a checkpoint to
+    ``mgr`` every ``ckpt_every`` steps.  Returns the record (without
+    ``seconds``): per step the loss, grad norm, learning rate, wall time
+    (ms, synchronised) and kernel launches, the parameter leaves the
+    first step's gradient missed, and the final ``state``."""
+    dog = StragglerWatchdog()
+    rec = {"steps": [], "losses": [], "grad_norms": [], "lrs": [],
+           "step_ms": [], "launches": [], "grads_missing": None}
+    for step in range(start, steps):
+        batch = dict(data.batch_at(step), **extra)
+        kernels.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        gnorm = float(metrics["grad_norm"])
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        dog.observe(dt, slowest_host=0)
+        rec["steps"].append(step)
+        rec["losses"].append(loss)
+        rec["grad_norms"].append(gnorm)
+        rec["lrs"].append(float(metrics["lr"]))
+        rec["step_ms"].append(dt * 1e3)
+        rec["launches"].append(kernels.launch_counts())
+        if rec["grads_missing"] is None:
+            rec["grads_missing"] = metrics["grads_missing"]
+        if step % log_every == 0 or step == steps - 1:
+            print(f"[train] step {step:5d} loss {loss:7.4f} "
+                  f"gnorm {gnorm:7.3f} lr {float(metrics['lr']):.2e} "
+                  f"{dt * 1e3:6.1f} ms", flush=True)
+        if mgr and (step + 1) % ckpt_every == 0:
+            mgr.save(state, step)
+    rec["state"] = state
+    return rec
 
 
 def main(argv=None) -> dict:
@@ -89,49 +149,20 @@ def main(argv=None) -> dict:
 
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=args.batch,
                                   seq_len=args.seq))
-    extra = {}
-    if cfg.family == "encdec":
-        spec = train_inputs(cfg, args.seq, args.batch)["enc_embeds"]
-        extra["enc_embeds"] = torch.zeros(spec.shape, dtype=spec.dtype,
-                                          device=dev)
-    dog = StragglerWatchdog()
-    rec = {"arch": cfg.name, "start": start, "steps": [], "losses": [],
-           "grad_norms": [], "lrs": [], "step_ms": [], "launches": [],
-           "grads_missing": None, "tokens_per_step": args.batch * args.seq}
+    extra = frontend_stand_ins(cfg, args.seq, args.batch, dev) \
+        if cfg.family == "encdec" else {}
     t_start = time.time()
-    for step in range(start, args.steps):
-        batch = dict(data.batch_at(step), **extra)
-        kernels.reset_launch_counts()
-        _sync(dev)
-        t0 = time.time()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        gnorm = float(metrics["grad_norm"])
-        _sync(dev)
-        dt = time.time() - t0
-        dog.observe(dt, slowest_host=0)
-        rec["steps"].append(step)
-        rec["losses"].append(loss)
-        rec["grad_norms"].append(gnorm)
-        rec["lrs"].append(float(metrics["lr"]))
-        rec["step_ms"].append(dt * 1e3)
-        rec["launches"].append(kernels.launch_counts())
-        if rec["grads_missing"] is None:
-            rec["grads_missing"] = metrics["grads_missing"]
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"[train] step {step:5d} loss {loss:7.4f} "
-                  f"gnorm {gnorm:7.3f} lr {float(metrics['lr']):.2e} "
-                  f"{dt * 1e3:6.1f} ms", flush=True)
-        if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save(state, step)
+    rec = run_steps(step_fn, state, data, extra, args.steps, dev,
+                    start=start, log_every=args.log_every, mgr=mgr,
+                    ckpt_every=args.ckpt_every)
     if mgr:
-        mgr.save(state, args.steps - 1)
+        mgr.save(rec["state"], args.steps - 1)
         mgr.wait()
     tot = time.time() - t_start
     print(f"[train] done: {args.steps - start} steps in {tot:.1f}s "
           f"({(args.steps - start) / max(tot, 1e-9):.2f} steps/s)")
-    rec["seconds"] = tot
-    rec["state"] = state
+    rec.update(arch=cfg.name, start=start, seconds=tot,
+               tokens_per_step=args.batch * args.seq)
     return rec
 
 

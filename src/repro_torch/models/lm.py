@@ -429,6 +429,27 @@ def _encdec_loss(params, batch, cfg, ctx, remat=True, loss_chunk=512):
                      mask, ctx, chunk=loss_chunk)
 
 
+def train_launches(cfg) -> dict:
+    """Each kernel's launches in one :func:`train_loss` step under remat
+    and its backward, {wrapper name: n}: the forward kernel once in every
+    layer that runs it and once more where remat recomputes that layer,
+    its backward kernel once.  K4 (``flash_attention``) runs in every
+    layer of the dense, moe and vlm families, in the encdec family's
+    encoder layers and twice in each decoder layer (self- and
+    cross-attention), and in the hybrid family's attention layers
+    (``pattern_at(i) == "a"``), which no checkpoint recomputes
+    (:func:`_run_stack` never checkpoints the hybrid stack, as in JAX);
+    K5 (``ssd_intra``) in every layer of the ssm family."""
+    if cfg.family == "ssm":
+        return {"ssd_intra": 2 * cfg.n_layers, "ssd_intra_bwd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        n = sum(cfg.pattern_at(i) == "a" for i in range(cfg.n_layers))
+        return {"flash_attention": n, "flash_attention_bwd": n}
+    n = cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec" \
+        else cfg.n_layers
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n}
+
+
 # ============================================================ serving paths
 
 def embed_tokens(params, tokens, cfg):

@@ -69,6 +69,18 @@ def leaves(tree):
     return flatten(tree)[0]
 
 
+def leaves_with_paths(tree, path=""):
+    """(path, leaf) pairs in :func:`flatten`'s order, a path's dict keys
+    and list indices joined by "/" (e.g. ``/dec_blocks/x_bk``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_with_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in leaves_with_paths(t, f"{path}/{i}")]
+    return [(path, tree)]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of the
     trees in ``rest`` (of the same structure)."""

@@ -39,6 +39,18 @@ from repro_torch.kernels.ssd_intra import ssd_intra_plain  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
+def _chip_smoke():
+    """The repository root's ``chip_smoke`` module (its input makers and
+    tolerances' helpers)."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -461,12 +473,7 @@ def test_latch_kernel_at_the_txn_finalize_shape(cuda):
     slots over four request tiles, about half empty, write CASes that
     hit and miss, reader FAAs, and hot lines whose word carries from
     tile to tile (``chip_smoke.latch_app_inputs``); exact."""
-    import pathlib
-    import sys
-    root = str(pathlib.Path(__file__).resolve().parents[1])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    import chip_smoke as cs
+    cs = _chip_smoke()
     words, req = cs.latch_app_inputs(1 << 20, 4096, "finalize")
     words = torch.from_numpy(words)
     req = {k: torch.from_numpy(v) for k, v in req.items()}
@@ -731,13 +738,7 @@ def _bwd_case(cuda, dtype, b, sq, sk, hq, hkv, hd, seed, **mask):
     assert all(g.transpose(1, 2).is_contiguous() for g in got)
     err = _grad_err(got, want)
     assert err < BWD_TOL[dtype], err
-    import pathlib
-    import sys
-    root = str(pathlib.Path(__file__).resolve().parents[1])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from chip_smoke import grad_row_rel
-    row_err = grad_row_rel(got, want)
+    row_err = _chip_smoke().grad_row_rel(got, want)
     assert row_err < BWD_ROW_TOL[dtype], row_err
     return err
 
@@ -820,7 +821,26 @@ def test_flash_attention_bwd_groups_ragged_and_masks(cuda, group, sq, sk,
               64 if group % 2 else 128, sq + sk + group, **mask)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 10])
+@pytest.mark.parametrize("sq,sk,mask", [
+    (200, 200, {"causal": True}), (130, 77, {"causal": False}),
+    (300, 300, {"causal": True, "window": 70}),
+    (100, 260, {"causal": True, "q_offset": 160}),
+    (150, 330, {"causal": True, "q_offset": 180, "window": 90}),
+    (1, 190, {"causal": False})])
+def test_flash_attention_bwd_hd_256(cuda, dtype, group, sq, sk, mask):
+    """K4's backward at recurrentgemma-2b's head dim 256 (bf16: 64-key
+    dK/dV blocks, two warpgroups a block each owning half of hd; fp32:
+    the FMA kernel), one kv head with a group of 10 (the model's) and two
+    kv heads of one q head each, at Sq and Sk off the tiles, under
+    causal, cross-attention (Sq != Sk), a biting window, a query offset,
+    both, and a decode row."""
+    _bwd_case(cuda, dtype, 2, sq, sk, group * (2 if group == 1 else 1),
+              2 if group == 1 else 1, 256, sq + sk + group, **mask)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_attention_bwd_is_deterministic(cuda, hd):
     """Two calls on the same inputs give the same bits (no value
     atomics: each output written by one block)."""
@@ -835,13 +855,6 @@ def test_flash_attention_bwd_is_deterministic(cuda, hd):
     second = K.flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
-
-
-def test_flash_attention_bwd_refuses_hd_256(cuda):
-    x = torch.zeros((1, 2, 8, 256), device=cuda, dtype=torch.bfloat16)
-    lse = torch.zeros((1, 2, 8), device=cuda)
-    with pytest.raises(ValueError, match="hd 256"):
-        K.flash_attention_bwd(x, x, x, x, lse, x)
 
 
 @pytest.mark.parametrize("bc,q,h,p", [(8, 256, 80, 64), (3, 100, 5, 32),
@@ -1035,8 +1048,9 @@ def test_lm_serve_on_gpu_matches_cpu(cuda, arch):
     assert set(nc.values()) == {0} and ng[name] == launches
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b",
-                                  "deepseek-moe-16b",
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "starcoder2-7b",
+                                  "mamba2-2.7b", "deepseek-moe-16b",
+                                  "recurrentgemma-2b",
                                   "llava-next-mistral-7b",
                                   "seamless-m4t-medium"])
 def test_train_step_on_gpu_matches_cpu(cuda, arch):
@@ -1045,10 +1059,12 @@ def test_train_step_on_gpu_matches_cpu(cuda, arch):
     kernels) and on the CPU (plain versions under autograd): the loss
     within 1e-5 of itself, each leaf within 1e-3 of its max |want| (fp32
     sums in other orders through the layers); every leaf gets a
-    gradient, and the kernels launch twice a layer forward (remat) and
-    once backward.  The moe config runs at the no-drop capacity factor
-    (a route that flips at a gate margin would move a token's
-    gradient)."""
+    gradient, and the kernels launch as ``lm.train_launches``
+    counts (twice a layer forward where remat recomputes it, once
+    backward).  The moe config runs at the no-drop capacity factor (a
+    route that flips at a gate margin would move a token's gradient);
+    the hybrid one at recurrentgemma-2b's head dim 256 and one kv head,
+    with a window of 32 that bites at its 64 tokens."""
     from repro_torch import configs
     from repro_torch import tree as pt
     from repro_torch.models import lm
@@ -1059,6 +1075,9 @@ def test_train_step_on_gpu_matches_cpu(cuda, arch):
         cfg = cfg.replace(n_heads=4, n_kv_heads=2, head_dim=64)
     if cfg.family == "encdec":
         cfg = cfg.replace(n_heads=2, n_kv_heads=2, head_dim=64)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_heads=2, n_kv_heads=1, head_dim=256,
+                          local_window=32, lru_width=128)
     if cfg.family == "moe":
         cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
     gen = torch.Generator().manual_seed(4)
@@ -1080,14 +1099,9 @@ def test_train_step_on_gpu_matches_cpu(cuda, arch):
     torch.cuda.synchronize()
     counts = K.launch_counts()
     assert missing == 0
-    if cfg.family == "ssm":
-        assert (counts["ssd_intra"], counts["ssd_intra_bwd"]) == (
-            2 * cfg.n_layers, cfg.n_layers)
-    else:
-        n_attn = cfg.n_layers if cfg.family != "encdec" else \
-            cfg.n_enc_layers + 2 * cfg.n_layers
-        assert (counts["flash_attention"],
-                counts["flash_attention_bwd"]) == (2 * n_attn, n_attn)
+    want_counts = dict.fromkeys(K.WRAPPERS, 0)
+    want_counts.update(lm.train_launches(cfg))
+    assert counts == want_counts, (counts, want_counts)
     assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(
         float(want_loss))
     for g, w in zip(pt.leaves(got), pt.leaves(want)):

@@ -21,6 +21,16 @@ the numbers is pinned down here, against the JAX package's kernels:
   and without a window and over Sq != Sk with offsets; the windowed and
   the cross / offset emulations are held against JAX's
   ``dense_attention`` (the Pallas kernel has neither) within 2e-2.
+* K4's backward (``csrc/flash_attention_bwd.cu``, bf16): a dQ pass
+  over 64-row q tiles and a dK/dV pass over blocks of 128 keys (two
+  64-key warpgroups) or, at hd 256, of one 64-key slice whose two
+  warpgroups each own half of hd's columns of dK and dV and both
+  recompute S^T and dP^T, walked through a ring of 2 stages; P and dS
+  rounded to bf16 before their products.  The walks and skip
+  predicates are checked to cover every visible pair, and the
+  emulations held against ``flash_attention_bwd_plain`` within the
+  card's tolerances (3e-2 of max(1, |want|), 1e-2 of a gradient row's
+  L2 norm).
 * K3 (``csrc/paged_attention.cu``): the window's valid pages split into
   per-block slices of a cluster of 1/2/4/8 blocks, each slice split
   again over the block's lane groups (chunks of 4 tokens); every part
@@ -311,16 +321,20 @@ def test_k4_design_rounds_only_p(causal):
 
 K4B_KEYS = 128            # keys of a dK/dV block (two warpgroups of 64)
 K4B_ROWS = 64             # q rows of a tile (a dQ block; a dK/dV step)
+# hd 256 (``KvShape<256>``): a dK/dV block is one 64-key slice, whose two
+# warpgroups each own 128 of the 256 columns of dK and dV and both
+# compute S^T and dP^T; 2 Q/dO/lse/D stages in flight
+K4B_HD256 = {"keys": 64, "split": 2, "stages": 2}
 
 
-def k4_bwd_query_tiles(k0, sq, causal, window, q_offset):
-    """The q tiles the dK/dV block of keys [k0, k0 + 128) walks, for
+def k4_bwd_query_tiles(k0, sq, causal, window, q_offset, keys=K4B_KEYS):
+    """The q tiles the dK/dV block of keys [k0, k0 + keys) walks, for
     each q head of its group (``csrc/flash_attention_bwd.cu``:
     ``query_range``): from the tile of the first row whose position
     reaches k0 when causal, up to the last row whose window still holds
     the block's last key."""
     ib = max(0, k0 - q_offset) // K4B_ROWS * K4B_ROWS if causal else 0
-    ie = (min(sq, k0 + K4B_KEYS - 1 + window - q_offset) if window
+    ie = (min(sq, k0 + keys - 1 + window - q_offset) if window
           else sq)
     return list(range(ib, ie, K4B_ROWS))
 
@@ -354,15 +368,34 @@ def test_k4_bwd_walk_skip_and_mask_predicate(sq, sk, q_offset, window,
     sees every pair of its keys and the tile's rows."""
     if window is not None and q_offset + sq - window >= sk:
         pytest.skip("a row would see no key (the wrapper refuses it)")
+    _check_bwd_walk(sq, sk, q_offset, window, causal, K4B_KEYS)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (512, 512, 0, 2048), (300, 300, 0, 70), (4096, 4096, 0, 2048),
+    (130, 77, 0, None), (100, 260, 160, None), (1, 128, 0, None),
+    (200, 300, 100, 150), (64, 64, 0, 1)])
+def test_k4_bwd_hd256_walk_skip_and_mask_predicate(sq, sk, q_offset, window,
+                                                   causal):
+    """The same walk, skip and mask properties with hd 256's dK/dV blocks
+    of one 64-key slice (recurrentgemma-2b's 2048 window at S 512, where
+    it does not bite, and at 4096, where it does)."""
+    if window is not None and q_offset + sq - window >= sk:
+        pytest.skip("a row would see no key (the wrapper refuses it)")
+    _check_bwd_walk(sq, sk, q_offset, window, causal, K4B_HD256["keys"])
+
+
+def _check_bwd_walk(sq, sk, q_offset, window, causal, keys):
     rows = q_offset + np.arange(sq)
     vis = _visible(rows, np.arange(sk), sk, causal, window)   # [Sq, Sk]
-    for k0 in range(0, sk, K4B_KEYS):
-        tiles = k4_bwd_query_tiles(k0, sq, causal, window, q_offset)
+    for k0 in range(0, sk, keys):
+        tiles = k4_bwd_query_tiles(k0, sq, causal, window, q_offset, keys)
         seen = np.zeros(sq, bool)
         for i0 in tiles:
             seen[i0:i0 + K4B_ROWS] = True
-            assert vis[i0:i0 + K4B_ROWS, k0:k0 + K4B_KEYS].any(), (k0, i0)
-            for kg in (k0, k0 + K4B_ROWS):
+            assert vis[i0:i0 + K4B_ROWS, k0:k0 + keys].any(), (k0, i0)
+            for kg in range(k0, k0 + keys, K4B_ROWS):
                 block = vis[i0:i0 + K4B_ROWS, kg:kg + K4B_ROWS]
                 if k4_bwd_skip(kg, i0, sq, sk, causal, window, q_offset):
                     assert not block.any(), (kg, i0)
@@ -370,7 +403,7 @@ def test_k4_bwd_walk_skip_and_mask_predicate(sq, sk, q_offset, window,
                     if not k4_bwd_edge(kw, i0, sq, sk, causal, window,
                                        q_offset):
                         assert vis[i0:i0 + K4B_ROWS, kw:kw + 16].all()
-        need = vis[:, k0:k0 + K4B_KEYS].any(1)
+        need = vis[:, k0:k0 + keys].any(1)
         assert not (need & ~seen).any(), k0
 
 
@@ -413,6 +446,11 @@ def k4_bwd_emulate(q, k, v, out, lse, dout, *, causal, window=None,
             vt = vf[:, :, keys].repeat_interleave(g, 1)
             _, ds = p_ds(torch.arange(hq), rows, keys, kt, vt)
             dq[:, :, rows] += rnd(ds) @ kt
+    if hd == 256:
+        dk, dv = k4_bwd_hd256_dkdv(qf, kf, vf, dof, p_ds, rnd, sq, causal,
+                                   window, q_offset)
+        scale = 1.0 / math.sqrt(hd)
+        return dq * scale, dk * scale, dv
     dk = torch.zeros(b, hkv, sk, hd)
     dv = torch.zeros(b, hkv, sk, hd)
     for k0 in range(0, sk, K4B_KEYS):
@@ -431,6 +469,52 @@ def k4_bwd_emulate(q, k, v, out, lse, dout, *, causal, window=None,
                     dk[:, :, keys] += rnd(ds).transpose(-1, -2) @ qt
     scale = 1.0 / math.sqrt(hd)
     return dq * scale, dk * scale, dv
+
+
+def k4_bwd_hd256_dkdv(qf, kf, vf, dof, p_ds, rnd, sq, causal, window,
+                      q_offset):
+    """hd 256's dK/dV pass as ``flash_attention_bwd_dkdv_kernel<256>``
+    runs it: a block owns one 64-key slice of a (batch, kv head); its
+    producer walks steps j of the group's heads and the slice's q tiles
+    (head ``kh * g + j // n_qt``, tile ``ib + (j % n_qt) * 64``) into a
+    ring of 2 stages, and each of the two consumer warpgroups takes every
+    step from its stage, skips it by the slice's predicate, computes S^T
+    and dP^T over the whole hd itself, and adds P^T dO and dS^T Q to its
+    own 128 columns of dV and dK."""
+    b, hkv, sk, hd = kf.shape
+    g = qf.shape[1] // hkv
+    keys_n, split = K4B_HD256["keys"], K4B_HD256["split"]
+    nc = hd // split
+    dk = torch.zeros(b, hkv, sk, hd)
+    dv = torch.zeros(b, hkv, sk, hd)
+    for kh in range(hkv):
+        for k0 in range(0, sk, keys_n):
+            tiles = k4_bwd_query_tiles(k0, sq, causal, window, q_offset,
+                                       keys_n)
+            n_qt = len(tiles)
+            ring = [None] * K4B_HD256["stages"]
+            keys = torch.arange(k0, min(k0 + keys_n, sk))
+            for j in range(g * n_qt):
+                h = kh * g + j // n_qt
+                i0 = tiles[0] + (j % n_qt) * K4B_ROWS
+                ring[j % len(ring)] = (h, i0)      # the producer's copy
+                for wg in range(split):            # the consumer warpgroups
+                    h, i0 = ring[j % len(ring)]
+                    if k4_bwd_skip(k0, i0, sq, sk, causal, window,
+                                   q_offset):
+                        continue
+                    rows = torch.arange(i0, min(i0 + K4B_ROWS, sq))
+                    hs = torch.tensor([h])
+                    p, ds = p_ds(hs, rows, keys, kf[:, kh:kh + 1, keys],
+                                 vf[:, kh:kh + 1, keys])
+                    cols = slice(wg * nc, (wg + 1) * nc)
+                    dv[:, kh, keys, cols] += (
+                        rnd(p).transpose(-1, -2)
+                        @ dof[:, hs][:, :, rows][..., cols])[:, 0]
+                    dk[:, kh, keys, cols] += (
+                        rnd(ds).transpose(-1, -2)
+                        @ qf[:, hs][:, :, rows][..., cols])[:, 0]
+    return dk, dv
 
 
 def _bwd_inputs(seed, b, sq, sk, hq, hkv, hd, **mask):
@@ -479,6 +563,34 @@ def test_k4_bwd_design_matches_plain(b, sq, sk, hq, hkv, hd, mask):
               for g, w in zip(got, want))
     assert rel < 3e-2
     assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,mask", [
+    (1, 200, 200, 10, 1, {"causal": True}),       # recurrentgemma's heads
+    (1, 300, 300, 10, 1, {"causal": True, "window": 70}),
+    (2, 130, 77, 2, 2, {"causal": False}),        # Sq != Sk, ragged
+    (1, 100, 260, 4, 2, {"causal": True, "q_offset": 160}),
+    (1, 150, 330, 10, 1, {"causal": True, "q_offset": 180, "window": 90}),
+])
+def test_k4_bwd_hd256_design_matches_plain(b, sq, sk, hq, hkv, mask):
+    """hd 256's design (64-key dK/dV blocks, two owners of half of hd
+    each recomputing S^T and dP^T, the 2-stage walk and its skips; P and
+    dS rounded to bf16 before their products) against
+    ``flash_attention_bwd_plain`` within the card's 3e-2 of max(1,
+    |want|) and 1e-2 of each gradient row's L2 norm; with P and dS in
+    fp32 within 1e-4."""
+    ins = _bwd_inputs(sq + sk + hq, b, sq, sk, hq, hkv, 256, **mask)
+    want = flash_attention_bwd_plain(*[t.float() for t in ins], **mask)
+    kw = dict(causal=mask.get("causal", True), window=mask.get("window"),
+              q_offset=mask.get("q_offset", 0))
+
+    def rel(got):
+        return max(float((g - w).abs().max() / max(1.0, float(w.abs().max())))
+                   for g, w in zip(got, want))
+    got = k4_bwd_emulate(*ins, **kw)
+    assert rel(got) < 3e-2
+    assert _row_rel(got, want) < 1e-2
+    assert rel(k4_bwd_emulate(*ins, bf16_points=False, **kw)) < 1e-4
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -293,7 +293,9 @@ def _torch_in(a, dtype):
     (2, 64, 4, 2, 32, True, "float32", 2e-5),     # GQA group 2
     (1, 50, 4, 2, 16, True, "float32", 2e-5),     # ragged S
     (2, 33, 2, 2, 16, False, "float32", 2e-5),
-    (2, 64, 4, 2, 32, True, "bfloat16", 2e-2)])
+    (2, 64, 4, 2, 32, True, "bfloat16", 2e-2),
+    (1, 40, 10, 1, 256, True, "float32", 2e-5),   # recurrentgemma's heads
+    (1, 40, 10, 1, 256, True, "bfloat16", 2e-2)])
 def test_flash_bwd_plain_matches_jax_vjp(b, s, hq, hkv, hd, causal, dtype,
                                          tol):
     import jax
@@ -324,11 +326,18 @@ def test_flash_bwd_plain_matches_jax_vjp(b, s, hq, hkv, hd, causal, dtype,
         assert _rel(g.float().numpy(), t.grad.numpy()) < tol
 
 
-@pytest.mark.parametrize("sq,sk,q_offset,window,causal", [
-    (40, 40, 0, 9, True), (24, 56, 0, None, False), (1, 56, 0, None, False),
-    (24, 56, 32, None, True), (24, 56, 32, 12, True)])
+_MASK_CASES = [(40, 40, 0, 9, True, 16), (24, 56, 0, None, False, 16),
+               (1, 56, 0, None, False, 16), (24, 56, 32, None, True, 16),
+               (24, 56, 32, 12, True, 16),
+               (70, 70, 0, 24, True, 256)]    # recurrentgemma's hd, windowed
+
+
+@pytest.mark.parametrize(
+    "sq,sk,q_offset,window,causal,hd", _MASK_CASES,
+    ids=["-".join(map(str, c[:5])) + ("" if c[5] == 16 else f"-hd{c[5]}")
+         for c in _MASK_CASES])
 def test_flash_bwd_plain_masks_match_dense_attention(sq, sk, q_offset,
-                                                     window, causal):
+                                                     window, causal, hd):
     """Window, Sq != Sk and query offsets against jax.vjp of the model's
     dense_attention ([B, S, H, hd] layout), fp32."""
     import jax
@@ -336,9 +345,9 @@ def test_flash_bwd_plain_masks_match_dense_attention(sq, sk, q_offset,
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain)
     rng = np.random.default_rng(sq + sk)
-    q = rng.normal(size=(2, sq, 4, 16)).astype(np.float32)
-    k, v = rng.normal(size=(2, 2, sk, 2, 16)).astype(np.float32)
-    do = rng.normal(size=(2, sq, 4, 16)).astype(np.float32)
+    q = rng.normal(size=(2, sq, 4, hd)).astype(np.float32)
+    k, v = rng.normal(size=(2, 2, sk, 2, hd)).astype(np.float32)
+    do = rng.normal(size=(2, sq, 4, hd)).astype(np.float32)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     _, vjp = jax.vjp(lambda q, k, v: dense_attention(q, k, v, **kw),
                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))

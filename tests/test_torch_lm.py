@@ -21,7 +21,9 @@ The same numpy inputs (and the same JAX-initialised weights, carried by
   JAX's free-running decode and against JAX's step on the port's own
   cache;
   command-r-plus-104b in fp32 only against the latter
-  (``TEACHER_FORCED_ONLY``).  The caches are held against JAX's
+  (``TEACHER_FORCED_ONLY``: its fp32 prefill K/V and JAX's each lie
+  within fp32 rounding of a float64 prefill, and a few elements land
+  one bf16 step apart in the cache, which a test shows).  The caches are held against JAX's
   free-running ones.
   The moe family in bf16 is compared layer by layer instead
   (``tests/test_torch_moe.py``): a route there can flip at a gate
@@ -64,7 +66,10 @@ MOE_ARCHS = ("deepseek-moe-16b", "dbrx-132b")
 # Held only to JAX's step on the port's own cache: command-r-plus-104b's
 # smoke heads (8 dims) move its fp32 logits by 1.35e-4 of their scale
 # when one bf16 cache element rounds the other way, the one bf16 step
-# that the cache check allows; free-running, that step compounds.
+# that the cache check allows; free-running, that step compounds.  The
+# step comes from fp32 rounding on both sides, which matching the
+# projections' summation order does not remove
+# (test_command_r_fp32_cache_within_fp32_rounding).
 TEACHER_FORCED_ONLY = {("command-r-plus-104b", "float32")}
 
 
@@ -303,6 +308,107 @@ def test_prefill_and_decode_match_jax(arch, dtype, tol):
     _prefill_and_decode_match_jax(
         *_jax_params(arch, dtype), tol,
         free_running=(arch, dtype) not in TEACHER_FORCED_ONLY)
+
+
+def _f64_dense_prefill_kv(params, cfg, toks):
+    """The K/V cache [L, B, S, Hkv, hd] of a dense config's prefill
+    (no biases, no qk norm, swiglu), in float64 numpy from the same
+    weights: the exact value both packages' fp32 round."""
+    f = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    b, s = toks.shape
+    hd, g = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    ang = np.arange(s)[:, None] / cfg.rope_theta ** (np.arange(0, hd, 2) / hd)
+    cos, sin = np.cos(ang)[:, None], np.sin(ang)[:, None]
+
+    def rope(t):
+        t1, t2 = np.split(t, 2, -1)
+        return np.concatenate([t1 * cos - t2 * sin, t2 * cos + t1 * sin], -1)
+
+    def norm(t, sc):
+        return t / np.sqrt((t * t).mean(-1, keepdims=True) + cfg.rms_eps) \
+            * (1 + f(sc))
+    x = f(params["embed"])[toks]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = {k: f(v[i]) for k, v in params["blocks"].items()}
+        h = norm(x, p["ln1"])
+        q = rope((h @ p["wq"]).reshape(b, s, cfg.n_heads, hd))
+        k = rope((h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd))
+        v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        ks.append(k)
+        vs.append(v)
+        lg = np.einsum("bqhd,bshd->bhqs", q, np.repeat(k, g, 2)) / np.sqrt(hd)
+        lg = np.where(np.tril(np.ones((s, s), bool)), lg, -np.inf)
+        w = np.exp(lg - lg.max(-1, keepdims=True))
+        w /= w.sum(-1, keepdims=True)
+        x = x + np.einsum("bhqs,bshd->bqhd", w, np.repeat(v, g, 2)) \
+            .reshape(b, s, -1) @ p["wo"]
+        h = norm(x, p["ln2"])
+        a = h @ p["wg"]
+        x = x + (a / (1 + np.exp(-a)) * (h @ p["wu"])) @ p["wd"]
+    return {"k": np.stack(ks), "v": np.stack(vs)}
+
+
+def _xla_order_dense(x, w, b=None):
+    """``x @ w`` summed in XLA's CPU order at the smoke widths: four
+    partial products over k mod 4, each a sequential fused multiply-add
+    over its k (torch's CPU product's order), added pairwise."""
+    y = [x[..., i::4] @ w[i::4] for i in range(4)]
+    y = (y[0] + y[1]) + (y[2] + y[3])
+    return y if b is None else y + b
+
+
+@pytest.mark.parametrize("order", ["torch", "xla"])
+def test_command_r_fp32_cache_within_fp32_rounding(monkeypatch, order):
+    """Why command-r-plus-104b in fp32 is held teacher-forced
+    (``TEACHER_FORCED_ONLY``).  Against a float64 prefill from the same
+    weights, JAX's and the port's fp32 prefill K/V each lie within fp32
+    rounding of the exact value (16 eps of its scale), with the port's
+    projections in torch's order ("torch") or in XLA's ("xla",
+    :func:`_xla_order_dense`).  The decode cache's cast to bf16 then puts
+    at most a few elements exactly one bf16 step apart, where the two
+    fp32 values fall on either side of a rounding midpoint; free-running,
+    such a step compounds.  Printed (``-s``): each side's error in eps of
+    the scale, the elements of equal fp32 bits, the straddles, and at how
+    many of them each side rounds as the exact value does.  A port that
+    came nearer to the exact value shows as smaller numbers here."""
+    if order == "xla":
+        monkeypatch.setattr(tlm.layers, "dense", _xla_order_dense)
+    jcfg, params, tcfg, tparams = _jax_params("command-r-plus-104b")
+    toks = np.random.default_rng(11).integers(0, tcfg.vocab, (2, 64)) \
+        .astype(np.int32)
+    _, jc = jax.jit(lambda p, bt: jlm.prefill(p, bt, jcfg, jlm.NO_PARALLEL))(
+        params, {"tokens": jnp.asarray(toks)})
+    _, tc = tlm.prefill(tparams, {"tokens": _t(toks).long()}, tcfg,
+                        tlm.NO_PARALLEL)
+    exact = _f64_dense_prefill_kv(jax.tree.map(np.asarray, params), tcfg,
+                                  toks)
+    eps = float(np.finfo(np.float32).eps)
+
+    def bf16(a):
+        return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    straddles = 0
+    for key in ("k", "v"):
+        want, got, ref = np.asarray(jc[key], np.float32), _np(tc[key]), \
+            exact[key]
+        unit = eps * np.abs(ref).max()
+        err_jax = np.abs(want - ref).max() / unit
+        err_port = np.abs(got - ref).max() / unit
+        assert err_jax <= 16 and err_port <= 16, (key, err_jax, err_port)
+        wb, gb, rb = bf16(want), bf16(got), bf16(ref.astype(np.float32))
+        at = [tuple(i) for i in np.argwhere(wb != gb)]
+        for i in at:
+            step = 2.0 ** (np.floor(np.log2(min(abs(wb[i]), abs(gb[i])))) - 7)
+            assert abs(wb[i] - gb[i]) == step, (key, i)
+            mid = (wb[i] + gb[i]) / 2
+            assert min(want[i], got[i]) <= mid <= max(want[i], got[i])
+        straddles += len(at)
+        print(f"{order} {key}: eps of scale jax {err_jax:.3f} port "
+              f"{err_port:.3f}; equal fp32 {np.mean(want == got):.4f}; "
+              f"straddles {len(at)}, exact's side jax "
+              f"{sum(wb[i] == rb[i] for i in at)} port "
+              f"{sum(gb[i] == rb[i] for i in at)}")
+    assert straddles <= 16, straddles
 
 
 def test_starcoder2_with_nonzero_biases_matches_jax():

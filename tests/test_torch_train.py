@@ -30,9 +30,13 @@ go through both packages:
 * a micro-batch-2 step equals a batch-2x step (1e-5), and the
   autograd Functions that carry K4 and K5 on the card, driven here
   through their plain versions, give autograd's gradients with the
-  launches the card's path counts (2 forwards a layer under remat).
+  launches the card's path counts (2 forwards a layer under remat);
+  ``lm.train_launches`` equals the kernel calls counted in a
+  remat step of every family; the driver trains the hybrid family past
+  its window with a falling loss.
 """
 
+import collections
 import importlib
 import shutil
 
@@ -472,3 +476,128 @@ def test_kernel_functions_carry_gradients_under_remat(monkeypatch):
         else:
             assert (calls["sfwd"], calls["sbwd"]) == (2 * n, n), calls
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
+
+
+class _CountBackward(torch.autograd.Function):
+    """The identity, counting its backward calls in ``counts[key]``."""
+
+    @staticmethod
+    def forward(ctx, counts, key, x):
+        ctx.counts, ctx.key = counts, key
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.counts[ctx.key] += 1
+        return None, None, g
+
+
+@pytest.mark.parametrize("family", list(FAMILY_ARCH))
+def test_train_launches_match_counted_calls(monkeypatch, family):
+    """``lm.train_launches`` (``chip_smoke.py`` phase 7's exact launches)
+    against the model's own kernel call sites in one remat
+    ``value_and_grad`` step of each family's smoke config on the CPU: the
+    calls of ``lm.attention`` or ``ssm.ssd_intra``, forward and remat
+    recompute, and their backward calls, counted through an autograd
+    Function around each call's output."""
+    _, tcfg, params_np = _models(family)
+    counts = collections.Counter()
+
+    def counted(real, name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return _CountBackward.apply(counts, f"{name}_bwd", real(*a, **kw))
+        return call
+    monkeypatch.setattr(tlm, "attention",
+                        counted(tlm.attention, "flash_attention"))
+    monkeypatch.setattr(tssm, "ssd_intra",
+                        counted(tssm.ssd_intra, "ssd_intra"))
+    batch = {k: torch.from_numpy(v)
+             for k, v in _batch(family, tcfg, 2).items()}
+    params = convert.lm_params_to_torch(params_np, "cpu")
+    _, _, missing = value_and_grad(
+        lambda p, b: tlm.train_loss(p, b, tcfg, tlm.NO_PARALLEL,
+                                    remat=True), params, batch)
+    assert missing == 0
+    want = tlm.train_launches(tcfg)
+    assert dict(counts) == want, (dict(counts), want)
+    assert all(want.values())
+
+
+def test_hybrid_driver_trains_past_its_window():
+    """``launch.train.main`` for recurrentgemma-2b's smoke config on the
+    CPU at 96 positions, past its local window of 64: finite losses that
+    fall over the run, a gradient for every parameter leaf."""
+    rec = train_main(["--arch", "recurrentgemma-2b", "--smoke", "--device",
+                      "cpu", "--steps", "6", "--batch", "2", "--seq", "96",
+                      "--lr", "3e-3"])
+    assert configs.get_smoke_config("recurrentgemma-2b").local_window < 96
+    assert rec["grads_missing"] == 0
+    assert np.isfinite(rec["losses"]).all()
+    assert np.isfinite(rec["grad_norms"]).all()
+    assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
+
+
+@pytest.mark.parametrize("arch,depth", [
+    ("seamless-m4t-medium", {"n_layers": 12, "n_enc_layers": 12}),
+    ("llava-next-mistral-7b", {"n_layers": 32})])
+def test_zero_frontend_stand_ins_overflow_the_backward(arch, depth):
+    """At full depth (smoke widths, bf16), zero frame or patch embeddings
+    give NaN gradients in the JAX model and in the port's alike: a zero
+    row reaches every rms norm on its path as zeros, where the norm's
+    gradient is rsqrt(eps) = 1e3.  The training driver's seeded N(0, 1)
+    stand-ins (``frontend_stand_ins``) give finite gradients on both
+    sides, and the port's loss within 2e-2 of JAX's (bf16 rounded at
+    other points)."""
+    from repro_torch.launch.train import frontend_stand_ins
+    from repro_torch.optim.adamw import global_norm
+    jcfg = jax_smoke_config(arch).replace(**depth)
+    tcfg = configs.get_smoke_config(arch).replace(**depth)
+    params_np = jax.tree.map(np.asarray, jlm.init_params(
+        jax.random.PRNGKey(0), jcfg))
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    tparams = convert.lm_params_to_torch(params_np, "cpu")
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab, (2, 49)) \
+        .astype(np.int32)
+    jgrad = jax.jit(jax.value_and_grad(lambda p, b: jlm.train_loss(
+        p, b, jcfg, jlm.NO_PARALLEL, remat=False)))
+    seq = 48 + (tcfg.n_patches if tcfg.family == "vlm" else 0)
+    for kind in ("zeros", "stand-ins"):
+        extra = frontend_stand_ins(tcfg, seq, 2, "cpu")
+        if kind == "zeros":
+            extra = {k: torch.zeros_like(v) for k, v in extra.items()}
+        tb = {"tokens": torch.from_numpy(toks[:, :-1]),
+              "labels": torch.from_numpy(toks[:, 1:]), **extra}
+        loss, grads, _ = value_and_grad(
+            lambda p, b: tlm.train_loss(p, b, tcfg, tlm.NO_PARALLEL,
+                                        remat=False), tparams, tb)
+        jloss, jg = jgrad(jparams, {
+            k: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+            if v.is_floating_point() else jnp.asarray(v.numpy())
+            for k, v in tb.items()})
+        jnorm = float(jnp.sqrt(sum(
+            jnp.sum(jnp.square(x.astype(jnp.float32)))
+            for x in jax.tree.leaves(jg))))
+        norm = float(global_norm(grads))
+        assert np.isfinite(float(loss)) and np.isfinite(float(jloss))
+        if kind == "zeros":
+            assert np.isnan(norm) and np.isnan(jnorm), (norm, jnorm)
+        else:
+            assert np.isfinite(norm) and np.isfinite(jnorm), (norm, jnorm)
+            assert abs(float(loss) - float(jloss)) < 2e-2 * float(jloss)
+
+
+def test_encdec_driver_trains_at_full_depth(monkeypatch):
+    """``launch.train.main`` for seamless-m4t-medium's smoke widths at its
+    full depth (12 encoder and 12 decoder layers), bf16, on its seeded
+    frame stand-ins: finite losses and gradient norms, every leaf a
+    gradient."""
+    from repro_torch.launch import train as ttrain
+    deep = configs.get_smoke_config("seamless-m4t-medium").replace(
+        n_layers=12, n_enc_layers=12)
+    monkeypatch.setattr(ttrain, "get_smoke_config", lambda name: deep)
+    rec = train_main(["--arch", "seamless-m4t-medium", "--smoke", "--device",
+                      "cpu", "--steps", "3", "--batch", "2", "--seq", "32"])
+    assert rec["grads_missing"] == 0
+    assert np.isfinite(rec["losses"]).all()
+    assert np.isfinite(rec["grad_norms"]).all()
