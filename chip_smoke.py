@@ -42,7 +42,32 @@ Phases (any failure exits non-zero; nothing is caught):
    against ``ToyLM.expected_pages``, a sample of attend outputs against
    the plain kernel over the oracle bytes, the coherence invariants,
    the page accounting, and that every kernel launched during the run,
-   each K2 call once; print K2's calls counted by (R, valid rows);
+   each K2 call once; print K2's calls counted by (R, valid rows); then
+   the same serve with a ``FlightRecorder(4096)`` on its loop and
+   without, alternated twice (:func:`serve_with_recorder`: spans by verb
+   equal to the dispatches the serve counts itself, no compile event,
+   the Chrome trace loads back; walls and ``snapshot()`` printed);
+3b. the legacy page-copy pool at ``KVPoolConfig()`` (:func:`legacy_phase`):
+   32 sequences of 32 pages (sequence ``s`` owned by replica ``s % 4``),
+   seeded bf16 K/V, a prefill of 480 tokens a sequence as one append a
+   replica (3840 rows, K1's largest batch here), then 32 decode steps of
+   one append a replica, a read by every replica of its own pages and
+   four of sequence 0's (:func:`legacy_shared`: real reader bits that
+   replica 0's appends evict, direct-mapped slot conflicts) and one
+   attend with Qwen3-1.7B's 16 query heads; pages, versions, fills,
+   evictions, every word and every hit mask against a numpy oracle
+   (:class:`LegacyOracle`), each attend within 1e-4 of the plain kernel
+   over the oracle's pages, and a CPU twin bit-equal in every leaf and
+   hit mask; K1, K2 (exactly twice a read) and K3 launched; then K1, K2
+   and K3 at this path's shapes (:func:`legacy_kernel_cases`, the
+   ``*_legacy`` keys); then the placement verbs at the serve pool's
+   geometry (:func:`placement_phase`: 1024 lines of 16384 lanes, 4
+   nodes, a home directory and replicas, 2 x 16 zipf-0.99 batches of 256
+   ops around ``replicate(plan_replication(...))`` and the flat
+   ``rehome``, against a twin plane) and the DES bridge
+   (:func:`bridge_phase`: the quickstart cluster's DES workload through
+   the port's ``SELCCLayer``, ``as_plane`` on the card against a CPU
+   twin, ``make_kv_pool()``'s legacy pool);
 4. serve Qwen3-1.7B, Mamba2-2.7B, deepseek-moe-16b, starcoder2-7b,
    recurrentgemma-2b, llava-next-mistral-7b and seamless-m4t-medium at
    full published width and depth (``src/repro/configs/*.py``; random
@@ -113,8 +138,9 @@ Phases (any failure exits non-zero; nothing is caught):
    positions, past its window); and a checkpoint saved and resumed on
    the card (:func:`train_resume_check`, Mamba2-2.7B at 1 layer);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
-   the serve, the LM serves, the tree, the transactions and the
-   training runs, split by path in ``launches_by_path`` and, for
+   the serve, the legacy pool, the placement check, the DES bridge, the
+   LM serves, the tree, the transactions and the training runs, split
+   by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
 
@@ -1082,10 +1108,12 @@ def check_ssd_bwd(dev, K):
 
 # --------------------------------------------------------- phase 3: serve
 
-def serve(dev, cfg=None, n_q_heads=16):
+def serve(dev, cfg=None, n_q_heads=16, recorder=None):
     """The main path: ``cfg`` defaults to ``KVPoolConfig()`` (1024 x 16
     tokens, 8 kv heads x 128, 4 replicas, bf16) and ``n_q_heads`` to
-    Qwen3-1.7B's 16."""
+    Qwen3-1.7B's 16.  ``recorder`` goes to the ``ServeLoop``; the
+    result's ``dispatches`` counts the loop's plane verbs on its own
+    (wrappers around the plane's ``ops`` and ``rmw``)."""
     from repro_torch.core.rounds import check_invariants
     from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool
     from repro_torch.kernels.paged_attention import paged_attention_plain
@@ -1128,9 +1156,16 @@ def serve(dev, cfg=None, n_q_heads=16):
             assert err < 1e-4, f"request {req.rid}: attend off by {err}"
             checked["attend"] += 1
 
+    dispatches = collections.Counter()
+    plane = pool.rounds_plane
+    for verb in ("ops", "rmw"):
+        def counting(*a, _real=getattr(plane, verb), _verb=verb, **kw):
+            dispatches[_verb] += 1
+            return _real(*a, **kw)
+        setattr(plane, verb, counting)
     loop = ServeLoop(pool, model, n_slots=16, max_pages=16,
                      prefill_chunk=16, queue_capacity=64,
-                     on_complete=on_complete)
+                     on_complete=on_complete, recorder=recorder)
     rng = np.random.default_rng(SEED + 3)
     reqs = []
     for i in range(48):
@@ -1162,7 +1197,8 @@ def serve(dev, cfg=None, n_q_heads=16):
             "coherence_rounds": st.rounds_total,
             "attend_calls": st.attend_calls, "wall_s": wall,
             "readbacks_checked": checked["readback"],
-            "attends_checked": checked["attend"]}
+            "attends_checked": checked["attend"],
+            "dispatches": dict(dispatches)}
 
 
 @contextlib.contextmanager
@@ -1196,6 +1232,606 @@ def fetch_histogram():
                    if last[p] == i - 1 else "named_earlier")
             hist[key] += 1
         last.update((p, i) for p in pages)
+
+
+# ----------------------------------------- phase 3b: the legacy page pool
+
+LEGACY_SEQS = 32                   # 32 sequences x 32 pages fill the pool
+LEGACY_PREFILL = 480               # tokens a sequence, one append a replica
+LEGACY_STEPS = 32                  # decode steps after it
+
+
+def serve_with_recorder(dev, runs=2):
+    """Phase 3's serve again, with a ``FlightRecorder(4096)`` on its loop
+    and without, alternated ``runs`` times each: the spans by verb must
+    equal the dispatches the serve counts itself, every ``compiled`` 0,
+    and the Chrome trace must load back as JSON.  Returns the walls, the
+    spans by verb and the recorder's ``snapshot()``."""
+    import tempfile
+    from repro_torch.obs import FlightRecorder
+    walls = {"recorder": [], "none": []}
+    snap = None
+    for _ in range(runs):
+        for mode in ("none", "recorder"):
+            rec = FlightRecorder(4096) if mode == "recorder" else None
+            res = serve(dev, recorder=rec)
+            walls[mode].append(res["wall_s"])
+            if rec is None:
+                continue
+            spans = collections.Counter(s.verb for s in rec.spans())
+            assert rec.dropped == 0, "the ring dropped spans"
+            assert dict(spans) == res["dispatches"], \
+                f"spans {dict(spans)} != dispatches {res['dispatches']}"
+            assert all(s.compiled == 0 for s in rec.spans())
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "trace.json")
+                rec.export_chrome_trace(path)
+                with open(path) as f:
+                    doc = json.load(f)
+            assert len(doc["traceEvents"]) == rec.total
+            snap = rec.snapshot()
+    return {"wall_s": walls, "spans": dict(spans), "snapshot": snap}
+
+
+class LegacyOracle:
+    """numpy model of the legacy pool: page images (bf16 bits as int16),
+    versions, fills, the directory words (Python ints), the readers that
+    appends evict, and each replica's direct-mapped cache tags."""
+
+    def __init__(self, cfg):
+        shape = (cfg.n_pages, cfg.page_size, cfg.n_kv_heads, cfg.head_dim)
+        self.cfg = cfg
+        self.k = np.zeros(shape, np.int16)
+        self.v = np.zeros(shape, np.int16)
+        self.version = np.zeros(cfg.n_pages, np.int64)
+        self.fill = np.zeros(cfg.n_pages, np.int64)
+        self.words = [0] * cfg.n_pages
+        self.evictions = 0
+        self.tag_page = np.full((cfg.n_replicas, cfg.cache_slots), -1)
+        self.tag_version = np.zeros((cfg.n_replicas, cfg.cache_slots),
+                                    np.int64)
+
+    def append(self, rep, pages, offs, kbits, vbits):
+        """Every row's upgrade CAS in order: the first row of a page
+        finding the word other than the appender's sole bit fails, and
+        so does every later row of the page, each counting the word's
+        other readers; then the writes, and the downgraded word."""
+        bit = 1 << rep
+        for p, n in collections.Counter(pages.tolist()).items():
+            w = self.words[p]
+            if w != bit:
+                self.evictions += n * bin(w & ~bit).count("1")
+            self.words[p] = bit
+        self.k[pages, offs] = kbits
+        self.v[pages, offs] = vbits
+        np.add.at(self.version, pages, 1)
+        np.maximum.at(self.fill, pages, offs + 1)
+
+    def read(self, rep, pages):
+        """The hit mask; misses register the reader's bit, and of the
+        rows sharing a slot the last one installs its page if it
+        missed."""
+        slots = pages % self.cfg.cache_slots
+        hit = (self.tag_page[rep, slots] == pages) & \
+            (self.tag_version[rep, slots] == self.version[pages])
+        for p in pages[~hit].tolist():
+            self.words[p] |= 1 << rep
+        last = {}
+        for i, sl in enumerate(slots.tolist()):
+            last[sl] = i
+        for sl, i in last.items():
+            if not hit[i]:
+                self.tag_page[rep, sl] = pages[i]
+                self.tag_version[rep, sl] = self.version[pages[i]]
+        return hit
+
+
+def legacy_inputs(cfg, n_seqs=LEGACY_SEQS, prefill=LEGACY_PREFILL,
+                  steps=LEGACY_STEPS, n_q_heads=16, seed=SEED + 11):
+    """Seeded K/V of every token, [n_seqs, prefill + steps, Hkv, hd] in
+    the pool dtype, and each step's queries [steps, n_seqs, Hq, hd]
+    fp32, on the host."""
+    from repro_torch.dsm.kvpool import pool_dtype
+    g = torch.Generator().manual_seed(seed)
+    shape = (n_seqs, prefill + steps, cfg.n_kv_heads, cfg.head_dim)
+    dt = pool_dtype(cfg)
+    return {"k": torch.randn(shape, generator=g).to(dt),
+            "v": torch.randn(shape, generator=g).to(dt),
+            "q": torch.randn((steps, n_seqs, n_q_heads, cfg.head_dim),
+                             generator=g)}
+
+
+def legacy_shared(seq_pages):
+    """The pages of sequence 0 that every replica reads besides its own:
+    the first two, and the two its decode appends into (so replicas 1-3
+    hold reader bits that replica 0's appends evict)."""
+    return np.concatenate([seq_pages[0][:2], seq_pages[0][-2:]])
+
+
+def legacy_run(pool, inp, prefill=LEGACY_PREFILL, oracle=None,
+               on_attend=None):
+    """Drive the legacy pool: ``n_seqs`` sequences of ``n_pages /
+    n_seqs`` pages, sequence ``s`` owned by replica ``s % n_replicas``;
+    a prefill of ``prefill`` tokens a sequence as one append a replica;
+    then ``steps`` decode steps of one append a replica (a token a
+    sequence), a read by every replica of its own sequences' pages and
+    :func:`legacy_shared`, and one attend over every sequence's page
+    table.  With ``oracle`` every hit mask is checked against it.
+    Returns the hit masks, the call counts and the seconds spent in
+    appends and reads (each call synchronized)."""
+    cfg, dev = pool.cfg, pool.device
+    n_rep, ps = cfg.n_replicas, cfg.page_size
+    k_all, v_all = inp["k"].to(dev), inp["v"].to(dev)
+    n_seqs, steps = k_all.shape[0], inp["q"].shape[0]
+    per_seq = cfg.n_pages // n_seqs
+    seq_pages = [pool.allocate(per_seq) for _ in range(n_seqs)]
+    tbl = np.stack(seq_pages).astype(np.int32)
+    shared = legacy_shared(seq_pages)
+    own = [[s for s in range(n_seqs) if s % n_rep == r]
+           for r in range(n_rep)]
+    out = {"hits": [], "appends": 0, "rows": 0, "reads": 0,
+           "pages_read": 0, "attends": 0, "append_s": 0.0, "read_s": 0.0,
+           "attend_s": 0.0}
+
+    def append(r, seqs, toks):
+        pages = np.concatenate([tbl[s, toks // ps] for s in seqs])
+        offs = np.tile(toks % ps, len(seqs)).astype(np.int32)
+        tok_idx = torch.as_tensor(toks, device=dev)
+        k = k_all[seqs][:, tok_idx].reshape(-1, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        v = v_all[seqs][:, tok_idx].reshape(-1, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        sync(dev)
+        t0 = time.perf_counter()
+        pool.append(pages, offs, k, v, replica=r)
+        sync(dev)
+        out["append_s"] += time.perf_counter() - t0
+        out["appends"] += 1
+        out["rows"] += pages.shape[0]
+        if oracle is not None:
+            oracle.append(r, pages, offs,
+                          k.cpu().view(torch.int16).numpy(),
+                          v.cpu().view(torch.int16).numpy())
+
+    for r in range(n_rep):
+        append(r, own[r], np.arange(prefill))
+    for step in range(steps):
+        t = prefill + step
+        for r in range(n_rep):
+            append(r, own[r], np.array([t]))
+        for r in range(n_rep):
+            pages = np.concatenate([tbl[own[r]].reshape(-1), shared])
+            t0 = time.perf_counter()
+            _, _, hit = pool.read(r, pages)
+            sync(dev)
+            out["read_s"] += time.perf_counter() - t0
+            out["reads"] += 1
+            out["pages_read"] += pages.shape[0]
+            out["hits"].append(hit)
+            if oracle is not None:
+                want = oracle.read(r, pages)
+                assert np.array_equal(hit, want), \
+                    f"step {step}, replica {r}: hit mask differs"
+        lens = np.full(n_seqs, t + 1, np.int32)
+        q = inp["q"][step].to(dev)
+        t0 = time.perf_counter()
+        got = pool.attend(q, tbl, lens)
+        sync(dev)
+        out["attend_s"] += time.perf_counter() - t0
+        out["attends"] += 1
+        if on_attend is not None:
+            on_attend(step, q, tbl, lens, got)
+    return out
+
+
+def words_as_ints(words) -> list:
+    """[P, 2] int32 lanes -> each page's 64-bit word as a Python int."""
+    w = words.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    return [int(h) << 32 | int(lo) for h, lo in w]
+
+
+@contextlib.contextmanager
+def legacy_calls():
+    """Keeps references to the legacy pool's kernel calls (no copy, no
+    sync): the largest K1 call, the K2 calls since the last ``step()``,
+    and the last K3 call.  The pool updates ``k_pages`` in place and
+    replaces its ``words``, so the recorded inputs stay as they were as
+    long as no append follows them."""
+    from repro_torch.dsm import kvpool
+    real = {n: getattr(kvpool, n) for n in ("apply_batch", "gcl_fetch_op",
+                                            "decode_paged")}
+    rec = {"k1": None, "k2": [], "k3": None}
+
+    def k1(words, req):
+        if rec["k1"] is None or req["line"].shape[0] >= \
+                rec["k1"][1]["line"].shape[0]:
+            rec["k1"] = (words, req)
+        return real["apply_batch"](words, req)
+
+    def k2(*args):
+        rec["k2"].append(args)
+        return real["gcl_fetch_op"](*args)
+
+    def k3(*args):
+        rec["k3"] = args
+        return real["decode_paged"](*args)
+
+    kvpool.apply_batch, kvpool.gcl_fetch_op, kvpool.decode_paged = k1, k2, k3
+    try:
+        yield rec
+    finally:
+        for n, f in real.items():
+            setattr(kvpool, n, f)
+
+
+def _bits16(t: torch.Tensor) -> np.ndarray:
+    """Host bits of a tensor: 16-bit floats as int16, the rest as is."""
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def legacy_phase(dev, K, cfg=None, n_q_heads=16, n_seqs=LEGACY_SEQS,
+                 prefill=LEGACY_PREFILL, steps=LEGACY_STEPS, twin=True):
+    """Phase 3b: the legacy page-copy pool at ``cfg`` (``KVPoolConfig()``
+    by default) through :func:`legacy_run`, against :class:`LegacyOracle`
+    (pages bit for bit, versions, fills, evictions, every word, every hit
+    mask) and, each attend, against ``paged_attention_plain`` over the
+    oracle's pages on the same device (1e-4, phase 3's tolerance); then,
+    with ``twin``, the same trace on a CPU pool (the plain versions):
+    every pool and cache leaf and every hit mask bit-equal.  Returns the
+    numbers to log (``launches``: the kernels of the run) and the
+    recorded kernel calls (:func:`legacy_calls`; ``k2_last``: the last
+    step's)."""
+    from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    cfg = KVPoolConfig() if cfg is None else cfg
+    inp = legacy_inputs(cfg, n_seqs, prefill, steps, n_q_heads)
+    oracle = LegacyOracle(cfg)
+    dt = inp["k"].dtype
+    orc, errs = {}, []
+
+    def check_attend(step, q, tbl, lens, got):
+        if not orc:                      # the first step: every page
+            orc["k"] = torch.from_numpy(oracle.k).view(dt).to(dev)
+            orc["v"] = torch.from_numpy(oracle.v).view(dt).to(dev)
+        else:                            # the pages this step appended to
+            idx = np.unique(tbl[:, (int(lens[0]) - 1) // cfg.page_size])
+            i = torch.as_tensor(idx, device=dev)
+            orc["k"][i] = torch.from_numpy(oracle.k[idx]).view(dt).to(dev)
+            orc["v"][i] = torch.from_numpy(oracle.v[idx]).view(dt).to(dev)
+        want = paged_attention_plain(q, orc["k"], orc["v"],
+                                     torch.as_tensor(tbl, device=dev),
+                                     torch.as_tensor(lens, device=dev))
+        errs.append(float((got.float() - want.float()).abs().max()))
+        assert errs[-1] < 1e-4, f"step {step}: attend off by {errs[-1]}"
+
+    pool = SELCCKVPool(cfg, device=dev)
+    sync(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with legacy_calls() as calls:
+        def on_step(*a):
+            check_attend(*a)
+            calls["k2_last"], calls["k2"] = calls["k2"], []
+        run = legacy_run(pool, inp, prefill, oracle, on_step)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    lp = pool.pool
+    assert np.array_equal(_bits16(lp["k_pages"]), oracle.k) and \
+        np.array_equal(_bits16(lp["v_pages"]), oracle.v), \
+        "pages differ from the oracle"
+    assert np.array_equal(lp["page_version"].cpu().numpy(),
+                          oracle.version), "page versions differ"
+    assert np.array_equal(lp["page_fill"].cpu().numpy(), oracle.fill), \
+        "page fills differ"
+    assert int(lp["append_evictions"]) == oracle.evictions > 0, \
+        (int(lp["append_evictions"]), oracle.evictions)
+    assert words_as_ints(lp["words"]) == oracle.words, \
+        "the directory differs from the oracle's"
+    if dev.type == "cuda":
+        assert launches["latch_ops"] == run["appends"], launches
+        assert launches["gcl_fetch"] == 2 * run["reads"], \
+            f"K2 launched {launches['gcl_fetch']} times for " \
+            f"{run['reads']} reads"
+        assert launches["paged_attention"] == run["attends"], launches
+    else:                                  # the plain versions
+        assert set(launches.values()) == {0}, launches
+    out = {"wall_s": wall, "appends": run["appends"],
+           "rows_appended": run["rows"],
+           "appends_per_s": run["appends"] / run["append_s"],
+           "rows_appended_per_s": run["rows"] / run["append_s"],
+           "reads": run["reads"], "pages_read": run["pages_read"],
+           "reads_per_s": run["reads"] / run["read_s"],
+           "pages_read_per_s": run["pages_read"] / run["read_s"],
+           "hits": int(sum(h.sum() for h in run["hits"])),
+           "append_evictions": oracle.evictions,
+           "attends": run["attends"],
+           "attend_ms": 1e3 * run["attend_s"] / run["attends"],
+           "attend_max_err": max(errs),
+           "launches": {k: launches[k] for k in
+                        ("latch_ops", "gcl_fetch", "paged_attention")}}
+    out["hit_rate"] = out["hits"] / run["pages_read"]
+    if twin:
+        cpu = SELCCKVPool(cfg, device="cpu")
+        t0 = time.perf_counter()
+        twin_run = legacy_run(cpu, inp, prefill)
+        out["twin_wall_s"] = time.perf_counter() - t0
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(run["hits"], twin_run["hits"])), \
+            "a hit mask differs from the CPU twin's"
+        for side in ("pool", "cache"):
+            card, host = getattr(pool, side), getattr(cpu, side)
+            for k in card:
+                assert np.array_equal(_bits16(card[k]), _bits16(host[k])), \
+                    f"{side}[{k!r}] differs from the CPU twin's"
+    return out, calls
+
+
+def legacy_kernel_cases(dev, K, calls):
+    """K1, K2 and K3 at the legacy path's own shapes, from the calls
+    :func:`legacy_phase` recorded: K1 the largest append (a prefill, R =
+    every row of a replica's sequences), K2 replica 0's k fetch of the
+    last step (its own pages and sequence 0's shared ones: duplicate
+    requests, its reader bit), K3 the last attend.  Each exact (K3
+    within 1e-4) against its plain version on the card and timed on both
+    timers beside its bound and the library call (``index_select`` for
+    K2, SDPA over gathered pages for K3).  Keys carry ``_legacy``."""
+    from repro_torch.kernels.gcl_fetch import gcl_fetch_plain
+    from repro_torch.kernels.latch_ops import latch_apply_plain, REQ_KEYS
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    words, req = calls["k1"]
+    n, r = words.shape[0], req["line"].shape[0]
+    got = K.apply_batch(words, req)
+    want = latch_apply_plain(words, *[req[k] for k in REQ_KEYS])
+    sync(dev)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    assert err == 0, f"latch_ops disagrees at the legacy shape ({err})"
+    k1 = {"max_abs_err_legacy": float(err), "rows_legacy": r,
+          "ms_legacy": graph_ms(lambda: K.apply_batch(words, req)),
+          "ms_graph20_legacy": graph20_ms(lambda: K.apply_batch(words,
+                                                                req)),
+          "plain_ms_legacy": eager_ms(lambda: latch_apply_plain(
+              words, *[req[k] for k in REQ_KEYS]), iters=3),
+          "bound_ms_legacy": bound_ms(2 * n * 8 + 9 * r * 4)[0]}
+
+    pages, words, req_page, bit_hi, bit_lo = calls["k2_last"][0]
+    args = (words, req_page, bit_hi, bit_lo)
+    got = K.fetch(pages, *args)
+    want = gcl_fetch_plain(pages, *args)
+    sync(dev)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want))
+    assert err == 0.0, f"gcl_fetch disagrees at the legacy shape ({err})"
+    req_np = req_page.cpu().numpy()
+    valid = req_np[req_np >= 0]
+    (p, e), r = pages.shape, req_np.shape[0]
+    row = e * pages.element_size()
+    n_bytes = valid.size * row + r * row + 2 * p * 8 + 6 * r * 4
+    idx = req_page.long().clamp(min=0)
+    k2 = {"max_abs_err_legacy": err, "rows_legacy": r,
+          "valid_rows_legacy": int(valid.size),
+          "duplicate_rows_legacy": int(valid.size - np.unique(valid).size),
+          "row_bytes_legacy": row,
+          "bits_legacy": [int(bit_hi.max()), int(bit_lo.max())],
+          "ms_legacy": graph_ms(lambda: K.fetch(pages, *args)),
+          "ms_graph20_legacy": graph20_ms(lambda: K.fetch(pages, *args)),
+          "plain_ms_legacy": eager_ms(lambda: gcl_fetch_plain(pages,
+                                                              *args)),
+          "bound_ms_legacy": bound_ms(n_bytes)[0],
+          "library_ms_legacy": graph_ms(
+              lambda: torch.index_select(pages, 0, idx)),
+          "library_ms_graph20_legacy": graph20_ms(
+              lambda: torch.index_select(pages, 0, idx))}
+    assert k2["duplicate_rows_legacy"] > 0 and k2["bits_legacy"][1] > 0
+
+    q, k_pages, v_pages, tbl, lens = calls["k3"]
+    got = K.decode_paged(q, k_pages, v_pages, tbl, lens)
+    want = paged_attention_plain(q, k_pages, v_pages, tbl, lens)
+    sync(dev)
+    err = float((got - want).abs().max())
+    assert err < 1e-4, f"paged_attention off by {err} at the legacy shape"
+    b, hq, hd = q.shape
+    _, page, hkv, _ = k_pages.shape
+    lens_np = lens.cpu().numpy()
+    toks = int(lens_np.sum())
+    n_bytes = (2 * toks * hkv * hd * k_pages.element_size()
+               + 2 * b * hq * hd * q.element_size()
+               + int(sum(-(-int(x) // page) for x in lens_np)) * 4 + b * 4)
+    bms, by = bound_ms(n_bytes, 4.0 * hq * hd * toks)
+    lib = paged_sdpa(q, k_pages, v_pages, tbl, lens)
+    k3 = {"max_abs_err_legacy": err,
+          "ms_legacy": graph_ms(lambda: K.decode_paged(q, k_pages, v_pages,
+                                                       tbl, lens)),
+          "ms_graph20_legacy": graph20_ms(lambda: K.decode_paged(
+              q, k_pages, v_pages, tbl, lens)),
+          "plain_ms_legacy": eager_ms(lambda: paged_attention_plain(
+              q, k_pages, v_pages, tbl, lens)),
+          "bound_ms_legacy": bms, "bound_by_legacy": by,
+          "library_ms_legacy": graph_ms(lib),
+          "library_ms_graph20_legacy": graph20_ms(lib)}
+    return k1, k2, k3
+
+
+# ------------------------------------- placement on the serve pool's geometry
+
+PLACE_LINES = 1024                 # the serve pool's pages ...
+PLACE_WIDTH = 16384                # ... and its page_lanes (bf16 k + v)
+PLACE_NODES = 4
+
+
+def placement_phase(dev, n_lines=PLACE_LINES, width=PLACE_WIDTH,
+                    n_nodes=PLACE_NODES, batches=16, batch=256,
+                    theta=0.99, read_frac=0.95):
+    """A flat plane with a home directory and a replica plane at the
+    serve pool's geometry, a ``FlightRecorder`` attached: ``batches``
+    seeded batches of ``batch`` ops (zipf ``theta`` over the lines, hot
+    ranks scattered, ``read_frac`` reads, random payloads), then
+    ``replicate(plan_replication(...))`` over the batches' summed
+    telemetry, the flat ``rehome`` refusing the 4-shard plan that
+    ``plan_rehome(rec.line_heat, home, 4)`` makes and returning 0 for
+    the 1-shard one, and ``batches`` more.  A twin plane without
+    recorder, replicas marked or rehome serves the same trace: versions
+    and payloads equal batch by batch; both keep the invariants, and
+    every valid replica image equals memory."""
+    from repro_torch.apps.workloads import Zipf
+    from repro_torch.core.rounds import (DevicePlane, check_invariants,
+                                         make_state, plan_rehome,
+                                         plan_replication)
+    from repro_torch.obs import FlightRecorder
+    rng = np.random.default_rng(SEED + 12)
+    zipf = Zipf(n_lines, theta)
+    perm = rng.permutation(n_lines)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    geom = dict(payload_width=width, home_directory=True, replicas=True,
+                device=dev)
+    rec = FlightRecorder(4096)
+    plane = DevicePlane.open(make_state(n_nodes, n_lines, **geom),
+                             n_nodes=n_nodes, recorder=rec)
+    twin = DevicePlane.open(make_state(n_nodes, n_lines, **geom),
+                            n_nodes=n_nodes)
+    hits = np.zeros(n_lines, np.int64)
+    whits = np.zeros(n_lines, np.int64)
+    out = {"plane_s": 0.0, "twin_s": 0.0}
+    for b in range(2 * batches):
+        if b == batches:
+            picks = plan_replication(hits, whits, top_k=64,
+                                     max_write_frac=0.1)
+            assert picks.size > 0
+            plane.replicate(picks)
+            moves = plan_rehome(rec.line_heat, plane.state["home"], 4)
+            assert moves[0].size > 0, "no move planned for 4 shards"
+            # the one shard is 0: a plan naming another is refused,
+            # as the reference's flat plane refuses it
+            refused = None
+            try:
+                assert plane.rehome(*moves) == 0
+            except ValueError as exc:
+                refused = str(exc)
+            assert (refused is not None) == bool(moves[1].max() > 0), \
+                (refused, moves)
+            assert plane.rehome(*plan_rehome(
+                rec.line_heat, plane.state["home"], 1)) == 0
+            out.update(replicated=int(picks.size),
+                       rehome_moves_4_shards=int(moves[0].size),
+                       rehome_lines=moves[0].tolist(),
+                       rehome_to=moves[1].tolist(), rehome_refused=refused,
+                       replica_ok_after_replicate=int(
+                           plane.state["replica_ok"].sum()))
+        node = rng.integers(0, n_nodes, batch).astype(np.int32)
+        line = perm[zipf.sample_batch(rng, batch)].astype(np.int32)
+        isw = (rng.random(batch) >= read_frac).astype(np.int32)
+        wd = torch.empty((batch, width), dtype=torch.int32,
+                         device=dev).random_(generator=g)
+        t0 = time.perf_counter()
+        a = plane.ops(node, line, isw, wd)
+        t1 = time.perf_counter()
+        z = twin.ops(node, line, isw, wd)
+        out["twin_s"] += time.perf_counter() - t1
+        out["plane_s"] += t1 - t0
+        assert np.array_equal(a.version, z.version) and \
+            np.array_equal(a.data, z.data), f"batch {b}: twin differs"
+        hits += a.telemetry.line_hits
+        whits += a.telemetry.line_whits
+    for p in (plane, twin):
+        check_invariants(p.state)
+    st = plane.state
+    rok = st["replica_ok"]
+    assert rok.any() and torch.equal(st["replica_data"][rok],
+                                     st["mem_data"][rok])
+    assert rec.total == 2 * batches and all(s.compiled == 0
+                                            for s in rec.spans())
+    out.update(ops=2 * batches * batch, replica_ok=int(rok.sum()),
+               spans=rec.total, snapshot=rec.snapshot())
+    return out
+
+
+# ------------------------------------------------------ the DES bridge
+
+def bridge_phase(dev, width=PLACE_WIDTH, kv_cfg=None):
+    """The port's ``SELCCLayer`` over the cluster of
+    ``examples/quickstart.py`` (2 compute nodes, 2 memory nodes, 4
+    threads, 256 cache entries): a coherent write and read through scope
+    guards, a cache-hit re-read that spends no RDMA, and a B-link tree of
+    200 keys (lookups and a scan checked), with a clean teardown; then
+    ``as_plane(payload_width=width)`` on ``dev`` drives a seeded op batch
+    over the layer's lines against a CPU twin (equal versions and
+    payloads, invariants), and ``make_kv_pool(kv_cfg)`` opens a legacy
+    pool on ``dev`` (``KVPoolConfig()`` by default) whose reads return
+    what was appended."""
+    from repro_torch.apps import BLinkTree
+    from repro_torch.core import ClusterConfig, SELCCConfig, SELCCLayer
+    from repro_torch.dsm.kvpool import KVPoolConfig
+    layer = SELCCLayer(ClusterConfig(n_compute=2, n_memory=2,
+                                     threads_per_node=4,
+                                     selcc=SELCCConfig(cache_capacity=256)))
+    node0, node1 = layer.nodes
+    gaddr = layer.allocate()
+    seen = {}
+
+    def demo():
+        h = yield from node0.xlocked(gaddr)
+        yield from h.store({"greeting": "hello"})
+        yield from h.release()
+        h1 = yield from node1.slocked(gaddr)
+        seen["read"] = h1.value
+        yield from h1.release()
+        before = layer.fabric.stats.total_rdma()
+        h1 = yield from node1.slocked(gaddr)
+        yield from h1.release()
+        seen["rdma"] = layer.fabric.stats.total_rdma() - before
+
+    tree = BLinkTree(layer, node0, fanout=16)
+
+    def tree_demo():
+        for i in range(200):
+            yield from tree.insert(i, i * i)
+        seen["lookup"] = yield from tree.lookup(137)
+        seen["scan"] = yield from tree.range_scan(50, 5)
+
+    for gen in (demo(), tree_demo()):
+        layer.env.run_until_complete([layer.env.process(gen)])
+    layer.assert_released()
+    assert seen["read"] == {"greeting": "hello"} and seen["rdma"] == 0
+    assert seen["lookup"] == 137 * 137
+    assert seen["scan"] == [(k, k * k) for k in range(50, 55)]
+    plane = layer.as_plane(payload_width=width, device=dev)
+    twin = layer.as_plane(payload_width=width, device="cpu")
+    assert plane.device.type == dev.type
+    rng = np.random.default_rng(SEED + 14)
+    r, n = 64, layer.cfg.n_compute
+    for _ in range(2):
+        node = rng.integers(0, n, r).astype(np.int32)
+        line = rng.integers(0, plane.n_lines, r).astype(np.int32)
+        isw = (rng.random(r) < 0.3).astype(np.int32)
+        wd = rng.integers(-2**31, 2**31, (r, width)).astype(np.int32)
+        a, z = plane.ops(node, line, isw, wd), twin.ops(node, line, isw, wd)
+        assert np.array_equal(a.version, z.version) and \
+            np.array_equal(a.data, z.data)
+    plane.check()
+    pool = layer.make_kv_pool(kv_cfg, device=dev)
+    cfg = pool.cfg
+    assert pool.device.type == dev.type and pool.rounds_plane is None
+    assert cfg == (KVPoolConfig() if kv_cfg is None else kv_cfg)
+    page = pool.allocate(1)
+    g = torch.Generator().manual_seed(SEED + 15)
+    shape = (cfg.page_size, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.randn(shape, generator=g).to(pool.pool["k_pages"].dtype)
+    v = torch.randn(shape, generator=g).to(k.dtype)
+    pool.append(np.repeat(page, cfg.page_size),
+                np.arange(cfg.page_size), k, v, replica=1)
+    kk, vv, hit = pool.read(2, page)
+    assert not hit[0] and torch.equal(kk[0].cpu().view(torch.int16),
+                                      k.view(torch.int16)) \
+        and torch.equal(vv[0].cpu().view(torch.int16), v.view(torch.int16))
+    assert pool.read(2, page)[2][0]
+    return {"des_now_s": layer.env.now,
+            "rdma": layer.fabric.stats.total_rdma(),
+            "cache": layer.cache_stats(), "plane_lines": plane.n_lines,
+            "plane": repr(plane)}
 
 
 # ------------------------------------------------------ phase 4: LM serve
@@ -2273,6 +2909,29 @@ def main() -> int:
         assert counts[name] > 0, f"kernel {name} never launched in the serve"
     assert counts["gcl_fetch"] == sum(calls.values()), \
         "a K2 call of the serve did not launch its kernel exactly once"
+    log("serve with a recorder: " + json.dumps(serve_with_recorder(dev)))
+
+    legacy, legacy_calls_ = legacy_phase(dev, K)
+    log("legacy: " + json.dumps(legacy))
+    for name, n in legacy["launches"].items():
+        assert n > 0, f"kernel {name} never launched on the legacy path"
+    for row, extra in zip(rows[:3], legacy_kernel_cases(dev, K,
+                                                        legacy_calls_)):
+        row.update(extra)
+        log(f"{row['name']} at the legacy path's shape: " + json.dumps(
+            extra))
+    del legacy_calls_
+    side_paths = {}
+    for path, phase in (("placement", placement_phase),
+                        ("bridge", bridge_phase)):
+        K.reset_launch_counts()
+        res = phase(dev)
+        got = K.launch_counts()
+        side_paths[path] = {k: got[k] for k in ("latch_ops", "gcl_fetch")}
+        log(f"{path}: " + json.dumps(res))
+        log(f"{path} launches: " + json.dumps(side_paths[path]))
+        for name, n in side_paths[path].items():
+            assert n > 0, f"kernel {name} never launched on the {path} path"
 
     lm_paths = {}
     for arch, n_req, name, per, per_step in (
@@ -2299,7 +2958,17 @@ def main() -> int:
     encdec_replay(dev)
     moe_card_check(dev)
 
-    by_path = {"serve": {k: counts[k] for k in ("latch_ops", "gcl_fetch")}}
+    by_path = {"serve": {k: counts[k] for k in ("latch_ops", "gcl_fetch")},
+               "legacy": {k: legacy["launches"][k]
+                          for k in ("latch_ops", "gcl_fetch")},
+               **side_paths}
+    for name in ("latch_ops", "gcl_fetch"):
+        counts[name] += sum(c[name] for p, c in by_path.items()
+                            if p != "serve")
+    rows[2]["launches_by_path"] = {
+        "serve": counts["paged_attention"],
+        "legacy": legacy["launches"]["paged_attention"]}
+    counts["paged_attention"] += legacy["launches"]["paged_attention"]
     for path, phase in (("btree", btree_phase), ("txn", txn_phase)):
         K.reset_launch_counts()
         res = phase(dev)

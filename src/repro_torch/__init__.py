@@ -5,10 +5,16 @@ against; this one imports ``torch`` and numpy and nothing of ``repro``
 or ``jax``.  Its layout mirrors ``repro`` so each module's counterpart
 is found by name:
 
-* ``core/coherence.py`` — the Fig. 3 latch-word lane helpers;
-* ``core/rounds/`` — round state, one coherence round, the drivers and
-  the flat ``DevicePlane`` facade;
-* ``dsm/kvpool.py`` — the rounds-plane KV-page pool;
+* ``core/coherence.py`` — the Fig. 3 latch word, host and lane forms;
+* ``core/`` — the host DES (SELCC, SEL, GAM and RPC behind the Table-1
+  facade ``SELCCLayer``, whose ``as_plane`` / ``make_kv_pool`` open the
+  device plane and the pool) and ``apps/btree.py`` over it;
+* ``core/rounds/`` — round state and its stripe layout, one coherence
+  round, the drivers, the flat ``DevicePlane`` facade with its
+  placement verbs, and the placement planners;
+* ``obs/`` — telemetry, metrics and the ``FlightRecorder``;
+* ``dsm/kvpool.py`` — the KV-page pool: the legacy page-copy path and
+  the rounds plane;
 * ``serve/`` — the continuous-batching ``ServeLoop`` and its oracle;
 * ``models/``, ``launch/serve.py`` — LM serving for every family;
 * ``optim/``, ``train/``, ``data/``, ``checkpoint/``, ``runtime/``,

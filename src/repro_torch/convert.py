@@ -5,7 +5,9 @@ state) becomes a dict of numpy arrays with ``{k: np.asarray(v)}``, and
 :func:`to_torch` turns that into port tensors with every dtype kept —
 int8 ``cache_state``, bool ``dirty``, int32 lanes.  :func:`to_numpy`
 goes back.  :func:`pool_from_arrays` rebuilds a serving pool from a
-rounds state and its allocator's bump pointer and free list.
+rounds state and its allocator's bump pointer and free list, and
+:func:`legacy_pool_from_arrays` one that serves the legacy page-copy
+path from a JAX pool's ``pool`` and ``cache`` dicts.
 :func:`lm_params_to_torch` carries a JAX LM parameter tree across, and
 :func:`train_state_to_torch` / :func:`train_state_to_numpy` a whole
 train state (params, the AdamW ``mu`` in any tier, ``step``, the
@@ -47,6 +49,26 @@ def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,
     pool._alloc.top = int(alloc_top)
     pool._alloc._freed = set(int(p) for p in alloc_freed)
     return pool
+
+
+def legacy_pool_from_arrays(cfg, pool: dict, cache: dict, *,
+                            alloc_top: int, alloc_freed=(), device=None):
+    """A :class:`~repro_torch.dsm.kvpool.SELCCKVPool` on the legacy
+    path whose ``pool`` and ``cache`` leaves are ``pool`` and ``cache``
+    (arrays, e.g. a JAX legacy pool's, bf16 pages included), with its
+    page allocator at bump pointer ``alloc_top`` and free list
+    ``alloc_freed``."""
+    from .dsm.kvpool import SELCCKVPool
+    out = SELCCKVPool(cfg, device=device)
+    for dst, src in ((out.pool, pool), (out.cache, cache)):
+        if sorted(dst) != sorted(src):
+            raise ValueError(f"leaves {sorted(src)} are not the pool's "
+                             f"{sorted(dst)}")
+        for k, v in src.items():
+            dst[k] = _leaf_to_torch(v, out.device)
+    out._alloc.top = int(alloc_top)
+    out._alloc._freed = set(int(p) for p in alloc_freed)
+    return out
 
 
 def _leaf_to_torch(a, dev):

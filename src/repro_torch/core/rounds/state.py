@@ -22,8 +22,12 @@ are structural, as in the reference: a leaf's presence switches the
 mode.  Unlike the reference, the engine updates leaves IN PLACE — at
 the serving pool's defaults ``cache_data`` is 256 MiB, and copying it
 every round is what a functional update would cost.  A caller that
-needs an earlier state keeps a clone.  The stripe helpers of the
-sharded plane are not ported yet.
+needs an earlier state keeps a clone.
+
+The stripe helpers (``LINE_AXIS``, ``GLOBAL_LEAVES``, ``stripe_state``
+/ ``unstripe_state`` and the line-axis permutations under them) move a
+state between the flat line-major layout and the sharded plane's
+physical-slot layout, on any device.
 """
 
 from __future__ import annotations
@@ -82,6 +86,96 @@ def is_write_back(state) -> bool:
 def payload_width(state) -> int:
     """Payload lanes per line; 0 = version-only state (no data plane)."""
     return int(state["mem_data"].shape[1]) if "mem_data" in state else 0
+
+
+# ------------------------------------------------------------ stripe layout
+# The sharded plane keeps every line-indexed leaf in PHYSICAL-SLOT
+# layout: line l occupies slot p = home[l] (identity without a
+# directory), living on shard p % S at local index p // S, so each shard
+# owns one contiguous slab.  GLOBAL_LEAVES are indexed by global line id
+# and replicated across the mesh — they never stripe.
+
+LINE_AXIS = {"words": 0, "cache_state": 1, "cache_version": 1,
+             "mem_version": 0, "dirty": 1, "mem_data": 0, "cache_data": 1}
+
+GLOBAL_LEAVES = ("home", "replica", "replica_ok", "replica_version",
+                 "replica_data")
+
+
+def has_home_directory(state) -> bool:
+    """Placement is structural: a ``home`` leaf switches the sharded
+    router from the static stripe to directory lookups."""
+    return "home" in state
+
+
+def has_replicas(state) -> bool:
+    return "replica" in state
+
+
+def slot_positions(perm, n_shards: int):
+    """Physical slot id -> row position in the shard-major (slab
+    concatenation) order: slot ``p`` is row ``(p % S) * (L // S) +
+    p // S``.  With the identity permutation this is exactly the
+    :func:`stripe_lines` row mapping."""
+    l = perm.shape[0]
+    return (perm % n_shards) * (l // n_shards) + perm // n_shards
+
+
+def stripe_lines(x: torch.Tensor, n_shards: int, axis: int = 0):
+    """Permute the line axis from line-major to shard-major (stripe)
+    order: row ``l`` moves to ``(l % n_shards) * (L // n_shards) + l //
+    n_shards``.  Inverse of :func:`unstripe_lines`."""
+    x = x.movedim(axis, 0)
+    l, rest = x.shape[0], tuple(x.shape[1:])
+    x = x.reshape((l // n_shards, n_shards) + rest) \
+        .transpose(0, 1).reshape((l,) + rest)
+    return x.movedim(0, axis)
+
+
+def unstripe_lines(x: torch.Tensor, n_shards: int, axis: int = 0):
+    x = x.movedim(axis, 0)
+    l, rest = x.shape[0], tuple(x.shape[1:])
+    x = x.reshape((n_shards, l // n_shards) + rest) \
+        .transpose(0, 1).reshape((l,) + rest)
+    return x.movedim(0, axis)
+
+
+def stripe_state(state, n_shards: int) -> dict:
+    """Flat (line-major) round state -> physical-slot-layout state.  All
+    line-indexed leaves permute consistently (through the ``home``
+    directory when present, the plain stripe otherwise), so
+    :func:`check_invariants` works on either layout; GLOBAL_LEAVES pass
+    through untouched."""
+    perm = state.get("home")
+    if perm is not None:
+        pos = slot_positions(perm.long(), n_shards)
+        inv = torch.empty_like(pos)
+        inv[pos] = torch.arange(pos.shape[0], device=pos.device)
+    out = {}
+    for k, v in state.items():
+        if k in GLOBAL_LEAVES:
+            out[k] = v
+        elif perm is None:
+            out[k] = stripe_lines(v, n_shards, LINE_AXIS[k])
+        else:
+            out[k] = v.index_select(LINE_AXIS[k], inv)
+    return out
+
+
+def unstripe_state(state, n_shards: int) -> dict:
+    """Inverse of :func:`stripe_state`."""
+    perm = state.get("home")
+    if perm is not None:
+        pos = slot_positions(perm.long(), n_shards)
+    out = {}
+    for k, v in state.items():
+        if k in GLOBAL_LEAVES:
+            out[k] = v
+        elif perm is None:
+            out[k] = unstripe_lines(v, n_shards, LINE_AXIS[k])
+        else:
+            out[k] = v.index_select(LINE_AXIS[k], pos)
+    return out
 
 
 def check_invariants(state) -> None:

@@ -9,6 +9,11 @@ where ``<key>`` hashes the sources, the flags and the compiler path: an
 edited source builds afresh, an unchanged one is reused.  Nothing here
 runs at import time, so the CPU-only tests import every kernel module
 without a compiler.
+
+``LOADS`` counts the libraries loaded so far (each one's first use, its
+build included where it had none): a plane dispatch reports the count's
+change as its span's ``compiled``, the port's counterpart of the
+reference's jit compile events.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict = {}
 BUILD_LOG: dict = {}        # name -> compiler output of the last build
+LOADS = 0                   # libraries loaded (first uses), see above
 
 
 def nvcc_path() -> str:
@@ -95,9 +101,11 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with ``signatures`` — ``{function: argtypes}``, each returning a
     CUDA error code as ``int`` — declared on it.  Pointers and streams
     must be declared ``c_void_p``, or ctypes cuts them to 32 bits."""
+    global LOADS
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            LOADS += 1
             lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes

@@ -1,10 +1,13 @@
-"""Observability: the typed telemetry record and the metrics registry
-(copies of ``repro/obs/telemetry.py`` and ``repro/obs/metrics.py``).
-The flight recorder is not ported yet."""
+"""Observability: the typed telemetry record, the metrics registry and
+the flight recorder (copies of ``repro/obs/telemetry.py``,
+``repro/obs/metrics.py`` and ``repro/obs/recorder.py``; a span's
+``compiled`` counts kernel library loads, see ``recorder``)."""
 
 from .metrics import (Counter, EwmaHeat, Gauge, MetricsRegistry,
                       StreamingHistogram)
+from .recorder import FlightRecorder, Span
 from .telemetry import PlaneTelemetry
 
-__all__ = ["Counter", "EwmaHeat", "Gauge", "MetricsRegistry",
-           "PlaneTelemetry", "StreamingHistogram"]
+__all__ = ["Counter", "EwmaHeat", "FlightRecorder", "Gauge",
+           "MetricsRegistry", "PlaneTelemetry", "Span",
+           "StreamingHistogram"]

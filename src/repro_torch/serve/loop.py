@@ -39,9 +39,8 @@ The loop requires the pool's ROUNDS plane (``open_rounds_plane()``),
 in write-through mode: the fused attend reads the plane's ``mem_data``
 memory image, which under write-back lags dirty appenders by design.
 
-A copy of ``repro/serve/loop.py`` with two changes: the attend output
-comes back as a device tensor and is moved to the host explicitly, and
-the flight-recorder hook (``recorder=``) waits for the recorder's port.
+A copy of ``repro/serve/loop.py`` with one change: the attend output
+comes back as a device tensor and is moved to the host explicitly.
 """
 
 from __future__ import annotations
@@ -97,7 +96,8 @@ class ServeLoop:
 
     def __init__(self, pool, model, *, n_slots: int = 8,
                  max_pages: int = 16, prefill_chunk: int = 8,
-                 queue_capacity: int = 64, on_complete=None):
+                 queue_capacity: int = 64, on_complete=None,
+                 recorder=None):
         if pool.rounds_plane is None:
             raise ValueError(
                 "ServeLoop serves the rounds plane: call "
@@ -116,8 +116,15 @@ class ServeLoop:
         self.queue = RequestQueue(queue_capacity)
         self.slots = SlotManager(pool, n_slots, max_pages)
         self.on_complete = on_complete
-        # the registry carries the serving histograms
-        self.registry = MetricsRegistry()
+        # observability: a recorder (optional) rides the pool's plane —
+        # every fused append/read dispatch appends a span; the registry
+        # (always present) carries the serving histograms, and the
+        # recorder's dispatch metrics when one is attached
+        self.recorder = recorder
+        if recorder is not None:
+            pool.rounds_plane.attach_recorder(recorder)
+        self.registry = (recorder.registry if recorder is not None
+                         else MetricsRegistry())
         self._h_qwait = self.registry.histogram(
             "serve_queue_wait_seconds",
             "submit to admit wall time per request")
@@ -313,8 +320,9 @@ class ServeLoop:
                       if self._h_tpot.count else None))
 
     def render_prom(self) -> str:
-        """Prometheus text exposition of the loop's registry (the
-        serving histograms)."""
+        """Prometheus text exposition of the loop's registry (serving
+        histograms plus, with a recorder attached, the plane's
+        dispatch/round/compile metrics — they share one registry)."""
         return self.registry.render_prom()
 
     # -------------------------------------------------- background loop

@@ -1107,3 +1107,78 @@ def test_train_step_on_gpu_matches_cpu(cuda, arch):
     for g, w in zip(pt.leaves(got), pt.leaves(want)):
         err = (g.cpu() - w).abs().max().item()
         assert err <= 1e-3 * w.abs().max().item() + 1e-7, err
+
+
+# ------------------------------------------------ the legacy page pool
+
+def test_fetch_kernel_at_the_legacy_shape(cuda):
+    """K2 as ``read_through_cache`` calls it: 32 KiB bf16 rows, a
+    replica's reader bit on every miss, pages named twice, empty rows
+    where the replica hit; exact against the plain version."""
+    rng = np.random.default_rng(12)
+    p, e, r = 256, 16384, 260
+    pages = torch.from_numpy(rng.normal(size=(p, e)).astype(np.float32)) \
+        .to(cuda, torch.bfloat16)
+    words = torch.from_numpy(rng.integers(0, 16, (p, 2)).astype(np.int32)) \
+        .to(cuda)
+    req = rng.integers(0, p, r).astype(np.int32)
+    req[rng.random(r) < 0.4] = -1                # hits: empty rows
+    req[:4] = req[-4:] = rng.integers(0, p, 4)   # named twice
+    sel = torch.from_numpy(req >= 0).to(cuda)
+    for bit in (1 << 3, 1 << 31):                # lo lanes 3 and 31
+        args = [words] + [torch.from_numpy(a).to(cuda) for a in (
+            req, np.zeros(r, np.int32),
+            np.where(req >= 0, np.int32(np.uint32(bit).view(np.int32)),
+                     0).astype(np.int32))]
+        got = K.fetch(pages, *args)
+        want = gcl_fetch_plain(pages, *args)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        merged = got[4][args[1][sel].long(), 1]
+        assert ((merged & args[3][sel]) != 0).all()
+
+
+def test_legacy_trace_on_gpu_matches_cpu(cuda):
+    """``chip_smoke.legacy_phase`` at a small size on the card: every
+    hit mask, page, version, fill, eviction count and word against its
+    oracle, every attend within 1e-4 of the plain kernel over the
+    oracle's pages, and every pool and cache leaf and hit mask bit-equal
+    to the same trace on the CPU; K2 twice a read."""
+    from repro_torch.dsm.kvpool import KVPoolConfig
+    cs = _chip_smoke()
+    cfg = KVPoolConfig(n_pages=64, page_size=4, n_kv_heads=2, head_dim=64,
+                       n_replicas=4, cache_slots=16)
+    res, calls = cs.legacy_phase(cuda, K, cfg, n_q_heads=4, n_seqs=8,
+                                 prefill=24, steps=8)
+    assert res["append_evictions"] > 0 and 0 < res["hits"]
+    assert res["launches"]["gcl_fetch"] == 2 * res["reads"]
+    k1, k2, k3 = cs.legacy_kernel_cases(cuda, K, calls)
+    assert k1["max_abs_err_legacy"] == k2["max_abs_err_legacy"] == 0.0
+    assert k3["max_abs_err_legacy"] < 1e-4
+
+
+def test_replicate_on_gpu_matches_cpu(cuda):
+    """``replicate`` (and the refused flat ``rehome``) on the card leave
+    the CPU's state, after the same ops."""
+    from repro_torch.core import rounds as tr
+    planes = [tr.DevicePlane.open(tr.make_state(
+        4, 64, payload_width=32, home_directory=True, replicas=True,
+        device=d)) for d in ("cpu", cuda)]
+    rng = np.random.default_rng(13)
+    for b in range(6):
+        node = rng.integers(0, 4, 40).astype(np.int32)
+        line = rng.integers(0, 64, 40).astype(np.int32)
+        isw = (rng.random(40) < 0.2).astype(np.int32)
+        wd = rng.integers(-2**31, 2**31, (40, 32)).astype(np.int32)
+        res = [pl.ops(node, line, isw, wd) for pl in planes]
+        assert np.array_equal(res[0].data, res[1].data)
+        picks = tr.plan_replication(res[0].telemetry, top_k=8,
+                                    max_write_frac=0.5)
+        for pl in planes:
+            pl.replicate(picks, enable=b != 3)
+            with pytest.raises(ValueError, match="home shards"):
+                pl.rehome([1], [2])
+        for k, v in planes[0].state.items():
+            assert torch.equal(planes[1].state[k].cpu(), v), (b, k)
+    assert planes[1].state["replica_ok"].any()
+    planes[1].check()

@@ -138,6 +138,33 @@ def test_port_serves_with_jax_blocked():
         StragglerWatchdog().observe(1.0, 0)
         assert train_inputs(get_smoke_config("seamless-m4t-medium"), 32,
                             2)["enc_embeds"].shape == (2, 8, 64)
+        from repro_torch.apps import BLinkTree
+        from repro_torch.core import ClusterConfig, SELCCLayer
+        from repro_torch.core.rounds import (FlightRecorder, plan_replication,
+                                             stripe_state, unstripe_state)
+        layer = SELCCLayer(ClusterConfig(n_compute=2, n_memory=2,
+                                         threads_per_node=2))
+        bt = BLinkTree(layer, layer.nodes[0], fanout=8)
+        def work():
+            for i in range(20):
+                yield from bt.insert(i, i)
+            return (yield from bt.lookup(7))
+        p = layer.env.process(work())
+        layer.env.run_until_complete([p], hard_limit=100)
+        assert p.value == 7
+        layer.assert_released()
+        plane = layer.as_plane(payload_width=2, device="cpu")
+        plane.attach_recorder(FlightRecorder(8))
+        res = plane.ops([0, 1], [3, 3], [1, 0], [[5, 6], [0, 0]])
+        assert plane.recorder.total == 1
+        assert plan_replication(res.telemetry).tolist() == []  # a write
+        st = unstripe_state(stripe_state(plane.state, 2), 2)
+        assert all(torch.equal(st[k], plane.state[k]) for k in st)
+        kv = layer.make_kv_pool(KVPoolConfig(
+            n_pages=8, page_size=4, n_kv_heads=2, head_dim=4,
+            n_replicas=2, dtype="bfloat16"), device="cpu")
+        kv.append([1], [0], torch.ones(1, 2, 4), torch.ones(1, 2, 4))
+        assert kv.read(1, [1])[0][0, 0].float().sum().item() == 8.0
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         assert "ml_dtypes" not in sys.modules
@@ -161,6 +188,11 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
         DeviceBTree.create(4, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.to_torch({"words": np.zeros((4, 2), np.int32)})
+    from repro_torch.core import SELCCLayer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SELCCLayer().as_plane()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SELCCLayer.make_kv_pool(CFG)
     assert make_state(2, 4, device="cpu")["words"].device.type == "cpu"
     cfg = get_smoke_config("qwen3-1.7b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -196,6 +228,10 @@ def test_cpu_run_launches_no_kernel():
     loop.submit([4, 5, 6], 3)
     assert loop.drain(timeout=60)
     assert loop.stats().attend_calls > 0
+    legacy = SELCCKVPool(CFG, device="cpu")
+    legacy.append([2], [1], torch.ones(1, 2, 4), torch.ones(1, 2, 4))
+    legacy.read(0, [2, 3])
+    legacy.attend(torch.ones(1, 4, 4), [[2]], [2])
     tree = DeviceBTree.create(4, 32, fanout=4, device="cpu")
     tree.insert_batch([3, 1, 2, 9, 7], [30, 10, 20, 90, 70])
     assert tree.scan_batch([2], 3)[0] == [(2, 20), (3, 30), (7, 70)]

@@ -62,7 +62,7 @@ def _host_f32(x):
 class _Side:
     """One package's pool + loop, recording what each completion saw."""
 
-    def __init__(self, serve, pool, prefix=True):
+    def __init__(self, serve, pool, prefix=True, recorder=None):
         self.pool = pool
         self.model = serve.ToyLM(pool.cfg, n_q_heads=4)
         self.shared = (_shared_prefix(pool, serve, self.model,
@@ -72,7 +72,8 @@ class _Side:
         self.loop = serve.ServeLoop(pool, self.model, n_slots=3,
                                     max_pages=4, prefill_chunk=4,
                                     queue_capacity=16,
-                                    on_complete=self._done)
+                                    on_complete=self._done,
+                                    recorder=recorder)
         self.rounds = []
 
     def _done(self, req, slot):
@@ -140,6 +141,34 @@ def test_serve_trace_matches_jax(dtype):
     jnext.shared = tnext.shared = tuple(jside.shared)
     _lockstep(jnext, tnext, [([3, 1, 4, 1, 5], 6, True, 4),
                              ([2, 7], 3, False, 0)])
+
+
+def test_serve_recorder_spans_match_jax():
+    """``ServeLoop(recorder=)``: the same trace leaves the same spans
+    (verb, batch, rounds, serve totals), heat and snapshot on both
+    packages (but the compile count: jit traces there, kernel library
+    loads here, none on the CPU), and the loop's Prometheus text
+    carries the plane's metrics."""
+    from repro.obs import FlightRecorder as JRecorder
+    from repro_torch.obs import FlightRecorder
+    jrec, trec = JRecorder(512), FlightRecorder(512)
+    jside = _Side(jserve, _jax_pool("float32"), recorder=jrec)
+    tside = _Side(tserve, _port_pool("float32"), recorder=trec)
+    _lockstep(jside, tside, _mixed_trace(jside.shared))
+    fields = ("verb", "batch", "rounds", "served", "deferred",
+              "replica_served")
+    assert trec.total == jrec.total > 0
+    assert [[getattr(s, f) for f in fields] for s in trec.spans()] == \
+        [[getattr(s, f) for f in fields] for s in jrec.spans()]
+    assert all(s.compiled == 0 for s in trec.spans())
+    np.testing.assert_array_equal(trec.line_heat, jrec.line_heat)
+    np.testing.assert_array_equal(trec.home_heat, jrec.home_heat)
+    snap_t, snap_j = trec.snapshot(), jrec.snapshot()
+    snap_t.pop("compile_events")
+    snap_j.pop("compile_events")
+    assert snap_t == snap_j and {"ops", "rmw"} <= set(snap_t["verbs"])
+    assert "plane_dispatches_total" in tside.loop.render_prom()
+    assert tside.pool.rounds_plane.recorder is trec
 
 
 def test_sync_oracle_matches_engine():
