@@ -67,7 +67,16 @@ Phases (any failure exits non-zero; nothing is caught):
    ``rehome``, against a twin plane) and the DES bridge
    (:func:`bridge_phase`: the quickstart cluster's DES workload through
    the port's ``SELCCLayer``, ``as_plane`` on the card against a CPU
-   twin, ``make_kv_pool()``'s legacy pool);
+   twin, ``make_kv_pool()``'s legacy pool); then the sharded plane,
+   four home shards on the card (:func:`sharded_phase`: the serve again
+   over a mesh-backed pool, every dispatch's versions and the final
+   unsharded state hashed equal to the flat serve's, its ``[4, 4]``
+   occupancy printed; placement's traffic on a sharded plane beside a
+   flat twin, with a real ``rehome``, replica serves and, under
+   ``bucket_cap`` 16, deferrals; phase 5's tree and phase 6's
+   transactions at 4 shards, against the oracle and a flat twin; K1-K3
+   counted on the sharded calls alone), and ``distributed_latch_round``
+   at the tree's 2^21 words against K1's plain version;
 4. serve Qwen3-1.7B, Mamba2-2.7B, deepseek-moe-16b, starcoder2-7b,
    recurrentgemma-2b, llava-next-mistral-7b and seamless-m4t-medium at
    full published width and depth (``src/repro/configs/*.py``; random
@@ -117,9 +126,11 @@ Phases (any failure exits non-zero; nothing is caught):
    against a serial numpy replay of the generated txns in the device's
    completion order;
    print commits/s, aborts by reason, iterations, rounds and the K1/K2
-   launches.  Phase 2 also holds K1 and K2 at these two paths' shapes
-   (K1 at the tree's descent round and the txn FINALIZE spin's 4096
-   slots, K2 at both paths' rows);
+   launches, each path's rates beside the sharded phase's.  Phase 2
+   also holds K1 and K2 at these two paths' shapes (K1 at the tree's
+   descent round and the txn FINALIZE spin's 4096 slots, K2 at both
+   paths' rows) and at a sharded home's (``*_shard``: 2^19 words, R
+   1024);
 7. train every family at full published width (:data:`TRAIN_RUNS`,
    :func:`train_run`; batch 4, 8 steps, ``--micro 1``, remat, lr 3e-4):
    Qwen3-1.7B, Mamba2-2.7B, recurrentgemma-2b and seamless-m4t-medium at
@@ -139,7 +150,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the card (:func:`train_resume_check`, Mamba2-2.7B at 1 layer);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
-   LM serves, the tree, the transactions and the training runs, split
+   sharded plane, the LM serves, the tree, the transactions and the training runs, split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -1108,19 +1119,22 @@ def check_ssd_bwd(dev, K):
 
 # --------------------------------------------------------- phase 3: serve
 
-def serve(dev, cfg=None, n_q_heads=16, recorder=None):
+def serve(dev, cfg=None, n_q_heads=16, recorder=None, mesh=None):
     """The main path: ``cfg`` defaults to ``KVPoolConfig()`` (1024 x 16
     tokens, 8 kv heads x 128, 4 replicas, bf16) and ``n_q_heads`` to
-    Qwen3-1.7B's 16.  ``recorder`` goes to the ``ServeLoop``; the
-    result's ``dispatches`` counts the loop's plane verbs on its own
-    (wrappers around the plane's ``ops`` and ``rmw``)."""
+    Qwen3-1.7B's 16.  ``recorder`` goes to the ``ServeLoop``; ``mesh``
+    (a ``Mesh`` on ``dev``) makes the pool mesh-backed.  The result's
+    ``dispatches`` counts the loop's plane verbs on its own (wrappers
+    around the plane's ``ops`` and ``rmw``), which also hash every
+    dispatch's versions (``versions_sha256``) and sum its telemetry;
+    ``state_sha256`` hashes the final unsharded rounds state."""
     from repro_torch.core.rounds import check_invariants
     from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool
     from repro_torch.kernels.paged_attention import paged_attention_plain
     from repro_torch.serve import RequestState, ServeLoop, ToyLM, write_pages
 
     cfg = KVPoolConfig() if cfg is None else cfg
-    pool = SELCCKVPool(cfg, device=dev)
+    pool = SELCCKVPool(cfg, mesh, device=dev)
     pool.open_rounds_plane()
     model = ToyLM(cfg, n_q_heads=n_q_heads)
     ps = cfg.page_size
@@ -1157,11 +1171,16 @@ def serve(dev, cfg=None, n_q_heads=16, recorder=None):
             checked["attend"] += 1
 
     dispatches = collections.Counter()
+    versions = hashlib.sha256()
+    tele = []
     plane = pool.rounds_plane
     for verb in ("ops", "rmw"):
         def counting(*a, _real=getattr(plane, verb), _verb=verb, **kw):
             dispatches[_verb] += 1
-            return _real(*a, **kw)
+            res = _real(*a, **kw)
+            versions.update(np.ascontiguousarray(res.version).tobytes())
+            tele.append(res.telemetry)
+            return res
         setattr(plane, verb, counting)
     loop = ServeLoop(pool, model, n_slots=16, max_pages=16,
                      prefill_chunk=16, queue_capacity=64,
@@ -1189,9 +1208,20 @@ def serve(dev, cfg=None, n_q_heads=16, recorder=None):
     assert all(r.state is RequestState.DONE for r in reqs)
     assert all(len(r.generated) == r.max_new for r in reqs)
     assert checked["readback"] == len(reqs) and checked["attend"] > 0
-    check_invariants(pool.rounds_state)
+    flat = plane.flat_state()
+    check_invariants(flat)
     assert pool.pages_in_use == len(prefix), "pages leaked"
+    state = hashlib.sha256()
+    for k in sorted(flat):
+        state.update(flat[k].cpu().numpy().tobytes())
+    t = sum(tele[1:], tele[0])
     return {"requests": len(reqs), "ticks": ticks,
+            "shards": plane.n_shards,
+            "versions_sha256": versions.hexdigest(),
+            "state_sha256": state.hexdigest(),
+            "occupancy": t.occupancy.tolist(),
+            "served_per_home": t.served_per_home.tolist(),
+            "deferred": t.deferred_total,
             "tokens_generated": sum(len(r.generated) for r in reqs),
             "kv_rows_appended": st.appended_tokens,
             "coherence_rounds": st.rounds_total,
@@ -2245,11 +2275,12 @@ def btree_image(n_keys, n_lines, fanout=BTREE_FANOUT, fill=BTREE_FILL):
     return img, root, height, top
 
 
-def load_btree(dev, n_keys=BTREE_KEYS, n_lines=BTREE_LINES):
+def load_btree(dev, n_keys=BTREE_KEYS, n_lines=BTREE_LINES, mesh=None):
     """:func:`btree_image` carried onto ``dev`` as round state (a
     ``make_state``-shaped dict of numpy leaves through
-    ``convert.to_torch``), adopted by ``DeviceBTree.open``.  Returns the
-    tree and the oracle: ``value[key]`` for every key."""
+    ``convert.to_torch``; striped over ``mesh`` when one is given),
+    adopted by ``DeviceBTree.open``.  Returns the tree and the oracle:
+    ``value[key]`` for every key."""
     from repro_torch import convert
     from repro_torch.core.rounds import make_state
     from repro_torch.index import DeviceBTree
@@ -2265,7 +2296,11 @@ def load_btree(dev, n_keys=BTREE_KEYS, n_lines=BTREE_LINES):
     assert {k: (v.dtype, v.ndim) for k, v in like.items()} == \
         {k: (v.dtype, v.ndim) for k, v in state.items()}, \
         "the loaded state's leaves differ from make_state's"
-    tree = DeviceBTree.open(convert.to_torch(state, dev), n_nodes=n)
+    state = convert.to_torch(state, dev)
+    if mesh is not None:
+        from repro_torch.core.rounds import shard_state
+        state = shard_state(state, mesh)
+    tree = DeviceBTree.open(state, mesh=mesh, n_nodes=n)
     assert (tree.root, tree.height, tree.alloc.top) == (root, height, top)
     return tree, np.arange(n_keys, dtype=np.int64) * 7 + 1
 
@@ -2482,6 +2517,260 @@ def txn_phase(dev, n_gcls=TXN_GCLS, batch=1024, n_batches=8):
                     "aborts_by_reason": dict(st.abort_reasons)})
         res[algo] = out
         del eng
+    return res
+
+
+# ------------------------------------------------ the sharded plane
+
+SHARDS = 4
+
+
+@contextlib.contextmanager
+def tally(into):
+    """Add the kernel launches made inside the block to ``into``."""
+    from repro_torch import kernels as K
+    before = K.launch_counts()
+    yield
+    for k, n in K.launch_counts().items():
+        into[k] += n - before[k]
+
+
+def sharded_placement(dev, mesh, launches, *, n_lines=PLACE_LINES,
+                      width=PLACE_WIDTH, n_nodes=PLACE_NODES, batches=8,
+                      batch=256, theta=0.99, read_frac=0.95, cap=None):
+    """:func:`placement_phase`'s geometry and traffic on a sharded plane
+    (home directory, replicas, ``bucket_cap=cap``) beside a flat twin:
+    after ``batches`` batches, ``plan_rehome`` over the summed
+    ``line_hits`` and a real ``rehome`` (at least one line moves), then
+    ``replicate(plan_replication(...))``, then ``batches`` more in which
+    the replicated lines are only read (a replica serves the image from
+    before the round, so a same-round write would order differently
+    from the flat plane's).  A line written in a batch has that one
+    write slot and no other (the rest of its slots are emptied): bucket
+    overflow splits a batch over rounds otherwise than the flat plane
+    does, and only then is the history insensitive to the split, as in
+    the reference's congestion trace.  Versions and payloads equal the
+    twin's batch by batch; the final memory image too."""
+    from repro_torch.apps.workloads import Zipf
+    from repro_torch.core.rounds import (DevicePlane, check_invariants,
+                                         make_sharded_state, make_state,
+                                         plan_rehome, plan_replication)
+    rng = np.random.default_rng(SEED + 16)
+    zipf = Zipf(n_lines, theta)
+    perm = rng.permutation(n_lines)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    plane = DevicePlane.open(
+        make_sharded_state(n_nodes, n_lines, mesh, payload_width=width,
+                           home_directory=True, replicas=True), mesh,
+        n_nodes=n_nodes, bucket_cap=cap)
+    twin = DevicePlane.open(make_state(n_nodes, n_lines,
+                                       payload_width=width, device=dev),
+                            n_nodes=n_nodes)
+    hits = np.zeros(n_lines, np.int64)
+    whits = np.zeros(n_lines, np.int64)
+    tele = None
+    picks = np.zeros(0, np.int64)
+    out = {"plane_s": 0.0, "twin_s": 0.0, "bucket_cap": cap}
+    for b in range(2 * batches):
+        if b == batches:
+            moves = plan_rehome(hits, plane.state["home"], mesh.n_shards)
+            with tally(launches):
+                moved = plane.rehome(*moves)
+            assert moved >= 1, f"no line moved ({moves})"
+            picks = plan_replication(hits, whits, top_k=64,
+                                     max_write_frac=0.1)
+            assert picks.size > 0
+            plane.replicate(picks)
+            out.update(moved=moved, moved_lines=moves[0].tolist(),
+                       moved_to=moves[1].tolist(),
+                       replicated=int(picks.size))
+        node = rng.integers(0, n_nodes, batch).astype(np.int32)
+        line = perm[zipf.sample_batch(rng, batch)].astype(np.int32)
+        isw = ((rng.random(batch) >= read_frac)
+               & ~np.isin(line, picks)).astype(np.int32)
+        written, first = set(line[isw == 1].tolist()), set()
+        for i, ln in enumerate(line.tolist()):
+            if ln in written:
+                if isw[i] and ln not in first:
+                    first.add(ln)
+                else:
+                    line[i] = -1
+        wd = torch.empty((batch, width), dtype=torch.int32,
+                         device=dev).random_(generator=g)
+        t0 = time.perf_counter()
+        with tally(launches):
+            a = plane.ops(node, line, isw, wd)
+        t1 = time.perf_counter()
+        z = twin.ops(node, line, isw, wd)
+        out["twin_s"] += time.perf_counter() - t1
+        out["plane_s"] += t1 - t0
+        assert np.array_equal(a.version, z.version) and \
+            np.array_equal(a.data, z.data), f"batch {b}: twin differs"
+        hits += a.telemetry.line_hits
+        whits += a.telemetry.line_whits
+        tele = a.telemetry if tele is None else tele + a.telemetry
+    flat = plane.flat_state()
+    for st in (flat, twin.state):
+        check_invariants(st)
+    for k in ("mem_version", "mem_data"):
+        assert torch.equal(flat[k], twin.state[k]), f"final {k} differs"
+    assert tele.replica_served.sum() > 0, "no read served by a replica"
+    out.update(ops=2 * batches * batch, occupancy=tele.occupancy.tolist(),
+               deferred=tele.deferred.tolist(),
+               served_per_home=tele.served_per_home.tolist(),
+               replica_served=tele.replica_served.tolist(),
+               home_moved=int((plane.state["home"].cpu().numpy()
+                               != np.arange(n_lines)).sum()))
+    return out
+
+
+def sharded_tree(dev, mesh, launches, *, n_keys=BTREE_KEYS,
+                 n_lines=BTREE_LINES, slots=1024, c_batches=4,
+                 a_batches=2):
+    """Phase 5's tree (:func:`load_btree`, the same image) on the
+    sharded plane: YCSB C answers against the oracle, YCSB A upserts
+    read back, the plane's invariants."""
+    from repro_torch.apps import BTreeBatchConfig, btree_kv_batches
+    t0 = time.perf_counter()
+    tree, oracle = load_btree(dev, n_keys, n_lines, mesh=mesh)
+    sync(dev)
+    res = {"keys": n_keys, "lines": n_lines, "height": tree.height,
+           "load_s": time.perf_counter() - t0}
+    with tally(launches):
+        for name, ratio, iters, seed in (("c", 1.0, c_batches, SEED + 9),
+                                         ("a", 0.5, a_batches, SEED + 10)):
+            batches = btree_kv_batches(BTreeBatchConfig(
+                n_keys=n_keys, r_slots=slots, read_ratio=ratio,
+                zipf_theta=YCSB_THETA, iters=iters), seed=seed)
+            out = run_ycsb(tree, oracle, batches)
+            if name == "a":
+                res["upserted_keys_checked"] = check_upserts(
+                    tree, oracle, batches, slots)
+            res[f"ycsb_{name}"] = {
+                "batches": iters, "batch_s": out["batch_s"],
+                "rounds_per_batch": out["rounds"],
+                "lookups_per_s": out["lookups"] / max(out["lookup_s"],
+                                                      1e-9),
+                "upserts_per_s": (out["upserts"] / out["upsert_s"]
+                                  if out["upserts"] else None),
+                "deferred": tree.stats["descent_deferred"]}
+    tree.plane.check()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def sharded_txn(dev, mesh, launches, *, n_gcls=TXN_GCLS, batch=1024,
+                n_batches=2):
+    """Phase 6's transactions on the sharded plane beside a flat twin:
+    decisions, completion steps, retries, iterations and the final
+    image equal, under 2PL and TO."""
+    from repro_torch.apps import (DeviceTxnConfig, DeviceTxnEngine,
+                                  TxnBatchConfig, device_txn_batches)
+    from repro_torch.core.rounds import (DevicePlane, make_sharded_state,
+                                         make_state, txn_payload_width)
+    w = txn_payload_width(TXN_TUPLES)
+    res = {"gcls": n_gcls, "batch": batch}
+    for algo, seed in (("2pl", SEED + 13), ("to", SEED + 14)):
+        cfg = DeviceTxnConfig(algo=algo, tuples_per_gcl=TXN_TUPLES,
+                              max_group_lines=TXN_LINES_MAX)
+        eng = DeviceTxnEngine(DevicePlane.open(make_sharded_state(
+            TXN_NODES, n_gcls, mesh, payload_width=w), mesh), cfg)
+        twin = DeviceTxnEngine(DevicePlane.open(make_state(
+            TXN_NODES, n_gcls, payload_width=w, device=dev)), cfg)
+        out = {"batch_s": [], "twin_batch_s": [], "iters": [],
+               "rounds": [], "retries": 0}
+        for txns, node, ts in device_txn_batches(TxnBatchConfig(
+                n_gcls=n_gcls, tuples_per_gcl=TXN_TUPLES, batch=batch,
+                iters=n_batches, max_group_lines=TXN_LINES_MAX,
+                zipf_theta=TXN_THETA, n_nodes=TXN_NODES), seed=seed):
+            t0 = time.perf_counter()
+            with tally(launches):
+                r, _ = eng.run_batch(node, txns, ts=ts)
+            t1 = time.perf_counter()
+            z, _ = twin.run_batch(node, txns, ts=ts)
+            out["twin_batch_s"].append(time.perf_counter() - t1)
+            out["batch_s"].append(t1 - t0)
+            for k in ("decision", "exec_step", "retries"):
+                assert np.array_equal(getattr(r, k), getattr(z, k)), \
+                    f"{algo}: {k} differs from the flat plane's"
+            assert (r.iters, r.rounds) == (z.iters, z.rounds), algo
+            out["iters"].append(r.iters)
+            out["rounds"].append(r.rounds)
+            out["retries"] += int(r.retries.sum())
+        assert torch.equal(eng.plane.flat_state()["mem_data"],
+                           twin.plane.state["mem_data"]), \
+            f"{algo}: the final image differs from the flat plane's"
+        eng.plane.check()
+        out["commits"] = eng.stats.commits
+        out["commits_per_s"] = eng.stats.commits / sum(out["batch_s"])
+        out["twin_commits_per_s"] = (twin.stats.commits
+                                     / sum(out["twin_batch_s"]))
+        res[algo] = out
+        del eng, twin
+    return res
+
+
+def sharded_latch_check(dev, n=BTREE_LINES, r=1024):
+    """``distributed_latch_round`` at the tree's ``n`` words split
+    :data:`SHARDS` ways, ``r`` requests a shard (the descent pattern of
+    :func:`latch_app_inputs`), against K1's plain version on the flat
+    words: new words, old words and verdicts equal."""
+    from repro_torch.core.distributed_rounds import (
+        distributed_latch_round, stripe, unstripe)
+    from repro_torch.core.rounds import Mesh
+    from repro_torch.kernels.latch_ops import REQ_KEYS, latch_apply_plain
+    words, req_np = latch_app_inputs(n, SHARDS * r, "descent")
+    w = torch.from_numpy(words).to(dev)
+    req = {k: torch.from_numpy(v).to(dev) for k, v in req_np.items()}
+    new, hi, lo, ok, dropped = distributed_latch_round(
+        stripe(w, SHARDS), req, mesh=Mesh(SHARDS, device=dev))
+    want = latch_apply_plain(w, *[req[k] for k in REQ_KEYS])
+    assert int(dropped) == 0
+    got = (unstripe(new, SHARDS), hi, lo, ok)
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    assert err == 0, f"distributed_latch_round disagrees ({err})"
+    return {"words": n, "requests": SHARDS * r, "max_abs_err": err}
+
+
+def sharded_phase(dev, flat_serve, *, kv_cfg=None, n_q_heads=16,
+                  place=None, place_cap=16, tree=None, txn=None):
+    """The sharded plane: :data:`SHARDS` home shards on the card
+    (``Mesh(4)``), every check against a flat twin on the card.  The
+    serve (:func:`serve` over a mesh-backed ``KVPoolConfig()`` pool, the
+    48-request trace: readbacks against ``ToyLM.expected_pages``, every
+    dispatch's versions and the final unsharded state hashed equal to
+    ``flat_serve``'s), placement at the serve pool's geometry twice
+    (:func:`sharded_placement`: a real ``rehome`` and replica serves;
+    then ``bucket_cap=place_cap``, 16 under the 64 slots a shard, so
+    requests defer), the tree at phase 5's geometry (:func:`sharded_tree`) and
+    the transactions at phase 6's (:func:`sharded_txn`).  ``place`` /
+    ``tree`` / ``txn`` override those runs' sizes (dicts of keyword
+    arguments; CPU rehearsals).  Returns the results and ``launches``:
+    the K1-K3 launches of the sharded calls alone (not the twins')."""
+    from repro_torch.core.rounds import Mesh
+    mesh = Mesh(SHARDS, device=dev)
+    launches = collections.Counter()
+    t0 = time.perf_counter()
+    with tally(launches):
+        res = {"serve": serve(dev, kv_cfg, n_q_heads, mesh=mesh)}
+    for k in ("versions_sha256", "state_sha256", "ticks",
+              "coherence_rounds", "tokens_generated"):
+        assert res["serve"][k] == flat_serve[k], \
+            f"sharded serve: {k} differs from the flat serve's"
+    assert res["serve"]["shards"] == SHARDS
+    res["serve_s"] = time.perf_counter() - t0
+    place = dict(place or {})
+    res["placement"] = sharded_placement(dev, mesh, launches, **place)
+    res["placement_capped"] = sharded_placement(dev, mesh, launches,
+                                                cap=place_cap, **place)
+    assert sum(map(sum, res["placement_capped"]["deferred"])) > 0, \
+        "bucket_cap below the slots a shard deferred nothing"
+    res["tree"] = sharded_tree(dev, mesh, launches, **(tree or {}))
+    res["txn"] = sharded_txn(dev, mesh, launches, **(txn or {}))
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = {k: launches[k] for k in ("latch_ops", "gcl_fetch",
+                                                 "paged_attention")}
     return res
 
 
@@ -2877,6 +3166,12 @@ def main() -> int:
     rows[0].update(latch_app_case(dev, K))
     rows[0].update(latch_app_case(dev, K, 1 << 20, 4096, "txn", "finalize"))
     rows[1].update(fetch_app_cases(dev, K))
+    # a home's round on the 4-shard tree: 2^19 words a slab, 4 buckets
+    # of 256 slots
+    rows[0].update(latch_app_case(dev, K, BTREE_LINES // SHARDS, 1024,
+                                  "shard"))
+    rows[1].update(fetch_app_case(dev, K, BTREE_LINES // SHARDS, 40, 1024,
+                                  0.0, "shard"))
     for row in rows[:2]:
         log(f"{row['name']} at the applications' shapes: " + ", ".join(
             f"{tag}: ms_graph20 {row[f'ms_graph20_{tag}']}, bound "
@@ -2885,7 +3180,8 @@ def main() -> int:
             + (f", index_select ms_graph20 "
                f"{row[f'library_ms_graph20_{tag}']}"
                if f"library_ms_graph20_{tag}" in row else "")
-            for tag in ("btree", "txn") if f"ms_graph20_{tag}" in row))
+            for tag in ("btree", "txn", "shard")
+            if f"ms_graph20_{tag}" in row))
     floor = launch_floor()
     log(f"launch floor (x.add_(1) on 1 element): ms {floor['ms']} "
         f"ms_graph20 {floor['ms_graph20']}")
@@ -2897,6 +3193,7 @@ def main() -> int:
     with fetch_histogram() as hist:
         res = serve(dev)
     counts = K.launch_counts()
+    flat_serve = res
     log("serve: " + json.dumps(res))
     calls = hist["calls"]
     log(f"serve gcl_fetch: {sum(calls.values())} calls; by (R, valid "
@@ -2932,6 +3229,21 @@ def main() -> int:
         log(f"{path} launches: " + json.dumps(side_paths[path]))
         for name, n in side_paths[path].items():
             assert n > 0, f"kernel {name} never launched on the {path} path"
+    K.reset_launch_counts()
+    sharded = sharded_phase(dev, flat_serve)
+    window = K.launch_counts()
+    log("sharded: " + json.dumps({k: v for k, v in sharded.items()
+                                  if k != "launches"}))
+    log("sharded launches (the sharded calls alone): "
+        + json.dumps(sharded["launches"]) + "; the phase's window, twins "
+        "included: " + json.dumps({k: window[k] for k in sharded["launches"]}))
+    for name, n in sharded["launches"].items():
+        assert 0 < n <= window[name], \
+            f"kernel {name} never launched on the sharded path"
+    side_paths["sharded"] = {k: sharded["launches"][k]
+                             for k in ("latch_ops", "gcl_fetch")}
+    log("distributed_latch_round: " + json.dumps(sharded_latch_check(dev)))
+    torch.cuda.empty_cache()
 
     lm_paths = {}
     for arch, n_req, name, per, per_step in (
@@ -2967,8 +3279,10 @@ def main() -> int:
                             if p != "serve")
     rows[2]["launches_by_path"] = {
         "serve": counts["paged_attention"],
-        "legacy": legacy["launches"]["paged_attention"]}
-    counts["paged_attention"] += legacy["launches"]["paged_attention"]
+        "legacy": legacy["launches"]["paged_attention"],
+        "sharded": sharded["launches"]["paged_attention"]}
+    counts["paged_attention"] += (legacy["launches"]["paged_attention"]
+                                  + sharded["launches"]["paged_attention"])
     for path, phase in (("btree", btree_phase), ("txn", txn_phase)):
         K.reset_launch_counts()
         res = phase(dev)
@@ -2979,6 +3293,18 @@ def main() -> int:
         for name, n in by_path[path].items():
             assert n > 0, f"kernel {name} never launched on the {path} path"
             counts[name] += n
+        if path == "btree":
+            flat, shd = res, sharded["tree"]
+            log("tree, flat vs 4 shards: lookups/s " + json.dumps([
+                flat["ycsb_c"]["lookups_per_s"],
+                shd["ycsb_c"]["lookups_per_s"]]) + ", upserts/s "
+                + json.dumps([flat["ycsb_a"]["upserts_per_s"],
+                              shd["ycsb_a"]["upserts_per_s"]]))
+        else:
+            log("txn, flat vs 4 shards: commits/s " + json.dumps({
+                a: [res[a]["commits_per_s"],
+                    sharded["txn"][a]["commits_per_s"]]
+                for a in ("2pl", "to")}))
     train = collections.defaultdict(dict)     # kernel -> arch -> launches
     for arch, kw in TRAIN_RUNS.items():
         _, got = train_run(dev, K, arch, **kw)

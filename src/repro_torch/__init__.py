@@ -10,8 +10,10 @@ is found by name:
   facade ``SELCCLayer``, whose ``as_plane`` / ``make_kv_pool`` open the
   device plane and the pool) and ``apps/btree.py`` over it;
 * ``core/rounds/`` — round state and its stripe layout, one coherence
-  round, the drivers, the flat ``DevicePlane`` facade with its
-  placement verbs, and the placement planners;
+  round, the drivers, the ``DevicePlane`` facade with its placement
+  verbs, the placement planners, and the sharded plane (``Mesh``: S
+  home shards on one device; ``core/distributed_rounds.py`` is its
+  bare latch plane);
 * ``obs/`` — telemetry, metrics and the ``FlightRecorder``;
 * ``dsm/kvpool.py`` — the KV-page pool: the legacy page-copy path and
   the rounds plane;

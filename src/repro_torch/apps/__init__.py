@@ -1,6 +1,6 @@
 """The paper's applications: the B-link tree over the host DES's
 Table-1 facade (``btree.BLinkTree``, a copy of ``repro/apps/btree.py``),
-and on the flat device plane the device batch generators
+and on the device plane the device batch generators
 (``workloads``), the shared txn counters (``txn.TxnStats``) and the gang
 transaction engine (``txn_device``).  The device B-link tree is
 ``repro_torch.index.DeviceBTree``.  The DES transaction engine and the

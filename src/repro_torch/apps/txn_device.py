@@ -1,4 +1,4 @@
-"""Device-batch transaction engine: Fig. 11 workloads on the flat plane.
+"""Device-batch transaction engine: Fig. 11 workloads on the rounds plane.
 
 Counterpart of ``repro/apps/txn_device.py``.  A whole BATCH of
 transactions runs through the device CC scheduler
@@ -91,8 +91,9 @@ def host_record_lanes(rec: dict, gcl_index: int,
 
 @dataclass
 class DeviceTxnEngine:
-    """Gang transaction engine over a flat :class:`DevicePlane`; it runs
-    on the plane's device.
+    """Gang transaction engine over a :class:`DevicePlane`, flat or
+    sharded (``plane.txn`` pads B to the shard count); it runs on the
+    plane's device.
 
     The plane must carry ``txn_payload_width(cfg.tuples_per_gcl)``
     payload lanes; its lines ARE the GCLs (line g holds tuples

@@ -8,6 +8,9 @@ goes back.  :func:`pool_from_arrays` rebuilds a serving pool from a
 rounds state and its allocator's bump pointer and free list, and
 :func:`legacy_pool_from_arrays` one that serves the legacy page-copy
 path from a JAX pool's ``pool`` and ``cache`` dicts.
+:func:`sharded_state_from_arrays` carries a JAX sharded round state
+(its leaves gathered with ``np.asarray``, in stripe layout) onto a
+port :class:`~repro_torch.core.rounds.Mesh`.
 :func:`lm_params_to_torch` carries a JAX LM parameter tree across, and
 :func:`train_state_to_torch` / :func:`train_state_to_numpy` a whole
 train state (params, the AdamW ``mu`` in any tier, ``step``, the
@@ -34,6 +37,20 @@ def to_torch(tree: dict, device=None) -> dict:
 def to_numpy(tree: dict) -> dict:
     """Dict of tensors -> dict of host numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def sharded_state_from_arrays(state: dict, mesh) -> dict:
+    """The port's sharded round state from a JAX sharded state given as
+    gathered numpy leaves (``{k: np.asarray(v)}``): both packages keep
+    the global stripe layout, so every leaf carries over as it is, onto
+    the mesh's device, contiguous."""
+    from .core.rounds.mesh import shards_of
+    n_shards = shards_of(mesh)
+    n_lines = np.shape(state["words"])[0]
+    if n_lines % n_shards:
+        raise ValueError(f"n_lines={n_lines} not divisible by "
+                         f"n_shards={n_shards}")
+    return to_torch(state, mesh.device)
 
 
 def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,

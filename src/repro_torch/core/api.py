@@ -22,13 +22,12 @@ run seamlessly on SEL", extended to N protocols.
 
 The same address/handle vocabulary reaches the device plane:
 :meth:`SELCCLayer.as_rounds_state` and :meth:`SELCCLayer.as_plane` size a
-flat core/rounds state (and its ``DevicePlane``) to the layer's
-allocation map under the ``GAddr.flat`` striping, and
-:meth:`SELCCLayer.make_kv_pool` opens the dsm/kvpool.py serving pool,
-each on ``cuda`` unless the caller asks for ``"cpu"``.
+core/rounds state (and its ``DevicePlane``) to the layer's allocation
+map under the ``GAddr.flat`` striping — flat, or sharded over a
+``mesh`` — and :meth:`SELCCLayer.make_kv_pool` opens the dsm/kvpool.py
+serving pool, each on ``cuda`` unless the caller asks for ``"cpu"``.
 
-A copy of ``repro/core/api.py``; the bridge builds the port's flat
-plane only (a ``mesh`` raises: the sharded stack is queue 1 item 9).
+A copy of ``repro/core/api.py``.
 """
 
 from __future__ import annotations
@@ -192,21 +191,34 @@ class SELCCLayer:
 
     def as_rounds_state(self, n_lines: int | None = None, *,
                         write_back: bool = False, payload_width: int = 0,
-                        mesh=None, device=None):
-        """Fresh flat device-plane round state (core/rounds) sized to
-        this layer: same node count, lines spanning every allocation
-        under the shared ``GAddr.flat`` striping.  ``write_back=True``
-        builds the dirty-bit variant; ``payload_width=W`` attaches the
-        GCL data plane (reads return W int32 payload lanes, the device
-        mirror of this layer's ``GclHeap`` objects).  The state lives on
-        ``device`` (``cuda`` unless ``"cpu"`` is asked for)."""
+                        mesh=None, axis: str = "shards", device=None):
+        """Fresh device-plane round state (core/rounds) sized to this
+        layer: same node count, lines spanning every allocation under
+        the shared ``GAddr.flat`` striping.  ``write_back=True`` builds
+        the dirty-bit variant; ``payload_width=W`` attaches the GCL data
+        plane (reads return W int32 payload lanes, the device mirror of
+        this layer's ``GclHeap`` objects).  The state lives on
+        ``device`` (``cuda`` unless ``"cpu"`` is asked for).
+
+        With a ``mesh`` (:class:`repro_torch.core.rounds.Mesh`) it is the
+        sharded plane's state on the mesh's device, ``home = line %
+        n_shards`` (the device mirror of this layer's memory-node
+        striping), ``n_lines`` padded up to a shard multiple."""
+        from .. import resolve_device
         from . import rounds
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded plane is not ported (queue 1 item 9)")
         if n_lines is None:
             n_lines = max(1, max(self._next_line, default=1)
                           * self.cfg.n_memory)
+        if mesh is not None:
+            rounds.mesh.shards_of(mesh, axis)
+            if device is not None and \
+                    resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device={device} but the mesh lives on "
+                                 f"{mesh.device}")
+            return rounds.make_sharded_state(self.cfg.n_compute, n_lines,
+                                             mesh, axis,
+                                             write_back=write_back,
+                                             payload_width=payload_width)
         return rounds.make_state(self.cfg.n_compute, n_lines,
                                  write_back=write_back,
                                  payload_width=payload_width,
@@ -214,25 +226,29 @@ class SELCCLayer:
 
     def as_plane(self, n_lines: int | None = None, *,
                  write_back: bool = False, payload_width: int = 0,
-                 mesh=None, max_rounds: int = 64, device=None):
+                 mesh=None, axis: str = "shards", max_rounds: int = 64,
+                 bucket_cap: int | None = None, device=None):
         """Fresh :class:`repro_torch.core.rounds.DevicePlane` sized to
         this layer — ``as_rounds_state`` plus the facade in one call:
-        the returned plane owns the state and the node count, and
-        exposes ``plane.ops`` / ``plane.rmw`` / ``plane.descent`` /
+        the returned plane owns the state, the mesh and the node count,
+        and exposes ``plane.ops`` / ``plane.rmw`` / ``plane.descent`` /
         ``plane.txn``.  This is the ONE bridge from the DES world to
         the device plane."""
         from .rounds.plane import DevicePlane
         state = self.as_rounds_state(n_lines, write_back=write_back,
                                      payload_width=payload_width,
-                                     mesh=mesh, device=device)
-        return DevicePlane.open(state, n_nodes=self.cfg.n_compute,
-                                max_rounds=max_rounds)
+                                     mesh=mesh, axis=axis, device=device)
+        return DevicePlane.open(state, mesh, axis=axis,
+                                n_nodes=self.cfg.n_compute,
+                                max_rounds=max_rounds,
+                                bucket_cap=bucket_cap)
 
     @staticmethod
     def make_kv_pool(kv_cfg=None, mesh=None, device=None):
         """Open a dsm/kvpool.py serving pool on ``device`` (``cuda``
-        unless ``"cpu"`` is asked for); it serves the legacy page-copy
-        path until ``pool.open_rounds_plane()``."""
+        unless ``"cpu"`` is asked for; with a ``mesh``, on the mesh's
+        device, its rounds plane sharded over it); it serves the legacy
+        page-copy path until ``pool.open_rounds_plane()``."""
         from ..dsm.kvpool import KVPoolConfig, SELCCKVPool
         return SELCCKVPool(kv_cfg or KVPoolConfig(), mesh=mesh,
                            device=device)

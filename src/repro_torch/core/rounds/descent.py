@@ -55,12 +55,27 @@ def run_descent(state, node_id, key, root, *, transition, n_nodes: int,
     ``slot_whits`` stays zero)."""
     node_id, key, root = _as_ops(state, node_id, key, root)
     b = root.shape[0]
-    width = payload_width(state)
-    n_lines = state["words"].shape[0]
-    dev = root.device
     _note_trace(("descent", transition, n_nodes, b, max_steps,
-                 "dirty" in state, width, path_cap))
-    no_write = torch.zeros((b,), dtype=torch.int32, device=dev)
+                 "dirty" in state, payload_width(state), path_cap))
+    no_write = torch.zeros((b,), dtype=torch.int32, device=root.device)
+
+    def step(st, line, tele):
+        st, served, _, d = _round_impl(st, node_id, line, no_write,
+                                       n_nodes=n_nodes)
+        return st, served, d, _tele_round(tele, line, served, no_write)
+    return _walk(state, key, root, transition=transition,
+                 max_steps=max_steps, path_cap=path_cap, step=step,
+                 tele=zero_flat_tele(state["words"].shape[0], root.device))
+
+
+def _walk(state, key, root, *, transition, max_steps: int, path_cap: int,
+          step, tele):
+    """The wavefront over any plane: ``step(state, line, tele) ->
+    (state', served, data, tele')`` runs one round of S-latch reads
+    (``line = -1`` for settled slots).  Returns the drivers' tuple."""
+    b = root.shape[0]
+    width = payload_width(state)
+    dev = root.device
     rows = torch.arange(b, device=dev)
     cur = root.clone()
     done = root < 0
@@ -69,16 +84,13 @@ def run_descent(state, node_id, key, root, *, transition, n_nodes: int,
     hops = torch.zeros((b,), dtype=torch.int32, device=dev)
     paths = torch.full((b, path_cap), -1, dtype=torch.int32, device=dev)
     plen = torch.zeros((b,), dtype=torch.int32, device=dev)
-    tele = zero_flat_tele(n_lines, dev)
     steps = 0
     while True:
         all_done = not bool((~done).any())
         if all_done or steps >= max_steps:
             break
         line = torch.where(done, -1, cur)
-        state, served, _, d = _round_impl(state, node_id, line, no_write,
-                                          n_nodes=n_nodes)
-        tele = _tele_round(tele, line, served, no_write)
+        state, served, d, tele = step(state, line, tele)
         at_leaf, hop, nxt = transition(d, key)
         move = served & ~done
         hop = move & hop

@@ -58,6 +58,37 @@ def _as_ops(state, *arrays):
             for a in arrays]
 
 
+def _ops_wdata(state, line, wdata):
+    """A payload [R, W] on the ops' device: ``wdata``, or zeros."""
+    width = payload_width(state)
+    if wdata is None:
+        return torch.zeros((line.shape[0], width), dtype=torch.int32,
+                           device=line.device)
+    return torch.as_tensor(wdata).to(device=line.device, dtype=torch.int32)
+
+
+def _spin(state, line, width, *, max_rounds: int, step, tele):
+    """The spin loop over any plane: ``step(state, pending, tele) ->
+    (state', served, version, data, tele')`` runs one round; slots
+    re-present until served or ``max_rounds`` rounds ran.  Returns the
+    drivers' tuple."""
+    r = line.shape[0]
+    pending = line.clone()
+    versions = torch.zeros_like(line)
+    data = torch.zeros((r, width), dtype=torch.int32, device=line.device)
+    rounds = 0
+    while True:
+        all_served = not bool((pending >= 0).any())
+        if all_served or rounds >= max_rounds:
+            break
+        state, served, ver, rdata, tele = step(state, pending, tele)
+        versions = torch.where(served, ver, versions)
+        data = torch.where(served[:, None], rdata, data)
+        pending = torch.where(served, -1, pending)
+        rounds += 1
+    return state, versions, data, rounds, all_served, tele
+
+
 def run_rounds(state, node_id, line, is_write, wdata=None, *,
                n_nodes: int, max_rounds: int = 64):
     """Drive op slots (node_id, line, is_write) [R] to completion.
@@ -69,33 +100,18 @@ def run_rounds(state, node_id, line, is_write, wdata=None, *,
     (bool), which the host loop already knows.  ``all_served`` is False
     if ``max_rounds`` rounds ran with ops still pending."""
     node_id, line, is_write = _as_ops(state, node_id, line, is_write)
-    width = payload_width(state)
-    n_lines = state["words"].shape[0]
-    r = line.shape[0]
-    dev = line.device
-    if wdata is None:
-        wdata = torch.zeros((r, width), dtype=torch.int32, device=dev)
-    else:
-        wdata = torch.as_tensor(wdata).to(device=dev, dtype=torch.int32)
-    _note_trace(("driver", n_nodes, r, max_rounds, "dirty" in state,
-                 width))
-    pending = line.clone()
-    versions = torch.zeros_like(line)
-    data = torch.zeros((r, width), dtype=torch.int32, device=dev)
-    tele = zero_flat_tele(n_lines, dev)
-    rounds = 0
-    while True:
-        all_served = not bool((pending >= 0).any())
-        if all_served or rounds >= max_rounds:
-            break
-        state, served, ver, rdata = coherence_round(
-            state, node_id, pending, is_write, wdata, n_nodes=n_nodes)
-        tele = _tele_round(tele, pending, served, is_write)
-        versions = torch.where(served, ver, versions)
-        data = torch.where(served[:, None], rdata, data)
-        pending = torch.where(served, -1, pending)
-        rounds += 1
-    return state, versions, data, rounds, all_served, tele
+    wdata = _ops_wdata(state, line, wdata)
+    _note_trace(("driver", n_nodes, line.shape[0], max_rounds,
+                 "dirty" in state, wdata.shape[1]))
+
+    def step(st, pending, tele):
+        st, served, ver, rdata = coherence_round(
+            st, node_id, pending, is_write, wdata, n_nodes=n_nodes)
+        return st, served, ver, rdata, _tele_round(tele, pending, served,
+                                                   is_write)
+    return _spin(state, line, wdata.shape[1], max_rounds=max_rounds,
+                 step=step, tele=zero_flat_tele(state["words"].shape[0],
+                                                line.device))
 
 
 def run_rmw(state, node_id, line, operands=(), *, modify, n_nodes: int,
@@ -113,12 +129,18 @@ def run_rmw(state, node_id, line, operands=(), *, modify, n_nodes: int,
     node_id, line = _as_ops(state, node_id, line)
     _note_trace(("rmw", modify, n_nodes, line.shape[0], max_rounds,
                  "dirty" in state, payload_width(state)))
-    state, _, data, r1, ok1, t1 = run_rounds(
-        state, node_id, line, torch.zeros_like(line), None,
-        n_nodes=n_nodes, max_rounds=max_rounds)
+    return _rmw(state, node_id, line, operands, modify,
+                lambda *a: run_rounds(*a, n_nodes=n_nodes,
+                                      max_rounds=max_rounds))
+
+
+def _rmw(state, node_id, line, operands, modify, phase):
+    """The two phases of an RMW over any plane: ``phase(state, node,
+    line, is_write, wdata)`` drives one batch to completion."""
+    state, _, data, r1, ok1, t1 = phase(
+        state, node_id, line, torch.zeros_like(line), None)
     new_data = modify(data, line, *operands).to(torch.int32)
-    state, versions, data2, r2, ok2, t2 = run_rounds(
-        state, node_id, line, torch.ones_like(line), new_data,
-        n_nodes=n_nodes, max_rounds=max_rounds)
+    state, versions, data2, r2, ok2, t2 = phase(
+        state, node_id, line, torch.ones_like(line), new_data)
     return (state, versions, data2, r1 + r2, ok1 and ok2,
             add_tele(t1, t2))

@@ -1,7 +1,10 @@
-"""`DevicePlane` — the facade over the flat device coherence plane.
+"""`DevicePlane` — the facade over the device coherence plane.
 
-Counterpart of ``repro/core/rounds/plane.py`` for the flat geometry:
-``open`` adopts a round state, the verbs ``ops`` / ``rmw`` /
+Counterpart of ``repro/core/rounds/plane.py``: ``open`` adopts a round
+state, flat or sharded over a :class:`~repro_torch.core.rounds.mesh.Mesh`
+(``DevicePlane.open(state, mesh)``; the sharded drivers of
+:mod:`.sharded` then carry every verb, with slots padded to the shard
+count and results sliced back), the verbs ``ops`` / ``rmw`` /
 ``descent`` / ``txn`` / ``evict`` drive it, and ``ops``, ``rmw`` and
 ``descent`` each return one :class:`PlaneResult` whose fields are host
 numpy arrays, as in the reference (``txn`` returns a
@@ -10,11 +13,13 @@ place), raises ``RuntimeError`` when the round or step bound was hit,
 and reports the loop's counters as a typed :class:`PlaneTelemetry`.
 
 Two placement verbs act at op-quiescent boundaries: :meth:`rehome`
-(on a flat plane every line already homes on the one shard, so it
-validates its arguments and moves nothing, as the reference's flat
-plane does) and :meth:`replicate` (marks read-mostly lines and seeds
-their replica images).  ``core/rounds/placement.py`` plans both from the
-telemetry or a recorder's heat.  Attach an ``obs.FlightRecorder``
+(pairwise slot swaps moved by ``sharded.rehome_exchange``; on a flat
+plane every line already homes on the one shard, so it validates its
+arguments and moves nothing, as the reference's flat plane does) and
+:meth:`replicate` (marks read-mostly lines and seeds their replica
+images from the unsharded image, in place).
+``core/rounds/placement.py`` plans both from the telemetry or a
+recorder's heat.  Attach an ``obs.FlightRecorder``
 (``DevicePlane.open(..., recorder=rec)`` or :meth:`attach_recorder`)
 and every verb dispatch appends one span: wall time, rounds, serve
 totals and the kernel libraries built or loaded meanwhile (the port's
@@ -22,8 +27,6 @@ compile events, ``kernels/_build.LOADS``).  ``ops``, ``rmw``,
 ``descent`` and ``txn`` end in host copies, so their spans cover the
 device work; ``evict`` returns without a sync, so its span is the
 dispatch's host time only.
-
-The mesh-sharded plane is queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -54,23 +57,42 @@ class PlaneResult:
 
 
 class DevicePlane:
-    """Facade owning a flat rounds-plane state on one device."""
+    """Facade owning a rounds-plane state, flat or sharded over a
+    :class:`~repro_torch.core.rounds.mesh.Mesh` on the state's device."""
 
-    def __init__(self, state, *, n_nodes: int | None = None,
-                 max_rounds: int = 64, recorder=None):
+    def __init__(self, state, mesh=None, *, axis: str = "shards",
+                 n_nodes: int | None = None, max_rounds: int = 64,
+                 bucket_cap: int | None = None, recorder=None):
+        if mesh is not None:
+            from .mesh import check_on_mesh, shards_of
+            n = shards_of(mesh, axis)
+            check_on_mesh(state, mesh)
+            if state["words"].shape[0] % n:
+                raise ValueError(
+                    f"n_lines={state['words'].shape[0]} not divisible by "
+                    f"n_shards={n}")
         self.state = state
+        self.mesh = mesh
+        self.axis = axis
         self.n_nodes = (int(state["cache_state"].shape[0])
                         if n_nodes is None else int(n_nodes))
         self.max_rounds = int(max_rounds)
+        self.bucket_cap = bucket_cap
         self.recorder = recorder
 
     @classmethod
-    def open(cls, state, *, n_nodes: int | None = None,
-             max_rounds: int = 64, recorder=None) -> "DevicePlane":
-        """The one constructor: wrap a round state (``make_state``).
+    def open(cls, state, mesh=None, *, axis: str = "shards",
+             n_nodes: int | None = None, max_rounds: int = 64,
+             bucket_cap: int | None = None,
+             recorder=None) -> "DevicePlane":
+        """The one constructor: wrap a round state (``make_state``, or
+        ``make_sharded_state`` / ``shard_state`` with its ``mesh``).
+        ``bucket_cap`` bounds a sharded round's (source, home) buckets
+        (default: a shard's slot count, which never overflows);
         ``recorder`` optionally attaches an ``obs.FlightRecorder`` that
         receives one span per verb dispatch."""
-        return cls(state, n_nodes=n_nodes, max_rounds=max_rounds,
+        return cls(state, mesh, axis=axis, n_nodes=n_nodes,
+                   max_rounds=max_rounds, bucket_cap=bucket_cap,
                    recorder=recorder)
 
     def attach_recorder(self, recorder) -> None:
@@ -80,6 +102,14 @@ class DevicePlane:
         self.recorder = recorder
 
     # ------------------------------------------------------------ geometry
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.shape[self.axis] if self.sharded else 1
+
     @property
     def device(self) -> torch.device:
         return self.state["words"].device
@@ -98,20 +128,42 @@ class DevicePlane:
         return "dirty" in self.state
 
     def flat_state(self) -> dict:
-        """The state in flat (line-major) layout — the only layout the
-        flat plane has."""
+        """The state in flat (line-major) layout: a sharded state
+        unstriped (copies), the flat plane's own state otherwise."""
+        if self.sharded:
+            from .sharded import unshard_state
+            return unshard_state(self.state, n_shards=self.n_shards)
         return self.state
+
+    def _positions(self) -> torch.Tensor:
+        """Row of each line id in the shard-major slab concatenation."""
+        from .state import slot_positions
+        perm = self.state.get("home")
+        if perm is None:
+            perm = torch.arange(self.n_lines, device=self.device)
+        return slot_positions(perm.long(), self.n_shards)
 
     def check(self) -> None:
         """Protocol invariants over the state."""
         from .state import check_invariants
-        check_invariants(self.state)
+        check_invariants(self.flat_state())
 
     def _telemetry(self, tele) -> PlaneTelemetry:
+        """A driver's counter dict as a :class:`PlaneTelemetry`; a
+        sharded plane's per-slot hits come back in slab-concatenation
+        order and are remapped to line ids through the directory."""
+        if self.sharded:
+            pos = self._positions()
+            tele = dict(tele, slot_hits=tele["slot_hits"][pos],
+                        slot_whits=tele["slot_whits"][pos])
         c = {k: v.cpu().numpy() for k, v in tele.items()}
         c["line_hits"] = c.pop("slot_hits")
         c["line_whits"] = c.pop("slot_whits")
         return PlaneTelemetry.from_counters(c)
+
+    def _sharded_kw(self) -> dict:
+        return {"mesh": self.mesh, "axis": self.axis,
+                "bucket_cap": self.bucket_cap}
 
     def _span_begin(self):
         """Recorder bracket: (wall clock, kernel library loads) or
@@ -136,18 +188,27 @@ class DevicePlane:
             max_rounds: int | None = None) -> PlaneResult:
         """Drive op slots ``(node, line, is_write[, wdata])`` to
         completion through the spin loop."""
-        from .driver import run_rounds
         mr = self.max_rounds if max_rounds is None else max_rounds
+        r = np.shape(line)[0]
         mark = self._span_begin()
-        state, versions, data, rounds, done, tele = run_rounds(
-            self.state, node_id, line, is_write, wdata,
-            n_nodes=self.n_nodes, max_rounds=mr)
+        if self.sharded:
+            from .sharded import pad_ops, run_rounds_sharded
+            ops = pad_ops(node_id, line, is_write, self.n_shards, wdata)
+            state, versions, data, rounds, done, tele = \
+                run_rounds_sharded(self.state, *ops, n_nodes=self.n_nodes,
+                                   max_rounds=mr, **self._sharded_kw())
+        else:
+            from .driver import run_rounds
+            state, versions, data, rounds, done, tele = run_rounds(
+                self.state, node_id, line, is_write, wdata,
+                n_nodes=self.n_nodes, max_rounds=mr)
         self.state = state
         if not done:
             raise RuntimeError(f"ops not served after {mr} rounds")
-        res = PlaneResult(versions.cpu().numpy(), data.cpu().numpy(),
-                          rounds, {}, self._telemetry(tele))
-        self._span_end("ops", mark, batch=(np.shape(line)[0],),
+        res = PlaneResult(versions[:r].cpu().numpy(),
+                          data[:r].cpu().numpy(), rounds, {},
+                          self._telemetry(tele))
+        self._span_end("ops", mark, batch=(r,),
                        rounds=rounds, telemetry=res.telemetry)
         return res
 
@@ -158,21 +219,35 @@ class DevicePlane:
         Operands are ``[R, ...]`` row-aligned with the op slots and move
         to the plane's device; ``modify`` must treat ``line = -1`` rows
         as no-ops."""
-        from .driver import run_rmw
         mr = self.max_rounds if max_rounds is None else max_rounds
+        r = np.shape(line)[0]
         mark = self._span_begin()
         operands = tuple(torch.as_tensor(op).to(self.device)
                          for op in operands)
-        state, versions, data, rounds, done, tele = run_rmw(
-            self.state, node_id, line, operands, modify=modify,
-            n_nodes=self.n_nodes, max_rounds=mr)
+        if self.sharded:
+            from .sharded import pad_ops, run_rmw_sharded
+            node_id, line, _ = pad_ops(node_id, line, np.zeros(r, np.int32),
+                                       self.n_shards)
+            pad = line.shape[0] - r
+            operands = tuple(
+                torch.cat([op, op.new_zeros((pad,) + tuple(op.shape[1:]))])
+                for op in operands) if pad else operands
+            state, versions, data, rounds, done, tele = run_rmw_sharded(
+                self.state, node_id, line, operands, modify=modify,
+                n_nodes=self.n_nodes, max_rounds=mr, **self._sharded_kw())
+        else:
+            from .driver import run_rmw
+            state, versions, data, rounds, done, tele = run_rmw(
+                self.state, node_id, line, operands, modify=modify,
+                n_nodes=self.n_nodes, max_rounds=mr)
         self.state = state
         if not done:
             raise RuntimeError(f"RMW ops not served after {mr} "
                                f"rounds per phase")
-        res = PlaneResult(versions.cpu().numpy(), data.cpu().numpy(),
-                          rounds, {}, self._telemetry(tele))
-        self._span_end("rmw", mark, batch=(np.shape(line)[0],),
+        res = PlaneResult(versions[:r].cpu().numpy(),
+                          data[:r].cpu().numpy(), rounds, {},
+                          self._telemetry(tele))
+        self._span_end("rmw", mark, batch=(r,),
                        rounds=rounds, telemetry=res.telemetry)
         return res
 
@@ -184,23 +259,34 @@ class DevicePlane:
         slot's LEAF lanes; ``stats`` carries ``line``, ``levels``,
         ``hops``, ``paths``, ``path_len``; ``rounds`` counts the steps
         (one coherence round each)."""
-        from .descent import run_descent
         ms = self.max_rounds if max_steps is None else max_steps
+        r = np.shape(root)[0]
         mark = self._span_begin()
-        (state, line, lanes, levels, hops, paths, plen, steps, done,
-         tele) = run_descent(self.state, node_id, key, root,
-                             transition=transition, n_nodes=self.n_nodes,
-                             max_steps=ms, path_cap=path_cap)
+        if self.sharded:
+            from .sharded import pad_ops, run_descent_sharded
+            node_id, root, key = pad_ops(node_id, root, key, self.n_shards)
+            (state, line, lanes, levels, hops, paths, plen, steps, done,
+             tele) = run_descent_sharded(
+                self.state, node_id, key, root, transition=transition,
+                n_nodes=self.n_nodes, max_steps=ms, path_cap=path_cap,
+                **self._sharded_kw())
+        else:
+            from .descent import run_descent
+            (state, line, lanes, levels, hops, paths, plen, steps, done,
+             tele) = run_descent(self.state, node_id, key, root,
+                                 transition=transition,
+                                 n_nodes=self.n_nodes, max_steps=ms,
+                                 path_cap=path_cap)
         self.state = state
         if not done:
             raise RuntimeError(f"descent did not settle after {ms} "
                                f"steps (broken links?)")
         stats = {"line": line, "levels": levels, "hops": hops,
                  "paths": paths, "path_len": plen}
-        res = PlaneResult(None, lanes.cpu().numpy(), steps,
-                          {k: v.cpu().numpy() for k, v in stats.items()},
+        res = PlaneResult(None, lanes[:r].cpu().numpy(), steps,
+                          {k: v[:r].cpu().numpy() for k, v in stats.items()},
                           self._telemetry(tele))
-        self._span_end("descent", mark, batch=(np.shape(root)[0],),
+        self._span_end("descent", mark, batch=(r,),
                        rounds=steps, telemetry=res.telemetry)
         return res
 
@@ -222,26 +308,38 @@ class DevicePlane:
     def evict(self, node_id, line) -> None:
         """Evict (node, line) pairs: release holder latches, flushing
         dirty write-back copies first."""
-        from .engine import evict_lines
+        r = np.shape(line)[0]
         mark = self._span_begin()
         dev = self.device
         node_id, line = (torch.as_tensor(x).to(device=dev,
                                               dtype=torch.int32)
                          for x in (node_id, line))
-        self.state = evict_lines(self.state, node_id, line)
-        self._span_end("evict", mark, batch=(np.shape(line)[0],))
+        if self.sharded:
+            from .sharded import evict_lines_sharded, pad_ops
+            node_id, line, _ = pad_ops(node_id, line,
+                                       torch.zeros_like(line),
+                                       self.n_shards)
+            self.state = evict_lines_sharded(
+                self.state, node_id, line, mesh=self.mesh, axis=self.axis,
+                bucket_cap=self.bucket_cap)
+        else:
+            from .engine import evict_lines
+            self.state = evict_lines(self.state, node_id, line)
+        self._span_end("evict", mark, batch=(r,))
 
     # -------------------------------------------------------- placement
     def rehome(self, lines, new_homes, victims=None) -> int:
-        """Migrate ``lines[i]`` to home shard ``new_homes[i]`` (swapping
-        slots with ``victims[i]``, as ``plan_rehome`` plans it) through
-        the coherent directory, at an op-quiescent boundary.  Returns
-        the number of migrations performed.  On this flat plane the one
-        shard is every line's home already: the call validates its
-        arguments exactly as the reference does (a ``home`` leaf, equal
-        lengths, line ids in range, shard ids in ``[0, 1)``) and moves
-        nothing, so flat and sharded differentials replay one call
-        sequence.  The sharded exchange is queue 1 item 9."""
+        """Migrate ``lines[i]`` to home shard ``new_homes[i]`` through
+        the coherent directory, at an op-quiescent boundary: pairwise
+        SLOT SWAPS with a victim line homed on the target shard
+        (``victims[i]``, as ``plan_rehome`` plans it, or else the
+        highest-id line still homed there), moved by
+        :func:`~.sharded.rehome_exchange`.  Lines already on their
+        target, or named twice, are skipped.  Returns the number of
+        migrations performed.  On a flat plane the one shard is every
+        line's home already: the call validates its arguments exactly as
+        the reference does (shard ids in ``[0, 1)``) and moves nothing,
+        so flat and sharded differentials replay one call sequence."""
         if "home" not in self.state:
             raise ValueError(
                 "rehome needs a home-directory state "
@@ -254,23 +352,53 @@ class DevicePlane:
             victims = np.asarray(_host(victims), np.int64).reshape(-1)
             if victims.shape != lines.shape:
                 raise ValueError("victims must match lines in length")
-        l, s = self.n_lines, 1
+        l, s = self.n_lines, self.n_shards
         if lines.size and (lines.min() < 0 or lines.max() >= l):
             raise ValueError(f"line ids out of range [0, {l})")
         if new_homes.size and (new_homes.min() < 0
                                or new_homes.max() >= s):
             raise ValueError(f"home shards out of range [0, {s})")
-        return 0
+        if not self.sharded:
+            return 0
+        perm = _host(self.state["home"]).astype(np.int64)
+        taken: set = set()
+        src, dst = [], []
+        for i in range(lines.size):
+            a, h = int(lines[i]), int(new_homes[i])
+            if a in taken or perm[a] % s == h:
+                continue
+            if victims is not None:
+                b = int(victims[i])
+                if b in taken or b == a or perm[b] % s != h:
+                    continue
+            else:
+                cands = [int(c) for c in np.flatnonzero(perm % s == h)[::-1]
+                         if int(c) not in taken]
+                if not cands:
+                    continue
+                b = cands[0]
+            taken.update((a, b))
+            src.extend((perm[a], perm[b]))
+            dst.extend((perm[b], perm[a]))
+            perm[a], perm[b] = perm[b], perm[a]
+        if not src:
+            return 0
+        from .sharded import rehome_exchange
+        self.state = rehome_exchange(
+            self.state, np.asarray(src), np.asarray(dst),
+            perm.astype(np.int32), mesh=self.mesh, axis=self.axis)
+        return len(taken) // 2
 
     def replicate(self, lines, *, enable: bool = True) -> None:
         """Mark ``lines`` read-replicated (or drop the mark with
-        ``enable=False``), on the plane's device.  Boundary-only, like
-        :meth:`rehome`: the replica images of marked lines whose memory
-        is current (no exclusive holder) are seeded here from
-        ``mem_data``/``mem_version``; the rest seed at the next round
-        boundary.  The flat engine refreshes the images every round but
-        serves from home; the sharded router that serves S reads from
-        them is queue 1 item 9."""
+        ``enable=False``), in place on the plane's device.
+        Boundary-only, like :meth:`rehome`: the replica images of marked
+        lines whose memory is current (no exclusive holder) are seeded
+        here from the unsharded image of ``mem_data`` / ``mem_version``;
+        the rest seed at the next round boundary.  A sharded plane then
+        serves S-latch reads of a marked line with a valid image at the
+        requester's own shard; the flat engine refreshes the images
+        every round but serves from home."""
         if "replica" not in self.state:
             raise ValueError(
                 "replicate needs a replica-plane state "
@@ -283,15 +411,22 @@ class DevicePlane:
         st = self.state
         st["replica"][torch.from_numpy(lines).to(self.device)] = \
             bool(enable)
-        rok = st["replica"] & ~(st["cache_state"] == M).any(dim=0)
+        held_m = (st["cache_state"] == M).any(dim=0)
+        mver, mdata = st["mem_version"], st.get("mem_data")
+        if self.sharded:                 # the unsharded image, by line id
+            pos = self._positions()
+            held_m, mver = held_m[pos], mver[pos]
+            mdata = None if mdata is None else mdata[pos]
+        rok = st["replica"] & ~held_m
         st["replica_ok"].copy_(rok)
         st["replica_version"].copy_(torch.where(
-            rok, st["mem_version"], st["replica_version"]))
+            rok, mver, st["replica_version"]))
         if "replica_data" in st:
-            st["replica_data"][rok] = st["mem_data"][rok]
+            st["replica_data"][rok] = mdata[rok]
 
     def __repr__(self) -> str:
-        return (f"DevicePlane(flat, n_nodes={self.n_nodes}, "
+        geo = f"sharded x{self.n_shards}" if self.sharded else "flat"
+        return (f"DevicePlane({geo}, n_nodes={self.n_nodes}, "
                 f"n_lines={self.n_lines}, W={self.payload_width}, "
                 f"{'write-back' if self.write_back else 'write-through'}, "
                 f"{self.device})")

@@ -1,7 +1,7 @@
 """Transaction concurrency control over the flat device plane.
 
-Counterpart of the flat half of ``repro/core/rounds/txn.py``, whose
-module docstring describes the scheduler; it is the same here step for
+Counterpart of ``repro/core/rounds/txn.py``, whose module docstring
+describes the scheduler; it is the same here step for
 step.  Each GCL packs a latch word plus ``T`` tuple headers into its
 payload lanes (``W = 2 + 2*T``)::
 
@@ -24,7 +24,9 @@ The reference runs the whole batch in one ``lax.while_loop``; here the
 scheduler loop and each spin's round loop run on the host, with one
 sync a round (``run_rounds``) and one an iteration, and every carry on
 the state's device.  Decisions, completion order, retries, rounds,
-telemetry and the state come out identical.
+telemetry and the state come out identical.  The sharded driver
+(:func:`run_txn_rounds_sharded`) runs the same loop with every spin
+through the sharded plane.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def _apply_to(lanes, glines, rmask, wmask, ts):
 _APPLY = {"2pl": _apply_2pl, "to": _apply_to}
 
 
-# ------------------------------------------------------- the flat driver
+# ------------------------------------------------------- the drivers
 
 def run_txn_rounds(state, node_id, glines, rmask, wmask, ts, *,
                    algo: str, n_nodes: int, max_rounds: int = 64,
@@ -114,26 +116,77 @@ def run_txn_rounds(state, node_id, glines, rmask, wmask, ts, *,
     results are invalid) and ``rounds`` (over all spins); ``telemetry``
     is the flat counter dict summed over every spin of the batch."""
     co.check_node_capacity(n_nodes)
-    node_id, glines, rmask, wmask, ts = _as_ops(
-        state, node_id, glines, rmask, wmask, ts)
-    b, g_n = glines.shape
-    t_n = rmask.shape[2]
-    w_n = payload_width(state)
-    dev = glines.device
-    _note_trace(("txn", algo, b, g_n, t_n, n_nodes, max_rounds, max_iters,
-                 "dirty" in state, w_n))
-    apply_fn = _APPLY[algo]
-    nv = (glines >= 0).sum(dim=1, dtype=torch.int32)
-    slot = torch.arange(b, dtype=torch.int32, device=dev)
-    node_rep = node_id.repeat_interleave(g_n)
-    g_idx = torch.arange(g_n, dtype=torch.int32, device=dev)[None, :]
-    earlier = slot[None, :] < slot[:, None]
 
     def spin(stt, nodes, lines, is_write, wdata):
         stt, _, data, r, ok, tl = run_rounds(
             stt, nodes, lines, is_write, wdata, n_nodes=n_nodes,
             max_rounds=max_rounds)
         return stt, data, r, ok, tl
+
+    args = _as_ops(state, node_id, glines, rmask, wmask, ts)
+    _note_trace(("txn", algo, *args[1].shape, args[2].shape[2], n_nodes,
+                 max_rounds, max_iters, "dirty" in state,
+                 payload_width(state)))
+    return _txn_loop(state, *args, algo=algo, max_iters=max_iters,
+                     spin=spin,
+                     tele=zero_flat_tele(state["words"].shape[0],
+                                         args[1].device))
+
+
+def run_txn_rounds_sharded(state, node_id, glines, rmask, wmask, ts, *,
+                           algo: str, mesh, axis: str = "shards",
+                           n_nodes: int, max_rounds: int = 64,
+                           max_iters: int = 64,
+                           bucket_cap: int | None = None):
+    """Mesh mirror of :func:`run_txn_rounds`: the same scheduler, with
+    txn slots block-distributed over the shards (B divisible by the
+    shard count; pad with ``glines = -1`` rows) and every spin through
+    :func:`~repro_torch.core.rounds.sharded.run_rounds_sharded` (each
+    shard's bucket holds its own slot count unless ``bucket_cap`` says
+    otherwise).  The reference gathers the wanted lines of every shard
+    for the dedup; on one device they are the batch's own, in global
+    slot order, so decisions equal the flat plane's.  Returns the flat
+    contract with the sharded telemetry dict."""
+    from .mesh import check_on_mesh, shards_of
+    from .sharded import _check_slots, _zero_tele, run_rounds_sharded
+    co.check_node_capacity(n_nodes)
+    n_shards = shards_of(mesh, axis)
+    check_on_mesh(state, mesh)
+
+    def spin(stt, nodes, lines, is_write, wdata):
+        stt, _, data, r, ok, tl = run_rounds_sharded(
+            stt, nodes, lines, is_write, wdata, mesh=mesh, axis=axis,
+            n_nodes=n_nodes, max_rounds=max_rounds, bucket_cap=bucket_cap)
+        return stt, data, r, ok, tl
+
+    args = _as_ops(state, node_id, glines, rmask, wmask, ts)
+    b = args[1].shape[0]
+    _check_slots(b, n_shards, "B")
+    _note_trace(("txn_sharded", algo, n_shards, *args[1].shape,
+                 args[2].shape[2], n_nodes, max_rounds, max_iters,
+                 bucket_cap, "dirty" in state, payload_width(state),
+                 "home" in state, "replica" in state))
+    return _txn_loop(state, *args, algo=algo, max_iters=max_iters,
+                     spin=spin,
+                     tele=_zero_tele(n_shards, state["words"].shape[0],
+                                     args[1].device))
+
+
+def _txn_loop(state, node_id, glines, rmask, wmask, ts, *, algo: str,
+              max_iters: int, spin, tele):
+    """The scheduler over any plane: ``spin(state, nodes, lines,
+    is_write, wdata) -> (state', data, rounds, ok, telemetry)`` drives
+    one batch of ops to completion, ``tele`` is the zeroed telemetry
+    accumulator."""
+    b, g_n = glines.shape
+    w_n = payload_width(state)
+    dev = glines.device
+    apply_fn = _APPLY[algo]
+    nv = (glines >= 0).sum(dim=1, dtype=torch.int32)
+    slot = torch.arange(b, dtype=torch.int32, device=dev)
+    node_rep = node_id.repeat_interleave(g_n)
+    g_idx = torch.arange(g_n, dtype=torch.int32, device=dev)[None, :]
+    earlier = slot[None, :] < slot[:, None]
 
     k = torch.zeros(b, dtype=torch.int32, device=dev)
     done = nv < 0
@@ -142,7 +195,6 @@ def run_txn_rounds(state, node_id, glines, rmask, wmask, ts, *,
     retr = torch.zeros(b, dtype=torch.int32, device=dev)
     lanes = torch.zeros((b, g_n, w_n), dtype=torch.int32, device=dev)
     it, ok, rounds = 0, True, 0
-    tele = zero_flat_tele(state["words"].shape[0], dev)
     while not bool(done.all()) and it < max_iters and ok:
         live = ~done
         kc = k.clamp(max=g_n - 1)
@@ -223,8 +275,8 @@ class TxnBatchResult:
 def run_txn_batch(plane, node_id, glines, rmask, wmask, ts, *,
                   algo: str, max_iters: int | None = None,
                   max_rounds: int | None = None) -> TxnBatchResult:
-    """Drive one txn batch through the flat ``plane`` and normalize the
-    result; the canonical-order contract (each row of ``glines`` sorted
+    """Drive one txn batch through ``plane`` (flat or sharded: a
+    sharded plane pads B to its shard count) and normalize the result; the canonical-order contract (each row of ``glines`` sorted
     ascending, ``-1`` pads at the end) is validated here, where it's
     cheap."""
     if algo not in _APPLY:
@@ -251,10 +303,29 @@ def run_txn_batch(plane, node_id, glines, rmask, wmask, ts, *,
                          "per txn (canonical latch order)")
     mr = plane.max_rounds if max_rounds is None else max_rounds
     mi = 4 * b + 16 if max_iters is None else max_iters
-    state, dec, estep, retr, it, alldone, ok, rounds, tele = \
-        run_txn_rounds(plane.state, node_id, glines, rmask, wmask, ts,
-                       algo=algo, n_nodes=plane.n_nodes, max_rounds=mr,
-                       max_iters=mi)
+    if plane.sharded:
+        pad = (-b) % plane.n_shards
+        if pad:
+            g_n = glines.shape[1]
+            node_id = np.concatenate([node_id, np.zeros(pad, np.int32)])
+            glines = np.concatenate(
+                [glines, np.full((pad, g_n), -1, np.int32)])
+            rmask = np.concatenate(
+                [rmask, np.zeros((pad, g_n, t_n), np.int32)])
+            wmask = np.concatenate(
+                [wmask, np.zeros((pad, g_n, t_n), np.int32)])
+            ts = np.concatenate([ts, np.zeros(pad, np.int32)])
+        state, dec, estep, retr, it, alldone, ok, rounds, tele = \
+            run_txn_rounds_sharded(
+                plane.state, node_id, glines, rmask, wmask, ts,
+                algo=algo, mesh=plane.mesh, axis=plane.axis,
+                n_nodes=plane.n_nodes, max_rounds=mr, max_iters=mi,
+                bucket_cap=plane.bucket_cap)
+    else:
+        state, dec, estep, retr, it, alldone, ok, rounds, tele = \
+            run_txn_rounds(plane.state, node_id, glines, rmask, wmask,
+                           ts, algo=algo, n_nodes=plane.n_nodes,
+                           max_rounds=mr, max_iters=mi)
     plane.state = state
     telemetry = plane._telemetry(tele)
     if not ok:
@@ -263,8 +334,8 @@ def run_txn_batch(plane, node_id, glines, rmask, wmask, ts, *,
         raise RuntimeError(
             f"txn batch not done after {mi} scheduler iterations "
             f"(livelock? raise max_iters)")
-    return TxnBatchResult(dec.cpu().numpy(), estep.cpu().numpy(),
-                          retr.cpu().numpy(), it, rounds, telemetry)
+    return TxnBatchResult(dec[:b].cpu().numpy(), estep[:b].cpu().numpy(),
+                          retr[:b].cpu().numpy(), it, rounds, telemetry)
 
 
 def _apply_host_one(algo, lanes, glines, rmask, wmask, ts):

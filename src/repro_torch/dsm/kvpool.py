@@ -1,7 +1,7 @@
 """SELCC-coherent disaggregated KV-page pool for multi-replica serving.
 
-Counterpart of ``repro/dsm/kvpool.py``, flat (the mesh-backed pool is
-queue 1 item 9).  A :class:`SELCCKVPool` serves one of two planes:
+Counterpart of ``repro/dsm/kvpool.py``.  A :class:`SELCCKVPool` serves
+one of two planes:
 
 * **The legacy page-copy path** (until ``open_rounds_plane()``): the
   pool is a dict of tensors (:func:`make_pool`: shadow ``k_pages`` /
@@ -27,6 +27,13 @@ queue 1 item 9).  A :class:`SELCCKVPool` serves one of two planes:
   splice on the device -> S->X upgrade write); ``pool.attend`` runs K3
   straight over zero-copy views of the plane's ``mem_data`` image.
 
+A pool built with a :class:`~repro_torch.core.rounds.mesh.Mesh` serves
+the SHARDED rounds plane (``home = page % n_shards``): every read and
+append crosses it through the sharded drivers, and the attend maps each
+page-table entry to its page's row in the striped ``mem_data``.  On the
+mesh's one device the legacy pool's page-indexed leaves are the flat
+arrays, with the same logical page indices.
+
 Where the reference scatters with duplicate indices (JAX leaves the
 result implementation-defined; its CPU backend applies the rows in
 order, so the last row wins), the port makes last-row-wins explicit:
@@ -45,7 +52,8 @@ import torch
 from .. import resolve_device
 from ..core import coherence as co
 from ..core.addressing import GAddr
-from ..core.rounds import DevicePlane, make_state
+from ..core.rounds import (DevicePlane, make_sharded_state, make_state,
+                           shard_state)
 from ..kernels.gcl_fetch import fetch as gcl_fetch_op
 from ..kernels.latch_ops import OP_CAS, apply_batch
 from ..kernels.paged_attention import decode_paged
@@ -68,20 +76,34 @@ def pool_dtype(cfg: KVPoolConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-backed pool is not ported (queue 1 item 9)")
+def _mesh_device(cfg: KVPoolConfig, mesh, device) -> torch.device:
+    """The pool's device: the mesh's when there is one (which must hold
+    a whole number of pages a shard, and agree with ``device`` if that
+    is given), else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    from ..core.rounds.mesh import shards_of
+    n_shards = shards_of(mesh)
+    if cfg.n_pages % n_shards:
+        raise ValueError(f"n_pages={cfg.n_pages} not divisible by the "
+                         f"mesh's {n_shards} shards")
+    if device is not None and resolve_device(device).type \
+            != mesh.device.type:
+        raise ValueError(f"device={device} but the mesh lives on "
+                         f"{mesh.device}")
+    return mesh.device
 
 
 def make_pool(cfg: KVPoolConfig, mesh=None, *, device=None) -> dict:
     """The legacy pool's leaves on ``device`` (``cuda`` unless ``"cpu"``
-    is asked for): shadow ``k_pages``/``v_pages`` [P, page, Hkv, hd] in
-    the pool dtype, the latch words [P, 2] int32 (the directory), the
-    page versions and fills [P], and the ``append_evictions`` counter
-    (readers evicted by appends' PeerWr broadcasts)."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    is asked for; the mesh's device when a ``mesh`` is given): shadow
+    ``k_pages``/``v_pages`` [P, page, Hkv, hd] in the pool dtype, the
+    latch words [P, 2] int32 (the directory), the page versions and
+    fills [P], and the ``append_evictions`` counter (readers evicted by
+    appends' PeerWr broadcasts).  On one device the reference's
+    block-sharded page leaves are these flat arrays: the logical page
+    indices are the same."""
+    dev = _mesh_device(cfg, mesh, device)
     dt = pool_dtype(cfg)
     shape = (cfg.n_pages, cfg.page_size, cfg.n_kv_heads, cfg.head_dim)
 
@@ -323,11 +345,19 @@ def pool_decode_attention(pool, q, page_tbl, lens, *, cfg: KVPoolConfig):
 
 
 def pool_decode_attention_rounds(rstate, q, page_tbl, lens, *,
-                                 cfg: KVPoolConfig):
+                                 cfg: KVPoolConfig, n_shards: int = 1):
     """Decode attention over the rounds plane's memory image: the page
     bytes are zero-copy views of ``mem_data``.  Under write-through
-    appends the image is always protocol-fresh."""
-    k_pages, v_pages = decode_kv(rstate["mem_data"], cfg)
+    appends the image is always protocol-fresh.  On a sharded plane
+    (stripe layout) each table entry ``p`` names row ``(p % S) * (P //
+    S) + p // S``: the reference unstripes the image instead, to the
+    same pages in the same order."""
+    md = rstate["mem_data"]
+    if n_shards > 1:
+        rows = md.shape[0] // n_shards
+        page_tbl = torch.where(page_tbl >= 0, (page_tbl % n_shards) * rows
+                               + page_tbl // n_shards, page_tbl)
+    k_pages, v_pages = decode_kv(md, cfg)
     return decode_paged(q, k_pages, v_pages, page_tbl, lens)
 
 
@@ -340,9 +370,9 @@ class SELCCKVPool:
 
     def __init__(self, cfg: KVPoolConfig, mesh=None, *, device=None):
         co.check_node_capacity(cfg.n_replicas)   # replicas = directory lanes
-        _no_mesh(mesh)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(cfg, mesh, device)
         self.pool = make_pool(cfg, device=self.device)
         self.cache = make_replica_cache(cfg, device=self.device)
         self.rounds_plane = None     # set by open_rounds_plane()
@@ -363,10 +393,15 @@ class SELCCKVPool:
             self.rounds_plane.state = value
 
     def as_rounds_state(self, *, write_back: bool = False, mesh=None):
-        """A fresh flat rounds-plane coherence state for THIS pool's
-        pages (pages are the lines, replicas the nodes), on the pool's
-        device."""
-        _no_mesh(mesh)
+        """A fresh rounds-plane coherence state for THIS pool's pages
+        (pages are the lines, replicas the nodes).  With a mesh (the
+        pool's own by default) it is the sharded plane's state on the
+        mesh's device (``home = page % n_shards``), else the flat one on
+        the pool's device."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is not None:
+            return make_sharded_state(self.cfg.n_replicas, self.cfg.n_pages,
+                                      mesh, write_back=write_back)
         return make_state(self.cfg.n_replicas, self.cfg.n_pages,
                           write_back=write_back, device=self.device)
 
@@ -376,8 +411,9 @@ class SELCCKVPool:
         coherence state whose lines are the pool's pages and whose
         ``mem_data`` lanes hold the page bytes, seeded from the current
         shadow ``k_pages``/``v_pages`` by bitcast (so legacy appends
-        carry over).  ``recorder`` optionally attaches an
-        ``obs.FlightRecorder`` to the plane.  Returns the state."""
+        carry over).  On a mesh-backed pool the plane is the sharded
+        one.  ``recorder`` optionally attaches an ``obs.FlightRecorder``
+        to the plane.  Returns the state."""
         if self.rounds_plane is not None:
             # re-seeding from the shadow pages would silently discard
             # every append made through the plane
@@ -390,8 +426,11 @@ class SELCCKVPool:
                            device=self.device)
         state["mem_data"].copy_(encode_kv(self.pool["k_pages"],
                                           self.pool["v_pages"], self.cfg))
+        if self.mesh is not None:
+            state = shard_state(state, self.mesh)
         self.rounds_plane = DevicePlane.open(
-            state, n_nodes=self.cfg.n_replicas, recorder=recorder)
+            state, self.mesh, n_nodes=self.cfg.n_replicas,
+            recorder=recorder)
         return state
 
     def _plane_ops(self, node, line, isw, wdata):
@@ -403,7 +442,11 @@ class SELCCKVPool:
     def _plane_held(self, replica: int, pages) -> np.ndarray:
         """Hit mask: the replica already holds the page in S or M."""
         cs = self.rounds_state["cache_state"]
-        pos = torch.as_tensor(np.maximum(pages, 0), device=cs.device)
+        pos = np.maximum(pages, 0)
+        s = self.rounds_plane.n_shards
+        if s > 1:                                 # stripe layout
+            pos = (pos % s) * (cs.shape[1] // s) + pos // s
+        pos = torch.as_tensor(pos, device=cs.device)
         held = (cs[replica, pos.long()] != 0).cpu().numpy()
         return np.logical_and(pages >= 0, held)
 
@@ -502,5 +545,6 @@ class SELCCKVPool:
         if self.rounds_plane is None:
             return pool_decode_attention(self.pool, q, page_tbl, lens,
                                          cfg=self.cfg)
-        return pool_decode_attention_rounds(self.rounds_state, q,
-                                            page_tbl, lens, cfg=self.cfg)
+        return pool_decode_attention_rounds(
+            self.rounds_state, q, page_tbl, lens, cfg=self.cfg,
+            n_shards=self.rounds_plane.n_shards)

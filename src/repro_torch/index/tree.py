@@ -1,8 +1,10 @@
 """DeviceBTree — a concurrent B-link tree served from the flat rounds plane.
 
 Counterpart of ``repro/index/tree.py`` (the paper's Sec. 8.1, Fig. 10
-application) without the mesh-sharded plane.  Every tree node is one
-GCL line of a payload-plane round state, and every structural rule of
+application), over the flat plane or the sharded one (``mesh=``: the
+tree's lines home on the mesh's shards, and every plane verb below
+routes through them).  Every tree node is one GCL line of a
+payload-plane round state, and every structural rule of
 the host ``BLinkTree`` maps onto a coherence-plane op sequence:
 
 * **descent** — the whole batched root-to-leaf walk is one
@@ -51,21 +53,27 @@ _MAX_LINK_HOPS = 64      # safety bound on level loops and link walks
 
 
 class DeviceBTree:
-    """One B-link tree bound to a flat rounds payload plane.
+    """One B-link tree bound to a rounds payload plane, flat or sharded.
 
     All public entry points are BATCHED and keyed by the coherence
     ``node`` performing them (default 0) — concurrent clients are
     distinct nodes whose latch traffic contends through the engine."""
 
     def __init__(self, state, codec: NodeCodec, alloc: LineAllocator, *,
-                 n_nodes: int, max_rounds: int = 128,
-                 driver: str = "fused"):
+                 mesh=None, axis: str = "shards", n_nodes: int,
+                 max_rounds: int = 128, driver: str = "fused"):
         if driver not in ("fused", "level", "host"):
             raise ValueError(f"unknown driver {driver!r}")
-        self.plane = rounds.DevicePlane.open(state, n_nodes=n_nodes,
+        if driver == "host" and mesh is not None:
+            raise ValueError("the host-synced baseline driver is "
+                             "flat-plane only")
+        self.plane = rounds.DevicePlane.open(state, mesh, axis=axis,
+                                             n_nodes=n_nodes,
                                              max_rounds=max_rounds)
         self.codec = codec
         self.alloc = alloc
+        self.mesh = mesh
+        self.axis = axis
         self.n_nodes = n_nodes
         self.max_rounds = max_rounds
         self.driver = driver
@@ -86,18 +94,28 @@ class DeviceBTree:
     # ------------------------------------------------------------ lifecycle
     @classmethod
     def create(cls, n_nodes: int = 4, n_lines: int = 256, *,
-               fanout: int = 8, write_back: bool = False,
-               max_rounds: int = 128, driver: str = "fused",
-               node: int = 0, device=None) -> "DeviceBTree":
+               fanout: int = 8, write_back: bool = False, mesh=None,
+               axis: str = "shards", max_rounds: int = 128,
+               driver: str = "fused", node: int = 0,
+               device=None) -> "DeviceBTree":
         """Fresh tree on a fresh plane on ``device`` (``cuda`` unless
-        ``"cpu"`` is asked for): builds the payload-plane state, reserves
-        line 0 for metadata, and publishes an empty root leaf."""
+        ``"cpu"`` is asked for), or sharded over ``mesh`` on its device:
+        builds the payload-plane state, reserves line 0 for metadata, and
+        publishes an empty root leaf."""
         codec = NodeCodec(fanout)
-        state = rounds.make_state(n_nodes, n_lines, write_back=write_back,
-                                  payload_width=codec.width, device=device)
+        if mesh is None:
+            state = rounds.make_state(n_nodes, n_lines,
+                                      write_back=write_back,
+                                      payload_width=codec.width,
+                                      device=device)
+        else:
+            state = rounds.make_sharded_state(n_nodes, n_lines, mesh, axis,
+                                              write_back=write_back,
+                                              payload_width=codec.width)
+        n_lines = state["words"].shape[0]      # sharded: rounded up
         alloc = LineAllocator(n_lines, start=META_LINE + 1)
-        tree = cls(state, codec, alloc, n_nodes=n_nodes,
-                   max_rounds=max_rounds, driver=driver)
+        tree = cls(state, codec, alloc, mesh=mesh, axis=axis,
+                   n_nodes=n_nodes, max_rounds=max_rounds, driver=driver)
         tree.root = int(alloc.alloc(1)[0])
         tree.height = 1
         tree._write_lines([tree.root], [codec.encode(leaf=True)], node)
@@ -105,9 +123,9 @@ class DeviceBTree:
         return tree
 
     @classmethod
-    def open(cls, state, *, n_nodes: int | None = None,
-             max_rounds: int = 128, driver: str = "fused",
-             node: int = 0) -> "DeviceBTree":
+    def open(cls, state, *, mesh=None, axis: str = "shards",
+             n_nodes: int | None = None, max_rounds: int = 128,
+             driver: str = "fused", node: int = 0) -> "DeviceBTree":
         """Adopt an existing plane: reads the metadata line through a
         real coherence op and reconstructs codec + allocator from it —
         the state is the whole tree, no side channel."""
@@ -117,8 +135,9 @@ class DeviceBTree:
         if not width:
             raise ValueError("state has no payload plane "
                              "(payload_width=0) — not a tree plane")
-        tree = cls(state, NodeCodec(1), LineAllocator(1), n_nodes=n_nodes,
-                   max_rounds=max_rounds, driver=driver)
+        tree = cls(state, NodeCodec(1), LineAllocator(1), mesh=mesh,
+                   axis=axis, n_nodes=n_nodes, max_rounds=max_rounds,
+                   driver=driver)
         _, meta = tree._ops(np.full(1, node, np.int32),
                             np.full(1, META_LINE, np.int32),
                             np.zeros(1, np.int32))
@@ -482,8 +501,11 @@ class DeviceBTree:
     def _image(self, state=None) -> np.ndarray:
         """Protocol-fresh per-line bytes from the state: memory image,
         with dirty M holders' cache_data substituted (the flush source
-        of truth under write-back)."""
-        state = self.state if state is None else state
+        of truth under write-back).  ``state`` accepts an already
+        unsharded state, so one copy serves this and the invariant
+        checks."""
+        if state is None:
+            state = self.plane.flat_state()
         img = state["mem_data"].cpu().numpy().copy()
         if "dirty" in state:
             dirty = state["dirty"].cpu().numpy()            # [N, L]
@@ -513,7 +535,7 @@ class DeviceBTree:
     def check_invariants(self) -> None:
         """Coherence invariants (incl. data/version agreement) on the
         plane PLUS the B-link structural invariants on the image."""
-        state = self.state
+        state = self.plane.flat_state()
         rounds.check_invariants(state)
         img = self._image(state)
         meta = img[META_LINE]

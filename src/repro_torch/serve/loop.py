@@ -92,7 +92,8 @@ class ServeStats:
 
 class ServeLoop:
     """Continuous-batching engine over one rounds-plane
-    :class:`~repro_torch.dsm.kvpool.SELCCKVPool`."""
+    :class:`~repro_torch.dsm.kvpool.SELCCKVPool` (flat or mesh-backed:
+    the pool's verbs and its attend take the plane's geometry)."""
 
     def __init__(self, pool, model, *, n_slots: int = 8,
                  max_pages: int = 16, prefill_chunk: int = 8,

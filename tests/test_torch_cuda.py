@@ -1182,3 +1182,67 @@ def test_replicate_on_gpu_matches_cpu(cuda):
             assert torch.equal(planes[1].state[k].cpu(), v), (b, k)
     assert planes[1].state["replica_ok"].any()
     planes[1].check()
+
+
+def test_sharded_plane_on_gpu_matches_flat(cuda):
+    """A 4-shard plane on the card (a home directory, replicas,
+    ``bucket_cap=2`` under its 8 slots a shard, one real ``rehome`` and
+    a ``replicate`` mid-stream) against the flat plane on the card and
+    against the same 4-shard plane on the CPU: versions and payloads
+    equal the flat plane's batch by batch (each written line has one
+    write slot a batch, so how overflow splits a batch cannot change a
+    history), every leaf equals the CPU's, the memory image the flat
+    plane's; K1 and K2 launch on the sharded calls and requests
+    defer."""
+    from repro_torch.core import rounds as tr
+    shd = [tr.DevicePlane.open(tr.make_sharded_state(
+        4, 64, tr.Mesh(4, device=d), payload_width=32,
+        home_directory=True, replicas=True), tr.Mesh(4, device=d),
+        bucket_cap=2) for d in ("cpu", cuda)]
+    flat = tr.DevicePlane.open(tr.make_state(4, 64, payload_width=32,
+                                             device=cuda))
+    rng = np.random.default_rng(14)
+    hits = np.zeros(64, np.int64)
+    picks = np.zeros(0, np.int64)
+    launched = {}
+    deferred = replica_served = 0
+    for b in range(8):
+        node = rng.integers(0, 4, 32).astype(np.int32)
+        line = rng.integers(0, 64, 32).astype(np.int32) % 24
+        isw = ((rng.random(32) < 0.3) & ~np.isin(line, picks)).astype(
+            np.int32)
+        written, first = set(line[isw == 1].tolist()), set()
+        for i, ln in enumerate(line.tolist()):
+            if ln in written:
+                if isw[i] and ln not in first:
+                    first.add(ln)
+                else:
+                    line[i] = -1
+        wd = rng.integers(-2**31, 2**31, (32, 32)).astype(np.int32)
+        res = [shd[0].ops(node, line, isw, wd)]
+        before = K.launch_counts()
+        res.append(shd[1].ops(node, line, isw, wd))
+        for k, n in K.launch_counts().items():
+            launched[k] = launched.get(k, 0) + n - before[k]
+        res.append(flat.ops(node, line, isw, wd))
+        for r in res[1:]:
+            assert np.array_equal(r.version, res[0].version), b
+            assert np.array_equal(r.data, res[0].data), b
+        hits += res[1].telemetry.line_hits
+        deferred += res[1].telemetry.deferred_total
+        replica_served += int(res[1].telemetry.replica_served.sum())
+        if b == 3:
+            hot = int(np.argmax(hits))
+            to = (int(shd[1].state["home"][hot]) + 1) % 4
+            assert [pl.rehome([hot], [to]) for pl in shd] == [1, 1]
+            picks = tr.plan_replication(hits, np.zeros_like(hits), top_k=4)
+            for pl in shd:
+                pl.replicate(picks)
+        for k, v in shd[0].state.items():
+            assert torch.equal(shd[1].state[k].cpu(), v), (b, k)
+    assert launched["latch_ops"] > 0 and launched["gcl_fetch"] > 0
+    assert deferred > 0 and replica_served > 0
+    got = shd[1].flat_state()
+    for k in ("mem_version", "mem_data"):
+        assert torch.equal(got[k], flat.state[k]), k
+    shd[1].check()

@@ -334,7 +334,29 @@ def test_as_plane_matches_the_reference(write_back):
     assert tl.gaddr_to_line(g) == jl.gaddr_to_line(g)
     st = tl.as_rounds_state(device="cpu")
     assert sorted(st) == sorted(jl.as_rounds_state())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a Mesh gives the sharded plane (lines padded to the shard count),
+    # which serves the same ops as the flat plane; anything else raises
+    from repro_torch.core.rounds import Mesh
+    mesh = Mesh(4, device="cpu")
+    sp = tl.as_plane(payload_width=4, write_back=write_back, mesh=mesh)
+    fp = tl.as_plane(payload_width=4, write_back=write_back,
+                     n_lines=sp.n_lines, device="cpu")
+    assert sp.sharded and sp.n_shards == 4 and sp.n_lines % 4 == 0
+    assert sp.n_lines >= tl.as_rounds_state(device="cpu")["words"].shape[0]
+    assert sp.n_nodes == fp.n_nodes == 4
+    for _ in range(3):
+        node = rng.integers(0, 4, 10).astype(np.int32)
+        line = rng.integers(0, 20, 10).astype(np.int32)
+        isw = (rng.random(10) < 0.4).astype(np.int32)
+        wd = rng.integers(0, 1 << 30, (10, 4)).astype(np.int32)
+        a, b = sp.ops(node, line, isw, wd), fp.ops(node, line, isw, wd)
+        np.testing.assert_array_equal(a.version, b.version)
+        np.testing.assert_array_equal(a.data, b.data)
+        np.testing.assert_array_equal(a.telemetry.line_hits,
+                                      b.telemetry.line_hits)
+    for k, v in sp.flat_state().items():
+        assert torch.equal(v, fp.state[k]), k
+    with pytest.raises(TypeError, match="Mesh"):
         tl.as_plane(mesh=object(), device="cpu")
 
 
@@ -351,7 +373,20 @@ def test_make_kv_pool_opens_a_legacy_pool():
     assert not hit[0]
     assert np.array_equal(kk[0, 2].numpy(), k[0])
     assert np.array_equal(vv[0, 2].numpy(), -k[0])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a Mesh-backed pool serves the same appends and reads; anything
+    # else raises
+    from repro_torch.core.rounds import Mesh
+    sharded = tcore.SELCCLayer.make_kv_pool(cfg, mesh=Mesh(4, device="cpu"))
+    assert sharded.device.type == "cpu" and sharded.cfg == cfg
+    sharded.open_rounds_plane()
+    assert sharded.rounds_plane.n_shards == 4
+    page = sharded.allocate(1)
+    sharded.append(page, [2], k, -k, replica=1)
+    kk, vv, hit = sharded.read(0, page)
+    assert not hit[0]
+    assert np.array_equal(kk[0, 2].numpy(), k[0])
+    assert np.array_equal(vv[0, 2].numpy(), -k[0])
+    with pytest.raises(TypeError, match="Mesh"):
         tcore.SELCCLayer.make_kv_pool(cfg, mesh=object(), device="cpu")
 
 

@@ -220,9 +220,28 @@ def test_legacy_guards():
         tw.j.append(np.array([1, 2]), np.array([0, 0]),
                     jnp.ones((2, 2, 8)), jnp.ones((2, 2, 8)),
                     replica=np.array([0, 1]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tkv.SELCCKVPool(tkv.KVPoolConfig(**_geom("float32")),
-                        mesh=object(), device="cpu")
+    # a Mesh-backed pool: on one device the legacy leaves are the flat
+    # arrays, and an append and a read give the flat pool's results;
+    # anything that is not a Mesh raises
+    from repro_torch.core.rounds import Mesh
+    cfg = tkv.KVPoolConfig(**_geom("float32"))
+    pools = [tkv.SELCCKVPool(cfg, device="cpu"),
+             tkv.SELCCKVPool(cfg, mesh=Mesh(2, device="cpu"))]
+    kv = np.arange(2 * 2 * 8, dtype=np.float32).reshape(2, 2, 8)
+    got = []
+    for pool in pools:
+        page = pool.allocate(2)
+        pool.append(page, [0, 1], kv, -kv, replica=1)
+        got.append(pool.read(0, page))
+        for k in pool.pool:
+            assert tuple(pool.pool[k].shape) == tuple(
+                pools[0].pool[k].shape), k
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for k in pools[0].pool:
+        assert torch.equal(pools[0].pool[k], pools[1].pool[k]), k
+    with pytest.raises(TypeError, match="Mesh"):
+        tkv.SELCCKVPool(cfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         tkv.SELCCKVPool(tkv.KVPoolConfig(**_geom("float32",
                                                  n_replicas=57)),
