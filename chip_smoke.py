@@ -67,7 +67,11 @@ Phases (any failure exits non-zero; nothing is caught):
    ``rehome``, against a twin plane) and the DES bridge
    (:func:`bridge_phase`: the quickstart cluster's DES workload through
    the port's ``SELCCLayer``, ``as_plane`` on the card against a CPU
-   twin, ``make_kv_pool()``'s legacy pool); then the sharded plane,
+   twin, ``make_kv_pool()``'s legacy pool; then the DES workers,
+   :func:`bridge_des_workers`: a micro run, YCSB over ``BLinkTree``,
+   TPC-C over ``TxnEngine``, ``parity_worker`` over every backend with
+   equal final images, and ``as_plane`` of the micro run's layer on the
+   card against a CPU twin); then the sharded plane,
    four home shards on the card (:func:`sharded_phase`: the serve again
    over a mesh-backed pool, every dispatch's versions and the final
    unsharded state hashed equal to the flat serve's, its ``[4, 4]``
@@ -126,7 +130,27 @@ Phases (any failure exits non-zero; nothing is caught):
    against a serial numpy replay of the generated txns in the device's
    completion order;
    print commits/s, aborts by reason, iterations, rounds and the K1/K2
-   launches, each path's rates beside the sharded phase's.  Phase 2
+   launches, each path's rates beside the sharded phase's;
+6b. the reference's oracle of the device engine (:func:`des_txn_oracle`):
+   a fresh engine at phase 6's geometry runs phase 6's first 2 batches
+   under 2PL and TO, then its first batch on a 4-shard plane; the
+   port's DES ``TxnEngine`` replays each batch's effective txns in the
+   device's order with the client ts injected (one memory node), and
+   :func:`replay_txn` beside it: decisions equal, and the touched GCLs'
+   protocol-fresh read-back equal to the DES records and the replay's
+   rows, every other line at its seed; then the Fig. 11 host cell
+   (:func:`des_fig11_cell`): the same batches run concurrently on a DES
+   cluster of 2 memory nodes and 8 threads under 2PL, TO and OCC,
+   commits + aborts = txns, printed beside the card's commits/s (DES
+   time units are not seconds);
+6c. Fig. 7's rounds workload (:func:`rounds_fig7_phase`:
+   ``device_rounds_batches`` with ``benchmarks/fig7_rounds.py``'s
+   knobs, 8 nodes, read 0.3, zipf 1.1, 128 rounds at most, seed 7; 16
+   batches at 1024 lines and R 64 and at 2^20 lines and R 1024,
+   write-through and write-back, and a payload-width-16 run) through
+   ``run_rounds`` flat and ``run_rounds_sharded`` on 4 shards, against
+   a CPU twin over the touched lines: versions and final state equal,
+   flat and sharded equal; rounds per batch and ops/s printed.  Phase 2
    also holds K1 and K2 at these two paths' shapes (K1 at the tree's
    descent round and the txn FINALIZE spin's 4096 slots, K2 at both
    paths' rows) and at a sharded home's (``*_shard``: 2^19 words, R
@@ -150,7 +174,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the card (:func:`train_resume_check`, Mamba2-2.7B at 1 layer);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
-   sharded plane, the LM serves, the tree, the transactions and the training runs, split
+   sharded plane, the LM serves, the tree, the transactions, the DES
+   oracle, Fig. 7's rounds and the training runs, split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -163,6 +188,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import hashlib
 import itertools
 import json
@@ -1861,7 +1887,109 @@ def bridge_phase(dev, width=PLACE_WIDTH, kv_cfg=None):
     return {"des_now_s": layer.env.now,
             "rdma": layer.fabric.stats.total_rdma(),
             "cache": layer.cache_stats(), "plane_lines": plane.n_lines,
-            "plane": repr(plane)}
+            "plane": repr(plane), "des_workers": bridge_des_workers(dev)}
+
+
+def bridge_des_workers(dev, micro_width=16, plane_slots=1024):
+    """The DES workers of ``apps/workloads.py`` over the port's
+    ``SELCCLayer``: ``micro_worker`` (``MicroConfig`` at sharing 1.0,
+    read 0.95, 200 ops a thread; 4 nodes of 4 threads), ``ycsb_worker``
+    over a ``BLinkTree`` a node (zipf 0.99 over 200 000 keys, half
+    inserts), ``tpcc_worker`` over a 2PL ``TxnEngine`` a node (every
+    query, 4 warehouses), each with a clean teardown, and
+    ``parity_worker`` over every backend of ``available_protocols()``,
+    whose final images must be equal.  Then ``as_plane`` of the micro
+    run's layer on ``dev`` (``micro_width`` lanes) serves two seeded
+    batches of ``plane_slots`` ops against a CPU twin."""
+    from repro_torch.apps import (BLinkTree, MicroConfig, TPCCConfig,
+                                  TPCCTables, TxnConfig, TxnEngine,
+                                  YCSBConfig, micro_worker, parity_worker,
+                                  tpcc_worker, ycsb_worker)
+    from repro_torch.core import (ClusterConfig, SELCCConfig, SELCCLayer,
+                                  available_protocols)
+
+    def cluster(n_compute, threads, protocol="selcc", cache=1024):
+        return SELCCLayer(ClusterConfig(
+            n_compute=n_compute, n_memory=2, threads_per_node=threads,
+            protocol=protocol, selcc=SELCCConfig(cache_capacity=cache)))
+
+    def run(layer, gens):
+        t0 = time.perf_counter()
+        layer.env.run_until_complete([layer.env.process(g) for g in gens],
+                                     hard_limit=1e6)
+        layer.assert_released()
+        return {"des_time": layer.env.now,
+                "wall_s": time.perf_counter() - t0}
+
+    out = {}
+    micro = cluster(4, 4)
+    mcfg = MicroConfig(sharing_ratio=1.0, read_ratio=0.95, ops_per_thread=200)
+    gcls = micro.allocate_many(mcfg.n_gcls)
+    out["micro"] = run(micro, [micro_worker(nd, gcls, mcfg, nd.node_id, 4,
+                                            t, SEED)
+                               for nd in micro.nodes for t in range(4)])
+    assert micro.total_ops() == 4 * 4 * mcfg.ops_per_thread
+    out["micro"].update(ops=micro.total_ops(), cache=micro.cache_stats(),
+                        inv_ratio=micro.inv_ratio())
+
+    layer = cluster(2, 2)
+    trees = [BLinkTree(layer, nd, fanout=16) for nd in layer.nodes]
+    ycfg = YCSBConfig(read_ratio=0.5)
+    out["ycsb"] = run(layer, [ycsb_worker(tr, ycfg, i, t, SEED)
+                              for i, tr in enumerate(trees)
+                              for t in range(2)])
+    seen = {}
+
+    def scan():
+        seen["pairs"] = yield from trees[0].range_scan(0, ycfg.n_keys)
+    run(layer, [scan()])
+    keys = [k for k, _ in seen["pairs"]]
+    assert keys and keys == sorted(set(keys)), "YCSB tree keys"
+    assert all(v in {(i, t) for i in range(2) for t in range(2)}
+               for _, v in seen["pairs"]), "YCSB tree values"
+    out["ycsb"].update(keys=len(keys),
+                       splits=sum(tr.stats["splits"] for tr in trees))
+
+    layer = cluster(2, 4, cache=4096)
+    tcfg = TPCCConfig(warehouses=4, txns_per_thread=20)
+    tables = TPCCTables(tcfg)
+    engines = [TxnEngine(layer, nd, TxnConfig(algo="2pl"), tables.n_tuples)
+               for nd in layer.nodes]
+    out["tpcc"] = run(layer, [tpcc_worker(e, tables, tcfg, 0, i, 2, t, SEED)
+                              for i, e in enumerate(engines)
+                              for t in range(4)])
+    commits = sum(e.stats.commits for e in engines)
+    aborts = sum(e.stats.aborts for e in engines)
+    assert commits + aborts == 2 * 4 * tcfg.txns_per_thread and commits
+    out["tpcc"].update(commits=commits, aborts=aborts)
+
+    images = {}
+    for protocol in available_protocols():
+        layer = cluster(2, 2, protocol, cache=64)
+        lines = layer.allocate_many(8)
+        for g in lines:
+            layer.seed_object(g, 0)
+        run(layer, [parity_worker(nd, lines, rounds=2, stride=3)
+                    for nd in layer.nodes])
+        images[protocol] = [layer.heap.load(g) for g in lines]
+    assert all(v == images["selcc"] for v in images.values()), images
+    out["parity"] = images["selcc"]
+
+    plane = micro.as_plane(payload_width=micro_width, device=dev)
+    twin = micro.as_plane(payload_width=micro_width, device="cpu")
+    rng = np.random.default_rng(SEED + 18)
+    for _ in range(2):
+        node = rng.integers(0, 4, plane_slots).astype(np.int32)
+        line = rng.integers(0, plane.n_lines, plane_slots).astype(np.int32)
+        isw = (rng.random(plane_slots) < 0.3).astype(np.int32)
+        wd = rng.integers(-2**31, 2**31, (plane_slots, micro_width)) \
+            .astype(np.int32)
+        a, z = plane.ops(node, line, isw, wd), twin.ops(node, line, isw, wd)
+        assert np.array_equal(a.version, z.version) and \
+            np.array_equal(a.data, z.data), "micro plane differs from twin"
+    plane.check()
+    out["micro_plane_lines"] = plane.n_lines
+    return out
 
 
 # ------------------------------------------------------ phase 4: LM serve
@@ -2518,6 +2646,307 @@ def txn_phase(dev, n_gcls=TXN_GCLS, batch=1024, n_batches=8):
         res[algo] = out
         del eng
     return res
+
+
+# ------------------------------------- phase 6b: the DES as the oracle
+
+def des_layer(algo, n_gcls, n_memory=1, threads=4):
+    """A fresh DES cluster of :data:`TXN_NODES` compute nodes with one
+    ``TxnEngine`` a node over ``n_gcls`` GCLs of :data:`TXN_TUPLES`
+    tuples.  One memory node by default: the host engine latches GCLs in
+    sorted ``(node_id, offset)`` order and the device in ascending line
+    order, which coincide only then, and TO keeps the updates it made
+    before it aborts, so the order decides which tuples they land in."""
+    from repro_torch.apps import TxnConfig, TxnEngine
+    from repro_torch.core import ClusterConfig, SELCCLayer
+    layer = SELCCLayer(ClusterConfig(n_compute=TXN_NODES, n_memory=n_memory,
+                                     threads_per_node=threads))
+    return layer, [TxnEngine(layer, nd, TxnConfig(
+        algo=algo, tuples_per_gcl=TXN_TUPLES), n_gcls * TXN_TUPLES)
+        for nd in layer.nodes]
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """The cyclic garbage collector off inside the block, one collection
+    after it.  A DES cluster at 2^20 GCLs holds a million ``GAddr``s and
+    seed records; the collector, run over them again and again while
+    they are made and while the DES runs, took 60 % of the set-up."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+        gc.collect()
+
+
+def des_run_one(layer, engine, sets, ts):
+    """One txn through the DES engine, alone, with its client ts."""
+    out = {}
+
+    def one():
+        out["ok"] = yield from engine.run(*sets, ts=ts)
+    layer.env.run_until_complete([layer.env.process(one())])
+    return out["ok"]
+
+
+def des_txn_oracle(dev, n_gcls=TXN_GCLS, batch=1024, n_batches=2,
+                   sharded_batches=1):
+    """The reference's oracle of the device engine (``tests/
+    test_txn_device.py``): a fresh ``DeviceTxnEngine`` at phase 6's
+    geometry runs ``n_batches`` batches (``sharded_batches`` on a
+    :data:`SHARDS`-shard plane) under 2PL and TO, from phase 6's seeds,
+    so its batches are phase 6's first ones; each run is held by
+    :func:`oracle_run`."""
+    from repro_torch.core.rounds import (DevicePlane, Mesh,
+                                         make_sharded_state, make_state,
+                                         txn_payload_width)
+    w = txn_payload_width(TXN_TUPLES)
+    mesh = Mesh(SHARDS, device=dev)
+    res = {"gcls": n_gcls, "batch": batch}
+    t_all = time.perf_counter()
+    for plane_name, iters in (("flat", n_batches),
+                              ("sharded", sharded_batches)):
+        res[plane_name] = {}
+        for algo, seed in (("2pl", SEED + 13), ("to", SEED + 14)):
+            if plane_name == "flat":
+                plane = DevicePlane.open(make_state(
+                    TXN_NODES, n_gcls, payload_width=w, device=dev))
+            else:
+                plane = DevicePlane.open(make_sharded_state(
+                    TXN_NODES, n_gcls, mesh, payload_width=w), mesh)
+            with collector_paused():
+                res[plane_name][algo] = oracle_run(
+                    plane, algo, seed, iters, n_gcls, batch,
+                    f"{plane_name} {algo}")
+            del plane
+    res["wall_s"] = time.perf_counter() - t_all
+    return res
+
+
+def oracle_run(plane, algo, seed, iters, n_gcls, batch, label):
+    """``iters`` batches of ``batch`` txns through a ``DeviceTxnEngine``
+    on ``plane``, each replayed by the port's DES ``TxnEngine``
+    (:func:`des_layer`) one txn at a time in the device's ``(exec_step,
+    slot)`` order with the client ts injected, and by :func:`replay_txn`
+    beside it: every decision equal.  Then the image: the GCLs the
+    batches touched, read back through the plane (protocol-fresh), equal
+    the DES records rendered by ``host_record_lanes`` and the numpy
+    replay's rows; every other line equals its seed on the card (zeros),
+    in the DES heap (``{"writes": 0}``) and in the numpy image."""
+    from repro_torch.apps import (DeviceTxnConfig, DeviceTxnEngine,
+                                  TxnBatchConfig, device_txn_batches,
+                                  host_record_lanes)
+    t0 = time.perf_counter()
+    eng = DeviceTxnEngine(plane, DeviceTxnConfig(
+        algo=algo, tuples_per_gcl=TXN_TUPLES, max_group_lines=TXN_LINES_MAX))
+    layer, engines = des_layer(algo, n_gcls)
+    image = np.zeros((n_gcls, plane.payload_width), np.int32)
+    out = {"des_setup_s": time.perf_counter() - t0, "card_s": 0.0,
+           "replay_s": 0.0, "txns": 0, "commits": 0, "aborts": 0,
+           "retries": 0}
+    touched = set()
+    for txns, node, ts in device_txn_batches(TxnBatchConfig(
+            n_gcls=n_gcls, tuples_per_gcl=TXN_TUPLES, batch=batch,
+            iters=iters, max_group_lines=TXN_LINES_MAX,
+            zipf_theta=TXN_THETA, n_nodes=TXN_NODES), seed=seed):
+        t1 = time.perf_counter()
+        r, eff = eng.run_batch(node, txns, ts=ts)
+        t2 = time.perf_counter()
+        out["card_s"] += t2 - t1
+        assert len(eff) == len(r.decision) == len(txns)
+        for i in sorted(range(len(txns)),
+                        key=lambda i: (int(r.exec_step[i]), i)):
+            got = bool(r.decision[i])
+            des = des_run_one(layer, engines[int(node[i])], eff[i],
+                              int(ts[i]))
+            assert des == got, \
+                f"{label}: txn {i} decided {got}, the DES {des}"
+            assert replay_txn(image, eff[i], int(ts[i]), algo,
+                              TXN_TUPLES) == got, \
+                f"{label}: replay_txn differs at {i}"
+            touched.update(t // TXN_TUPLES for t in eff[i][0] + eff[i][1])
+        out["replay_s"] += time.perf_counter() - t2
+        out["txns"] += len(txns)
+        out["commits"] += int(r.decision.sum())
+        out["aborts"] += int((~r.decision).sum())
+        out["retries"] += int(r.retries.sum())
+    layer.assert_released()
+    t3 = time.perf_counter()
+    lines = np.array(sorted(touched), np.int32)
+    gcls, heap = engines[0].gcls, layer.heap
+    des_img = np.stack([host_record_lanes(heap.load(gcls[g]), g, TXN_TUPLES)
+                        for g in lines.tolist()])
+    back = plane.ops(np.zeros_like(lines), lines, np.zeros_like(lines)).data
+    assert np.array_equal(back, des_img), \
+        f"{label}: the card's image differs from the DES"
+    assert np.array_equal(image[lines], des_img), \
+        f"{label}: replay_txn's image differs from the DES"
+    rest = np.ones(n_gcls, bool)
+    rest[lines] = False
+    mem = plane.flat_state()["mem_data"]
+    assert not mem[torch.from_numpy(rest).to(mem.device)].any(), \
+        f"{label}: an untouched line left its seed"
+    assert not image[rest].any()
+    seed_rec = {"writes": 0}
+    assert all(heap.load(gcls[g]) == seed_rec
+               for g in np.flatnonzero(rest).tolist()), \
+        f"{label}: the DES moved an untouched line"
+    plane.check()
+    out.update(lines_checked=len(lines), image_s=time.perf_counter() - t3,
+               commits_per_s=out["commits"] / out["card_s"],
+               des_now=layer.env.now,
+               aborts_by_reason=dict(eng.stats.abort_reasons))
+    return out
+
+
+def des_fig11_cell(n_gcls=TXN_GCLS, batch=1024, n_batches=2):
+    """``benchmarks/fig11_tpcc_rounds.py``'s host cell (``_des_cell``):
+    the oracle's batches (2PL's seed for OCC, which only the DES runs)
+    submitted all at once, a batch at a time, to a DES cluster of
+    :data:`TXN_NODES` compute nodes, 2 memory nodes and 8 threads a
+    node, each txn on its node's ``TxnEngine`` with its client ts.
+    Every txn commits or aborts.  Returns commits, aborts by reason and
+    the simulated time (DES units, not seconds) per algorithm."""
+    from repro_torch.apps import TxnBatchConfig, device_txn_batches
+    res = {"gcls": n_gcls, "batch": batch, "batches": n_batches}
+    for algo, seed in (("2pl", SEED + 13), ("to", SEED + 14),
+                       ("occ", SEED + 13)):
+        with collector_paused():
+            t0 = time.perf_counter()
+            layer, engines = des_layer(algo, n_gcls, n_memory=2, threads=8)
+            t1 = time.perf_counter()
+            for txns, node, ts in device_txn_batches(TxnBatchConfig(
+                    n_gcls=n_gcls, tuples_per_gcl=TXN_TUPLES, batch=batch,
+                    iters=n_batches, max_group_lines=TXN_LINES_MAX,
+                    zipf_theta=TXN_THETA, n_nodes=TXN_NODES), seed=seed):
+                procs = [layer.env.process(engines[int(node[i])].run(
+                    txns[i][0], txns[i][1], ts=int(ts[i])))
+                    for i in range(len(txns))]
+                layer.env.run_until_complete(procs, hard_limit=1e9)
+            layer.assert_released()
+            commits = sum(e.stats.commits for e in engines)
+            aborts = sum(e.stats.aborts for e in engines)
+            assert commits + aborts == n_batches * batch, \
+                f"DES {algo}: {commits} + {aborts} != {n_batches * batch}"
+            reasons = collections.Counter()
+            for e in engines:
+                reasons.update(e.stats.abort_reasons)
+            res[algo] = {"commits": commits, "aborts": aborts,
+                         "aborts_by_reason": dict(reasons),
+                         "des_time": layer.env.now, "setup_s": t1 - t0,
+                         "run_s": time.perf_counter() - t1}
+            del layer, engines
+    return res
+
+
+# ------------------------------------ phase 6c: Fig. 7's rounds workload
+
+FIG7_NODES = 8                     # benchmarks/fig7_rounds.py:36-44
+FIG7_READ = 0.3
+FIG7_THETA = 1.1
+FIG7_MAX_ROUNDS = 128
+FIG7_SEED = 7
+# (lines, R, payload width, write-back): the bench's own 1024 lines and
+# R 64, then 2^20 lines and R 1024, each write-through and write-back,
+# and one payload-plane run
+FIG7_RUNS = ((1024, 64, 0, False), (1024, 64, 0, True),
+             (1 << 20, 1024, 0, False), (1 << 20, 1024, 0, True),
+             (1 << 20, 1024, 16, True))
+
+
+def _line_rows(state, lines):
+    """Each leaf's rows at ``lines`` (a long tensor), along its line
+    axis."""
+    from repro_torch.core.rounds.state import LINE_AXIS
+    return {k: v.index_select(LINE_AXIS[k], lines.to(v.device)).cpu()
+            for k, v in state.items()}
+
+
+def rounds_fig7_phase(dev, runs=FIG7_RUNS, iters=16):
+    """Fig. 7's op stream (``device_rounds_batches`` with the bench's
+    knobs: 8 nodes, read 0.3, zipf 1.1, seed 7), ``iters`` batches a
+    run, driven through ``run_rounds`` on a flat state and through
+    ``run_rounds_sharded`` on :data:`SHARDS` shards, both on ``dev``,
+    and through ``run_rounds`` on a CPU twin over the lines the batches
+    touch (renumbered 0..U-1: a round changes only the lines its slots
+    name, so the twin is the flat state's touched rows).  Every batch
+    served within ``FIG7_MAX_ROUNDS``; versions (and payloads) equal
+    flat, sharded and twin, the rounds equal flat and twin; at the end
+    every leaf of the flat state equals the twin's on the touched rows
+    and a fresh state's elsewhere, the unsharded state equals the flat
+    one, and the invariants hold."""
+    from repro_torch.apps import DeviceRoundsConfig, device_rounds_batches
+    from repro_torch.core.rounds import (Mesh, check_invariants,
+                                         make_sharded_state, make_state,
+                                         run_rounds, run_rounds_sharded,
+                                         unshard_state)
+    mesh = Mesh(SHARDS, device=dev)
+    out = []
+    t_all = time.perf_counter()
+    for n_lines, r, width, wb in runs:
+        batches = device_rounds_batches(DeviceRoundsConfig(
+            n_nodes=FIG7_NODES, n_lines=n_lines, r_slots=r,
+            read_ratio=FIG7_READ, zipf_theta=FIG7_THETA, iters=iters,
+            payload_width=width), seed=FIG7_SEED)
+        used = np.unique(np.concatenate([b[1] for b in batches]))
+        remap = np.full(n_lines, -1, np.int32)
+        remap[used] = np.arange(len(used), dtype=np.int32)
+        geom = dict(write_back=wb, payload_width=width)
+        flat = make_state(FIG7_NODES, n_lines, device=dev, **geom)
+        shd = make_sharded_state(FIG7_NODES, n_lines, mesh, **geom)
+        twin = make_state(FIG7_NODES, len(used), device="cpu", **geom)
+        kw = dict(n_nodes=FIG7_NODES, max_rounds=FIG7_MAX_ROUNDS)
+        rec = {"lines": n_lines, "r": r, "payload_width": width,
+               "write_back": wb, "batches": iters,
+               "lines_touched": int(len(used)), "rounds": [],
+               "sharded_rounds": [], "flat_s": 0.0, "sharded_s": 0.0}
+        for b in batches:
+            node, line, isw = b[:3]
+            wd = b[3] if width else None
+            sync(dev)
+            t0 = time.perf_counter()
+            flat, fv, fd, fr, fok, _ = run_rounds(flat, node, line, isw, wd,
+                                                  **kw)
+            sync(dev)
+            t1 = time.perf_counter()
+            shd, sv, sd, sr, sok, _ = run_rounds_sharded(
+                shd, node, line, isw, wd, mesh=mesh, **kw)
+            sync(dev)
+            t2 = time.perf_counter()
+            twin, tv, td, tr, tok, _ = run_rounds(twin, node, remap[line],
+                                                  isw, wd, **kw)
+            rec["flat_s"] += t1 - t0
+            rec["sharded_s"] += t2 - t1
+            assert fok and sok and tok, "a batch was not served in bound"
+            assert fr == tr, f"rounds {fr} on the card, {tr} on the twin"
+            fv, fd = fv.cpu(), fd.cpu()
+            assert torch.equal(fv, tv) and torch.equal(fd, td), \
+                "the flat plane's versions differ from the CPU twin's"
+            assert torch.equal(sv.cpu(), fv) and torch.equal(sd.cpu(), fd), \
+                "the sharded plane's versions differ from the flat plane's"
+            rec["rounds"].append(fr)
+            rec["sharded_rounds"].append(sr)
+        rows = torch.from_numpy(used).long()
+        rest = torch.from_numpy(np.flatnonzero(remap < 0)).long()
+        fresh = _line_rows(make_state(FIG7_NODES, len(rest), device="cpu",
+                                      **geom),
+                           torch.arange(len(rest)))
+        got_used, got_rest = _line_rows(flat, rows), _line_rows(flat, rest)
+        for k, v in twin.items():
+            assert torch.equal(got_used[k], v), f"final {k} differs (twin)"
+            assert torch.equal(got_rest[k], fresh[k]), \
+                f"final {k}: an untouched line left its seed"
+        for k, v in unshard_state(shd, mesh).items():
+            assert torch.equal(v, flat[k]), f"final {k} differs (sharded)"
+        check_invariants(flat)
+        ops = iters * r
+        rec.update(rounds_per_batch=sum(rec["rounds"]) / iters,
+                   flat_ops_per_s=ops / rec["flat_s"],
+                   sharded_ops_per_s=ops / rec["sharded_s"])
+        out.append(rec)
+        del flat, shd, twin
+    return {"runs": out, "wall_s": time.perf_counter() - t_all}
 
 
 # ------------------------------------------------ the sharded plane
@@ -3305,6 +3734,33 @@ def main() -> int:
                 a: [res[a]["commits_per_s"],
                     sharded["txn"][a]["commits_per_s"]]
                 for a in ("2pl", "to")}))
+    t_new = time.perf_counter()
+    oracle = None
+    for path, phase in (("des_oracle", des_txn_oracle),
+                        ("fig7_rounds", rounds_fig7_phase)):
+        K.reset_launch_counts()
+        res = phase(dev)
+        got = K.launch_counts()
+        by_path[path] = {k: got[k] for k in ("latch_ops", "gcl_fetch")}
+        log(f"{path}: " + json.dumps(res))
+        log(f"{path} launches: " + json.dumps(by_path[path]))
+        for name, n in by_path[path].items():
+            assert n > 0, f"kernel {name} never launched on the {path} path"
+            counts[name] += n
+        if path == "des_oracle":
+            oracle = res
+        else:
+            log("fig7 rounds per batch: " + json.dumps({
+                f"{r['lines']}x{r['r']} w{r['payload_width']} "
+                f"{'wb' if r['write_back'] else 'wt'}":
+                r["rounds_per_batch"] for r in res["runs"]}))
+    fig11 = des_fig11_cell()
+    log("fig11 host cell (DES time units, not seconds): "
+        + json.dumps(fig11) + "; the card's commits/s on the same batches: "
+        + json.dumps({a: oracle["flat"][a]["commits_per_s"]
+                      for a in ("2pl", "to")}))
+    log(f"DES oracle, Fig. 11 host cell and Fig. 7 rounds: "
+        f"{time.perf_counter() - t_new:.3f} s")
     train = collections.defaultdict(dict)     # kernel -> arch -> launches
     for arch, kw in TRAIN_RUNS.items():
         _, got = train_run(dev, K, arch, **kw)

@@ -1246,3 +1246,28 @@ def test_sharded_plane_on_gpu_matches_flat(cuda):
     for k in ("mem_version", "mem_data"):
         assert torch.equal(got[k], flat.state[k]), k
     shd[1].check()
+
+
+def test_des_txn_oracle_on_gpu(cuda):
+    """``chip_smoke.des_txn_oracle`` at a small geometry on the card: the
+    card's decisions and image against the port's DES ``TxnEngine``
+    replay (and ``replay_txn``), flat and on four shards, K1 and K2
+    launched; then ``rounds_fig7_phase`` at the bench's 1024 lines
+    against its CPU twin and the sharded plane."""
+    cs = _chip_smoke()
+    K.reset_launch_counts()
+    res = cs.des_txn_oracle(cuda, n_gcls=1 << 12, batch=64, n_batches=2,
+                            sharded_batches=1)
+    got = K.launch_counts()
+    assert got["latch_ops"] > 0 and got["gcl_fetch"] > 0
+    for plane in ("flat", "sharded"):
+        for algo in ("2pl", "to"):
+            r = res[plane][algo]
+            assert r["txns"] == r["commits"] + r["aborts"] > 0
+    assert res["flat"]["to"]["aborts"] > 0
+    K.reset_launch_counts()
+    fig7 = cs.rounds_fig7_phase(cuda, runs=((1024, 64, 0, False),
+                                            (1024, 64, 8, True)), iters=4)
+    got = K.launch_counts()
+    assert got["latch_ops"] > 0 and got["gcl_fetch"] > 0
+    assert all(r["rounds_per_batch"] > 1 for r in fig7["runs"])

@@ -16,8 +16,10 @@ Exact throughout (the DES is plain Python, seeded):
   ``as_plane()``: the same op batches give the same versions, payloads
   and state leaves; ``make_kv_pool`` opens a legacy pool.
 
-The DES workers come from the reference's ``apps/workloads.py`` (the
-port has no copy of them yet); they drive any node of the facade.
+Each package drives its own DES workers (``apps.parity_worker``);
+``tests/test_torch_des_apps.py`` holds the port's copies of the
+workloads and the transaction engine against the reference's with this
+file's ``_both`` harness.
 """
 
 import dataclasses
@@ -205,8 +207,8 @@ def _parity(core, apps, fifo, protocol):
     gcls = layer.allocate_many(8)
     for g in gcls:
         layer.seed_object(g, 0)
-    procs = [layer.env.process(japps.parity_worker(node, gcls, rounds=2,
-                                                   stride=3))
+    procs = [layer.env.process(apps.parity_worker(node, gcls, rounds=2,
+                                                  stride=3))
              for node in layer.nodes]
     layer.env.run_until_complete(procs, hard_limit=50)
     return layer, {g: layer.heap.load(g) for g in gcls}

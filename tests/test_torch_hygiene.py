@@ -7,9 +7,10 @@
   imports the port, serves a small trace on the CPU, runs the LM serve
   of the dense, ssm, moe, hybrid, vlm and encdec families (the moe FFN
   and the RG-LRU modules with them), the B-link tree, a transaction
-  batch, and the training stack (``launch.train`` with a checkpoint and
-  a resume, the optimizer tiers, gradient compression, the fault
-  runtime, the input specs and the train-state conversions);
+  batch, the DES workers and transaction engine, the rounds-plane
+  generator, and the training stack (``launch.train`` with a
+  checkpoint and a resume, the optimizer tiers, gradient compression,
+  the fault runtime, the input specs and the train-state conversions);
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -165,6 +166,30 @@ def test_port_serves_with_jax_blocked():
             n_replicas=2, dtype="bfloat16"), device="cpu")
         kv.append([1], [0], torch.ones(1, 2, 4), torch.ones(1, 2, 4))
         assert kv.read(1, [1])[0][0, 0].float().sum().item() == 8.0
+        from repro_torch.apps import (DeviceRoundsConfig, MicroConfig,
+                                      TPCCConfig, TPCCTables, TxnConfig,
+                                      TxnEngine, device_rounds_batches,
+                                      micro_worker, parity_worker,
+                                      tpcc_worker)
+        gcls = layer.allocate_many(16)
+        mcfg = MicroConfig(n_gcls=16, zipf_theta=0.99, ops_per_thread=10)
+        procs = [layer.env.process(micro_worker(nd, gcls, mcfg, nd.node_id,
+                                                2, 0, 1))
+                 for nd in layer.nodes]
+        procs.append(layer.env.process(parity_worker(layer.nodes[0],
+                                                     gcls[:4], 1, 2)))
+        layer.env.run_until_complete(procs, hard_limit=100)
+        tcfg = TPCCConfig(warehouses=2, txns_per_thread=4)
+        tables = TPCCTables(tcfg)
+        engines = [TxnEngine(layer, nd, TxnConfig(algo="to"),
+                             tables.n_tuples) for nd in layer.nodes]
+        procs = [layer.env.process(tpcc_worker(e, tables, tcfg, 0, i, 2, 0,
+                                               3))
+                 for i, e in enumerate(engines)]
+        layer.env.run_until_complete(procs, hard_limit=100)
+        assert sum(e.stats.commits + e.stats.aborts for e in engines) == 8
+        layer.assert_released()
+        assert len(device_rounds_batches(DeviceRoundsConfig(iters=2))) == 2
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         assert "ml_dtypes" not in sys.modules
