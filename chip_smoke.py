@@ -172,10 +172,26 @@ Phases (any failure exits non-zero; nothing is caught):
    the card (:func:`train_plain_check`; recurrentgemma-2b at 2304
    positions, past its window); and a checkpoint saved and resumed on
    the card (:func:`train_resume_check`, Mamba2-2.7B at 1 layer);
+7b. the sharded LM stack on the one card (:func:`sharded_lm_phase`):
+   deepseek-moe-16b at full width and depth served through
+   ``launch.serve.main --production-mesh`` ((data 16, model 16), EP 16:
+   each of 16 model shards routes its 128 of a prefill's 2048 tokens
+   against its own capacity, 16 slots against 244 flat; batch 4, prompt
+   512, 32 generated tokens; K4 once per layer a prefill); one full-width
+   ``moe_ffn`` on 2048 tokens under that mesh against the independent
+   reference run once per shard, drop sets equal shard by shard
+   (:func:`moe_card_check`); ``launch.train.main --production-mesh`` at 4
+   layers, 8 steps, 1 micro-batch (:func:`sharded_train`: finite losses,
+   every gradient, exact K4 forward and backward launches); and
+   ``pipeline_forward`` with 4 stages and 8 micro-batches of a
+   ``tanh(h @ w)`` stack at width 2048, 8 layers, within rtol 1e-5 of
+   the unpipelined loop (:func:`pipeline_check`);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
    sharded plane, the LM serves, the tree, the transactions, the DES
-   oracle, Fig. 7's rounds and the training runs, split
+   oracle, Fig. 7's rounds, the training runs and the sharded LM
+   stack's serve and training (``sharded_lm_serve``,
+   ``sharded_lm_train``), split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -194,6 +210,7 @@ import itertools
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1995,11 +2012,12 @@ def bridge_des_workers(dev, micro_width=16, plane_slots=1024):
 # ------------------------------------------------------ phase 4: LM serve
 
 def lm_serve(K, arch, requests, kernel, per_prefill, per_step=0, batch=4,
-             prompt=512, gen=32):
-    """The port's ``launch.serve.main`` at the full config of ``arch``;
-    returns its counts and the kernels it launched.  ``kernel`` must have
-    launched ``per_prefill`` times a prefill and ``per_step`` times a
-    decode step, exactly."""
+             prompt=512, gen=32, flags=()):
+    """The port's ``launch.serve.main`` at the full config of ``arch``
+    (with the driver's ``flags``); returns its counts, its mesh and EP
+    degree and the kernels it launched.  ``kernel`` must have launched
+    ``per_prefill`` times a prefill and ``per_step`` times a decode
+    step, exactly."""
     from repro_torch.launch.serve import main as serve_main
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2007,7 +2025,7 @@ def lm_serve(K, arch, requests, kernel, per_prefill, per_step=0, batch=4,
     t0 = time.perf_counter()
     res = serve_main(["--arch", arch, "--requests", str(requests),
                       "--batch", str(batch), "--prompt-len", str(prompt),
-                      "--gen", str(gen)])
+                      "--gen", str(gen), *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
@@ -2024,7 +2042,7 @@ def lm_serve(K, arch, requests, kernel, per_prefill, per_step=0, batch=4,
             "tok_per_s": res["tokens"] / res["seconds"],
             "wall_s_with_init": wall,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": counts}
+            "mesh": res["mesh"], "ep": res["ep"], "launches": counts}
 
 
 @contextlib.contextmanager
@@ -2247,7 +2265,7 @@ def encdec_replay(dev, s=512, frames=128, steps=8):
     return out
 
 
-def moe_card_check(dev, n_tokens=2048):
+def moe_card_check(dev, n_tokens=2048, mesh=None):
     """``moe_ffn`` of one deepseek-moe-16b layer at full width
     (``src/repro/configs/deepseek_moe_16b.py``: d 2048, 64 routed experts
     of 1408, top 6, 2 shared) on ``n_tokens`` bf16 tokens that share a
@@ -2257,44 +2275,61 @@ def moe_card_check(dev, n_tokens=2048):
     gates (the same router product, stable order), takes each
     assignment's slot from a running count per expert and drops it past
     the capacity, then applies every kept assignment in fp32 (per
-    expert, over its kept tokens) with the shared experts.  The drop
-    sets must be equal; the output within 2e-2 of the reference's scale
-    (bf16 operands and a bf16 rounding of every product in the model's
+    expert, over its kept tokens) with the shared experts.  With a
+    ``mesh`` (expert parallelism over its model axis), the tokens are
+    one row, so each model shard holds ``n_tokens / ep`` consecutive
+    tokens: the reference loop runs once per shard, on the shard's
+    tokens, with the capacity of the shard's count (16 slots on the
+    production mesh's 16 shards).  The drop sets must be equal, shard by
+    shard; the output within 2e-2 of the reference's scale (bf16
+    operands and a bf16 rounding of every product in the model's
     path)."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
+    from repro_torch.parallel.sharding import make_ctx
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     p = moe.init_moe(gen, cfg, torch.bfloat16)
     d, k, n_exp = cfg.d_model, cfg.top_k, cfg.n_experts
     x = (torch.randn((1, n_tokens, d), generator=gen, device=dev)
          + 1.5 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+    ctx = None if mesh is None else make_ctx(mesh, cfg)
+    shards = 1
+    if ctx is not None:
+        nb, shards, _ = moe.ep_layout(x.shape, ctx)
+        assert nb == 1 and shards == ctx.ep, (nb, shards, ctx.ep)
+    t_l = n_tokens // shards
     with dispatch_calls() as calls:
         t0 = time.perf_counter()
-        y, _ = moe.moe_ffn(x, p, cfg)
+        y, _ = moe.moe_ffn(x, p, cfg, ctx)
         torch.cuda.synchronize()
         port_s = time.perf_counter() - t0
     keep = calls[0][1][4]
-    cap = moe._capacity(n_tokens, k, n_exp, cfg.capacity_factor)
+    cap = moe._capacity(t_l, k, n_exp, cfg.capacity_factor)
     xt = x.reshape(n_tokens, d)
     gates = torch.softmax(xt.float() @ p["router"].float(), -1).cpu().numpy()
-    count = np.zeros(n_exp, np.int64)
     kept = {e: ([], []) for e in range(n_exp)}       # tokens, weights
     ref_keep = np.zeros((n_tokens, k), bool)
-    for t in range(n_tokens):
-        order = np.argsort(-gates[t], kind="stable")[:k]
-        w = gates[t][order] / max(float(gates[t][order].sum()), 1e-9)
-        for j, e in enumerate(order):
-            if count[e] < cap:
-                kept[int(e)][0].append(t)
-                kept[int(e)][1].append(float(w[j]))
-                ref_keep[t, j] = True
-            count[e] += 1
+    over = 0
+    for g in range(shards):
+        count = np.zeros(n_exp, np.int64)
+        for t in range(g * t_l, (g + 1) * t_l):
+            order = np.argsort(-gates[t], kind="stable")[:k]
+            w = gates[t][order] / max(float(gates[t][order].sum()), 1e-9)
+            for j, e in enumerate(order):
+                if count[e] < cap:
+                    kept[int(e)][0].append(t)
+                    kept[int(e)][1].append(float(w[j]))
+                    ref_keep[t, j] = True
+                count[e] += 1
+        over += int((count > cap).sum())
     port_keep = keep.cpu().numpy().reshape(n_tokens, k)
-    assert np.array_equal(port_keep, ref_keep), \
-        f"moe_ffn drops {int((~port_keep).sum())} assignments, the " \
-        f"reference {int((~ref_keep).sum())}; they differ at " \
-        f"{int((port_keep != ref_keep).sum())}"
+    for g in range(shards):
+        sl = slice(g * t_l, (g + 1) * t_l)
+        assert np.array_equal(port_keep[sl], ref_keep[sl]), \
+            f"shard {g}: moe_ffn drops {int((~port_keep[sl]).sum())} " \
+            f"assignments, the reference {int((~ref_keep[sl]).sum())}; " \
+            f"they differ at {int((port_keep[sl] != ref_keep[sl]).sum())}"
     xf = xt.float()
     want = torch.zeros((n_tokens, d), device=dev)
     for e, (tok, w) in kept.items():
@@ -2311,12 +2346,15 @@ def moe_card_check(dev, n_tokens=2048):
     want += sh @ p["s_wd"].float()
     err = float((y.reshape(n_tokens, d).float() - want).abs().max())
     scale = float(want.abs().max())
-    out = {"tokens": n_tokens, "capacity": cap,
+    out = {"tokens": n_tokens, "shards": shards, "capacity": cap,
+           "flat_capacity": moe._capacity(n_tokens, k, n_exp,
+                                          cfg.capacity_factor),
            "dropped": int((~ref_keep).sum()),
-           "experts_over_capacity": int((count > cap).sum()),
+           "experts_over_capacity": over,
            "max_abs_err": err, "scale": scale, "rel_err": err / scale,
            "tolerance_rel": 2e-2, "port_s": port_s}
-    log("moe_ffn card check: " + json.dumps(out))
+    log(("moe_ffn EP card check: " if shards > 1 else
+         "moe_ffn card check: ") + json.dumps(out))
     assert out["dropped"] > 0, "the check's tokens overflowed no expert"
     assert np.isfinite(err) and err <= 2e-2 * scale, \
         f"moe_ffn off the fp32 reference by {err} (scale {scale}, " \
@@ -3259,6 +3297,7 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512, n_layers=None,
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.train import frontend_stand_ins
     from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.train import run_steps
     from repro_torch.models.lm import train_launches
     from repro_torch.train import build_train_step, init_train_state
@@ -3277,8 +3316,8 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512, n_layers=None,
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=batch,
                                   seq_len=toks))
     if n_layers or int8_state:
-        step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=batch,
-                                         device=dev)
+        step_fn, _, _ = build_train_step(cfg, make_local_mesh(dev), tcfg,
+                                         global_batch=batch)
         state = init_train_state(cfg, tcfg, torch.Generator(
             device=dev).manual_seed(0), dev)
         rec = run_steps(step_fn, state, data, extra, steps, dev)
@@ -3299,8 +3338,8 @@ def train_run(dev, K, arch, steps=8, batch=4, seq=512, n_layers=None,
         assert got == want, f"{arch} step {i}: launches {got}, want {want}"
     n_params = sum(t.numel() for t in pt.leaves(state["params"]))
     state_bytes = sum(t.numel() * t.element_size() for t in pt.leaves(state))
-    step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=batch,
-                                     device=dev)
+    step_fn, _, _ = build_train_step(cfg, make_local_mesh(dev), tcfg,
+                                     global_batch=batch)
     b = dict(data.batch_at(steps), **extra)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -3468,11 +3507,12 @@ def train_resume_check(dev, arch="mamba2-2.7b", n_layers=1, steps=6,
     from repro_torch.checkpoint import CheckpointManager, restore
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.train import build_train_step, init_train_state
     cfg = get_config(arch).replace(n_layers=n_layers)
     tcfg = _train_cfg(steps)
-    step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=batch,
-                                     device=dev)
+    step_fn, _, _ = build_train_step(cfg, make_local_mesh(dev), tcfg,
+                                     global_batch=batch)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=batch,
                                   seq_len=seq))
     ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -3510,6 +3550,194 @@ def train_resume_check(dev, arch="mamba2-2.7b", n_layers=1, steps=6,
            "train_and_save_s": save_s, "restore_s": restore_s}
     log("train resume: " + json.dumps(out))
     return out
+
+
+# ------------------------------------------ phase 7b: the sharded LM stack
+
+SHARDED_ARCH = "deepseek-moe-16b"
+SHARDED_TRAIN_LAYERS = 4           # as TRAIN_RUNS cuts it
+PIPE_STAGES, PIPE_MICRO, PIPE_WIDTH, PIPE_LAYERS, PIPE_ROWS = 4, 8, 2048, 8, 64
+PIPE_REPEATS = 20                  # warmed runs of each, in turns
+
+
+def sharded_serve(dev, K, requests=8, batch=4, prompt=512, gen=32):
+    """``launch.serve.main --production-mesh`` for deepseek-moe-16b at
+    full width and depth: (data 16, model 16) on the card, EP 16 over
+    the model axis.  A prefill's 4 x 512 tokens replicate over the data
+    axis (16 does not divide the batch) and split over the model axis:
+    16 shards of 128 tokens, each routed against its own capacity (16
+    slots, against 244 for the 2048 tokens routed flat); a decode step's
+    4 tokens replicate over both axes, so they are routed once.  K4 must
+    run once per attention layer a prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import make_ctx
+    cfg = get_config(SHARDED_ARCH)
+    ctx = make_ctx(make_production_mesh(device=dev), cfg)
+    nb, ns, _ = moe.ep_layout((batch, prompt, cfg.d_model), ctx)
+    local_cap = moe._capacity(batch * prompt // (nb * ns), cfg.top_k,
+                              cfg.n_experts, cfg.capacity_factor)
+    with dispatch_calls() as calls:
+        res = lm_serve(K, SHARDED_ARCH, requests, "flash_attention",
+                       cfg.n_layers, 0, batch, prompt, gen,
+                       flags=("--production-mesh",))
+        shapes = collections.Counter(tuple(r[4].shape) for _, r in calls)
+        del calls[:]
+    prefills = -(-requests // batch)
+    prefill_shape = (nb * ns, batch * prompt // (nb * ns) * cfg.top_k)
+    assert res["mesh"] == {"data": 16, "model": 16} and res["ep"] == 16
+    assert shapes[prefill_shape] == prefills * cfg.n_layers, shapes
+    res.update(shards_routing_a_prefill=nb * ns, local_capacity=local_cap,
+               flat_capacity=moe._capacity(batch * prompt, cfg.top_k,
+                                           cfg.n_experts,
+                                           cfg.capacity_factor),
+               dispatch_shapes={str(k): v for k, v in shapes.items()})
+    return res
+
+
+def sharded_train(dev, K, steps=8, batch=4, seq=512):
+    """``launch.train.main --production-mesh`` for deepseek-moe-16b at
+    full width and :data:`SHARDED_TRAIN_LAYERS` layers (the driver's
+    config lookup cut to that depth; the driver has no depth flag), with
+    the driver's ``--micro 1``, remat and lr 3e-4: its state placed by
+    ``state_specs`` on (data 16, model 16), EP 16 in every moe layer.
+    Finite losses and grad norms, a gradient for every leaf, exactly
+    ``lm.train_launches`` a step.  ``resolve_micro`` would also give 1
+    micro-batch here (dp 16 does not divide the batch of 4)."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.lm import train_launches
+    from repro_torch.train import TrainConfig, resolve_micro
+    real = train_mod.get_config
+    cfg = real(SHARDED_ARCH).replace(n_layers=SHARDED_TRAIN_LAYERS)
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(train_launches(cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.get_config = lambda arch: real(arch).replace(
+        n_layers=SHARDED_TRAIN_LAYERS)
+    try:
+        rec = train_mod.main(["--arch", SHARDED_ARCH, "--production-mesh",
+                              "--steps", str(steps), "--batch", str(batch),
+                              "--seq", str(seq), "--micro", "1", "--lr",
+                              "3e-4", "--log-every", "1"])
+    finally:
+        train_mod.get_config = real
+    peak = torch.cuda.max_memory_allocated()
+    del rec["state"]
+    torch.cuda.empty_cache()
+    assert rec["mesh"] == {"data": 16, "model": 16} and rec["ep"] == 16
+    assert rec["n_micro"] == 1 and resolve_micro(
+        TrainConfig(), make_production_mesh(device=dev), batch) == 1
+    assert np.isfinite(rec["losses"]).all() and \
+        np.isfinite(rec["grad_norms"]).all(), "non-finite EP training"
+    assert rec["grads_missing"] == 0, \
+        f"{rec['grads_missing']} parameter leaves got no gradient"
+    for i, got in enumerate(rec["launches"]):
+        assert got == want, f"EP train step {i}: launches {got}, want {want}"
+    steady = float(np.median(rec["step_ms"][1:]))
+    out = {"arch": SHARDED_ARCH, "layers": SHARDED_TRAIN_LAYERS,
+           "mesh": rec["mesh"], "ep": rec["ep"], "n_micro": rec["n_micro"],
+           "batch": batch, "seq": seq, "steps": steps,
+           "losses": rec["losses"], "grad_norms": rec["grad_norms"],
+           "step_ms": rec["step_ms"], "steady_step_ms": steady,
+           "tokens_per_s": batch * seq / steady * 1e3,
+           "peak_mem_gb": peak / 1e9, "grads_missing": rec["grads_missing"],
+           "launches_per_step": want}
+    return out, {k: v * steps for k, v in want.items()}
+
+
+def pipeline_check(dev, stages=PIPE_STAGES, micro=PIPE_MICRO,
+                   width=PIPE_WIDTH, n_layers=PIPE_LAYERS, rows=PIPE_ROWS):
+    """``parallel.pipeline_forward`` on a ``pipe`` mesh of ``stages`` on
+    the card: ``micro`` micro-batches of ``rows`` x ``width`` fp32 through
+    a ``tanh(h @ w)`` stack of ``n_layers`` (w ~ N(0, 1/width)), held
+    within rtol 1e-5 (atol 1e-6) of the unpipelined layer loop; both
+    timed over ``PIPE_REPEATS`` warmed runs each, in turns
+    (CUDA-synchronised wall: median and range), beside the schedule's
+    bubble fraction."""
+    from repro_torch.core.rounds import Mesh
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               pipeline_forward,
+                                               split_stages)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    w = torch.randn((n_layers, width, width), generator=gen,
+                    device=dev) * width ** -0.5
+    x = torch.randn((micro, rows, width), generator=gen, device=dev)
+
+    def stage(params, h):
+        for wi in params["w"]:
+            h = torch.tanh(h @ wi)
+        return h
+
+    def loop():
+        return torch.stack([stage({"w": w}, xm) for xm in x])
+
+    mesh = Mesh({"pipe": stages}, dev)
+    staged = split_stages({"w": w}, stages)
+
+    def pipe():
+        return pipeline_forward(stage, staged, x, mesh=mesh)
+
+    got, want = pipe(), loop()                          # warm-up
+    ms = {"pipeline": [], "loop": []}
+    for _ in range(PIPE_REPEATS):                       # in turns
+        for name, fn in (("pipeline", pipe), ("loop", loop)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    diff = (got - want).abs()
+    out = {"stages": stages, "micro_batches": micro, "width": width,
+           "layers": n_layers, "rows": rows,
+           "bubble_fraction": bubble_fraction(stages, micro),
+           "max_abs_err": float(diff.max()),
+           "max_rel_err": float((diff / want.abs().clamp_min(1e-30)).max()),
+           "bit_equal": bool(torch.equal(got, want)), "repeats": PIPE_REPEATS}
+    for name, t in ms.items():
+        out[f"{name}_ms"] = statistics.median(t)
+        out[f"{name}_ms_range"] = [min(t), max(t)]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    return out
+
+
+def sharded_lm_phase(dev, K):
+    """Phase 7b: the sharded LM stack on one card: (a) the serve under
+    the production mesh (:func:`sharded_serve`), (b) EP ``moe_ffn`` on
+    it against the per-shard reference (:func:`moe_card_check` with the
+    mesh), (c) the train driver under it (:func:`sharded_train`), (d)
+    the GPipe schedule (:func:`pipeline_check`).  Returns the phase's
+    record and the kernel launches of (a) and (c), counted from 0 just
+    before each."""
+    from repro_torch.launch.mesh import make_production_mesh
+    t0 = time.perf_counter()
+    serve_res = sharded_serve(dev, K)
+    log("sharded_lm serve: " + json.dumps(serve_res))
+    ep_check = moe_card_check(dev, mesh=make_production_mesh(device=dev))
+    train_res, train_counts = sharded_train(dev, K)
+    log("sharded_lm train: " + json.dumps(train_res))
+    pipe = pipeline_check(dev)
+    log("sharded_lm pipeline: " + json.dumps(pipe))
+    launches = {"serve": serve_res["launches"], "train": train_counts}
+    assert launches["serve"]["flash_attention"] > 0 and \
+        launches["train"]["flash_attention"] > 0 and \
+        launches["train"]["flash_attention_bwd"] > 0, launches
+    out = {"serve_tok_per_s": serve_res["tok_per_s"],
+           "local_capacity": serve_res["local_capacity"],
+           "flat_capacity": serve_res["flat_capacity"],
+           "serve_k4_launches": serve_res["launches"]["flash_attention"],
+           "ep_check_rel_err": ep_check["rel_err"],
+           "ep_check_dropped": ep_check["dropped"],
+           "train_steady_step_ms": train_res["steady_step_ms"],
+           "train_losses": train_res["losses"],
+           "train_k4_launches": train_counts["flash_attention"],
+           "train_k4_bwd_launches": train_counts["flash_attention_bwd"],
+           "pipeline_max_rel_err": pipe["max_rel_err"],
+           "seconds": time.perf_counter() - t0}
+    log("sharded_lm: " + json.dumps(out))
+    return out, launches
 
 
 def main() -> int:
@@ -3771,6 +3999,10 @@ def main() -> int:
     for arch, (n_layers, seq) in TRAIN_PLAIN.items():
         train_plain_check(dev, K, arch, n_layers, seq=seq)
     train_resume_check(dev)
+    _, sharded_lm = sharded_lm_phase(dev, K)
+    for path in sharded_lm.values():
+        for name, n in path.items():
+            counts[name] = counts.get(name, 0) + n
 
     for row in rows[:2]:
         row["launches_by_path"] = {p: c[row["name"]]
@@ -3779,8 +4011,11 @@ def main() -> int:
                                    if a != "mamba2-2.7b"}
     rows[4]["launches_by_path"] = {"mamba2-2.7b": lm_paths["mamba2-2.7b"]}
     for row in rows[3:]:
-        row["launches_by_path"] = dict(row.get("launches_by_path", {}),
-                                       train=sum(train[row["name"]].values()))
+        row["launches_by_path"] = dict(
+            row.get("launches_by_path", {}),
+            train=sum(train[row["name"]].values()),
+            **{f"sharded_lm_{p}": c[row["name"]]
+               for p, c in sharded_lm.items()})
         row["train_launches_by_arch"] = train[row["name"]]
 
     kernels = []

@@ -1,10 +1,15 @@
 """Where the LM serving path's time goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_lm.py [--arch qwen3-1.7b mamba2-2.7b]
-        [--out-dir build/profiles] [--src DIR]
+        [--out-dir build/profiles] [--src DIR] [--serve REPEATS]
 
 (``--src``: profile the ``repro_torch`` package under DIR, for instance
-an unpacked older commit, instead of this checkout's.)
+an unpacked older commit, instead of this checkout's.  ``--serve``:
+profile nothing; time the serve driver ``launch.serve.main`` instead,
+REPEATS times for each architecture at ``chip_smoke.py`` phase 4's
+requests, and print each run's tokens a second.  To compare two
+commits, run it for each in turns within one chip call: other, this,
+this, other.)
 
 For each architecture, at its full published config with random bf16
 weights (the port's ``init_params``, seed 0): one prefill of 4 prompts
@@ -30,6 +35,7 @@ Writes the full tables to ``<out-dir>/profile_lm_<arch>.txt``.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -42,6 +48,24 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 BATCH, PROMPT, GEN = 4, 512, 32
+SERVE_REQUESTS = {"qwen3-1.7b": 16}    # 8 for the others, as phase 4
+
+
+def serve_runs(arch, repeats, src):
+    """``launch.serve.main`` at the full config of ``arch``, ``repeats``
+    times: tokens a second of each run (the driver's own clock, after
+    its weights are made)."""
+    from repro_torch.launch import serve
+    n = SERVE_REQUESTS.get(arch, 8)
+    runs = []
+    for _ in range(repeats):
+        res = serve.main(["--arch", arch, "--requests", str(n),
+                          "--batch", str(BATCH), "--prompt-len",
+                          str(PROMPT), "--gen", str(GEN)])
+        runs.append(res["tokens"] / res["seconds"])
+        del res
+        torch.cuda.empty_cache()
+    return {"src": src, "arch": arch, "tok_per_s": runs}
 
 
 def profile_arch(arch, dev):
@@ -137,6 +161,7 @@ def main() -> int:
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "build",
                                                       "profiles"))
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--serve", type=int, default=0, metavar="REPEATS")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     if not torch.cuda.is_available():
@@ -147,6 +172,11 @@ def main() -> int:
     dev = torch.device("cuda")
     print(chip_smoke.card_line(), flush=True)
     _build.build_all()
+    if args.serve:
+        for arch in args.arch:
+            print("serve " + json.dumps(serve_runs(arch, args.serve,
+                                                   args.src)), flush=True)
+        return 0
     os.makedirs(args.out_dir, exist_ok=True)
     for arch in args.arch:
         lines, tables = profile_arch(arch, dev)

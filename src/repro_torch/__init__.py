@@ -21,6 +21,9 @@ is found by name:
 * ``models/``, ``launch/serve.py`` — LM serving for every family;
 * ``optim/``, ``train/``, ``data/``, ``checkpoint/``, ``runtime/``,
   ``launch/train.py`` — the training stack on one device;
+* ``parallel/``, ``launch/mesh.py`` — the LM stack's meshes (named
+  axes, every shard on one device), sharding specs and contexts, expert
+  parallelism in ``models/moe.py``, and the GPipe pipeline;
 * ``kernels/`` — the hand-written Hopper kernels (CUDA C++ under
   ``csrc/``) that replace the TPU's Pallas kernels, each with its plain
   PyTorch version beside it, and the backward kernels of K4 and K5.

@@ -15,10 +15,15 @@ crc32 is over its raw bytes.  Publishing is an atomic rename of
 ``step_N.tmp``.  Saves are async: the tensors are copied to host memory
 on the calling thread (so the training step may update its state in
 place right after), and written on a background thread; ``wait()``
-joins.  Restore takes the newest step whose manifest verifies.  There is
-no mesh: restore places every leaf on the device of the matching leaf
-of ``tree_like`` (resharding waits for the sharded stack, ROADMAP.md
-queue 1 item 9).
+joins.  Restore takes the newest step whose manifest verifies.  It
+places every leaf on the device of the matching leaf of ``tree_like``,
+or, given
+``shardings`` (a matching tree of ``parallel.sharding.NamedSharding``,
+e.g. ``to_named(mesh, state_specs(mesh, ...))`` of a new mesh after an
+elastic remesh), on its sharding's mesh device, refusing a spec that
+does not divide the leaf's shape as JAX's placement would.  The shards
+of a mesh share its one device; spreading them over several cards
+waits for several cards (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -141,10 +146,12 @@ def _to_tensor(arr, dtype_name, device):
     return t.to(device)
 
 
-def restore(tree_like, directory, step: int | None = None):
+def restore(tree_like, directory, step: int | None = None, shardings=None):
     """(tree, step): the checkpoint in the structure of ``tree_like``,
     each leaf a tensor on the device of ``tree_like``'s leaf (a leaf
-    that is not a tensor gives a CPU tensor)."""
+    that is not a tensor gives a CPU tensor), or with ``shardings`` on
+    its sharding's device after its spec is checked against the leaf's
+    shape."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -157,11 +164,19 @@ def restore(tree_like, directory, step: int | None = None):
     leaves, spec = pt.flatten(tree_like)
     if len(leaves) != len(manifest["leaves"]):
         raise ValueError("checkpoint/tree structure mismatch")
+    placements = [None] * len(leaves) if shardings is None \
+        else pt.leaves(shardings)
+    if len(placements) != len(leaves):
+        raise ValueError("shardings/tree structure mismatch")
     out = []
-    for info, ref in zip(manifest["leaves"], leaves):
+    for info, ref, sh in zip(manifest["leaves"], leaves, placements):
         arr = _loaded(np.load(step_dir / info["file"]), info["dtype"],
                       info["shape"])
-        dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
+        if sh is not None:
+            sh.check(info["shape"])
+            dev = sh.device
+        else:
+            dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
         out.append(_to_tensor(arr, info["dtype"], dev))
     return pt.unflatten(spec, out), step
 
@@ -187,9 +202,9 @@ class CheckpointManager:
             self._pending = None
             self._gc()
 
-    def restore(self, tree_like):
+    def restore(self, tree_like, shardings=None):
         self.wait()
-        return restore(tree_like, self.directory)
+        return restore(tree_like, self.directory, shardings=shardings)
 
     def _gc(self) -> None:
         for s in _steps(self.directory)[self.keep:]:

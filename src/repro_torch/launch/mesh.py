@@ -1,0 +1,43 @@
+"""The LM stack's meshes; port of ``repro.launch.mesh``.
+
+Each is a :class:`repro_torch.core.rounds.Mesh` with the reference's
+named axes, every shard on one device (``cuda`` unless the caller asks
+for ``"cpu"``): the production mesh's 256 (or 512) shards all live on
+the one card, so a run on it computes what the sharded reference
+computes, expert parallelism included, without the exchanges between
+cards (those wait for several cards, ROADMAP.md queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.rounds.mesh import Mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """(data 16, model 16), or (pod 2, data 16, model 16)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(dict(zip(axes, shape)), device)
+
+
+def make_local_mesh(device=None) -> Mesh:
+    """One shard with the production axis names: every run takes the
+    production code path, and gives what the port gives with no mesh."""
+    return Mesh({"data": 1, "model": 1}, device)
+
+
+def make_mesh_from_devices(devices, *, data: int, model: int,
+                           pod: int | None = None, device=None) -> Mesh:
+    """The elastic variant: a mesh over the first data x model (x pod)
+    of ``devices``, a list of shard ids (the survivors after excluding
+    failed hosts), laid out in the mesh's shape."""
+    n = data * model * (pod or 1)
+    if len(devices) < n:
+        raise ValueError(f"need {n} devices, have {len(devices)}")
+    arr = np.asarray(devices[:n])
+    if pod:
+        return Mesh({"pod": pod, "data": data, "model": model}, device,
+                    devices=arr)
+    return Mesh({"data": data, "model": model}, device, devices=arr)

@@ -4,7 +4,13 @@ serve step builders; port of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --smoke --device cpu --requests 16 --gen 32
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are
+Runs on ``cuda`` unless ``--device cpu`` is given, over
+``make_local_mesh()``, or with ``--production-mesh`` over
+``make_production_mesh()``: (data 16, model 16), every shard on the one
+device, so a moe config runs expert parallelism over 16 model shards,
+each routing its own tokens against its own capacity, as the reference
+computes on 256 chips (the exchanges between cards wait for several
+cards, ROADMAP.md queue 1 item 9).  Parameters are
 random, drawn from a ``torch.Generator`` seeded 0 on the device; the
 prompts are the JAX driver's (numpy seed 0), and so are the stand-ins of
 the modality frontends: zero bf16 ``patch_embeds`` [b, n_patches, d] for
@@ -32,6 +38,7 @@ from .. import resolve_device
 from ..configs import get_config, get_smoke_config
 from ..models import lm
 from ..train.step import build_serve_step
+from .mesh import make_local_mesh, make_production_mesh
 
 
 # leaves a decode step reads whole: never padded
@@ -79,7 +86,8 @@ def prefix_len(cfg) -> int:
 def main(argv=None) -> dict:
     """Serve ``--requests`` prompts in batches; returns what it prints
     (requests, tokens, seconds) plus the generated token ids
-    ([requests, gen]) and whether every logit was finite."""
+    ([requests, gen]), whether every logit was finite, the mesh's shape
+    and the expert-parallel degree."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true")
@@ -90,15 +98,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("the production mesh waits for the "
-                                  "sharded stack (ROADMAP.md queue 1 "
-                                  "item 9)")
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    serve_step, serve_prefill, _ = build_serve_step(cfg, dev)
+    mesh = (make_production_mesh(device=dev) if args.production_mesh
+            else make_local_mesh(device=dev))
+    serve_step, serve_prefill, ctx = build_serve_step(cfg, mesh)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
 
@@ -141,7 +147,8 @@ def main(argv=None) -> dict:
     print(f"[serve] done: {done} requests, {total_tokens} tokens in "
           f"{seconds:.1f}s")
     return {"requests": done, "tokens": total_tokens, "seconds": seconds,
-            "generated": gen_ids, "finite": bool(finite)}
+            "generated": gen_ids, "finite": bool(finite),
+            "mesh": mesh.shape, "ep": ctx.ep}
 
 
 if __name__ == "__main__":

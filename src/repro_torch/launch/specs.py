@@ -1,8 +1,9 @@
 """``train_inputs(cfg, seq, batch)``: the shape and dtype of every
 training input; port of ``repro.launch.specs.train_inputs`` (JAX's
 ``ShapeDtypeStruct`` stand-ins become :class:`TensorSpec`, nothing is
-allocated).  The prefill and decode specs, which only the dry-run of the
-sharded stack reads, wait with it (ROADMAP.md queue 1 item 9).
+allocated).  The prefill and decode specs, which only the reference's
+dry-run reads, wait with the port of the dry-run (ROADMAP.md queue 1
+item 11).
 """
 
 from __future__ import annotations

@@ -13,8 +13,13 @@ valid checkpoint.  Parameters are random, drawn from a
 loss needs encoder frames that the token pipeline does not make, gets
 :func:`frontend_stand_ins`: seeded random bf16 ``enc_embeds`` of
 ``launch.specs``' shape (JAX's driver passes none, and its encdec loss
-raises without them).  ``--production-mesh`` raises: the mesh waits for
-the sharded stack (ROADMAP.md queue 1 item 9).
+raises without them).  The step runs over ``make_local_mesh()``, or
+with ``--production-mesh`` over ``make_production_mesh()`` (data 16,
+model 16, every shard on the one device: the micro-batch count splits
+the batch by the 16 data rows, and a moe config runs expert parallelism
+over the 16 model shards), and the state is placed with the reference's
+``state_specs`` and ``to_named``; the exchanges between cards wait for
+several cards (ROADMAP.md queue 1 item 9).
 
 :func:`main` returns the run's record: per step the loss, grad norm,
 learning rate, wall time (ms, synchronised) and kernel launches, and the
@@ -33,8 +38,11 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..data import DataConfig, SyntheticLM
 from ..optim import AdamWConfig
+from ..parallel.sharding import device_put, to_named
 from ..runtime import StragglerWatchdog
 from ..train import TrainConfig, build_train_step, init_train_state
+from ..train.step import state_specs
+from .mesh import make_local_mesh, make_production_mesh
 from .specs import train_inputs
 
 
@@ -119,23 +127,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("the production mesh waits for the "
-                                  "sharded stack (ROADMAP.md queue 1 "
-                                  "item 9)")
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
+    mesh = (make_production_mesh(device=dev) if args.production_mesh
+            else make_local_mesh(device=dev))
     tcfg = TrainConfig(
         micro_batches=args.micro,
         remat=not args.smoke,
         opt=AdamWConfig(lr=args.lr, warmup_steps=max(5, args.steps // 20),
                         total_steps=args.steps))
-    step_fn, _, _ = build_train_step(cfg, tcfg, global_batch=args.batch,
-                                     device=dev)
+    step_fn, ctx, n_micro = build_train_step(cfg, mesh, tcfg,
+                                             global_batch=args.batch)
     state = init_train_state(cfg, tcfg,
                              torch.Generator(device=dev).manual_seed(0), dev)
+    state = device_put(state, to_named(mesh, state_specs(mesh, state, tcfg)))
 
     start = 0
     mgr = CheckpointManager(args.ckpt) if args.ckpt else None
@@ -162,7 +169,8 @@ def main(argv=None) -> dict:
     print(f"[train] done: {args.steps - start} steps in {tot:.1f}s "
           f"({(args.steps - start) / max(tot, 1e-9):.2f} steps/s)")
     rec.update(arch=cfg.name, start=start, seconds=tot,
-               tokens_per_step=args.batch * args.seq)
+               tokens_per_step=args.batch * args.seq, mesh=mesh.shape,
+               ep=ctx.ep, n_micro=n_micro)
     return rec
 
 

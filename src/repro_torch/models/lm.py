@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,12 +59,26 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 @dataclass(frozen=True)
 class ParallelCtx:
-    """What the model knows about sharding.  On one device there is none:
-    ``c(tensor, kind)`` is the identity.  The sharded stack, whose
-    context constrains, waits for ROADMAP.md queue 1 item 9."""
+    """Everything the model knows about the mesh
+    (``parallel.sharding.make_ctx`` builds it): the data and model axes,
+    the expert-parallel degree (the model axis's size for the moe
+    family: ``moe_ffn`` then routes each shard's tokens on its own) and
+    an optional ``constrain`` (tensor, kind) -> tensor.  ``make_ctx``
+    sets none, since on the port's one device a sharding constraint
+    changes no value, so ``c`` is the identity there as it is under
+    :data:`NO_PARALLEL`, which has no mesh."""
+    mesh: Any = None
+    dp_axis: Any = "data"
+    tp_axis: str = "model"
+    ep: int = 1                     # expert-parallel degree
+    constrain: Callable = None      # (tensor, kind) -> tensor
+
+    @property
+    def ep_axis(self):
+        return self.tp_axis
 
     def c(self, t, kind):
-        return t
+        return self.constrain(t, kind) if self.constrain else t
 
 
 NO_PARALLEL = ParallelCtx()
@@ -238,7 +253,8 @@ def moe_block(x, p, cfg, ctx, cache=None, pos=None):
     h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
                       cache=cache, pos=pos)
     x = x + h
-    y, aux = moe.moe_ffn(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg)
+    y, aux = moe.moe_ffn(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg,
+                         ctx if ctx.ep > 1 else None)
     return x + y, kv, aux
 
 

@@ -1,9 +1,5 @@
-"""Mixture-of-Experts FFN, capacity-based (Switch-style) dispatch.
-
-Port of ``repro.models.moe`` on one device: ``_moe_local`` runs with a
-single shard and the identity in place of the all-to-all, and
-``moe_ffn`` with an expert-parallel context raises (the sharded stack
-waits for ROADMAP.md queue 1 item 9).
+"""Mixture-of-Experts FFN, capacity-based (Switch-style) dispatch, with
+expert parallelism (EP); port of ``repro.models.moe``.
 
 Layout contract, as in JAX:
   tokens x        : [B, S, d]
@@ -18,9 +14,29 @@ then a renormalisation).  An assignment's slot is its rank among the
 assignments to its expert in flat (token, k) order; slots past the
 capacity drop.  The expert products are batched matmuls in the
 parameters' dtype, as JAX leaves them to XLA: this module has no kernel.
+
+With no context (or ``ep`` 1) one shard routes every token.  Under an
+expert-parallel context (:func:`moe_ffn`, ``parallel.ep > 1``) the
+reference shards the tokens over (data, model) inside ``shard_map``:
+each shard routes its own tokens against a capacity taken from its own
+token count, and expert groups move between the model-axis shards
+through two ``all_to_all``s.  On the port's one device the shards are a
+leading group axis: every group routes at once through :func:`_dispatch`,
+the first ``all_to_all`` is a transpose of the source and destination
+shard axes (each destination gets its experts' slots source-major, as
+the reference's ``recv.transpose(1, 0, 2, 3)`` orders them), every
+expert's slots over every data row go through one batched product, and
+the second ``all_to_all`` is the transpose back.  Where the tokens are
+replicated along an axis (the batch when dp does not divide it, the
+sequence when ep does not, as in a decode step) every shard along it
+computes the same thing, so the port computes it once.  Spreading the
+shards over several cards, with the exchanges between them, waits for
+several cards (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,47 +58,62 @@ def _top_k(gates, k: int):
 
 
 def _dispatch(x_tok, logits, k: int, n_experts: int, capacity: int):
-    """Token -> (expert, slot) scatter.  x_tok:[T,d] logits fp32 [T,E].
-    Returns the [E, C, d] buffer, the route (flat_tok, e_idx, s_idx,
-    flat_w, keep; each [T*K]) and the load-balance aux loss."""
-    t = x_tok.shape[0]
-    gates = torch.softmax(logits, dim=-1)                       # [T,E]
-    top_w, top_e = _top_k(gates, k)                             # [T,K]
+    """Token -> (expert, slot) scatter.  x_tok [..., T, d], logits fp32
+    [..., T, E]: each leading index (a shard) routes its own T tokens.
+    Returns the [..., E, C, d] buffer, the route (flat_tok [T*K];
+    e_idx, s_idx, flat_w, keep [..., T*K]) and the load-balance aux
+    loss [...]."""
+    lead, (t, d) = x_tok.shape[:-2], x_tok.shape[-2:]
+    gates = torch.softmax(logits, dim=-1)                       # [..,T,E]
+    top_w, top_e = _top_k(gates, k)                             # [..,T,K]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-    flat_e = top_e.reshape(-1)                                  # [T*K]
-    flat_w = top_w.reshape(-1)
+    flat_e = top_e.reshape(*lead, t * k)                        # [..,T*K]
+    flat_w = top_w.reshape(*lead, t * k)
     flat_tok = torch.arange(t, device=x_tok.device).repeat_interleave(k)
     # slot index of each assignment within its expert (stable order)
-    onehot = F.one_hot(flat_e, n_experts)                       # [T*K,E]
-    pos_all = torch.cumsum(onehot, dim=0) - 1
-    slot = pos_all.gather(1, flat_e[:, None])[:, 0]
+    onehot = F.one_hot(flat_e, n_experts)                       # [..,T*K,E]
+    pos_all = torch.cumsum(onehot, dim=-2) - 1
+    slot = pos_all.gather(-1, flat_e[..., None])[..., 0]
     keep = slot < capacity
     # scatter tokens into [E, C, d]; a dropped assignment adds 0 at
     # [0, C-1], as JAX's scatter-add does
-    buf = torch.zeros((n_experts, capacity, x_tok.shape[1]),
+    buf = torch.zeros((*lead, n_experts, capacity, d),
                       dtype=x_tok.dtype, device=x_tok.device)
     e_idx = torch.where(keep, flat_e, 0)
     s_idx = torch.where(keep, slot, capacity - 1)
-    src = torch.where(keep[:, None], x_tok[flat_tok], 0).to(x_tok.dtype)
-    buf.index_put_((e_idx, s_idx), src, accumulate=True)
+    src = torch.where(keep[..., None], x_tok[..., flat_tok, :],
+                      0).to(x_tok.dtype)
+    buf.index_put_(_group_index(lead, x_tok.device) + (e_idx, s_idx), src,
+                   accumulate=True)
     # load-balance aux (Switch): E * sum_e f_e * p_e
-    f = onehot.float().mean(dim=0) * k
-    p_mean = gates.mean(dim=0)
-    aux = n_experts * (f * p_mean).sum() / k
+    f = onehot.float().mean(dim=-2) * k
+    p_mean = gates.mean(dim=-2)
+    aux = n_experts * (f * p_mean).sum(-1) / k
     return buf, (flat_tok, e_idx, s_idx, flat_w, keep), aux
+
+
+def _group_index(lead, device):
+    """Index tensors over at most one leading group axis, broadcastable
+    against [G, T*K] (none for a single shard)."""
+    if not lead:
+        return ()
+    (g,) = lead
+    return (torch.arange(g, device=device)[:, None],)
 
 
 def _combine(y_buf, route, t: int):
     """Each token's kept expert outputs, weighted, added in the buffer's
-    dtype in (token, k) order, as JAX's scatter-add adds them."""
+    dtype in (token, k) order, as JAX's scatter-add adds them.  y_buf
+    [..., E, C, d] -> [..., T, d]."""
     flat_tok, e_idx, s_idx, flat_w, keep = route
-    vals = y_buf[e_idx, s_idx]                                  # [T*K,d]
-    vals = vals * torch.where(keep, flat_w, 0.0)[:, None].to(vals.dtype)
-    vals = vals.reshape(t, -1, y_buf.shape[-1])                 # [T,K,d]
-    out = torch.zeros((t, y_buf.shape[-1]), dtype=y_buf.dtype,
+    lead, d = y_buf.shape[:-3], y_buf.shape[-1]
+    vals = y_buf[_group_index(lead, y_buf.device) + (e_idx, s_idx)]
+    vals = vals * torch.where(keep, flat_w, 0.0)[..., None].to(vals.dtype)
+    vals = vals.reshape(*lead, t, -1, d)                        # [..,T,K,d]
+    out = torch.zeros((*lead, t, d), dtype=y_buf.dtype,
                       device=y_buf.device)
-    for j in range(vals.shape[1]):
-        out = out + vals[:, j]
+    for j in range(vals.shape[-2]):
+        out = out + vals[..., j, :]
     return out
 
 
@@ -121,15 +152,67 @@ def _moe_local(x, p, cfg):
     return out.reshape(b, s, d), aux
 
 
+def ep_layout(x_shape, parallel):
+    """(nb, ns, n): the data-axis and model-axis shard counts that hold
+    distinct tokens of x [B, S, d] under ``parallel``, and the EP degree.
+    The reference shards the batch over the data axes only where their
+    size divides B, the sequence over the EP axis only where ep divides
+    S; along an axis it does not shard, the tokens are replicated."""
+    mesh, n = parallel.mesh, parallel.ep
+    dp = parallel.dp_axis
+    dp_size = math.prod(mesh.shape[a] for a in
+                        (dp if isinstance(dp, tuple) else (dp,)))
+    nb = dp_size if x_shape[0] % dp_size == 0 else 1
+    ns = n if x_shape[1] % n == 0 else 1
+    return nb, ns, n
+
+
+def _moe_ep(x, p, cfg, parallel):
+    """Expert-parallel body over every shard at once.  Returns (y, aux,
+    route): route's e_idx, s_idx, flat_w and keep are [nb * ns, T_l*K]
+    (shard (i, j) of the distinct ones at row i * ns + j), with the
+    shard-local capacity."""
+    nb, ns, n = ep_layout(x.shape, parallel)
+    b, s, d = x.shape
+    b_l, s_l = b // nb, s // ns
+    t = b_l * s_l
+    e_total = cfg.n_experts
+    if e_total % n:
+        raise ValueError(f"{e_total} experts do not split over {n} "
+                         f"expert-parallel shards")
+    e_loc = e_total // n
+    cap = _capacity(t, cfg.top_k, e_total, cfg.capacity_factor)
+    # shard (i, j) holds x[i*b_l:(i+1)*b_l, j*s_l:(j+1)*s_l]
+    xs = x.reshape(nb, b_l, ns, s_l, d).transpose(1, 2).reshape(
+        nb * ns, t, d)
+    logits = xs.float() @ p["router"].float()
+    buf, route, aux = _dispatch(xs, logits, cfg.top_k, e_total, cap)
+    # all_to_all: [nb, src, dst, E_loc, C, d] -> [nb, dst, src, ...]
+    send = buf.reshape(nb, ns, n, e_loc, cap, d)
+    recv = send.transpose(1, 2)
+    # each destination's experts take their slots source-major; every
+    # expert's slots over every data row in one batched product
+    xin = recv.permute(1, 3, 0, 2, 4, 5).reshape(e_total, nb * ns * cap, d)
+    y = _expert_ffn(xin, p.get("we_g"), p.get("we_u"), p["we_d"],
+                    cfg.ffn_type)
+    back = y.reshape(n, e_loc, nb, ns, cap, d).permute(2, 0, 3, 1, 4, 5)
+    # all_to_all back: [nb, dst, src, ...] -> [nb, src, dst, ...]
+    y_buf = back.transpose(1, 2).reshape(nb * ns, e_total, cap, d)
+    out = _combine(y_buf, route, t)
+    out = out.reshape(nb, ns, b_l, s_l, d).transpose(1, 2).reshape(b, s, d)
+    # pmean over every mesh axis: each distinct shard is replicated
+    # equally often
+    return out, aux.mean(), route
+
+
 def moe_ffn(x, p, cfg, parallel=None):
-    """x: [B,S,d].  ``parallel`` must be None: one device, one shard.
-    Returns (y [B,S,d], aux)."""
-    if parallel is not None:
-        raise NotImplementedError(
-            "expert parallelism waits for the sharded stack (ROADMAP.md "
-            "queue 1 item 9)")
+    """x: [B,S,d] global.  parallel: a ``ParallelCtx`` with ``ep > 1``
+    for expert parallelism, or None (one shard).  Returns (y, aux)."""
     routed = {k: p[k] for k in ("router", "we_g", "we_u", "we_d") if k in p}
-    y, aux = _moe_local(x, routed, cfg)
+    if parallel is not None and parallel.ep > 1:
+        y, aux, _ = _moe_ep(x, routed, cfg, parallel)
+    else:
+        y, aux = _moe_local(x, routed, cfg)
     if cfg.n_shared_experts:
         shared = {k.replace("s_", ""): v for k, v in p.items()
                   if k.startswith("s_")}

@@ -1,0 +1,7 @@
+"""The LM stack's sharding on one device; port of ``repro.parallel``."""
+
+from .sharding import (ShardingPolicy, batch_specs, cache_specs, make_ctx,
+                       param_specs, to_named)
+
+__all__ = ["ShardingPolicy", "make_ctx", "param_specs", "batch_specs",
+           "cache_specs", "to_named"]

@@ -1,0 +1,78 @@
+"""Pipeline parallelism: GPipe-style micro-batch pipelining over a
+``pipe`` mesh axis; port of ``repro.parallel.pipeline``.
+
+The reference runs one stage a device under ``shard_map`` and hops the
+activations with a ``collective_permute``.  Here every stage lives on
+the mesh's one device: the stages' carries are one tensor with a
+leading stage axis, the ring permute is a roll along it, and the final
+broadcast from the last stage is that stage's row.
+
+Schedule (GPipe, S stages, M micro-batches, M >= S), as the
+reference's:  step t in [0, M+S-2]: stage s works on micro-batch
+(t - s) when 0 <= t - s < M (the ``active`` mask; an inactive stage
+keeps its carry and runs no body); stage 0 injects micro-batch t; the
+last stage collects micro-batch t - (S-1); then every stage's output
+moves to the next stage (the wrap edge into stage 0 is overwritten by
+the next injection).  Bubble fraction = (S-1)/(M+S-1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import tree as pt
+
+
+def pipeline_forward(stage_fn, params_stacked, x_micro, *, mesh,
+                     axis: str = "pipe"):
+    """Run micro-batches through pipeline stages.
+
+    stage_fn: (stage_params, x) -> y, the per-stage body (a slice of
+              the layer stack is each stage's params).
+    params_stacked: tree with leading dim = n_stages (stage-major).
+    x_micro: [M, mb, ...] micro-batched input (M >= n_stages), on the
+             mesh's device.
+    Returns [M, mb, ...] outputs (micro-batch order preserved).
+    """
+    n_stages = mesh.shape[axis]
+    m = x_micro.shape[0]
+    assert m >= n_stages, "need at least one microbatch per stage"
+    if x_micro.device != mesh.device:
+        raise ValueError(f"the micro-batches live on {x_micro.device}, "
+                         f"the mesh on {mesh.device}")
+    leaves, spec = pt.flatten(params_stacked)
+    stage_params = [pt.unflatten(spec, [p[s] for p in leaves])
+                    for s in range(n_stages)]
+    carry = torch.zeros((n_stages,) + tuple(x_micro.shape[1:]),
+                        dtype=x_micro.dtype, device=x_micro.device)
+    outs = torch.zeros_like(x_micro)
+    for t in range(m + n_stages - 1):
+        ys = []
+        for sid in range(n_stages):
+            x_in = x_micro[min(t, m - 1)] if sid == 0 else carry[sid]
+            active = 0 <= t - sid < m
+            ys.append(stage_fn(stage_params[sid], x_in) if active
+                      else carry[sid])
+        y = torch.stack(ys)
+        # the last stage collects finished micro-batches
+        if 0 <= t - (n_stages - 1) < m:
+            outs[t - (n_stages - 1)] = y[n_stages - 1]
+        # hop activations stage s -> s+1 (the ring permute)
+        carry = torch.roll(y, 1, dims=0)
+    # broadcast the last stage's results (the reference's psum of zeros
+    # elsewhere): on one device, its row is the result
+    return outs
+
+
+def split_stages(stacked_params, n_stages: int):
+    """[L, ...] layer-stacked params -> [S, L/S, ...] stage-major."""
+    def split(p):
+        n_layers = p.shape[0]
+        assert n_layers % n_stages == 0, \
+            f"layers {n_layers} % stages {n_stages}"
+        return p.reshape(n_stages, n_layers // n_stages, *p.shape[1:])
+    return pt.tree_map(split, stacked_params)
+
+
+def bubble_fraction(n_stages: int, n_micro: int) -> float:
+    return (n_stages - 1) / (n_micro + n_stages - 1)

@@ -1,12 +1,17 @@
-"""Train / serve step builders; port of ``repro.train.step``.
+"""Train / serve step builders and the train state's sharding specs;
+port of ``repro.train.step``.
 
-``build_train_step`` returns a step that takes one global batch through
-micro-batch gradient accumulation (in ``accum_dtype``), the model's
-remat, optional int8 gradient compression with error feedback, and the
-AdamW update, as JAX's does.  There is no mesh: the port trains on one
-device (dp = 1), and ``resolve_micro`` resolves the micro-batch count
-for that.  The sharding specs of the state (JAX's ``state_specs`` and
-``opt_specs``) stay with the sharded stack, ROADMAP.md queue 1 item 9.
+``build_train_step(cfg, mesh, ...)`` returns a step that takes one
+global batch through micro-batch gradient accumulation (in
+``accum_dtype``), the model's remat, optional int8 gradient compression
+with error feedback, and the AdamW update, as JAX's does, under the
+context ``parallel.sharding.make_ctx`` builds for ``mesh`` (a
+:mod:`repro_torch.launch.mesh` mesh, every shard on its one device;
+the step runs there).  ``resolve_micro`` splits the global batch by the
+mesh's data-parallel size, as the reference does, and
+``state_specs`` / ``opt_specs`` give the state's specs (the int8 m and v
+blocks' ``[*lead, nb, Q_BLOCK]`` rule included).  Only the exchanges
+between cards wait for several cards (ROADMAP.md queue 1 item 9).
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves in
 JAX's leaf order; a leaf that the loss does not reach gets zeros, as
@@ -18,16 +23,19 @@ step returns the state dict with them.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import torch
 
-from .. import resolve_device
 from .. import tree as pt
 from ..models import lm
 from ..models.config import LMConfig
 from ..optim import (AdamWConfig, adamw_init, adamw_update, compress_grads,
                      decompress_grads)
+from ..optim.adamw import Q_BLOCK
+from ..parallel import sharding as shard
+from ..parallel.sharding import P
 
 
 @dataclass(frozen=True)
@@ -41,12 +49,25 @@ class TrainConfig:
     loss_chunk: int = 512              # xent chunking
 
 
-def resolve_micro(tcfg: TrainConfig, global_batch: int) -> int:
-    """JAX's rule with one data-parallel row: the configured count, or
-    else one sequence per micro-batch."""
+def _dp_size(mesh, policy=None) -> int:
+    dp_axes, _ = shard._axes(mesh, policy)
+    return math.prod(mesh.shape[a] for a in dp_axes)
+
+
+def resolve_micro(tcfg: TrainConfig, mesh, global_batch: int,
+                  policy=None) -> int:
+    """The configured count, or else one sequence per data-parallel row
+    a micro-batch: the largest n <= global_batch // dp that splits the
+    batch into micro-batches the data axes divide (1 if none does)."""
     if tcfg.micro_batches is not None:
         return tcfg.micro_batches
-    return max(1, global_batch)
+    dp = _dp_size(mesh, policy)
+    n = max(1, global_batch // dp)
+    while global_batch % n or (global_batch // n) % dp:
+        n -= 1
+        if n <= 1:
+            return 1
+    return n
 
 
 def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
@@ -60,6 +81,52 @@ def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
         state["err"] = pt.tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
     return state
+
+
+def state_shapes(cfg: LMConfig, tcfg: TrainConfig):
+    """:func:`init_train_state`'s tree as fake tensors (shapes, dtypes,
+    no storage), for :func:`state_specs` of a full config."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return init_train_state(cfg, tcfg, torch.Generator(device="cpu"),
+                                "cpu")
+
+
+def opt_specs(param_specs_tree, params_shapes, tcfg: TrainConfig,
+              mesh=None):
+    """Optimizer-state specs mirror the parameter specs.  For int8 states
+    the layout is [*lead, nb, Q_BLOCK]: the original last-dim sharding
+    axis MOVES to the block-count dim, kept only where each shard's
+    width is whole blocks."""
+    def per_leaf(_, spec, p):
+        def qspec():
+            base = tuple(spec) + (None,) * (len(p.shape) - len(spec))
+            lead = base[:-1] if base else ()
+            last_ax = base[-1] if base else None
+            width = p.shape[-1] if len(p.shape) else 1
+            n = 1 if mesh is None else shard._axis_size(mesh, last_ax)
+            nb_ax = last_ax if (last_ax is not None and
+                                width % (n * Q_BLOCK) == 0) else None
+            return {"q": P(*(lead + (nb_ax, None))),
+                    "scale": P(*(lead + (nb_ax, None)))}
+        m_spec = qspec() if tcfg.opt.m_dtype == "int8" else spec
+        v_spec = qspec() if tcfg.opt.v_mode == "int8" else spec
+        return {"m": m_spec, "v": v_spec}
+
+    mu = shard._map(per_leaf, param_specs_tree, params_shapes)
+    return {"mu": mu, "step": P()}
+
+
+def state_specs(mesh, state_shapes, tcfg: TrainConfig,
+                policy: shard.ShardingPolicy | None = None):
+    """Specs of a train state (its tensors or :func:`state_shapes`)."""
+    pspecs = shard.param_specs(mesh, state_shapes["params"], policy)
+    out = {"params": pspecs,
+           "opt": opt_specs(pspecs, state_shapes["params"], tcfg,
+                            mesh=mesh)}
+    if "err" in state_shapes:
+        out["err"] = pspecs
+    return out
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -82,23 +149,24 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), pt.unflatten(spec, grads), missing
 
 
-def build_train_step(cfg: LMConfig, tcfg: TrainConfig | None = None,
-                     global_batch: int | None = None, device=None):
+def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
+                     policy: shard.ShardingPolicy | None = None,
+                     global_batch: int | None = None):
     """Returns ``(train_step, ctx, n_micro)``; ``train_step(state,
     batch)`` -> (state, metrics {loss, grad_norm, lr, grads_missing}),
-    the batch's tensors moved to ``device`` (``cuda`` unless ``"cpu"``
-    is asked for), the state already there."""
+    the batch's tensors moved to the mesh's device, the state already
+    there."""
     tcfg = tcfg or TrainConfig()
-    dev = resolve_device(device)
-    ctx = lm.NO_PARALLEL
+    dev = mesh.device
+    ctx = shard.make_ctx(mesh, cfg, policy)
 
     def loss_fn(params, mb):
         return lm.train_loss(params, mb, cfg, ctx, remat=tcfg.remat,
                              aux_weight=tcfg.aux_weight,
                              loss_chunk=tcfg.loss_chunk)
 
-    n_micro = resolve_micro(tcfg, global_batch) if global_batch \
-        else (tcfg.micro_batches or 1)
+    n_micro = resolve_micro(tcfg, mesh, global_batch, policy) \
+        if global_batch else (tcfg.micro_batches or 1)
     acc_dt = torch.bfloat16 if tcfg.accum_dtype == "bfloat16" \
         else torch.float32
 
@@ -138,14 +206,15 @@ def build_train_step(cfg: LMConfig, tcfg: TrainConfig | None = None,
     return train_step, ctx, n_micro
 
 
-def build_serve_step(cfg: LMConfig, device=None):
+def build_serve_step(cfg: LMConfig, mesh,
+                     policy: shard.ShardingPolicy | None = None):
     """Returns ``(serve_step, serve_prefill, ctx)`` for ``cfg`` on
-    ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Token ids, and a
-    prefill's ``patch_embeds`` and ``enc_embeds``, are moved to the
-    device; parameters and caches must already live there.
+    ``mesh``.  Token ids, and a prefill's ``patch_embeds`` and
+    ``enc_embeds``, are moved to the mesh's device; parameters and
+    caches must already live there.
     """
-    dev = resolve_device(device)
-    ctx = lm.NO_PARALLEL
+    dev = mesh.device
+    ctx = shard.make_ctx(mesh, cfg, policy)
 
     def serve_step(params, cache, tokens):
         return lm.decode_step(params, cache, tokens.to(dev), cfg, ctx)

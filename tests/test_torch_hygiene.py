@@ -8,9 +8,11 @@
   of the dense, ssm, moe, hybrid, vlm and encdec families (the moe FFN
   and the RG-LRU modules with them), the B-link tree, a transaction
   batch, the DES workers and transaction engine, the rounds-plane
-  generator, and the training stack (``launch.train`` with a
+  generator, the training stack (``launch.train`` with a
   checkpoint and a resume, the optimizer tiers, gradient compression,
-  the fault runtime, the input specs and the train-state conversions);
+  the fault runtime, the input specs and the train-state conversions),
+  and the sharded LM stack (the named-axis meshes, the sharding specs
+  and contexts, expert-parallel ``moe_ffn`` and the pipeline);
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -33,6 +35,7 @@ from repro_torch.core.rounds import make_state  # noqa: E402
 from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool  # noqa: E402
 from repro_torch.index import DeviceBTree  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -61,6 +64,9 @@ def test_port_imports_neither_jax_nor_repro():
         root / "scripts" / "profile_torch_lm.py",
         root / "scripts" / "profile_torch_apps.py"]
     assert len(files) > 25
+    scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"parallel/__init__.py", "parallel/sharding.py",
+            "parallel/pipeline.py", "launch/mesh.py"} <= scanned
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_roots(f)
            if name in ("jax", "jaxlib", "repro", "ml_dtypes")]
@@ -190,6 +196,30 @@ def test_port_serves_with_jax_blocked():
         assert sum(e.stats.commits + e.stats.aborts for e in engines) == 8
         layer.assert_released()
         assert len(device_rounds_batches(DeviceRoundsConfig(iters=2))) == 2
+        from repro_torch.core.rounds import Mesh
+        from repro_torch.launch.mesh import (make_local_mesh,
+                                             make_mesh_from_devices)
+        from repro_torch.models import moe
+        from repro_torch.parallel import (ShardingPolicy, make_ctx,
+                                          param_specs, to_named)
+        from repro_torch.parallel.pipeline import (pipeline_forward,
+                                                   split_stages)
+        from repro_torch.train.step import state_shapes, state_specs
+        mcfg = get_smoke_config("dbrx-132b")
+        mesh = make_mesh_from_devices(list(range(8)), data=2, model=4,
+                                      device="cpu")
+        ctx = make_ctx(mesh, mcfg, ShardingPolicy())
+        p = moe.init_moe(torch.Generator(), mcfg, torch.float32)
+        y, aux = moe.moe_ffn(torch.ones(4, 8, mcfg.d_model), p, mcfg, ctx)
+        assert ctx.ep == 4 and torch.isfinite(y).all()
+        shapes = state_shapes(mcfg, TrainConfig())
+        assert len(to_named(mesh, state_specs(mesh, shapes,
+                                              TrainConfig()))) == 2
+        assert param_specs(make_local_mesh("cpu"), shapes["params"])
+        y = pipeline_forward(lambda w, h: h @ w[0], split_stages(
+            torch.eye(4)[None].repeat(4, 1, 1), 2), torch.ones(3, 1, 4),
+            mesh=Mesh({"pipe": 2}, "cpu"))
+        assert torch.equal(y, torch.ones(3, 1, 4))
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         assert "ml_dtypes" not in sys.modules
@@ -221,7 +251,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     assert make_state(2, 4, device="cpu")["words"].device.type == "cpu"
     cfg = get_smoke_config("qwen3-1.7b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_serve_step(cfg)
+        build_serve_step(cfg, make_local_mesh())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -235,7 +265,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
             lm.init_params(get_smoke_config(arch), torch.Generator())
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve_main(["--arch", arch, "--smoke", "--requests", "1"])
-    step, prefill, _ = build_serve_step(cfg, device="cpu")
+    step, prefill, _ = build_serve_step(cfg, make_local_mesh("cpu"))
     params = lm.init_params(cfg, torch.Generator(), device="cpu")
     logits, _ = prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
     assert logits.device.type == "cpu"
@@ -298,11 +328,13 @@ def test_train_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_train_step(cfg, TrainConfig())
+        build_train_step(cfg, make_local_mesh(), TrainConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_train_state(cfg, TrainConfig(), torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_main(["--smoke", "--device", "cpu", "--production-mesh"])
+    rec = train_main(["--smoke", "--device", "cpu", "--production-mesh",
+                      "--steps", "1", "--batch", "2", "--seq", "32"])
+    assert rec["mesh"] == {"data": 16, "model": 16} and rec["n_micro"] == 1
+    assert np.isfinite(rec["losses"]).all() and rec["grads_missing"] == 0
 
 
 def test_train_state_round_trip_keeps_dtypes_and_bits():

@@ -215,14 +215,6 @@ def test_drop_mask_at_the_published_factor_matches_jax_bf16(arch,
     assert 0 < jk.sum() < jk.size
 
 
-def test_moe_ffn_refuses_expert_parallelism():
-    jcfg, tcfg, p = _moe_case("dbrx-132b", "float32")
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tmoe.moe_ffn(x, convert.lm_params_to_torch(p, "cpu"), tcfg,
-                     parallel=object())
-
-
 def test_init_moe_shapes_and_distributions():
     """The port's init: JAX's leaves and dtypes, the router in fp32 with
     std 0.02, experts He-scaled and drawn one layer at a time."""

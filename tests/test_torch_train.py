@@ -61,6 +61,7 @@ from repro_torch import tree as pt  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager, restore, \
     save  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.specs import train_inputs  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
@@ -302,8 +303,8 @@ def test_micro_batches_match_big_batch():
         tcfg = TrainConfig(remat=remat, micro_batches=n_micro,
                            opt=tadamw.AdamWConfig(lr=1e-3, warmup_steps=1,
                                                   total_steps=5))
-        step, _, n = build_train_step(cfg, tcfg, global_batch=4,
-                                      device="cpu")
+        step, _, n = build_train_step(cfg, make_local_mesh("cpu"), tcfg,
+                                      global_batch=4)
         assert n == n_micro
         state = init_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -355,7 +356,8 @@ def _port_state():
         m_dtype="int8", v_mode="int8"))
     state = init_train_state(cfg, tcfg, torch.Generator().manual_seed(3),
                              "cpu")
-    step, _, _ = build_train_step(cfg, tcfg, global_batch=2, device="cpu")
+    step, _, _ = build_train_step(cfg, make_local_mesh("cpu"), tcfg,
+                                  global_batch=2)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=2, seq_len=32))
     state, _ = step(state, data.batch_at(0))
     return state
