@@ -186,12 +186,30 @@ Phases (any failure exits non-zero; nothing is caught):
    ``pipeline_forward`` with 4 stages and 8 micro-batches of a
    ``tanh(h @ w)`` stack at width 2048, 8 layers, within rtol 1e-5 of
    the unpipelined loop (:func:`pipeline_check`);
+7c. the dry-run (:func:`dryrun_phase`): a child process started after
+   the build counts, on fake tensors and the CPU only, (a) the
+   production cells :data:`DRYRUN_CELLS` through ``launch.dryrun.run_cell``
+   (each ``status == "ok"``; one line a cell: roofline terms, dominant
+   term, bytes a device, fits_80GB) and (b) the steps of
+   :data:`CARD_CELLS` on ``make_local_mesh()``: Qwen3-1.7B's train step
+   at one 4096-token sequence and its decode step at batch 1 over a
+   32768-token cache, at full width and depth, and Mamba2-2.7B's train
+   step at 8 layers (K5).  The phase then runs (b) on the card
+   (:func:`card_step_check`): ``FlopCounterMode`` over a step equal to
+   the dry-run's products outside the kernels, exactly; K4's and K5's
+   operations from their wrappers' counters equal to the dry-run's
+   kernel terms, exactly; the median of 5 warmed steps no faster than
+   the dry-run's roofline bound, K4 and K5 counted as the kernels do
+   (the step's share of it, at most 1); the
+   peak memory at least the predicted arguments and within
+   :data:`DRYRUN_MEM_TOL` of the predicted peak;
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
    sharded plane, the LM serves, the tree, the transactions, the DES
    oracle, Fig. 7's rounds, the training runs and the sharded LM
    stack's serve and training (``sharded_lm_serve``,
-   ``sharded_lm_train``), split
+   ``sharded_lm_train``) and the dry-run's card steps
+   (``dryrun_card``), split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -213,6 +231,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -816,16 +835,6 @@ def flash_window_cases(dev, K):
     return out
 
 
-def visible_pairs(sq, sk, causal, q_offset=0, window=None) -> int:
-    """(query, key) pairs K4 computes: query row i at position q_offset +
-    i sees the keys j < sk with j <= q_offset + i when causal and j >
-    q_offset + i - window when a window is given."""
-    pos = q_offset + np.arange(sq)
-    hi = np.minimum(sk, pos + 1) if causal else np.full(sq, sk)
-    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 # K4 at the vlm and encdec families' shapes: tag -> (B, Sq, Sk, Hq, Hkv,
 # hd, causal, q_offset)
 FLASH_CROSS_CASES = {
@@ -846,11 +855,12 @@ def flash_cross_cases(dev, K):
     [B, S, H, hd] layout: held against the plain version (2e-2 of
     max(1, |want|) elementwise and each row within 1e-2 of its want's
     L2 norm, as :func:`flash_window_cases`), timed beside its bound (the
-    pairs :func:`visible_pairs` counts) and SDPA's time for the same call
-    (``is_causal`` where the queries and keys line up, no mask for the
-    cross-attention, a boolean [Sq, Sk] mask for the offset).  Returns
-    the K4 row's keys for each tag."""
+    pairs ``kernels.flash_attention.visible_pairs`` counts) and SDPA's
+    time for the same call (``is_causal`` where the queries and keys line
+    up, no mask for the cross-attention, a boolean [Sq, Sk] mask for the
+    offset).  Returns the K4 row's keys for each tag."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import visible_pairs
     from repro_torch.kernels.flash_attention import flash_attention_plain
     rng = np.random.default_rng(SEED + 10)
     out = {}
@@ -1014,6 +1024,7 @@ def check_flash_bwd(dev, K, cases=None):
     in one graph, less its forward alone).  At the Qwen3 shape also
     K4's forward with and without the log-sum-exp output (the serve
     passes none)."""
+    from repro_torch.kernels.flash_attention import visible_pairs
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         _launch_fwd, _visible, flash_attention_bwd_plain,
@@ -3740,6 +3751,260 @@ def sharded_lm_phase(dev, K):
     return out, launches
 
 
+# ---------------------------------------------- phase 7c: the dry-run
+
+# (a) production cells counted on fake tensors: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", False),
+                ("qwen3-1.7b", "prefill_32k", False),
+                ("qwen3-1.7b", "decode_32k", False),
+                ("deepseek-moe-16b", "train_4k", False),
+                ("mamba2-2.7b", "long_500k", False),
+                ("qwen3-1.7b", "decode_32k", True))
+# (b) steps counted on fake tensors and run on the card, make_local_mesh:
+# name -> (arch, layers (None: all), kind, seq, batch).  qwen3-1.7b's train
+# step at one 4096-token sequence (a device's share of train_4k) and its
+# decode step at batch 1 over a 32768-token cache, at full width and
+# depth; mamba2-2.7b's train step at 8 of its 64 layers, so that K5 and
+# its backward run on this path too
+CARD_CELLS = {"qwen3_train": ("qwen3-1.7b", None, "train", 4096, 1),
+              "qwen3_decode": ("qwen3-1.7b", None, "decode", 32768, 1),
+              "mamba2_train": ("mamba2-2.7b", 8, "train", 4096, 1)}
+CARD_STEPS = 5                      # timed steps, after 2 warm-up steps
+# predicted peak vs torch.cuda.max_memory_allocated over a warmed step,
+# relative.  The count sees every storage an op returns, not what the
+# CUDA implementations allocate inside an op and free before returning,
+# nor the allocator's rounding.  Readings: at most 1.9e-6 after the
+# earlier phases; 0.29 % with this phase run alone and its first step
+# measured, 67 MB above the count, which is what cuBLAS's and cuBLASLt's
+# workspaces (32 MiB each) take on a stream's first products: the
+# measured step now follows a warm-up step, with what stays resident
+# after it taken off
+DRYRUN_MEM_TOL = 0.01
+
+
+def _card_cell(name):
+    """(cfg, ShapeSpec) of a :data:`CARD_CELLS` entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeSpec
+    arch, layers, kind, seq, batch = CARD_CELLS[name]
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg, ShapeSpec(f"card_{name}", seq, batch, kind)
+
+
+def dryrun_cells(out_dir) -> None:
+    """The phase's CPU half (no card): :data:`DRYRUN_CELLS` through
+    ``dryrun.run_cell`` into ``out_dir``, and :data:`CARD_CELLS` through
+    ``dryrun.measure`` on ``make_local_mesh()`` into
+    ``out_dir/card_<name>.json``."""
+    from pathlib import Path
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    out = Path(out_dir)
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        dryrun.run_cell(arch, shape, multi_pod, out, force=True)
+    for name in CARD_CELLS:
+        cfg, sh = _card_cell(name)
+        got = dryrun.measure(cfg, sh, make_local_mesh("cpu"))
+        (out / f"card_{name}.json").write_text(json.dumps(got))
+
+
+def dryrun_start(out_dir) -> subprocess.Popen:
+    """:func:`dryrun_cells` in a child process (fake tensors: the CPU
+    only), so it runs beside the card phases; :func:`dryrun_phase` waits
+    for it."""
+    code = ("import sys, torch; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "torch.set_num_threads(1); import chip_smoke; "
+            "chip_smoke.dryrun_cells(sys.argv[3])")
+    log_path = os.path.join(out_dir, "dryrun.log")
+    with open(log_path, "w") as fh:
+        return subprocess.Popen([sys.executable, "-c", code, ROOT,
+                                 os.path.join(ROOT, "src"), out_dir],
+                                stdout=fh, stderr=subprocess.STDOUT)
+
+
+def _card_inputs(dev, cfg, sh, gen):
+    """The card cell's arguments on the card: a seeded train state and
+    token batch, or seeded parameters, a cache of sh.seq_len positions
+    (filled to 16 short of its end) and a token."""
+    from repro_torch.models import lm
+    from repro_torch.train import TrainConfig, init_train_state
+    toks = lambda shape: torch.randint(0, cfg.vocab, shape, generator=gen,
+                                       device=dev, dtype=torch.int32)
+    if sh.kind == "train":
+        state = init_train_state(cfg, TrainConfig(), gen, dev)
+        return state, {"tokens": toks((sh.global_batch, sh.seq_len)),
+                       "labels": toks((sh.global_batch, sh.seq_len))}
+    params = lm.init_params(cfg, gen, dev)
+    cache = lm.init_decode_cache(cfg, sh.global_batch, sh.seq_len,
+                                 device=dev)
+    cache["pos"].fill_(sh.seq_len - 16)
+    return (params, cache), toks((sh.global_batch, 1))
+
+
+def card_step_check(dev, K, name, pred):
+    """One :data:`CARD_CELLS` step on the card, after a warm-up step,
+    beside its dry-run count ``pred``: ``FlopCounterMode`` over the step
+    counts exactly the dry-run's products outside the kernels (K4's and
+    K5's are ``ctypes`` launches it cannot see: the wrappers' ``flops``
+    counters equal the dry-run's kernel terms exactly, printed beside
+    its CPU-route attention and SSD terms); the median of
+    :data:`CARD_STEPS` warmed steps at least the dry-run's roofline
+    bound, which counts K4 and K5 as the kernels do (a share of at most
+    1); the step's ``max_memory_allocated`` above what the warm-up left
+    resident beside the arguments at least their predicted bytes and
+    within :data:`DRYRUN_MEM_TOL` of the predicted peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import TrainConfig, build_serve_step, \
+        build_train_step
+    cfg, sh = _card_cell(name)
+    mesh = make_local_mesh(dev)
+    if sh.kind == "train":
+        step, _, n_micro = build_train_step(cfg, mesh, TrainConfig(),
+                                            global_batch=sh.global_batch)
+        assert n_micro == pred["meta"]["n_micro"] == 1
+    else:
+        serve_step, _, _ = build_serve_step(cfg, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    args, batch = _card_inputs(dev, cfg, sh, gen)
+
+    def run():
+        nonlocal args
+        if sh.kind == "train":
+            args, _ = step(args, batch)
+        else:
+            with torch.no_grad():
+                logits, cache = serve_step(args[0], args[1], batch)
+            args = (args[0], cache)
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - base
+    run()
+    torch.cuda.synchronize()
+    # what the warm-up left resident beside the arguments (library
+    # workspaces) is no part of the step
+    resident = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    launches = K.launch_counts()
+    kernel_flops = K.flop_counts()
+    outside = fc.get_total_flops()
+    times = []
+    for _ in range(CARD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del args, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    count, rl = pred["count"], pred["roofline"]
+    mem = count["memory"]
+    step_s = statistics.median(times)
+    share = rl["bound_s"] / step_s
+    mem_rel = abs(peak - mem["peak_bytes_one_device"]) \
+        / mem["peak_bytes_one_device"]
+    out = {"cell": name, "arch": cfg.name, "layers": cfg.n_layers,
+           "kind": sh.kind, "seq": sh.seq_len, "batch": sh.global_batch,
+           "outside_flops_card": outside,
+           "outside_flops_dryrun": count["outside_flops"],
+           "attention_flops_dryrun": count["attention_flops"],
+           "ssd_flops_dryrun": count["ssd_flops"],
+           "attention_kernel_flops_dryrun": count["attention_kernel_flops"],
+           "ssd_kernel_flops_dryrun": count["ssd_kernel_flops"],
+           "kernel_flops_card": {k: v for k, v in kernel_flops.items()
+                                 if v},
+           "launches": {k: v for k, v in launches.items() if v},
+           "step_ms": [t * 1e3 for t in times], "median_step_ms":
+           step_s * 1e3, "roofline_bound_ms": rl["bound_s"] * 1e3,
+           "dominant": rl["dominant"], "share_of_bound": share,
+           "t_compute_ms": rl["t_compute_s"] * 1e3,
+           "t_memory_ms": rl["t_memory_s"] * 1e3,
+           "model_flops": rl["model_flops"],
+           "peak_bytes_card": peak,
+           "peak_bytes_dryrun": mem["peak_bytes_one_device"],
+           "arg_bytes_card": arg_bytes,
+           "arg_bytes_dryrun": mem["argument_bytes"],
+           "peak_rel_err": mem_rel, "peak_tolerance": DRYRUN_MEM_TOL}
+    log(f"dryrun card {name}: " + json.dumps(out))
+    assert outside == count["outside_flops"], \
+        f"{name}: the card counts {outside} FLOPs outside the kernels, " \
+        f"the dry-run {count['outside_flops']}"
+    for term, wrappers in (("attention", ("flash_attention",
+                                          "flash_attention_bwd")),
+                           ("ssd", ("ssd_intra", "ssd_intra_bwd"))):
+        card = sum(kernel_flops[w] for w in wrappers)
+        assert card == count[f"{term}_kernel_flops"], \
+            f"{name}: the card's {term} kernels did {card} operations, " \
+            f"the dry-run counts {count[f'{term}_kernel_flops']}"
+    assert share <= 1.0, f"{name}: the step ({step_s * 1e3} ms) beats " \
+        f"its roofline bound ({rl['bound_s'] * 1e3} ms): share {share}"
+    assert peak >= mem["argument_bytes"], \
+        f"{name}: peak {peak} below the predicted arguments " \
+        f"{mem['argument_bytes']}"
+    assert mem_rel <= DRYRUN_MEM_TOL, \
+        f"{name}: peak {peak} vs predicted {mem['peak_bytes_one_device']}" \
+        f" ({mem_rel} > {DRYRUN_MEM_TOL})"
+    return out, launches
+
+
+def dryrun_phase(dev, K, proc, out_dir):
+    """Phase 7c: (a) :data:`DRYRUN_CELLS` counted on fake tensors by the
+    child :func:`dryrun_start` started (each ``status == "ok"``, one line
+    a cell: roofline terms, dominant term, bytes a device, fits_80GB);
+    (b) :data:`CARD_CELLS` on the card against their dry-run
+    (:func:`card_step_check`).  Returns the phase's record and the K4 and
+    K5 launches of (b)."""
+    from pathlib import Path
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    out = Path(out_dir)
+    assert rc == 0, "the dry-run child failed:\n" + \
+        (out / "dryrun.log").read_text()[-3000:]
+    cells = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        mesh = "pod2x16x16" if multi_pod else "pod16x16"
+        rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+        assert rec["status"] == "ok", f"dry-run {arch} {shape} {mesh}: " \
+            f"{rec.get('error')}\n{rec.get('traceback', '')}"
+        rl, ma = rec["roofline"], rec["memory_analysis"]
+        line = {"cell": f"{arch} {shape} {mesh}",
+                **{k: rl[k] for k in ("t_compute_s", "t_memory_s",
+                                      "t_collective_s", "dominant",
+                                      "roofline_fraction")},
+                "argument_gb": ma["argument_bytes"] / 1e9,
+                "per_device_gb": ma["per_device_total"] / 1e9,
+                "fits_80GB": ma["fits_80GB"], "wall_s": rec["wall_s"]}
+        log("dryrun " + json.dumps(line))
+        cells.append(line)
+    checks, launches = {}, collections.Counter()
+    for name in CARD_CELLS:
+        pred = json.loads((out / f"card_{name}.json").read_text())
+        checks[name], got = card_step_check(dev, K, name, pred)
+        launches.update(got)
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_intra",
+                 "ssd_intra_bwd"):
+        assert launches[name] > 0, f"{name} never launched on the " \
+            f"dry-run's card steps"
+    res = {"cells": len(cells), "card": {
+        k: {f: v[f] for f in ("median_step_ms", "roofline_bound_ms",
+                              "share_of_bound", "peak_rel_err")}
+        for k, v in checks.items()},
+        "waited_for_child_s": waited, "seconds": time.perf_counter() - t0}
+    log("dryrun: " + json.dumps(res))
+    return res, dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -3761,6 +4026,19 @@ def main() -> int:
     t0 = time.perf_counter()
     out_dir = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s -> {out_dir}")
+    dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dryrun_proc = dryrun_start(dryrun_dir)
+    try:
+        return _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir)
+    finally:
+        if dryrun_proc.poll() is None:
+            dryrun_proc.kill()
+            dryrun_proc.wait()
+        shutil.rmtree(dryrun_dir, ignore_errors=True)
+
+
+def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
+    """The phases after the build (see the module docstring)."""
     for name, text in sorted(_build.BUILD_LOG.items()):
         funcs = ptxas_functions(text)
         log(f"  ptxas {name}: {len(funcs)} kernels, at most "
@@ -4003,6 +4281,9 @@ def main() -> int:
     for path in sharded_lm.values():
         for name, n in path.items():
             counts[name] = counts.get(name, 0) + n
+    _, dryrun_launches = dryrun_phase(dev, K, dryrun_proc, dryrun_dir)
+    for name, n in dryrun_launches.items():
+        counts[name] = counts.get(name, 0) + n
 
     for row in rows[:2]:
         row["launches_by_path"] = {p: c[row["name"]]
@@ -4015,7 +4296,8 @@ def main() -> int:
             row.get("launches_by_path", {}),
             train=sum(train[row["name"]].values()),
             **{f"sharded_lm_{p}": c[row["name"]]
-               for p, c in sharded_lm.items()})
+               for p, c in sharded_lm.items()},
+            dryrun_card=dryrun_launches.get(row["name"], 0))
         row["train_launches_by_arch"] = train[row["name"]]
 
     kernels = []

@@ -34,12 +34,22 @@ WRAPPERS = {"latch_ops": apply_batch, "gcl_fetch": fetch,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "flops"):
+            fn.flops = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def flop_counts() -> dict:
+    """The operations of the launches counted so far, by wrapper (K4's
+    and K5's, forward and backward)."""
+    return {name: fn.flops for name, fn in WRAPPERS.items()
+            if hasattr(fn, "flops")}
+
+
 __all__ = ["WRAPPERS", "apply_batch", "decode_paged", "fetch",
-           "flash_attention", "flash_attention_bwd", "launch_counts",
+           "flash_attention", "flash_attention_bwd", "flop_counts",
+           "launch_counts",
            "reset_launch_counts", "ssd_intra", "ssd_intra_bwd"]

@@ -7,7 +7,8 @@ On CUDA tensors :func:`flash_attention` launches
 through its tensor-core kernel, which rounds the probabilities to bf16
 before the P.V product, fp32 inputs through its fp32 FMA kernel.  On
 CPU tensors it runs :func:`flash_attention_plain`.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches and
+``flash_attention.flops`` the operations they do (:func:`kernel_flops`).
 
 q [B, Hq, Sq, hd]; k, v [B, Hkv, Sk, hd] with Hq a multiple of Hkv (the
 kv head of q head h is h // (Hq // Hkv)).  Any strides are taken as long
@@ -39,7 +40,8 @@ saves q, k, v, the output and the log-sum-exp, and its backward calls
 :func:`flash_attention_bwd`, which launches ``csrc/flash_attention_bwd.cu``
 (a dQ pass, then a dK/dV pass, on ``wgmma`` with TMA rings in bf16,
 FMAs in fp32; hd 64, 128 and 256, as the forward) and counts one launch
-in ``flash_attention_bwd.launches`` a call.
+in ``flash_attention_bwd.launches`` a call (and its operations in
+``flash_attention_bwd.flops``).
 Gradients come back in the memory layout of the model's [B, S, H, hd]
 tensors.  A call that needs
 no gradient (the serve) launches K4 without the log-sum-exp.  On the
@@ -62,6 +64,35 @@ HEAD_DIMS = (64, 128, 256)
 _BWD_ROWS = 64      # q rows of csrc/flash_attention_bwd.cu's tiles
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
+
+
+def visible_pairs(sq, sk, causal, q_offset=0, window=None) -> int:
+    """(query, key) pairs K4 computes: query row i at position q_offset +
+    i sees the keys j < sk with j <= q_offset + i when causal and j >
+    q_offset + i - window when a window is given.  A row's count is
+    piecewise linear in its position, with kinks where the causal edge
+    reaches sk, where the window's start leaves 0 and where it passes sk,
+    so each piece is summed as an arithmetic series."""
+    def row(p):
+        hi = min(sk, p + 1) if causal else sk
+        lo = max(0, p - window + 1) if window else 0
+        return max(hi - lo, 0)
+    a, b = q_offset, q_offset + sq
+    kinks = {sk - 1} | ({window - 1, sk + window - 1} if window else set())
+    cuts = [a] + sorted(c for c in kinks if a < c < b) + [b]
+    return sum((e - s) * (row(s) + row(e - 1)) // 2
+               for s, e in zip(cuts, cuts[1:]) if e > s)
+
+
+def kernel_flops(b, hq, sq, sk, hd, causal, window, q_offset,
+                 backward=False) -> int:
+    """The products' operations of one launch, 2 a multiply-add, over
+    the visible pairs of each of the b x hq heads: the forward's S = QK^T
+    and PV, 4 x hd a pair; the backward's dQ pass (S, dP = dO V^T, dS K)
+    and dK/dV pass (S^T, dP^T, P^T dO, dS^T Q), 14 x hd a pair."""
+    per_pair = (14 if backward else 4) * hd
+    return per_pair * b * hq * visible_pairs(sq, sk, causal, q_offset,
+                                             window)
 
 
 def _check_window(window):
@@ -213,15 +244,34 @@ def _empty_like_rows(t):
                        device=t.device).transpose(1, 2)
 
 
+def fwd_buffers(q, with_lse):
+    """K4's outputs for q [B, Hq, Sq, hd]: the output, q's shape in the
+    [B, S, H, hd] memory layout, and with ``with_lse`` each row's fp32
+    log-sum-exp [B, Hq, Sq] (else None)."""
+    b, hq, sq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    return _empty_like_rows(q), lse
+
+
+def bwd_buffers(q, k, v):
+    """The backward's outputs dq, dk, dv (in the [B, S, H, hd] memory
+    layout) and its fp32 scratch: the first launch's D and lse * log2 e,
+    each [B * Hq] rows padded to whole 64-row tiles, which the second
+    launch's TMA reads as tiles."""
+    b, hq, sq, _ = q.shape
+    delta = torch.empty(2 * b * hq * -(-sq // _BWD_ROWS) * _BWD_ROWS,
+                        dtype=torch.float32, device=q.device)
+    return (*(_empty_like_rows(t) for t in (q, k, v)), delta)
+
+
 def _launch_fwd(q, k, v, causal, window, q_offset, with_lse):
     """Launch K4 on CUDA tensors; returns the output and, with
     ``with_lse``, each row's fp32 log-sum-exp [B, Hq, Sq]."""
     _check_card((q, k, v), HEAD_DIMS, "forward")
     b, hq, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    out = _empty_like_rows(q)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    out, lse = fwd_buffers(q, with_lse)
     strides = (ctypes.c_longlong * 12)(*[
         st for t in (q, k, v, out) for st in t.stride()[:3]])
     lib = _build.load("flash_attention", _SIGNATURES)
@@ -240,6 +290,8 @@ def _launch_fwd(q, k, v, causal, window, q_offset, with_lse):
                 *args)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.flops += kernel_flops(b, hq, sq, sk, hd, causal, window,
+                                          q_offset)
     return out, lse
 
 
@@ -282,6 +334,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
 
 flash_attention.launches = 0
+flash_attention.flops = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -310,16 +363,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             dout.data_ptr() % 16 or any(st % 8 for st in dout.stride()[:3]))):
         dout = dout.contiguous()
     lse = lse.float().contiguous()
-    dq, dk, dv = (_empty_like_rows(t) for t in (q, k, v))
     b, hq, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if b == 0 or sq == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return tuple(_empty_like_rows(t).zero_() for t in (q, k, v))
     _check_card((q, k, v, out, dout), HEAD_DIMS, "backward")
-    # the first launch's D and lse * log2 e, each [B * Hq] rows padded to
-    # whole 64-row tiles, which the second launch's TMA reads as tiles
-    delta = torch.empty(2 * b * hq * -(-sq // _BWD_ROWS) * _BWD_ROWS,
-                        dtype=torch.float32, device=q.device)
+    dq, dk, dv, delta = bwd_buffers(q, k, v)
     strides = (ctypes.c_longlong * 24)(*[
         st for t in (q, k, v, out, dout, dq, dk, dv) for st in t.stride()[:3]])
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
@@ -334,7 +383,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             int(q.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.flops += kernel_flops(b, hq, sq, sk, hd, causal,
+                                              window, q_offset,
+                                              backward=True)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.flops = 0

@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/ssd_intra/ssd_intra.py``.  On CUDA
 tensors :func:`ssd_intra` launches ``csrc/ssd_intra.cu`` (it replaces
 the TPU kernel ``ssd_intra``, the ``pallas_call`` at line 52); on CPU
 tensors it runs :func:`ssd_intra_plain`.  ``ssd_intra.launches`` counts
-kernel launches.
+kernel launches and ``ssd_intra.flops`` their operations
+(:func:`kernel_flops`; ``ssd_intra_bwd`` counts its own alike).
 
 cb [B, Q, Q] (= C @ B^T per chunk), cs [B, Q, H] (the chunk's cumsum of
 dt * A), win [B, Q, H, P] (= dt * x); B folds batch and chunks.
@@ -107,6 +108,23 @@ def _counters(device, n: int):
     return buf
 
 
+def kernel_flops(b, q, h, p, backward=False) -> int:
+    """The products' operations of one launch, 2 a multiply-add, over
+    the q(q+1)/2 causal (q, k) pairs of each of the b chunks and h heads:
+    the forward's sum over k of CB L Win, 2 x p a pair; the backward's G
+    = dY Win^T and dWin = (CB L)^T dY, 4 x p a pair."""
+    return (4 if backward else 2) * p * b * h * (q * (q + 1) // 2)
+
+
+def bwd_buffers(cb, cs, win):
+    """The backward's outputs dcb, dcs, dwin and its fp32 scratch of
+    [Q, 64] dCB strips, one for each (key tile, head group)."""
+    b, q, h, _ = win.shape
+    part = torch.empty(b * -(-q // _BWD_KT) * -(-h // _BWD_HPB) * q
+                       * _BWD_KT, dtype=torch.float32, device=win.device)
+    return (*(torch.empty_like(t) for t in (cb, cs, win)), part)
+
+
 def _check(cb, cs, win):
     if cb.dim() != 3 or cs.dim() != 3 or win.dim() != 4:
         raise ValueError("cb must be [B, Q, Q], cs [B, Q, H] and win "
@@ -142,6 +160,7 @@ def _launch_fwd(cb, cs, win):
             _build.stream_of(win))
     _build.check(rc, "ssd_intra")
     ssd_intra.launches += 1
+    ssd_intra.flops += kernel_flops(b, q, h, p)
     return out
 
 
@@ -175,6 +194,7 @@ def ssd_intra(cb, cs, win):
 
 
 ssd_intra.launches = 0
+ssd_intra.flops = 0
 
 
 def ssd_intra_bwd(cb, cs, win, dy, y):
@@ -201,11 +221,8 @@ def ssd_intra_bwd(cb, cs, win, dy, y):
     if b > 65535:
         raise ValueError(f"{b} chunks exceed the grid's 65535")
     cb, cs, win, y, dy = (t.contiguous() for t in (cb, cs, win, y, dy))
-    dcb, dcs, dwin = (torch.empty_like(t) for t in (cb, cs, win))
-    tiles = b * -(-q // _BWD_KT)
-    part = torch.empty(tiles * -(-h // _BWD_HPB) * q * _BWD_KT,
-                       dtype=torch.float32, device=win.device)
-    done = _counters(win.device, tiles)
+    dcb, dcs, dwin, part = bwd_buffers(cb, cs, win)
+    done = _counters(win.device, b * -(-q // _BWD_KT))
     lib = _build.load("ssd_intra_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(win.device):
         rc = lib.ssd_intra_bwd_launch(
@@ -215,7 +232,9 @@ def ssd_intra_bwd(cb, cs, win, dy, y):
             _build.stream_of(win))
     _build.check(rc, "ssd_intra_bwd")
     ssd_intra_bwd.launches += 1
+    ssd_intra_bwd.flops += kernel_flops(b, q, h, p, backward=True)
     return dcb, dcs, dwin
 
 
 ssd_intra_bwd.launches = 0
+ssd_intra_bwd.flops = 0

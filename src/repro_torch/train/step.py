@@ -149,13 +149,24 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), pt.unflatten(spec, grads), missing
 
 
+def micro_batch(batch, i: int, n_micro: int) -> dict:
+    """Micro-batch ``i`` of ``n_micro``: rows i*B/n .. (i+1)*B/n of every
+    leaf."""
+    return {k: v.reshape((n_micro, v.shape[0] // n_micro)
+                         + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+
+
 def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
                      policy: shard.ShardingPolicy | None = None,
                      global_batch: int | None = None):
     """Returns ``(train_step, ctx, n_micro)``; ``train_step(state,
     batch)`` -> (state, metrics {loss, grad_norm, lr, grads_missing}),
     the batch's tensors moved to the mesh's device, the state already
-    there."""
+    there.  Its two halves are attributes of it: ``grads_of(state,
+    batch, n_run=None)`` -> (loss, grads, missing), the mean over the
+    micro-batches (only the first ``n_run`` run when given: the
+    dry-run counts one and multiplies), and ``apply_grads(state, grads,
+    loss, missing)``, compression and the AdamW update."""
     tcfg = tcfg or TrainConfig()
     dev = mesh.device
     ctx = shard.make_ctx(mesh, cfg, policy)
@@ -170,39 +181,43 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
     acc_dt = torch.bfloat16 if tcfg.accum_dtype == "bfloat16" \
         else torch.float32
 
-    def train_step(state, batch):
+    def grads_of(state, batch, n_run=None):
         params = state["params"]
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        if n_micro > 1:
-            gsum = pt.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=acc_dt, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32, device=dev)
-            missing = 0
-            for i in range(n_micro):
-                mb = {k: v.reshape((n_micro, v.shape[0] // n_micro)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                loss, g, miss = value_and_grad(loss_fn, params, mb)
-                gsum = pt.tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
-                lsum = lsum + loss
-                missing = max(missing, miss)
-            grads = pt.tree_map(lambda g: g / n_micro, gsum)
-            loss = lsum / n_micro
-        else:
-            loss, grads, missing = value_and_grad(loss_fn, params, batch)
+        if n_micro == 1:
+            return value_and_grad(loss_fn, params, batch)
+        gsum = pt.tree_map(lambda p: torch.zeros(
+            p.shape, dtype=acc_dt, device=p.device), params)
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        missing = 0
+        for i in range(n_micro if n_run is None else n_run):
+            loss, g, miss = value_and_grad(loss_fn, params,
+                                           micro_batch(batch, i, n_micro))
+            gsum = pt.tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+            lsum = lsum + loss
+            missing = max(missing, miss)
+        grads = pt.tree_map(lambda g: g / n_micro, gsum)
+        return lsum / n_micro, grads, missing
 
+    def apply_grads(state, grads, loss, missing):
         new_state = dict(state)
         if tcfg.compress_grads:
             q, new_err = compress_grads(grads, state.get("err"))
             grads = decompress_grads(q, grads)
             new_state["err"] = new_err
 
-        new_params, new_opt, metrics = adamw_update(params, grads,
+        new_params, new_opt, metrics = adamw_update(state["params"], grads,
                                                     state["opt"], tcfg.opt)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, dict(metrics, loss=loss, grads_missing=missing)
 
+    def train_step(state, batch):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        loss, grads, missing = grads_of(state, batch)
+        return apply_grads(state, grads, loss, missing)
+
+    train_step.grads_of = grads_of
+    train_step.apply_grads = apply_grads
     return train_step, ctx, n_micro
 
 

@@ -15,33 +15,42 @@ def flatten(tree):
     """(leaves, spec): the leaves in JAX's order and a spec that
     :func:`unflatten` rebuilds the tree from."""
     leaves = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return ("dict", tuple((k, walk(node[k])) for k in sorted(node)))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, tuple(walk(x) for x in node))
-        leaves.append(node)
-        return None
-    return leaves, walk(tree)
+
+# the walks are module functions, not recursive closures: a closure that
+# calls itself is a reference cycle holding the list it fills (here the
+# leaves, tensors of a whole tree) until the cyclic collector runs
+
+
+def _flatten(node, leaves):
+    if isinstance(node, dict):
+        return ("dict", tuple((k, _flatten(node[k], leaves))
+                              for k in sorted(node)))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, tuple(_flatten(x, leaves)
+                                           for x in node))
+    leaves.append(node)
+    return None
 
 
 def unflatten(spec, leaves):
     """The tree of ``spec`` with ``leaves`` in :func:`flatten`'s order."""
     it = iter(leaves)
-
-    def build(sp):
-        if sp is None:
-            return next(it)
-        kind, kids = sp
-        if kind == "dict":
-            return {k: build(c) for k, c in kids}
-        out = [build(c) for c in kids]
-        return out if kind == "list" else tuple(out)
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the spec holds")
     return out
+
+
+def _build(sp, it):
+    if sp is None:
+        return next(it)
+    kind, kids = sp
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in kids}
+    out = [_build(c, it) for c in kids]
+    return out if kind == "list" else tuple(out)
 
 
 def flatten_up_to(spec, tree):
@@ -49,20 +58,21 @@ def flatten_up_to(spec, tree):
     ``treedef.flatten_up_to``): e.g. each parameter's {"m", "v"} dict of
     an optimizer state whose structure extends the parameters'."""
     out = []
-
-    def walk(sp, node):
-        if sp is None:
-            out.append(node)
-            return
-        kind, kids = sp
-        if kind == "dict":
-            for k, c in kids:
-                walk(c, node[k])
-        else:
-            for c, x in zip(kids, node, strict=True):
-                walk(c, x)
-    walk(spec, tree)
+    _walk_up_to(spec, tree, out)
     return out
+
+
+def _walk_up_to(sp, node, out):
+    if sp is None:
+        out.append(node)
+        return
+    kind, kids = sp
+    if kind == "dict":
+        for k, c in kids:
+            _walk_up_to(c, node[k], out)
+    else:
+        for c, x in zip(kids, node, strict=True):
+            _walk_up_to(c, x, out)
 
 
 def leaves(tree):

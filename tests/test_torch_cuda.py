@@ -1302,3 +1302,27 @@ def test_expert_parallel_moe_ffn_on_gpu_matches_cpu(cuda):
     assert 0 < int(rc[4].sum()) < rc[4].numel()
     assert float((yg - yc).abs().max()) <= 1e-5 * float(yc.abs().max())
     assert ag == pytest.approx(ac, rel=1e-5)
+
+
+@pytest.mark.parametrize("cell", [("qwen3-1.7b", 2, "train", 1024, 1),
+                                  ("qwen3-1.7b", 2, "decode", 4096, 2),
+                                  ("mamba2-2.7b", 2, "train", 1024, 1)])
+def test_dryrun_count_matches_card_step(cuda, cell, monkeypatch):
+    """``chip_smoke.card_step_check`` (phase 7c's card half) at full width
+    and 2 layers: the products ``FlopCounterMode`` sees in the card's step
+    equal the dry-run's count outside the kernels exactly, the measured
+    step is no faster than the dry-run's roofline bound, and the peak
+    memory is within ``chip_smoke.DRYRUN_MEM_TOL`` of the prediction."""
+    cs = _chip_smoke()
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    monkeypatch.setattr(cs, "CARD_CELLS", {"small": cell})
+    cfg, sh = cs._card_cell("small")
+    pred = dryrun.measure(cfg, sh, make_local_mesh("cpu"))
+    out, launches = cs.card_step_check(cuda, K, "small", pred)
+    assert out["outside_flops_card"] == out["outside_flops_dryrun"]
+    assert out["share_of_bound"] <= 1.0
+    if cell[2] == "train":
+        name = "flash_attention" if cell[0] == "qwen3-1.7b" else "ssd_intra"
+        assert launches[name] == 2 * cell[1]          # forward, remat
+        assert launches[name + "_bwd"] == cell[1]

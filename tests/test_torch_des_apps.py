@@ -36,6 +36,10 @@ from repro.apps import workloads as jwl  # noqa: E402
 from repro_torch.apps import workloads as twl  # noqa: E402
 from test_torch_des import BACKENDS, _both  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 MODES = {"plain": {}, "wal": {"wal": True},
          "2pc": {"wal": True, "partitioned": True}}
 

@@ -43,6 +43,10 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 ENCDEC = "seamless-m4t-medium"
 VLM = "llava-next-mistral-7b"
 TOLS = {"float32": 1e-4, "bfloat16": 5e-2}

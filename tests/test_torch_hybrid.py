@@ -43,6 +43,10 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import rglru as trg  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 ARCH = "recurrentgemma-2b"
 
 

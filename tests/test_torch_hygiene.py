@@ -66,7 +66,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 25
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"parallel/__init__.py", "parallel/sharding.py",
-            "parallel/pipeline.py", "launch/mesh.py"} <= scanned
+            "parallel/pipeline.py", "launch/mesh.py", "launch/hloparse.py",
+            "launch/dryrun.py", "launch/hillclimb.py"} <= scanned
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_roots(f)
            if name in ("jax", "jaxlib", "repro", "ml_dtypes")]
@@ -220,6 +221,22 @@ def test_port_serves_with_jax_blocked():
             torch.eye(4)[None].repeat(4, 1, 1), 2), torch.ones(3, 1, 4),
             mesh=Mesh({"pipe": 2}, "cpu"))
         assert torch.equal(y, torch.ones(3, 1, 4))
+        import os
+        flags = os.environ.get("XLA_FLAGS")
+        from repro_torch.launch import dryrun, hillclimb
+        from repro_torch.launch.hloparse import analyze
+        from repro_torch.models.config import ShapeSpec
+        assert os.environ.get("XLA_FLAGS") == flags
+        hlo = analyze("ENTRY %m (p: f32[4,8]) -> f32[4,8] {\\n"
+                      "  %p = f32[4,8]{1,0} parameter(0)\\n"
+                      "  ROOT %ar = f32[4,8]{1,0} all-reduce(f32[4,8]{1,0} "
+                      "%p), replica_groups=[2,4]<=[8], to_apply=%add\\n}\\n")
+        assert hlo["collectives"]["all-reduce"]["count"] == 1
+        with tempfile.TemporaryDirectory() as d:
+            rec = dryrun.run_cell(get_smoke_config("qwen3-1.7b"),
+                                  ShapeSpec("s", 32, 32, "train"), False, d)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert "qwen_v1_notp" in hillclimb.VARIANTS
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         assert "ml_dtypes" not in sys.modules
@@ -231,7 +248,8 @@ def test_port_serves_with_jax_blocked():
     assert "PORT_WITHOUT_JAX_OK" in out.stdout, out.stderr[-3000:]
 
 
-def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch,
+                                                     tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SELCCKVPool(CFG)
@@ -265,6 +283,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
             lm.init_params(get_smoke_config(arch), torch.Generator())
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve_main(["--arch", arch, "--smoke", "--requests", "1"])
+    # the dry-run is the exception: fake tensors, no device to ask for
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeSpec
+    rec = dryrun.run_cell(cfg, ShapeSpec("s", 32, 2, "decode"), False,
+                          tmp_path)
+    assert rec["status"] == "ok", rec.get("traceback")
     step, prefill, _ = build_serve_step(cfg, make_local_mesh("cpu"))
     params = lm.init_params(cfg, torch.Generator(), device="cpu")
     logits, _ = prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})

@@ -33,6 +33,10 @@ from repro_torch.core import rounds as tr  # noqa: E402
 from repro_torch.index import DeviceBTree as TTree  # noqa: E402
 from repro_torch.index import codec as tcodec  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 FANOUT = 4
 N_NODES = 4
 N_LINES = 256

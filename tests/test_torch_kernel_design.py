@@ -98,6 +98,10 @@ from repro_torch.kernels.paged_attention import \
 from repro_torch.kernels.ssd_intra import ssd_intra_bwd_plain, \
     ssd_intra_plain  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 K4_TILE = 64              # keys per tile of the bf16 kernel
 K4_ROWS = 64              # q rows per block of the bf16 kernel
 K4_WARP_ROWS = 16         # q rows per warp

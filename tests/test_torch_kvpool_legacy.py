@@ -35,6 +35,10 @@ from repro.dsm import kvpool as jkv  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.dsm import kvpool as tkv  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 ATTEND_TOL = 2e-5
 
 

@@ -59,6 +59,10 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 ARCHS = ("qwen3-1.7b", "mamba2-2.7b", "deepseek-moe-16b", "dbrx-132b",
          "command-r-plus-104b", "starcoder2-7b", "llama3-405b",
          "recurrentgemma-2b", "llava-next-mistral-7b", "seamless-m4t-medium")

@@ -44,6 +44,10 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 MOE_ARCHS = ("deepseek-moe-16b", "dbrx-132b")
 
 

@@ -91,14 +91,7 @@ class StubMesh:
         self.axis_names = tuple(axes)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the module's tensors are tiny, and under the
-    suite's parallel workers every extra thread only contends."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _one_thread  # noqa: E402,F401
 
 
 def _meshes():

@@ -28,6 +28,9 @@ from repro_torch.core.rounds.driver import run_rmw, run_rounds  # noqa: E402
 from repro_torch.dsm import kvpool as tkv  # noqa: E402
 
 
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 def _np(tree):
     return {k: np.asarray(v) for k, v in tree.items()}
 

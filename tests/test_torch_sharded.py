@@ -34,6 +34,10 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_NODES = 4
 

@@ -27,6 +27,9 @@ from test_torch_sharded import (ROOT, Pkg, assert_same,  # noqa: E402
                                 run_scenarios)
 
 
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 def test_tree_and_txn_engine_on_four_shards_match_flat():
     """``DeviceBTree`` (inserts with splits, lookups, a scan) and
     ``DeviceTxnEngine`` over a 4-shard plane answer as over the flat

@@ -72,6 +72,10 @@ from repro_torch.train import (TrainConfig, build_train_step,  # noqa: E402
                                init_train_state)
 from repro_torch.train.step import value_and_grad  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 # the kernel modules (the package's names are the wrappers)
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 sd = importlib.import_module("repro_torch.kernels.ssd_intra")

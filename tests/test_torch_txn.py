@@ -32,6 +32,10 @@ from repro_torch.apps import workloads as twl  # noqa: E402
 from repro_torch.core import rounds as tr  # noqa: E402
 from repro_torch.core.rounds import txn as ttxn  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 CFG = dict(n_gcls=12, tuples_per_gcl=4, batch=8, iters=3,
            max_group_lines=4, zipf_theta=0.9, n_nodes=3)
 W = ttxn.txn_payload_width(CFG["tuples_per_gcl"])

@@ -40,6 +40,10 @@ if str(ROOT) not in sys.path:
 
 import chip_smoke as cs  # noqa: E402
 
+
+from _torch_threads import _one_thread  # noqa: E402,F401
+
+
 CFG = tapps.TxnBatchConfig(n_gcls=12, tuples_per_gcl=4, batch=8, iters=3,
                            max_group_lines=4, zipf_theta=0.9, n_nodes=3)
 W = txn_payload_width(CFG.tuples_per_gcl)
