@@ -203,13 +203,24 @@ Phases (any failure exits non-zero; nothing is caught):
    (the step's share of it, at most 1); the
    peak memory at least the predicted arguments and within
    :data:`DRYRUN_MEM_TOL` of the predicted peak;
+7d. the ``shard_map`` bodies over ranks (:func:`ranks_phase`, after
+   7c): the parent frees its cached memory and spawns :data:`RANKS` gloo
+   ranks sharing the card (:func:`rank_main`; the kernels built above,
+   each rank loads them), which run the serve over a mesh-backed pool on
+   ``Mesh(4)`` split a shard a rank (hashes equal to phase 3's), phase
+   5's tree on it (state hash equal to the one-process 4-shard run's),
+   deepseek-moe-16b under ``--production-mesh`` with EP 16 as 4 ranks x
+   4 model shards, teacher-forced on 7b's first batch and held to its
+   logits, ``moe_card_check`` rank by rank, and the pipeline a stage a
+   rank; then a world-1 nccl group runs both collectives; each rank's
+   walls, launches and collective bytes are printed;
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
    sharded plane, the LM serves, the tree, the transactions, the DES
    oracle, Fig. 7's rounds, the training runs and the sharded LM
    stack's serve and training (``sharded_lm_serve``,
-   ``sharded_lm_train``) and the dry-run's card steps
-   (``dryrun_card``), split
+   ``sharded_lm_train``), the dry-run's card steps
+   (``dryrun_card``) and phase 7d's ranks (``ranks``), split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -1173,15 +1184,18 @@ def check_ssd_bwd(dev, K):
 
 # --------------------------------------------------------- phase 3: serve
 
-def serve(dev, cfg=None, n_q_heads=16, recorder=None, mesh=None):
+def serve(dev, cfg=None, n_q_heads=16, recorder=None, mesh=None,
+          requests=48):
     """The main path: ``cfg`` defaults to ``KVPoolConfig()`` (1024 x 16
     tokens, 8 kv heads x 128, 4 replicas, bf16) and ``n_q_heads`` to
     Qwen3-1.7B's 16.  ``recorder`` goes to the ``ServeLoop``; ``mesh``
-    (a ``Mesh`` on ``dev``) makes the pool mesh-backed.  The result's
-    ``dispatches`` counts the loop's plane verbs on its own (wrappers
-    around the plane's ``ops`` and ``rmw``), which also hash every
-    dispatch's versions (``versions_sha256``) and sum its telemetry;
-    ``state_sha256`` hashes the final unsharded rounds state."""
+    (a ``Mesh`` on ``dev``) makes the pool mesh-backed; ``requests``
+    takes the first of the trace's 48 requests (CPU rehearsals).  The
+    result's ``dispatches`` counts the loop's plane verbs on its own
+    (wrappers around the plane's ``ops`` and ``rmw``), which also hash
+    every dispatch's versions (``versions_sha256``) and sum its
+    telemetry; ``state_sha256`` hashes the final unsharded rounds
+    state."""
     from repro_torch.core.rounds import check_invariants
     from repro_torch.dsm.kvpool import KVPoolConfig, SELCCKVPool
     from repro_torch.kernels.paged_attention import paged_attention_plain
@@ -1241,7 +1255,7 @@ def serve(dev, cfg=None, n_q_heads=16, recorder=None, mesh=None):
                      on_complete=on_complete, recorder=recorder)
     rng = np.random.default_rng(SEED + 3)
     reqs = []
-    for i in range(48):
+    for i in range(requests):
         prompt = [int(x) for x in rng.integers(0, model.vocab,
                                                int(rng.integers(8, 129)))]
         max_new = int(rng.integers(8, 97))
@@ -1265,14 +1279,11 @@ def serve(dev, cfg=None, n_q_heads=16, recorder=None, mesh=None):
     flat = plane.flat_state()
     check_invariants(flat)
     assert pool.pages_in_use == len(prefix), "pages leaked"
-    state = hashlib.sha256()
-    for k in sorted(flat):
-        state.update(flat[k].cpu().numpy().tobytes())
     t = sum(tele[1:], tele[0])
     return {"requests": len(reqs), "ticks": ticks,
             "shards": plane.n_shards,
             "versions_sha256": versions.hexdigest(),
-            "state_sha256": state.hexdigest(),
+            "state_sha256": state_sha256(flat),
             "occupancy": t.occupancy.tolist(),
             "served_per_home": t.served_per_home.tolist(),
             "deferred": t.deferred_total,
@@ -1283,6 +1294,14 @@ def serve(dev, cfg=None, n_q_heads=16, recorder=None, mesh=None):
             "readbacks_checked": checked["readback"],
             "attends_checked": checked["attend"],
             "dispatches": dict(dispatches)}
+
+
+def state_sha256(state) -> str:
+    """The hash of a round state's leaves, in key order."""
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(state[k].cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 @contextlib.contextmanager
@@ -2294,13 +2313,22 @@ def moe_card_check(dev, n_tokens=2048, mesh=None):
     production mesh's 16 shards).  The drop sets must be equal, shard by
     shard; the output within 2e-2 of the reference's scale (bf16
     operands and a bf16 rounding of every product in the model's
-    path)."""
+    path).  Over ranks (a mesh with a process group) each rank draws
+    the same layer and keeps its experts, checks its shards' drop sets,
+    and adds its experts' share of the reference; an ``all_reduce`` sums
+    the shares."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     from repro_torch.parallel.sharding import make_ctx
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    p = moe.init_moe(gen, cfg, torch.bfloat16)
+    ranked = mesh is not None and mesh.ranked
+    lo, hi = 0, cfg.n_experts
+    if ranked:
+        per = cfg.n_experts // mesh.world
+        lo, hi = mesh.rank * per, (mesh.rank + 1) * per
+    p = moe.init_moe(gen, cfg, torch.bfloat16,
+                     experts=(lo, hi) if ranked else None)
     d, k, n_exp = cfg.d_model, cfg.top_k, cfg.n_experts
     x = (torch.randn((1, n_tokens, d), generator=gen, device=dev)
          + 1.5 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
@@ -2334,8 +2362,14 @@ def moe_card_check(dev, n_tokens=2048, mesh=None):
                     ref_keep[t, j] = True
                 count[e] += 1
         over += int((count > cap).sum())
-    port_keep = keep.cpu().numpy().reshape(n_tokens, k)
-    for g in range(shards):
+    mine = range(shards)
+    if ranked:                  # this rank's model shards' routes only
+        n_l = shards // mesh.world
+        mine = range(mesh.rank * n_l, (mesh.rank + 1) * n_l)
+    port_keep = np.zeros((n_tokens, k), bool)
+    port_keep[mine[0] * t_l:(mine[-1] + 1) * t_l] = \
+        keep.cpu().numpy().reshape(-1, k)
+    for g in mine:
         sl = slice(g * t_l, (g + 1) * t_l)
         assert np.array_equal(port_keep[sl], ref_keep[sl]), \
             f"shard {g}: moe_ffn drops {int((~port_keep[sl]).sum())} " \
@@ -2344,17 +2378,20 @@ def moe_card_check(dev, n_tokens=2048, mesh=None):
     xf = xt.float()
     want = torch.zeros((n_tokens, d), device=dev)
     for e, (tok, w) in kept.items():
-        if not tok:
+        if not tok or not lo <= e < hi:
             continue
         idx = torch.tensor(tok, device=dev)
         xe = xf[idx]
-        h = torch.nn.functional.silu(xe @ p["we_g"][e].float()) \
-            * (xe @ p["we_u"][e].float())
-        want.index_add_(0, idx, (h @ p["we_d"][e].float())
+        h = torch.nn.functional.silu(xe @ p["we_g"][e - lo].float()) \
+            * (xe @ p["we_u"][e - lo].float())
+        want.index_add_(0, idx, (h @ p["we_d"][e - lo].float())
                         * torch.tensor(w, device=dev)[:, None])
-    sh = torch.nn.functional.silu(xf @ p["s_wg"].float()) \
-        * (xf @ p["s_wu"].float())
-    want += sh @ p["s_wd"].float()
+    if not ranked or mesh.rank == 0:
+        sh = torch.nn.functional.silu(xf @ p["s_wg"].float()) \
+            * (xf @ p["s_wu"].float())
+        want += sh @ p["s_wd"].float()
+    if ranked:
+        mesh.all_reduce(want)
     err = float((y.reshape(n_tokens, d).float() - want).abs().max())
     scale = float(want.abs().max())
     out = {"tokens": n_tokens, "shards": shards, "capacity": cap,
@@ -2363,9 +2400,13 @@ def moe_card_check(dev, n_tokens=2048, mesh=None):
            "dropped": int((~ref_keep).sum()),
            "experts_over_capacity": over,
            "max_abs_err": err, "scale": scale, "rel_err": err / scale,
-           "tolerance_rel": 2e-2, "port_s": port_s}
-    log(("moe_ffn EP card check: " if shards > 1 else
-         "moe_ffn card check: ") + json.dumps(out))
+           "tolerance_rel": 2e-2, "port_s": port_s,
+           "shards_checked_here": len(mine)}
+    if ranked:
+        out["rank"] = mesh.rank
+    else:
+        log(("moe_ffn EP card check: " if shards > 1 else
+             "moe_ffn card check: ") + json.dumps(out))
     assert out["dropped"] > 0, "the check's tokens overflowed no expert"
     assert np.isfinite(err) and err <= 2e-2 * scale, \
         f"moe_ffn off the fp32 reference by {err} (scale {scale}, " \
@@ -3107,8 +3148,10 @@ def sharded_tree(dev, mesh, launches, *, n_keys=BTREE_KEYS,
                  a_batches=2):
     """Phase 5's tree (:func:`load_btree`, the same image) on the
     sharded plane: YCSB C answers against the oracle, YCSB A upserts
-    read back, the plane's invariants."""
+    read back, the plane's invariants and the unsharded final state's
+    hash (``state_sha256``)."""
     from repro_torch.apps import BTreeBatchConfig, btree_kv_batches
+    from repro_torch.core.rounds import check_invariants
     t0 = time.perf_counter()
     tree, oracle = load_btree(dev, n_keys, n_lines, mesh=mesh)
     sync(dev)
@@ -3132,7 +3175,10 @@ def sharded_tree(dev, mesh, launches, *, n_keys=BTREE_KEYS,
                 "upserts_per_s": (out["upserts"] / out["upsert_s"]
                                   if out["upserts"] else None),
                 "deferred": tree.stats["descent_deferred"]}
-    tree.plane.check()
+    flat = tree.plane.flat_state()
+    check_invariants(flat)
+    res["state_sha256"] = state_sha256(flat)
+    del flat
     res["wall_s"] = time.perf_counter() - t0
     return res
 
@@ -3571,7 +3617,8 @@ PIPE_STAGES, PIPE_MICRO, PIPE_WIDTH, PIPE_LAYERS, PIPE_ROWS = 4, 8, 2048, 8, 64
 PIPE_REPEATS = 20                  # warmed runs of each, in turns
 
 
-def sharded_serve(dev, K, requests=8, batch=4, prompt=512, gen=32):
+def sharded_serve(dev, K, requests=8, batch=4, prompt=512, gen=32,
+                  logits_out=None):
     """``launch.serve.main --production-mesh`` for deepseek-moe-16b at
     full width and depth: (data 16, model 16) on the card, EP 16 over
     the model axis.  A prefill's 4 x 512 tokens replicate over the data
@@ -3579,7 +3626,9 @@ def sharded_serve(dev, K, requests=8, batch=4, prompt=512, gen=32):
     16 shards of 128 tokens, each routed against its own capacity (16
     slots, against 244 for the 2048 tokens routed flat); a decode step's
     4 tokens replicate over both axes, so they are routed once.  K4 must
-    run once per attention layer a prefill."""
+    run once per attention layer a prefill.  ``logits_out`` keeps the
+    first batch's logits and decode inputs (``--logits-out``), phase
+    7d's reference."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import moe
@@ -3592,7 +3641,9 @@ def sharded_serve(dev, K, requests=8, batch=4, prompt=512, gen=32):
     with dispatch_calls() as calls:
         res = lm_serve(K, SHARDED_ARCH, requests, "flash_attention",
                        cfg.n_layers, 0, batch, prompt, gen,
-                       flags=("--production-mesh",))
+                       flags=("--production-mesh",)
+                       + (("--logits-out", logits_out) if logits_out
+                          else ()))
         shapes = collections.Counter(tuple(r[4].shape) for _, r in calls)
         del calls[:]
     prefills = -(-requests // batch)
@@ -3660,14 +3711,16 @@ def sharded_train(dev, K, steps=8, batch=4, seq=512):
 
 
 def pipeline_check(dev, stages=PIPE_STAGES, micro=PIPE_MICRO,
-                   width=PIPE_WIDTH, n_layers=PIPE_LAYERS, rows=PIPE_ROWS):
+                   width=PIPE_WIDTH, n_layers=PIPE_LAYERS, rows=PIPE_ROWS,
+                   mesh=None):
     """``parallel.pipeline_forward`` on a ``pipe`` mesh of ``stages`` on
     the card: ``micro`` micro-batches of ``rows`` x ``width`` fp32 through
     a ``tanh(h @ w)`` stack of ``n_layers`` (w ~ N(0, 1/width)), held
     within rtol 1e-5 (atol 1e-6) of the unpipelined layer loop; both
     timed over ``PIPE_REPEATS`` warmed runs each, in turns
     (CUDA-synchronised wall: median and range), beside the schedule's
-    bubble fraction."""
+    bubble fraction.  ``mesh`` (a ``pipe`` mesh over ranks, one stage a
+    rank) replaces the one-process mesh."""
     from repro_torch.core.rounds import Mesh
     from repro_torch.parallel.pipeline import (bubble_fraction,
                                                pipeline_forward,
@@ -3685,7 +3738,7 @@ def pipeline_check(dev, stages=PIPE_STAGES, micro=PIPE_MICRO,
     def loop():
         return torch.stack([stage({"w": w}, xm) for xm in x])
 
-    mesh = Mesh({"pipe": stages}, dev)
+    mesh = Mesh({"pipe": stages}, dev) if mesh is None else mesh
     staged = split_stages({"w": w}, stages)
 
     def pipe():
@@ -3714,7 +3767,7 @@ def pipeline_check(dev, stages=PIPE_STAGES, micro=PIPE_MICRO,
     return out
 
 
-def sharded_lm_phase(dev, K):
+def sharded_lm_phase(dev, K, logits_out=None):
     """Phase 7b: the sharded LM stack on one card: (a) the serve under
     the production mesh (:func:`sharded_serve`), (b) EP ``moe_ffn`` on
     it against the per-shard reference (:func:`moe_card_check` with the
@@ -3724,7 +3777,7 @@ def sharded_lm_phase(dev, K):
     before each."""
     from repro_torch.launch.mesh import make_production_mesh
     t0 = time.perf_counter()
-    serve_res = sharded_serve(dev, K)
+    serve_res = sharded_serve(dev, K, logits_out=logits_out)
     log("sharded_lm serve: " + json.dumps(serve_res))
     ep_check = moe_card_check(dev, mesh=make_production_mesh(device=dev))
     train_res, train_counts = sharded_train(dev, K)
@@ -3749,6 +3802,223 @@ def sharded_lm_phase(dev, K):
            "seconds": time.perf_counter() - t0}
     log("sharded_lm: " + json.dumps(out))
     return out, launches
+
+
+# ------------------------------------ phase 7d: the shard_map bodies over ranks
+
+RANKS = 4                          # gloo ranks sharing the one card
+RANK_JOIN_S = 400                  # the limit on the ranks' join
+RANK_GEN = 8                       # teacher-forced decode steps of (c)
+
+
+def _rank_path(K, name, fn, out):
+    """Run one of a rank's paths with the launch and collective counts
+    set to 0 just before it; record its wall, launches and the bytes
+    each collective moved."""
+    from repro_torch.core.rounds.mesh import (collective_counts,
+                                              reset_collective_counts)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    reset_collective_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    out[name] = {"wall_s": time.perf_counter() - t0,
+                 "launches": K.launch_counts(),
+                 "collectives": collective_counts(), "result": res}
+    return res
+
+
+def rank_main(rank, world, tmp):
+    """One of phase 7d's ranks: joins the gloo group of the ranks that
+    share the card (``parallel.dist.init``), loads the kernels the parent
+    built, and runs (a) the 48-request serve over a mesh-backed
+    ``KVPoolConfig()`` pool on ``Mesh(4)`` split one shard a rank, its
+    hashes against ``flat_serve``'s; (b) phase 5's tree on the same
+    mesh, its unsharded state's hash against the one-process 4-shard
+    run's; (c) deepseek-moe-16b at full width and depth through
+    ``launch.serve --production-mesh`` (EP 16 as 4 ranks x 4 model
+    shards, 16 experts a rank), teacher-forced on phase 7b's first batch,
+    its logits against 7b's, then ``moe_card_check`` on this rank's
+    shards; (d) the pipeline, one stage a rank.  Writes
+    ``rank<r>.json``.  A ``small`` entry in the spec rehearses the ranks
+    on the CPU at its sizes (the smoke config with 16 experts for (c),
+    no ``moe_card_check``)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch import kernels as K
+    from repro_torch.core.rounds import Mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import dist as pd
+    tmp = os.fspath(tmp)
+    spec = json.loads(open(os.path.join(tmp, "spec.json")).read())
+    small = spec.get("small")
+    if small:
+        from repro_torch.dsm.kvpool import KVPoolConfig
+        from repro_torch.launch import serve as serve_mod
+        torch.cuda.synchronize = lambda *a, **k: None
+        torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+        real = serve_mod.get_smoke_config
+        serve_mod.get_smoke_config = lambda a: real(a).replace(
+            n_experts=16)
+        kv = (KVPoolConfig(**small["kv"]), small["n_q_heads"])
+    t0 = time.perf_counter()
+    group, dev = pd.init(init_method="file://" + os.path.join(
+        tmp, "rendezvous"), device="cpu" if small else "cuda")
+    backend = torch.distributed.get_backend(group)
+    assert backend == "gloo" and dev == torch.device(
+        "cpu" if small else "cuda", None if small else 0), (backend, dev)
+    out = {"rank": rank, "world": world, "backend": backend,
+           "device": str(dev), "join_s": time.perf_counter() - t0}
+    loads0 = _build.LOADS
+    mesh = Mesh(SHARDS, dev, group=group)
+    res = _rank_path(K, "serve", lambda: serve(
+        dev, *(kv if small else ()), mesh=mesh,
+        **({"requests": small["requests"]} if small else {})), out)
+    for k in ("versions_sha256", "state_sha256", "ticks",
+              "coherence_rounds", "tokens_generated"):
+        assert res[k] == spec["flat_serve"][k], \
+            f"rank {rank}: the serve's {k} differs from the flat serve's"
+    torch.cuda.empty_cache()
+    res = _rank_path(K, "tree", lambda: sharded_tree(
+        dev, mesh, collections.Counter(), **(small or {}).get("tree", {})),
+        out)
+    assert res["state_sha256"] == spec["tree_sha256"], \
+        f"rank {rank}: the tree's state differs from the one-process run's"
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits = os.path.join(tmp, "deepseek_ranks.npz")
+    res = _rank_path(K, "deepseek", lambda: lm_serve(
+        K, SHARDED_ARCH, 4, "flash_attention", 0 if small else 28, 0, 4,
+        small["prompt"] if small else 512, RANK_GEN,
+        flags=("--production-mesh", "--teacher", spec["logits"],
+               "--logits-out", logits)
+        + (("--smoke", "--device", "cpu") if small else ())), out)
+    assert res["mesh"] == {"data": 16, "model": 16} and res["ep"] == 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        got, want = np.load(logits), np.load(spec["logits"])
+        ref = want["logits"][:RANK_GEN + 1]
+        err = float(np.abs(got["logits"] - ref).max())
+        scale = float(np.abs(ref).max())
+        out["deepseek_logits"] = {
+            "steps": int(ref.shape[0]), "max_abs_err": err, "scale": scale,
+            "rel_err": err / scale, "tolerance_rel": REPLAY_TOL,
+            "rel_err_by_step": [float(np.abs(a - b).max()) / scale
+                                for a, b in zip(got["logits"], ref)],
+            "argmax_agree": float((got["logits"].argmax(-1)
+                                   == ref.argmax(-1)).mean())}
+        assert np.array_equal(got["inputs"],
+                              want["inputs"][:, :RANK_GEN]), "teacher"
+        assert err <= REPLAY_TOL * scale, \
+            f"deepseek over ranks off the one-process logits: " \
+            f"{out['deepseek_logits']}"
+    if not small:
+        ep = _rank_path(K, "moe_check", lambda: moe_card_check(
+            dev, mesh=make_production_mesh(device=dev, group=group)), out)
+        assert ep["shards_checked_here"] == 16 // world
+    _rank_path(K, "pipeline", lambda: pipeline_check(
+        dev, mesh=Mesh({"pipe": PIPE_STAGES}, dev, group=group),
+        **(small or {}).get("pipe", {})), out)
+    out["kernel_loads"] = _build.LOADS - loads0
+    out["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    pd.finish()
+
+
+def nccl_world1(dev, tmp) -> dict:
+    """A world-1 ``nccl`` group on the card: one ``all_to_all_single``
+    and one ``all_reduce`` through a ranked mesh, against their
+    inputs."""
+    from repro_torch.core.rounds import Mesh
+    from repro_torch.parallel import dist as pd
+    group, d = pd.init(init_method="file://" + os.path.join(tmp, "nccl1"),
+                       device=dev)
+    try:
+        backend = torch.distributed.get_backend(group)
+        assert backend == "nccl", backend
+        mesh = Mesh(SHARDS, d, group=group)
+        x = torch.arange(4096, dtype=torch.int32, device=d)
+        y = mesh.all_to_all(x)
+        z = mesh.all_reduce(torch.ones(1024, device=d))
+        torch.cuda.synchronize()
+        assert torch.equal(y, x) and bool((z == 1).all())
+    finally:
+        pd.finish()
+    return {"backend": backend, "all_to_all_single": "ok",
+            "all_reduce": "ok"}
+
+
+def ranks_phase(dev, flat_serve, tree_sha, logits_ref) -> dict:
+    """Phase 7d: the ``shard_map`` bodies over :data:`RANKS` gloo ranks
+    that share the card (:func:`rank_main`, spawned after the parent
+    frees its cached memory, joined within :data:`RANK_JOIN_S`; a
+    failing or late rank ends the run), then a world-1 nccl group
+    (:func:`nccl_world1`).  Prints each rank's record; returns the
+    ranks' launches by kernel, summed."""
+    from repro_torch.parallel.dist import spawn
+    tmp = tempfile.mkdtemp(prefix="ranks_")
+    try:
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump({"flat_serve": flat_serve, "tree_sha256": tree_sha,
+                       "logits": logits_ref}, f)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parent_gb = torch.cuda.memory_allocated() / 1e9
+        seconds = spawn(rank_main, RANKS, args=(tmp,), timeout=RANK_JOIN_S)
+        recs = [json.loads(open(os.path.join(tmp, f"rank{r}.json")).read())
+                for r in range(RANKS)]
+        nccl = nccl_world1(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = collections.Counter()
+    for rec in recs:
+        paths = {p: rec[p] for p in ("serve", "tree", "deepseek",
+                                     "moe_check", "pipeline")}
+        log(f"ranks rank {rec['rank']}: " + json.dumps({
+            "backend": rec["backend"], "device": rec["device"],
+            "join_s": rec["join_s"], "wall_s": rec["wall_s"],
+            "kernel_loads": rec["kernel_loads"],
+            **{p: {"wall_s": v["wall_s"],
+                   "launches": {k: n for k, n in v["launches"].items()
+                                if n},
+                   "collectives": v["collectives"]}
+               for p, v in paths.items()}}))
+        for name, path in (("latch_ops", "serve"), ("gcl_fetch", "serve"),
+                           ("paged_attention", "serve"),
+                           ("latch_ops", "tree"), ("gcl_fetch", "tree"),
+                           ("flash_attention", "deepseek")):
+            assert rec[path]["launches"][name] > 0, \
+                f"rank {rec['rank']}: {name} never launched on its {path}"
+        for p in ("serve", "tree", "deepseek"):
+            launches.update(rec[p]["launches"])
+    out = {"ranks": RANKS, "backend": recs[0]["backend"],
+           "spawn_to_join_s": seconds, "parent_allocated_gb": parent_gb,
+           "host_staging": "none: the ranks hand gloo their CUDA tensors "
+                           "for all_to_all_single and all_reduce",
+           "serve_wall_s": [r["serve"]["wall_s"] for r in recs],
+           "serve_tokens": recs[0]["serve"]["result"]["tokens_generated"],
+           "tree_wall_s": [r["tree"]["wall_s"] for r in recs],
+           "tree_lookups_per_s": recs[0]["tree"]["result"]["ycsb_c"][
+               "lookups_per_s"],
+           "deepseek_wall_s": [r["deepseek"]["wall_s"] for r in recs],
+           "deepseek_peak_gb_a_rank": [r["deepseek"]["result"]["peak_mem_gb"]
+                                       for r in recs],
+           "deepseek_logits": recs[0]["deepseek_logits"],
+           "moe_check_rel_err": [r["moe_check"]["result"]["rel_err"]
+                                 for r in recs],
+           "pipeline_max_rel_err": recs[0]["pipeline"]["result"][
+               "max_rel_err"],
+           "pipeline_ms": recs[0]["pipeline"]["result"]["pipeline_ms"],
+           "pipeline_loop_ms": recs[0]["pipeline"]["result"]["loop_ms"],
+           "nccl_world1": nccl}
+    log("ranks: " + json.dumps(out))
+    return dict(launches)
 
 
 # ---------------------------------------------- phase 7c: the dry-run
@@ -4277,13 +4547,29 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
     for arch, (n_layers, seq) in TRAIN_PLAIN.items():
         train_plain_check(dev, K, arch, n_layers, seq=seq)
     train_resume_check(dev)
-    _, sharded_lm = sharded_lm_phase(dev, K)
-    for path in sharded_lm.values():
-        for name, n in path.items():
+    logits_dir = tempfile.mkdtemp(prefix="logits_")
+    try:
+        logits_ref = os.path.join(logits_dir, "deepseek_one_process.npz")
+        _, sharded_lm = sharded_lm_phase(dev, K, logits_out=logits_ref)
+        for path in sharded_lm.values():
+            for name, n in path.items():
+                counts[name] = counts.get(name, 0) + n
+        _, dryrun_launches = dryrun_phase(dev, K, dryrun_proc, dryrun_dir)
+        for name, n in dryrun_launches.items():
             counts[name] = counts.get(name, 0) + n
-    _, dryrun_launches = dryrun_phase(dev, K, dryrun_proc, dryrun_dir)
-    for name, n in dryrun_launches.items():
+        t_ranks = time.perf_counter()
+        rank_launches = ranks_phase(dev, flat_serve,
+                                    sharded["tree"]["state_sha256"],
+                                    logits_ref)
+        log(f"phase 7d: {time.perf_counter() - t_ranks:.3f} s")
+    finally:
+        shutil.rmtree(logits_dir, ignore_errors=True)
+    for name, n in rank_launches.items():
         counts[name] = counts.get(name, 0) + n
+    by_path["ranks"] = {k: rank_launches.get(k, 0)
+                        for k in ("latch_ops", "gcl_fetch")}
+    rows[2]["launches_by_path"]["ranks"] = rank_launches.get(
+        "paged_attention", 0)
 
     for row in rows[:2]:
         row["launches_by_path"] = {p: c[row["name"]]
@@ -4297,7 +4583,8 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
             train=sum(train[row["name"]].values()),
             **{f"sharded_lm_{p}": c[row["name"]]
                for p, c in sharded_lm.items()},
-            dryrun_card=dryrun_launches.get(row["name"], 0))
+            dryrun_card=dryrun_launches.get(row["name"], 0),
+            ranks=rank_launches.get(row["name"], 0))
         row["train_launches_by_arch"] = train[row["name"]]
 
     kernels = []

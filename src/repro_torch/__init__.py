@@ -12,8 +12,8 @@ is found by name:
 * ``core/rounds/`` — round state and its stripe layout, one coherence
   round, the drivers, the ``DevicePlane`` facade with its placement
   verbs, the placement planners, and the sharded plane (``Mesh``: S
-  home shards on one device; ``core/distributed_rounds.py`` is its
-  bare latch plane);
+  home shards on one device, or over ranks;
+  ``core/distributed_rounds.py`` is its bare latch plane);
 * ``obs/`` — telemetry, metrics and the ``FlightRecorder``;
 * ``dsm/kvpool.py`` — the KV-page pool: the legacy page-copy path and
   the rounds plane;
@@ -22,8 +22,10 @@ is found by name:
 * ``optim/``, ``train/``, ``data/``, ``checkpoint/``, ``runtime/``,
   ``launch/train.py`` — the training stack on one device;
 * ``parallel/``, ``launch/mesh.py`` — the LM stack's meshes (named
-  axes, every shard on one device), sharding specs and contexts, expert
-  parallelism in ``models/moe.py``, and the GPipe pipeline;
+  axes, every shard on one device or an axis split over
+  ``torch.distributed`` ranks: ``parallel/dist.py``), sharding specs and
+  contexts, expert parallelism in ``models/moe.py``, and the GPipe
+  pipeline;
 * ``kernels/`` — the hand-written Hopper kernels (CUDA C++ under
   ``csrc/``) that replace the TPU's Pallas kernels, each with its plain
   PyTorch version beside it, and the backward kernels of K4 and K5.

@@ -11,7 +11,10 @@ path from a JAX pool's ``pool`` and ``cache`` dicts.
 :func:`sharded_state_from_arrays` carries a JAX sharded round state
 (its leaves gathered with ``np.asarray``, in stripe layout) onto a
 port :class:`~repro_torch.core.rounds.Mesh`.
-:func:`lm_params_to_torch` carries a JAX LM parameter tree across, and
+:func:`rank_experts` cuts an LM parameter tree (the JAX package's numpy
+leaves or the port's tensors) down to the routed experts of one
+expert-parallel rank; :func:`lm_params_to_torch` carries a JAX LM
+parameter tree across, and
 :func:`train_state_to_torch` / :func:`train_state_to_numpy` a whole
 train state (params, the AdamW ``mu`` in any tier, ``step``, the
 error-feedback tree) both ways; the port's numpy side keeps bf16 as its
@@ -43,14 +46,50 @@ def sharded_state_from_arrays(state: dict, mesh) -> dict:
     """The port's sharded round state from a JAX sharded state given as
     gathered numpy leaves (``{k: np.asarray(v)}``): both packages keep
     the global stripe layout, so every leaf carries over as it is, onto
-    the mesh's device, contiguous."""
+    the mesh's device, contiguous; over ranks each rank keeps its
+    shards' slabs of the striped leaves."""
     from .core.rounds.mesh import shards_of
+    from .core.rounds.state import GLOBAL_LEAVES, LINE_AXIS
     n_shards = shards_of(mesh)
     n_lines = np.shape(state["words"])[0]
     if n_lines % n_shards:
         raise ValueError(f"n_lines={n_lines} not divisible by "
                          f"n_shards={n_shards}")
+    if mesh.ranked:
+        first, stop = mesh.block()
+        rows = n_lines // n_shards
+        state = {k: v if k in GLOBAL_LEAVES else np.take(
+            v, np.arange(first * rows, stop * rows), axis=LINE_AXIS[k])
+            for k, v in state.items()}
     return to_torch(state, mesh.device)
+
+
+EXPERT_LEAVES = ("we_g", "we_u", "we_d")
+
+
+def rank_experts(params, mesh, axis: str = "model"):
+    """``params`` (an LM parameter tree, or one moe layer's dict; numpy
+    arrays or tensors) with each routed-expert leaf (``we_g``, ``we_u``,
+    ``we_d``: ``[..., E, a, b]``) cut to the experts of this rank's
+    block of ``mesh``'s expert axis, ``E / W`` of them: the share an
+    expert-parallel rank holds.  Every other leaf is kept as it is (the
+    same object)."""
+    n = mesh.shape[axis]
+    first, stop = mesh.block(axis)
+
+    def cut(leaf):
+        e = leaf.shape[-3]
+        if e % n:
+            raise ValueError(f"{e} experts do not split over {n} shards")
+        return leaf[..., first * e // n:stop * e // n, :, :]
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return cut(node) if key in EXPERT_LEAVES else node
+    return walk(params)
 
 
 def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,

@@ -8,10 +8,12 @@ array), each round's requests are sorted into per-home buckets
 (:func:`_bucket`), the buckets cross to their homes, every home applies
 its requests with the ``latch_ops`` kernel (K1) on its own slab, and the
 old words travel back.  The reference does the two crossings with
-``all_to_all``s inside ``shard_map``; here every shard lives on the
-mesh's one device, so a crossing is a transpose of the stacked
-``[S_src, S_dst, cap]`` buckets and the ``psum`` of the dropped count a
-sum over the shard axis.  Requests past a bucket's capacity are not
+``all_to_all``s inside ``shard_map``.  Here, with every shard in one
+process, a crossing is a transpose of the stacked ``[S_src, S_dst,
+cap]`` buckets and the ``psum`` of the dropped count a sum over the
+shard axis; over ``torch.distributed`` ranks (a mesh with a process
+group) a crossing is one ``all_to_all_single`` and the ``psum`` an
+``all_reduce``.  Requests past a bucket's capacity are not
 sent; they come back in ``keep`` and ``dropped``.  The full sharded MSI
 engine (:mod:`repro_torch.core.rounds.sharded`) reuses :func:`_bucket`.
 """
@@ -113,51 +115,80 @@ def _unbucket(back, order, keep, b_idx, s_idx):
     return got.view((n_rows, r) + rest)[rows, inv].view(lead + (r,) + rest)
 
 
-def exchange(buckets: torch.Tensor) -> torch.Tensor:
-    """The ``all_to_all(x, axis, 0, 0, tiled=False)`` of a round on one
-    device: ``[S_src, S_dst, cap, *rest]`` -> what each home receives,
-    ``[S_dst, S_src * cap, *rest]`` in source-major order (a contiguous
-    copy)."""
-    s, _, cap = buckets.shape[:3]
-    return buckets.transpose(0, 1).reshape(
-        (s, s * cap) + tuple(buckets.shape[3:]))
+def _ranks(mesh) -> int:
+    """The world a crossing spans: 0 for a mesh without a process group
+    (every shard in this process), else the group's size."""
+    return mesh.world if mesh is not None and mesh.ranked else 0
 
 
-def reply(per_home: torch.Tensor) -> torch.Tensor:
-    """The reply ``all_to_all``: each home's ``[S_dst, S_src * cap,
-    *rest]`` results -> ``[S_src, S_dst, cap, *rest]`` at the sources
-    (a view)."""
-    s = per_home.shape[0]
+def exchange(buckets: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The ``all_to_all(x, axis, 0, 0, tiled=False)`` of a round:
+    ``[k_src, S_dst, cap, *rest]`` buckets of this process's ``k``
+    source shards -> what its ``k`` homes receive, ``[k_dst, S_src * cap,
+    *rest]`` in source-major order.  Without a process group (``k =
+    S``) it is a transpose; over W ranks each rank sends every other
+    rank the buckets bound for that rank's homes
+    (``Mesh.all_to_all``)."""
+    k, s, cap = buckets.shape[:3]
+    rest = tuple(buckets.shape[3:])
+    w = _ranks(mesh)
+    if not w:
+        return buckets.transpose(0, 1).reshape((s, s * cap) + rest)
+    send = buckets.reshape((k, w, s // w, cap) + rest).transpose(0, 1)
+    got = mesh.all_to_all(send.flatten(0, 3))
+    return got.view((w, k, s // w, cap) + rest).permute(
+        2, 0, 1, 3, *range(4, 4 + len(rest))).reshape((s // w, s * cap)
+                                                      + rest)
+
+
+def reply(per_home: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The reply ``all_to_all``: this process's homes' ``[k_dst, S_src *
+    cap, *rest]`` results -> ``[k_src, S_dst, cap, *rest]`` at its
+    sources (a view without a process group)."""
+    k = per_home.shape[0]
+    w = _ranks(mesh)
+    s = k * w if w else k
     cap = per_home.shape[1] // s
-    return per_home.view((s, s, cap) + tuple(per_home.shape[2:])) \
-        .transpose(0, 1)
+    rest = tuple(per_home.shape[2:])
+    if not w:
+        return per_home.view((s, s, cap) + rest).transpose(0, 1)
+    send = per_home.view((k, w, k, cap) + rest).transpose(0, 1)
+    got = mesh.all_to_all(send.flatten(0, 3))
+    return got.view((w, k, k, cap) + rest).permute(
+        2, 0, 1, 3, *range(4, 4 + len(rest))).reshape((k, s, cap) + rest)
 
 
 def distributed_latch_round(words, requests, *, mesh, axis: str = AXIS):
     """One round of the latch plane: ``words`` [L, 2] int32 in stripe
-    layout on the mesh's device, ``requests`` a dict of the six int32
-    [R] kernel fields with GLOBAL line ids, R a multiple of the shard
-    count (shard ``s`` presents slots ``[s*R/S, (s+1)*R/S)``; each bucket
-    holds R/S).  Each home applies its bucket with K1 on its slab.
+    layout on the mesh's device (over ranks, this rank's shards' slabs),
+    ``requests`` a dict of the six int32 [R] kernel fields with GLOBAL
+    line ids, R a multiple of the shard count (shard ``s`` presents
+    slots ``[s*R/S, (s+1)*R/S)``; each bucket holds R/S).  Each home
+    applies its bucket with K1 on its slab.
 
-    Returns ``(new_words, old_hi [R], old_lo [R], ok [R], dropped)``.
-    The reference's default axis name is ``"model"``; the port's mesh
-    has the one axis ``"shards"``."""
+    Returns ``(new_words, old_hi [R], old_lo [R], ok [R], dropped)``,
+    the replies all-gathered over ranks.  The reference's default axis
+    name is ``"model"``; the port's mesh has the one axis ``"shards"``."""
     from .rounds.mesh import check_on_mesh, shards_of
     n = shards_of(mesh, axis)
     check_on_mesh({"words": words}, mesh)
+    ranked = _ranks(mesh)
+    k, first = (mesh.local(axis), mesh.block(axis)[0]) if ranked \
+        else (n, 0)
+    xmesh = mesh if ranked else None
     rt = requests["line"].shape[0]
     if rt % n:
         raise ValueError(f"R={rt} not divisible by n_shards={n}")
     r = rt // n
-    l_local = words.shape[0] // n
-    req = {k: requests[k].to(torch.int32).reshape(n, r) for k in FIELDS}
+    l_local = words.shape[0] // k
+    req = {f: requests[f].to(torch.int32)[first * r:(first + k) * r]
+           .reshape(k, r) for f in FIELDS}
     buckets, order, keep, (b_idx, s_idx), dropped = _bucket(req, n, r)
-    recv = {k: exchange(v) for k, v in buckets.items()}
+    recv = {f: exchange(v, xmesh) for f, v in buckets.items()}
     new_words = torch.empty_like(words)
     his, los, oks = [], [], []
-    for h in range(n):
-        flat = {k: recv[k][h] for k in FIELDS}
+    for h in range(k):
+        flat = {f: recv[f][h] for f in FIELDS}
         line = flat["line"]
         flat["line"] = torch.where(line >= 0, line // n, -1) \
             .to(torch.int32)
@@ -168,10 +199,13 @@ def distributed_latch_round(words, requests, *, mesh, axis: str = AXIS):
         oks.append(ok)
 
     def back(per_home):
-        return _unbucket(reply(torch.stack(per_home)), order, keep, b_idx,
-                         s_idx).reshape(rt)
-    return (new_words, back(his), back(los), back(oks),
-            dropped.sum(dtype=torch.int32))
+        got = _unbucket(reply(torch.stack(per_home), xmesh), order, keep,
+                        b_idx, s_idx).reshape(k * r)
+        return mesh.all_gather(got) if ranked else got
+    dropped = dropped.sum(dtype=torch.int32)
+    if ranked:
+        dropped = mesh.all_reduce(dropped.reshape(1))[0]
+    return new_words, back(his), back(los), back(oks), dropped
 
 
 def stripe(words_flat, n_shards: int):

@@ -40,9 +40,10 @@ from .mesh import Mesh
 from .placement import plan_rehome, plan_replication
 from .plane import DevicePlane, PlaneResult
 from .sharded import (coherence_round_sharded, evict_lines_sharded,
-                      make_sharded_state, pad_ops, rehome_exchange,
-                      run_descent_sharded, run_rmw_sharded,
-                      run_rounds_sharded, shard_state, unshard_state)
+                      gather_state, lines_of, make_sharded_state, pad_ops,
+                      read_rows, rehome_exchange, run_descent_sharded,
+                      run_rmw_sharded, run_rounds_sharded, shard_state,
+                      unshard_state)
 from .state import (GLOBAL_LEAVES, LINE_AXIS, check_invariants,
                     is_write_back, make_state, payload_width,
                     stripe_state, unstripe_state)
@@ -54,6 +55,7 @@ __all__ = [
     "LINE_AXIS", "Mesh", "PlaneResult", "PlaneTelemetry", "TRACE_COUNTS",
     "TxnBatchResult", "check_invariants", "coherence_round",
     "coherence_round_sharded", "evict_lines", "evict_lines_sharded",
+    "gather_state", "lines_of", "read_rows",
     "is_write_back", "make_sharded_state", "make_state", "pad_ops",
     "payload_width", "plan_rehome", "plan_replication", "rehome_exchange",
     "run_descent", "run_descent_sharded", "run_rmw", "run_rmw_sharded",

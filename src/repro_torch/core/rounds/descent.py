@@ -69,10 +69,12 @@ def run_descent(state, node_id, key, root, *, transition, n_nodes: int,
 
 
 def _walk(state, key, root, *, transition, max_steps: int, path_cap: int,
-          step, tele):
+          step, tele, n_left=None):
     """The wavefront over any plane: ``step(state, line, tele) ->
     (state', served, data, tele')`` runs one round of S-latch reads
-    (``line = -1`` for settled slots).  Returns the drivers' tuple."""
+    (``line = -1`` for settled slots).  ``n_left(flags)`` counts the
+    undone slots of every rank (the reference's psum), where the slots
+    are one rank's block.  Returns the drivers' tuple."""
     b = root.shape[0]
     width = payload_width(state)
     dev = root.device
@@ -86,7 +88,8 @@ def _walk(state, key, root, *, transition, max_steps: int, path_cap: int,
     plen = torch.zeros((b,), dtype=torch.int32, device=dev)
     steps = 0
     while True:
-        all_done = not bool((~done).any())
+        all_done = (not bool((~done).any()) if n_left is None
+                    else n_left(~done) == 0)
         if all_done or steps >= max_steps:
             break
         line = torch.where(done, -1, cur)

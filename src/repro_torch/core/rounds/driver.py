@@ -67,18 +67,22 @@ def _ops_wdata(state, line, wdata):
     return torch.as_tensor(wdata).to(device=line.device, dtype=torch.int32)
 
 
-def _spin(state, line, width, *, max_rounds: int, step, tele):
+def _spin(state, line, width, *, max_rounds: int, step, tele,
+          n_pending=None):
     """The spin loop over any plane: ``step(state, pending, tele) ->
     (state', served, version, data, tele')`` runs one round; slots
-    re-present until served or ``max_rounds`` rounds ran.  Returns the
-    drivers' tuple."""
+    re-present until served or ``max_rounds`` rounds ran.
+    ``n_pending(flags)`` counts the pending slots of every rank (the
+    reference's psum), where the slots are one rank's block.  Returns
+    the drivers' tuple."""
     r = line.shape[0]
     pending = line.clone()
     versions = torch.zeros_like(line)
     data = torch.zeros((r, width), dtype=torch.int32, device=line.device)
     rounds = 0
     while True:
-        all_served = not bool((pending >= 0).any())
+        all_served = (not bool((pending >= 0).any()) if n_pending is None
+                      else n_pending(pending >= 0) == 0)
         if all_served or rounds >= max_rounds:
             break
         state, served, ver, rdata, tele = step(state, pending, tele)

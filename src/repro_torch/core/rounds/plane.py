@@ -65,12 +65,13 @@ class DevicePlane:
                  bucket_cap: int | None = None, recorder=None):
         if mesh is not None:
             from .mesh import check_on_mesh, shards_of
+            from .sharded import lines_of
             n = shards_of(mesh, axis)
             check_on_mesh(state, mesh)
-            if state["words"].shape[0] % n:
-                raise ValueError(
-                    f"n_lines={state['words'].shape[0]} not divisible by "
-                    f"n_shards={n}")
+            n_lines = lines_of(state, mesh, axis)
+            if n_lines % n:
+                raise ValueError(f"n_lines={n_lines} not divisible by "
+                                 f"n_shards={n}")
         self.state = state
         self.mesh = mesh
         self.axis = axis
@@ -116,7 +117,10 @@ class DevicePlane:
 
     @property
     def n_lines(self) -> int:
-        return int(self.state["words"].shape[0])
+        """Lines of the whole plane (over ranks, not just this rank's
+        slabs)."""
+        from .sharded import lines_of
+        return lines_of(self.state, self.mesh, self.axis)
 
     @property
     def payload_width(self) -> int:
@@ -132,7 +136,7 @@ class DevicePlane:
         unstriped (copies), the flat plane's own state otherwise."""
         if self.sharded:
             from .sharded import unshard_state
-            return unshard_state(self.state, n_shards=self.n_shards)
+            return unshard_state(self.state, self.mesh, self.axis)
         return self.state
 
     def _positions(self) -> torch.Tensor:
@@ -414,9 +418,16 @@ class DevicePlane:
         held_m = (st["cache_state"] == M).any(dim=0)
         mver, mdata = st["mem_version"], st.get("mem_data")
         if self.sharded:                 # the unsharded image, by line id
+            from .sharded import gather_state
             pos = self._positions()
-            held_m, mver = held_m[pos], mver[pos]
-            mdata = None if mdata is None else mdata[pos]
+            if self.mesh.ranked:
+                held_m = self.mesh.all_gather(held_m.to(torch.uint8)).bool()
+            img = gather_state(st, self.mesh, self.axis,
+                               ("mem_version",) + (("mem_data",)
+                                                   if mdata is not None
+                                                   else ()))
+            held_m, mver = held_m[pos], img["mem_version"][pos]
+            mdata = None if mdata is None else img["mem_data"][pos]
         rok = st["replica"] & ~held_m
         st["replica_ok"].copy_(rok)
         st["replica_version"].copy_(torch.where(

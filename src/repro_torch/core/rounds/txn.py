@@ -148,7 +148,8 @@ def run_txn_rounds_sharded(state, node_id, glines, rmask, wmask, ts, *,
     slot order, so decisions equal the flat plane's.  Returns the flat
     contract with the sharded telemetry dict."""
     from .mesh import check_on_mesh, shards_of
-    from .sharded import _check_slots, _zero_tele, run_rounds_sharded
+    from .sharded import (_check_slots, _zero_tele, lines_of,
+                          run_rounds_sharded)
     co.check_node_capacity(n_nodes)
     n_shards = shards_of(mesh, axis)
     check_on_mesh(state, mesh)
@@ -168,7 +169,7 @@ def run_txn_rounds_sharded(state, node_id, glines, rmask, wmask, ts, *,
                  "home" in state, "replica" in state))
     return _txn_loop(state, *args, algo=algo, max_iters=max_iters,
                      spin=spin,
-                     tele=_zero_tele(n_shards, state["words"].shape[0],
+                     tele=_zero_tele(n_shards, lines_of(state, mesh, axis),
                                      args[1].device))
 
 

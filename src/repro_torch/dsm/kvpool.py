@@ -345,15 +345,29 @@ def pool_decode_attention(pool, q, page_tbl, lens, *, cfg: KVPoolConfig):
 
 
 def pool_decode_attention_rounds(rstate, q, page_tbl, lens, *,
-                                 cfg: KVPoolConfig, n_shards: int = 1):
+                                 cfg: KVPoolConfig, n_shards: int = 1,
+                                 mesh=None):
     """Decode attention over the rounds plane's memory image: the page
     bytes are zero-copy views of ``mem_data``.  Under write-through
     appends the image is always protocol-fresh.  On a sharded plane
     (stripe layout) each table entry ``p`` names row ``(p % S) * (P //
     S) + p // S``: the reference unstripes the image instead, to the
-    same pages in the same order."""
+    same pages in the same order.  Over ranks (a ``mesh`` with a process
+    group) every rank gathers the table's pages from the ranks that hold
+    them (``read_rows``) and attends over those, in the table's
+    order."""
     md = rstate["mem_data"]
-    if n_shards > 1:
+    if mesh is not None and mesh.ranked:
+        from ..core.rounds import read_rows
+        used = torch.unique(page_tbl[page_tbl >= 0].long())
+        md = read_rows(rstate, mesh, "mem_data",
+                       (used % n_shards) * (cfg.n_pages // n_shards)
+                       + used // n_shards)
+        page_tbl = torch.where(
+            page_tbl >= 0,
+            torch.searchsorted(used, page_tbl.long()).to(page_tbl.dtype),
+            page_tbl)
+    elif n_shards > 1:
         rows = md.shape[0] // n_shards
         page_tbl = torch.where(page_tbl >= 0, (page_tbl % n_shards) * rows
                                + page_tbl // n_shards, page_tbl)
@@ -441,14 +455,18 @@ class SELCCKVPool:
 
     def _plane_held(self, replica: int, pages) -> np.ndarray:
         """Hit mask: the replica already holds the page in S or M."""
-        cs = self.rounds_state["cache_state"]
         pos = np.maximum(pages, 0)
         s = self.rounds_plane.n_shards
         if s > 1:                                 # stripe layout
-            pos = (pos % s) * (cs.shape[1] // s) + pos // s
-        pos = torch.as_tensor(pos, device=cs.device)
-        held = (cs[replica, pos.long()] != 0).cpu().numpy()
-        return np.logical_and(pages >= 0, held)
+            pos = (pos % s) * (self.cfg.n_pages // s) + pos // s
+        pos = torch.as_tensor(pos, device=self.device).long()
+        if self.mesh is not None and self.mesh.ranked:
+            from ..core.rounds import read_rows
+            cs = read_rows(self.rounds_state, self.mesh, "cache_state", pos)
+            held = cs[replica]
+        else:
+            held = self.rounds_state["cache_state"][replica, pos]
+        return np.logical_and(pages >= 0, (held != 0).cpu().numpy())
 
     @property
     def free_pages(self) -> int:
@@ -547,4 +565,4 @@ class SELCCKVPool:
                                          cfg=self.cfg)
         return pool_decode_attention_rounds(
             self.rounds_state, q, page_tbl, lens, cfg=self.cfg,
-            n_shards=self.rounds_plane.n_shards)
+            n_shards=self.rounds_plane.n_shards, mesh=self.mesh)

@@ -112,7 +112,7 @@ class DeviceBTree:
             state = rounds.make_sharded_state(n_nodes, n_lines, mesh, axis,
                                               write_back=write_back,
                                               payload_width=codec.width)
-        n_lines = state["words"].shape[0]      # sharded: rounded up
+        n_lines = rounds.lines_of(state, mesh, axis)   # sharded: rounded up
         alloc = LineAllocator(n_lines, start=META_LINE + 1)
         tree = cls(state, codec, alloc, mesh=mesh, axis=axis,
                    n_nodes=n_nodes, max_rounds=max_rounds, driver=driver)
@@ -153,7 +153,7 @@ class DeviceBTree:
         tree.codec = codec
         tree.root = int(meta[M_ROOT])
         tree.height = int(meta[M_HEIGHT])
-        tree.alloc = LineAllocator(state["words"].shape[0],
+        tree.alloc = LineAllocator(tree.plane.n_lines,
                                    start=META_LINE + 1,
                                    top=int(meta[M_TOP]))
         return tree

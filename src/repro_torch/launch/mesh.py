@@ -1,11 +1,14 @@
 """The LM stack's meshes; port of ``repro.launch.mesh``.
 
 Each is a :class:`repro_torch.core.rounds.Mesh` with the reference's
-named axes, every shard on one device (``cuda`` unless the caller asks
-for ``"cpu"``): the production mesh's 256 (or 512) shards all live on
-the one card, so a run on it computes what the sharded reference
-computes, expert parallelism included, without the exchanges between
-cards (those wait for several cards, ROADMAP.md queue 1 item 9).
+named axes on one device (``cuda`` unless the caller asks for
+``"cpu"``).  Without a process group the production mesh's 256 (or
+512) shards all live in one process, so a run on it computes what the
+sharded reference computes, expert parallelism included, with the
+exchanges as index moves.  With one (``group=``, from
+:func:`repro_torch.parallel.dist.init`) the ``model`` axis is split
+over the group's ranks in blocks, each rank on its own ``device``, and
+the expert exchanges run between the ranks.
 """
 
 from __future__ import annotations
@@ -15,17 +18,20 @@ import numpy as np
 from ..core.rounds.mesh import Mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    """(data 16, model 16), or (pod 2, data 16, model 16)."""
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         group=None) -> Mesh:
+    """(data 16, model 16), or (pod 2, data 16, model 16); ``group``
+    splits the model axis over its ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(dict(zip(axes, shape)), device)
+    return Mesh(dict(zip(axes, shape)), device, group=group)
 
 
-def make_local_mesh(device=None) -> Mesh:
+def make_local_mesh(device=None, group=None) -> Mesh:
     """One shard with the production axis names: every run takes the
-    production code path, and gives what the port gives with no mesh."""
-    return Mesh({"data": 1, "model": 1}, device)
+    production code path, and gives what the port gives with no mesh
+    (``group``, world 1 only, exercises the ranked path)."""
+    return Mesh({"data": 1, "model": 1}, device, group=group)
 
 
 def make_mesh_from_devices(devices, *, data: int, model: int,

@@ -6,11 +6,21 @@ serve step builders; port of ``repro.launch.serve``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, over
 ``make_local_mesh()``, or with ``--production-mesh`` over
-``make_production_mesh()``: (data 16, model 16), every shard on the one
-device, so a moe config runs expert parallelism over 16 model shards,
-each routing its own tokens against its own capacity, as the reference
-computes on 256 chips (the exchanges between cards wait for several
-cards, ROADMAP.md queue 1 item 9).  Parameters are
+``make_production_mesh()``: (data 16, model 16), so a moe config runs
+expert parallelism over 16 model shards, each routing its own tokens
+against its own capacity, as the reference computes on 256 chips.  In
+one process every shard lives on the one device.  Started as ranks
+(``WORLD_SIZE`` set, as ``torchrun`` sets it), the driver joins the
+ranks' process group (``--init-method``, ``env://`` by default;
+:mod:`repro_torch.parallel.dist` picks the backend from the layout) and
+the production mesh's model axis is split over the ranks: each rank
+holds its model shards' experts and the rest of the model, the expert
+exchanges run between the ranks, and rank 0 prints::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --production-mesh
+
+Parameters are
 random, drawn from a ``torch.Generator`` seeded 0 on the device; the
 prompts are the JAX driver's (numpy seed 0), and so are the stand-ins of
 the modality frontends: zero bf16 ``patch_embeds`` [b, n_patches, d] for
@@ -37,6 +47,9 @@ import torch
 from .. import resolve_device
 from ..configs import get_config, get_smoke_config
 from ..models import lm
+from ..parallel.dist import finish as dist_finish
+from ..parallel.dist import in_ranks
+from ..parallel.dist import init as dist_init
 from ..train.step import build_serve_step
 from .mesh import make_local_mesh, make_production_mesh
 
@@ -97,16 +110,38 @@ def main(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--init-method", default="env://",
+                    help="the ranks' rendezvous (with WORLD_SIZE set)")
+    ap.add_argument("--logits-out", default=None,
+                    help="write the first batch's prefill and decode "
+                         "logits (fp32) and its decode inputs to this .npz")
+    ap.add_argument("--teacher", default=None,
+                    help="feed the first batch the decode inputs of an "
+                         "earlier run's --logits-out file")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    mesh = (make_production_mesh(device=dev) if args.production_mesh
-            else make_local_mesh(device=dev))
+    group, rank, joined = None, 0, False
+    if in_ranks():
+        joined = not torch.distributed.is_initialized()
+        group, dev = dist_init(init_method=args.init_method, device=dev)
+        rank = torch.distributed.get_rank(group)
+    mesh = (make_production_mesh(device=dev, group=group)
+            if args.production_mesh
+            else make_local_mesh(device=dev, group=group))
     serve_step, serve_prefill, ctx = build_serve_step(cfg, mesh)
+    # an expert-parallel rank draws every parameter, keeps its experts
+    mine = {}
+    if mesh.ranked and ctx.ep > 1:
+        per = cfg.n_experts // mesh.world
+        mine["experts"] = (mesh.rank * per, (mesh.rank + 1) * per)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            dev)
+                            dev, **mine)
+    teacher = (None if args.teacher is None
+               else np.load(args.teacher)["inputs"])
+    kept = []
 
     rng = np.random.default_rng(0)
     pending = [rng.integers(0, cfg.vocab, args.prompt_len).tolist()
@@ -127,28 +162,44 @@ def main(argv=None) -> dict:
         # after the patches of a vlm prompt
         cache = grow_cache(cfg, cache, prefix_len(cfg) + args.prompt_len
                            + args.gen)
+        first = not generated
         finite &= torch.isfinite(logits).all()
         nxt = logits.argmax(-1)[:, None].to(torch.int32)
-        out = []
-        for _ in range(args.gen):
+        out, fed = [], []
+        for i in range(args.gen):
+            if first and args.logits_out:
+                kept.append(logits.float().cpu())
+            if first and teacher is not None:
+                nxt = torch.from_numpy(teacher[:, i:i + 1]).to(nxt)
+            fed.append(nxt)
             logits, cache = serve_step(params, cache, nxt)
             finite &= torch.isfinite(logits).all()
             nxt = logits.argmax(-1)[:, None].to(torch.int32)
             out.append(nxt)
             total_tokens += b
+        if first and args.logits_out:
+            kept.append(logits.float().cpu())
+            if rank == 0:
+                np.savez(args.logits_out, logits=torch.stack(kept).numpy(),
+                         inputs=torch.cat(fed, 1).cpu().numpy())
         generated.append(torch.cat(out, dim=1))
         done += b
-        print(f"[serve] {done}/{args.requests} requests, "
-              f"{total_tokens / (time.time() - t0):.0f} tok/s aggregate",
-              flush=True)
+        if rank == 0:
+            print(f"[serve] {done}/{args.requests} requests, "
+                  f"{total_tokens / (time.time() - t0):.0f} tok/s "
+                  f"aggregate", flush=True)
     gen_ids = torch.cat(generated).cpu().numpy() if generated else \
         np.zeros((0, args.gen), np.int32)
     seconds = time.time() - t0
-    print(f"[serve] done: {done} requests, {total_tokens} tokens in "
-          f"{seconds:.1f}s")
+    if joined:
+        dist_finish()
+    if rank == 0:
+        print(f"[serve] done: {done} requests, {total_tokens} tokens in "
+              f"{seconds:.1f}s" + (f" on {mesh.world} ranks"
+                                   if mesh.ranked else ""))
     return {"requests": done, "tokens": total_tokens, "seconds": seconds,
             "generated": gen_ids, "finite": bool(finite),
-            "mesh": mesh.shape, "ep": ctx.ep}
+            "mesh": mesh.shape, "ep": ctx.ep, "ranks": mesh.world}
 
 
 if __name__ == "__main__":

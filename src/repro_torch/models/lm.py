@@ -112,10 +112,14 @@ def _maybe_remat(fn, remat, *args):
 
 # ============================================================ param init
 
-def init_params(cfg: LMConfig, generator: torch.Generator, device=None):
+def init_params(cfg: LMConfig, generator: torch.Generator, device=None,
+                experts=None):
     """Random parameters with the JAX package's distributions, drawn from
     ``generator`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for;
-    the generator must live there).  Not the same numbers as JAX's."""
+    the generator must live there).  Not the same numbers as JAX's.
+    ``experts`` (``(first, stop)``) keeps only those routed experts of a
+    moe config, drawn as the whole set draws them (an expert-parallel
+    rank's share)."""
     dev = resolve_device(device)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, "
@@ -133,7 +137,7 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None):
         params["blocks"] = _init_dense_stack(gen, cfg, dt, L)
     elif cfg.family == "moe":
         blk = _init_dense_stack(gen, cfg, dt, L, ffn=False)
-        blk.update(moe.init_moe(gen, cfg, dt, stack=(L,)))
+        blk.update(moe.init_moe(gen, cfg, dt, stack=(L,), experts=experts))
         params["blocks"] = blk
     elif cfg.family == "ssm":
         blk = {"ln1": layers.zeros(gen, (L, d), dt)}

@@ -29,9 +29,20 @@ expert's slots over every data row go through one batched product, and
 the second ``all_to_all`` is the transpose back.  Where the tokens are
 replicated along an axis (the batch when dp does not divide it, the
 sequence when ep does not, as in a decode step) every shard along it
-computes the same thing, so the port computes it once.  Spreading the
-shards over several cards, with the exchanges between them, waits for
-several cards (ROADMAP.md queue 1 item 9).
+computes the same thing, so the port computes it once.
+
+On a mesh whose model axis is split over ``torch.distributed`` ranks
+(``Mesh(..., group=...)``), rank ``r`` holds the model shards ``[r*n/W,
+(r+1)*n/W)`` and their experts (``n_experts / W`` of ``we_g``, ``we_u``
+and ``we_d``; ``convert.rank_experts`` cuts a whole set down), the rest
+of the layer on every rank.  Each rank routes its model shards' tokens,
+the first ``all_to_all`` sends every destination rank the slots of its
+experts (``all_to_all_single``), the experts run where they live, the
+second sends the results back, and an all-gather of the token blocks
+(and an ``all_reduce`` of ``aux``) gives every rank the whole output.
+Where the sequence is replicated along the model axis, every rank
+routes the same tokens, runs its own experts on their slots and
+all-gathers the experts' results.
 """
 
 from __future__ import annotations
@@ -168,11 +179,15 @@ def ep_layout(x_shape, parallel):
 
 
 def _moe_ep(x, p, cfg, parallel):
-    """Expert-parallel body over every shard at once.  Returns (y, aux,
-    route): route's e_idx, s_idx, flat_w and keep are [nb * ns, T_l*K]
-    (shard (i, j) of the distinct ones at row i * ns + j), with the
-    shard-local capacity."""
+    """Expert-parallel body over every shard of this process at once.
+    Returns (y, aux, route): route's e_idx, s_idx, flat_w and keep are
+    [nb * ns_l, T_l*K] (shard (i, j) of the distinct ones held here at
+    row i * ns_l + j; ``ns_l = ns`` in one process, a rank's block over
+    ranks), with the shard-local capacity."""
     nb, ns, n = ep_layout(x.shape, parallel)
+    mesh = parallel.mesh
+    ranked = getattr(mesh, "ranked", False)
+    w = mesh.world if ranked else 1
     b, s, d = x.shape
     b_l, s_l = b // nb, s // ns
     t = b_l * s_l
@@ -180,29 +195,75 @@ def _moe_ep(x, p, cfg, parallel):
     if e_total % n:
         raise ValueError(f"{e_total} experts do not split over {n} "
                          f"expert-parallel shards")
+    if ranked and mesh.ranked_axis != parallel.ep_axis:
+        raise ValueError(f"the mesh splits {mesh.ranked_axis!r} over its "
+                         f"ranks, not the expert axis {parallel.ep_axis!r}")
     e_loc = e_total // n
+    n_l = n // w                        # model shards on this process
+    if p["we_d"].shape[0] != n_l * e_loc:
+        raise ValueError(f"{p['we_d'].shape[0]} experts here; this rank "
+                         f"holds {n_l * e_loc} (convert.rank_experts)")
+    split = ranked and ns > 1           # sequence shards split over ranks
+    ns_l = ns // w if split else ns
     cap = _capacity(t, cfg.top_k, e_total, cfg.capacity_factor)
-    # shard (i, j) holds x[i*b_l:(i+1)*b_l, j*s_l:(j+1)*s_l]
+    # shard (i, j) holds x[i*b_l:(i+1)*b_l, j*s_l:(j+1)*s_l]; the router
+    # product runs over every shard's tokens, as one product in one
+    # process (a rank's share alone would be another GEMM shape, whose
+    # rounding can flip a route at a gate margin)
     xs = x.reshape(nb, b_l, ns, s_l, d).transpose(1, 2).reshape(
         nb * ns, t, d)
     logits = xs.float() @ p["router"].float()
+    if split:
+        mine = slice(mesh.rank * ns_l, (mesh.rank + 1) * ns_l)
+        xs = xs.view(nb, ns, t, d)[:, mine].reshape(nb * ns_l, t, d)
+        logits = logits.view(nb, ns, t, e_total)[:, mine].reshape(
+            nb * ns_l, t, e_total)
     buf, route, aux = _dispatch(xs, logits, cfg.top_k, e_total, cap)
     # all_to_all: [nb, src, dst, E_loc, C, d] -> [nb, dst, src, ...]
-    send = buf.reshape(nb, ns, n, e_loc, cap, d)
-    recv = send.transpose(1, 2)
+    send = buf.reshape(nb, ns_l, n, e_loc, cap, d)
+    if split:
+        # to rank q: the slots of its destinations [q*n_l, (q+1)*n_l)
+        got = mesh.all_to_all(
+            send.reshape(nb, ns_l, w, n_l, e_loc, cap, d)
+            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d))
+        recv = got.view(w, nb, ns_l, n_l, e_loc, cap, d).permute(
+            1, 3, 0, 2, 4, 5, 6).reshape(nb, n_l, ns, e_loc, cap, d)
+    elif ranked:                        # every rank routed the same slots
+        lo = mesh.rank * n_l
+        recv = send[:, :, lo:lo + n_l].transpose(1, 2)
+    else:
+        recv = send.transpose(1, 2)
     # each destination's experts take their slots source-major; every
     # expert's slots over every data row in one batched product
-    xin = recv.permute(1, 3, 0, 2, 4, 5).reshape(e_total, nb * ns * cap, d)
+    xin = recv.permute(1, 3, 0, 2, 4, 5).reshape(n_l * e_loc,
+                                                 nb * ns * cap, d)
     y = _expert_ffn(xin, p.get("we_g"), p.get("we_u"), p["we_d"],
                     cfg.ffn_type)
-    back = y.reshape(n, e_loc, nb, ns, cap, d).permute(2, 0, 3, 1, 4, 5)
+    back = y.reshape(n_l, e_loc, nb, ns, cap, d).permute(2, 0, 3, 1, 4, 5)
     # all_to_all back: [nb, dst, src, ...] -> [nb, src, dst, ...]
-    y_buf = back.transpose(1, 2).reshape(nb * ns, e_total, cap, d)
-    out = _combine(y_buf, route, t)
-    out = out.reshape(nb, ns, b_l, s_l, d).transpose(1, 2).reshape(b, s, d)
+    if split:
+        # to rank q: the results for its sources [q*ns_l, (q+1)*ns_l)
+        got = mesh.all_to_all(
+            back.reshape(nb, n_l, w, ns_l, e_loc, cap, d)
+            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d))
+        y_buf = got.view(w, nb, n_l, ns_l, e_loc, cap, d).permute(
+            1, 3, 0, 2, 4, 5, 6)
+    elif ranked:                        # every rank needs every expert
+        y_buf = mesh.all_gather(back, 1).transpose(1, 2)
+    else:
+        y_buf = back.transpose(1, 2)
+    y_buf = y_buf.reshape(nb * ns_l, e_total, cap, d)
+    out = _combine(y_buf, route, t).reshape(nb, ns_l, b_l, s_l, d)
+    if split:                           # the token blocks, on every rank
+        out = mesh.all_gather(out, 1)
+    out = out.transpose(1, 2).reshape(b, s, d)
     # pmean over every mesh axis: each distinct shard is replicated
     # equally often
-    return out, aux.mean(), route
+    if split:
+        aux = mesh.all_reduce(aux.sum().reshape(1))[0] / (nb * ns)
+    else:
+        aux = aux.mean()
+    return out, aux, route
 
 
 def moe_ffn(x, p, cfg, parallel=None):
@@ -220,18 +281,23 @@ def moe_ffn(x, p, cfg, parallel=None):
     return y, aux
 
 
-def init_moe(gen, cfg, dtype, stack=()):
+def init_moe(gen, cfg, dtype, stack=(), experts=None):
     """Router (fp32, std 0.02), routed experts (He-scaled) and shared
     experts, on the generator's device.  Stacked expert leaves are drawn
     one leading index at a time, so no fp32 copy of a whole stack
-    exists (deepseek-moe-16b's [28, 64, 2048, 1408] would need 20.7 GB)."""
+    exists (deepseek-moe-16b's [28, 64, 2048, 1408] would need 20.7 GB).
+    ``experts`` (a ``(first, stop)`` pair) keeps only those routed
+    experts, each layer drawn whole and cut: the same numbers as the
+    whole set's, without ever holding it."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     s = tuple(stack)
+    lo, hi = (0, e) if experts is None else experts
 
     def he(shape, fan):
-        out = torch.empty(s + shape, dtype=dtype, device=gen.device)
-        for leaf in out.view(-1, *shape):
-            leaf.copy_(layers.normal(gen, shape, fan ** -0.5, dtype))
+        out = torch.empty(s + (hi - lo,) + shape[1:], dtype=dtype,
+                          device=gen.device)
+        for leaf in out.view(-1, hi - lo, *shape[1:]):
+            leaf.copy_(layers.normal(gen, shape, fan ** -0.5, dtype)[lo:hi])
         return out
 
     p = {"router": layers.normal(gen, s + (d, e), 0.02, torch.float32)}

@@ -1,4 +1,5 @@
-"""The LM stack's sharding on one device; port of ``repro.parallel``."""
+"""The LM stack's sharding, in one process or over ``torch.distributed``
+ranks (:mod:`.dist`); port of ``repro.parallel``."""
 
 from .sharding import (ShardingPolicy, batch_specs, cache_specs, make_ctx,
                        param_specs, to_named)

@@ -12,7 +12,8 @@
   checkpoint and a resume, the optimizer tiers, gradient compression,
   the fault runtime, the input specs and the train-state conversions),
   and the sharded LM stack (the named-axis meshes, the sharding specs
-  and contexts, expert-parallel ``moe_ffn`` and the pipeline);
+  and contexts, expert-parallel ``moe_ffn`` and the pipeline); another
+  runs one rank of a process group with ``jax`` and ``repro`` blocked;
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
 * ``convert`` carries every leaf dtype bit for bit.
@@ -62,12 +63,15 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [
         root / "chip_smoke.py", root / "scripts" / "profile_torch_serve.py",
         root / "scripts" / "profile_torch_lm.py",
-        root / "scripts" / "profile_torch_apps.py"]
+        root / "scripts" / "profile_torch_apps.py",
+        root / "tests" / "_torch_rank_worker.py",
+        root / "tests" / "_torch_serve_side.py"]
     assert len(files) > 25
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"parallel/__init__.py", "parallel/sharding.py",
-            "parallel/pipeline.py", "launch/mesh.py", "launch/hloparse.py",
-            "launch/dryrun.py", "launch/hillclimb.py"} <= scanned
+            "parallel/pipeline.py", "parallel/dist.py", "launch/mesh.py",
+            "launch/hloparse.py", "launch/dryrun.py",
+            "launch/hillclimb.py"} <= scanned
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_roots(f)
            if name in ("jax", "jaxlib", "repro", "ml_dtypes")]
@@ -246,6 +250,29 @@ def test_port_serves_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert "PORT_WITHOUT_JAX_OK" in out.stdout, out.stderr[-3000:]
+
+
+def test_a_rank_runs_with_jax_blocked(tmp_path):
+    """One rank (world 1, a gloo group through a ``file://``
+    rendezvous) in a subprocess where ``jax`` and ``repro`` cannot be
+    imported: the ranked plane, expert-parallel ``moe_ffn`` and the
+    pipeline over the group equal the same meshes without one."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        sys.path.insert(0, "src")
+        sys.path.insert(0, "tests")
+        import _torch_rank_worker as W
+        assert W.one_rank({str(tmp_path)!r})
+        assert "jax" not in {{m.split(".")[0] for m, v in sys.modules.items()
+                             if v is not None}}
+        print("RANK_WITHOUT_JAX_OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=PORT.parents[1], capture_output=True,
+                         text=True, timeout=120)
+    assert "RANK_WITHOUT_JAX_OK" in out.stdout, out.stderr[-3000:]
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch,

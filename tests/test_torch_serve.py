@@ -25,8 +25,8 @@ from repro_torch.core.rounds import check_invariants  # noqa: E402
 from repro_torch.dsm import kvpool as tkv  # noqa: E402
 from test_serve import _mixed_trace  # noqa: E402
 
-GEOM = dict(n_pages=24, page_size=4, n_kv_heads=2, head_dim=4,
-            n_replicas=2)
+from _torch_serve_side import (GEOM, _host_f32,  # noqa: E402,F401
+                               _shared_prefix, _Side)
 
 
 def _jax_pool(dtype):
@@ -40,58 +40,6 @@ def _port_pool(dtype):
                            device="cpu")
     pool.open_rounds_plane()
     return pool
-
-
-def _shared_prefix(pool, serve, model, tokens):
-    ps = pool.cfg.page_size
-    pages = pool.allocate(len(tokens) // ps)
-    shape = (len(pages), ps, model.n_kv_heads, model.head_dim)
-    kp, vp = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
-    for i, t in enumerate(tokens):
-        kp[i // ps, i % ps], vp[i // ps, i % ps] = model.kv(t, i)
-    serve.write_pages(pool, pages, kp, vp)
-    return pages
-
-
-def _host_f32(x):
-    if isinstance(x, torch.Tensor):
-        return x.float().numpy()
-    return np.asarray(x, np.float32)
-
-
-class _Side:
-    """One package's pool + loop, recording what each completion saw."""
-
-    def __init__(self, serve, pool, prefix=True, recorder=None):
-        self.pool = pool
-        self.model = serve.ToyLM(pool.cfg, n_q_heads=4)
-        self.shared = (_shared_prefix(pool, serve, self.model,
-                                      list(range(pool.cfg.page_size)))
-                       if prefix else ())
-        self.attn, self.readback = {}, {}
-        self.loop = serve.ServeLoop(pool, self.model, n_slots=3,
-                                    max_pages=4, prefill_chunk=4,
-                                    queue_capacity=16,
-                                    on_complete=self._done,
-                                    recorder=recorder)
-        self.rounds = []
-
-    def _done(self, req, slot):
-        k, v, _ = self.pool.read(slot.replica,
-                                 np.asarray(slot.pages, np.int32))
-        self.readback[req.rid] = (_host_f32(k), _host_f32(v))
-        self.attn[req.rid] = np.array(slot.last_attn)
-
-    def submit(self, trace):
-        """``trace`` rows are (prompt, max_new, shares_prefix,
-        shared_len); a sharing row uses this side's prefix pages."""
-        return [self.loop.submit(p, g, shared_pages=self.shared if sp
-                                 else (), shared_len=sl if sp else 0)
-                for p, g, sp, sl in trace]
-
-    def tick(self):
-        st = self.loop.tick()
-        self.rounds.append(st.last_rounds)
 
 
 def _lockstep(jside, tside, trace):

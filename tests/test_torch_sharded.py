@@ -65,7 +65,7 @@ class Pkg:
     """One package's plane surface at ``n_shards`` (0 = the port's flat
     plane)."""
 
-    def __init__(self, name: str, n_shards: int):
+    def __init__(self, name: str, n_shards: int, mesh=None):
         self.name, self.n_shards = name, n_shards
         if name == "jax":
             import jax
@@ -78,7 +78,8 @@ class Pkg:
         else:
             from repro_torch.core import rounds as rp
             from repro_torch.core.rounds import placement
-            self.mesh = rp.Mesh(n_shards, device="cpu") if n_shards else None
+            self.mesh = mesh if mesh is not None else (
+                rp.Mesh(n_shards, device="cpu") if n_shards else None)
             self.add, self.chain = _torch_add, _torch_chain
         self.rp, self.placement = rp, placement
 
@@ -117,7 +118,11 @@ def _result(out, tag, res):
 
 
 def _state(out, tag, plane):
-    for k, v in plane.state.items():
+    state = plane.state
+    if getattr(plane.mesh, "ranked", False):     # every rank's slabs
+        from repro_torch.core.rounds import gather_state
+        state = gather_state(state, plane.mesh)
+    for k, v in state.items():
         out[f"{tag}/state/{k}"] = host(v)
     for k, v in plane.flat_state().items():
         out[f"{tag}/flat/{k}"] = host(v)
@@ -291,8 +296,7 @@ def sc_serve(pk, out, *, dtype="float32"):
     a mesh-backed pool: tokens, every tick's rounds, each completion's
     KV readback and last attend, the final rounds state."""
     sys.path.insert(0, str(ROOT / "tests"))
-    from test_serve import _mixed_trace
-    from test_torch_serve import GEOM, _Side
+    from _torch_serve_side import GEOM, _Side, mixed_trace
     geom = dict(GEOM, dtype=dtype)
     if pk.name == "jax":
         import repro.serve as serve
@@ -305,7 +309,7 @@ def sc_serve(pk, out, *, dtype="float32"):
                                   device="cpu")
     pool.open_rounds_plane()
     side = _Side(serve, pool)
-    reqs = side.submit(_mixed_trace(side.shared))
+    reqs = side.submit(mixed_trace(side.shared))
     while side.loop.has_work():
         side.tick()
     out["rounds"] = np.asarray(side.rounds)
