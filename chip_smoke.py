@@ -1854,53 +1854,38 @@ def placement_phase(dev, n_lines=PLACE_LINES, width=PLACE_WIDTH,
 
 # ------------------------------------------------------ the DES bridge
 
+def example(name):
+    """The port's example ``examples/torch_<name>.py`` as a module."""
+    import importlib
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(f"torch_{name}")
+
+
 def bridge_phase(dev, width=PLACE_WIDTH, kv_cfg=None):
     """The port's ``SELCCLayer`` over the cluster of
     ``examples/quickstart.py`` (2 compute nodes, 2 memory nodes, 4
-    threads, 256 cache entries): a coherent write and read through scope
-    guards, a cache-hit re-read that spends no RDMA, and a B-link tree of
-    200 keys (lookups and a scan checked), with a clean teardown; then
+    threads, 256 cache entries), through ``examples/torch_quickstart.py``
+    on ``dev``: a coherent write and read through scope guards, a
+    cache-hit re-read that spends no RDMA, a B-link tree of 200 keys
+    (lookups and a scan checked) with a clean teardown, and the same
+    cluster's device plane serving the written line at its version; then
     ``as_plane(payload_width=width)`` on ``dev`` drives a seeded op batch
     over the layer's lines against a CPU twin (equal versions and
     payloads, invariants), and ``make_kv_pool(kv_cfg)`` opens a legacy
     pool on ``dev`` (``KVPoolConfig()`` by default) whose reads return
     what was appended."""
-    from repro_torch.apps import BLinkTree
-    from repro_torch.core import ClusterConfig, SELCCConfig, SELCCLayer
     from repro_torch.dsm.kvpool import KVPoolConfig
-    layer = SELCCLayer(ClusterConfig(n_compute=2, n_memory=2,
-                                     threads_per_node=4,
-                                     selcc=SELCCConfig(cache_capacity=256)))
-    node0, node1 = layer.nodes
-    gaddr = layer.allocate()
-    seen = {}
-
-    def demo():
-        h = yield from node0.xlocked(gaddr)
-        yield from h.store({"greeting": "hello"})
-        yield from h.release()
-        h1 = yield from node1.slocked(gaddr)
-        seen["read"] = h1.value
-        yield from h1.release()
-        before = layer.fabric.stats.total_rdma()
-        h1 = yield from node1.slocked(gaddr)
-        yield from h1.release()
-        seen["rdma"] = layer.fabric.stats.total_rdma() - before
-
-    tree = BLinkTree(layer, node0, fanout=16)
-
-    def tree_demo():
-        for i in range(200):
-            yield from tree.insert(i, i * i)
-        seen["lookup"] = yield from tree.lookup(137)
-        seen["scan"] = yield from tree.range_scan(50, 5)
-
-    for gen in (demo(), tree_demo()):
-        layer.env.run_until_complete([layer.env.process(gen)])
-    layer.assert_released()
-    assert seen["read"] == {"greeting": "hello"} and seen["rdma"] == 0
-    assert seen["lookup"] == 137 * 137
+    lines = []
+    seen = example("quickstart").run(dev, say=lines.append)
+    layer = seen["layer"]
+    log("bridge quickstart: " + json.dumps(lines))
+    assert seen["read"] == seen["stored"] and seen["rdma"] == 0
+    assert seen["lookup"] == 137 * 137 and seen["rpc_lookup"] == -42
     assert seen["scan"] == [(k, k * k) for k in range(50, 55)]
+    assert seen["plane"].device.type == dev.type
+    assert seen["plane_versions"] == (1, 1), seen["plane_versions"]
     plane = layer.as_plane(payload_width=width, device=dev)
     twin = layer.as_plane(payload_width=width, device="cpu")
     assert plane.device.type == dev.type
@@ -2040,6 +2025,82 @@ def bridge_des_workers(dev, micro_width=16, plane_slots=1024):
 
 
 # ------------------------------------------------------ phase 4: LM serve
+
+EXAMPLE_STEPS = 20                 # torch_train_micro --tiny on the card
+
+
+def examples_phase(dev, K, steps=EXAMPLE_STEPS):
+    """The port's device examples on ``dev``, each to its end at its
+    smoke size (the head dim the card's kernels take,
+    ``configs.on_device``), each with the launch counts set to 0 just
+    before it: ``torch_serve_paged`` (its engine's tokens equal its
+    hand-rolled loop's, and the coherence reads the reference's),
+    ``torch_train_micro --tiny`` for ``steps`` steps with its checkpoint
+    in a temporary directory, and ``torch_elastic_restart`` (train,
+    checkpoint, plan, restore, continue).  Finite losses; K4 and its
+    backward once a layer a micro-batch (no remat at smoke size), K1
+    and K2 in the pool, on the card (none on the CPU, where the phase
+    is rehearsed).  Returns the record and the launches by example."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_smoke_config, on_device
+    out, launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="examples_")
+    n_layers = on_device(get_smoke_config("qwen3-1.7b"), dev).n_layers
+    runs = (
+        ("serve_paged", lambda say: example("serve_paged").run(dev, say)),
+        ("train_micro", lambda say: example("train_micro").main([
+            "--tiny", "--steps", str(steps), "--device", dev.type,
+            "--ckpt", os.path.join(tmp, "train_micro")])),
+        ("elastic_restart", lambda say: example("elastic_restart").main([
+            "--device", dev.type, "--ckpt", os.path.join(tmp, "elastic")])))
+    try:
+        for name, fn in runs:
+            lines, text = [], io.StringIO()
+            K.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                res = fn(lines.append)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            got = collections.Counter(K.launch_counts())
+            if name == "train_micro":      # the driver counts a step at a time
+                got = sum((collections.Counter(c) for c in res["launches"]),
+                          collections.Counter())
+            launches[name] = {k: n for k, n in got.items() if n}
+            lines += text.getvalue().splitlines()
+            log(f"example {name}: " + json.dumps(lines))
+            card = dev.type == "cuda"
+            if name == "serve_paged":
+                assert res["engine_tokens"] == res["ref_tokens"]
+                # the reference example's two [coherence] lines
+                assert res["reads"] == [True, False, True, True, False], \
+                    res["reads"]
+                rec = {"reads": res["reads"],
+                       "ticks": res["stats"].tick,
+                       "coherence_rounds": res["stats"].rounds_total}
+                for k in ("latch_ops", "gcl_fetch", "flash_attention"):
+                    assert launches[name].get(k, 0) > 0 or not card, (name, k)
+            else:
+                if name == "train_micro":
+                    losses, micro = res["losses"], [1] * len(res["losses"])
+                else:
+                    losses = res["healthy"] + res["continued"]
+                    micro = ([res["n_micro"][0]] * len(res["healthy"])
+                             + [res["n_micro"][1]] * len(res["continued"]))
+                assert np.isfinite(losses).all(), (name, losses)
+                per = sum(micro) * n_layers if card else 0
+                want = {k: per for k in ("flash_attention",
+                                         "flash_attention_bwd") if per}
+                assert launches[name] == want, (name, launches[name], want)
+                rec = {"losses": losses, "micro_batches": micro}
+            out[name] = dict(rec, wall_s=wall, launches=launches[name])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches
+
 
 def lm_serve(K, arch, requests, kernel, per_prefill, per_step=0, batch=4,
              prompt=512, gen=32, flags=()):
@@ -3796,6 +3857,7 @@ def sharded_lm_phase(dev, K, logits_out=None):
            "ep_check_dropped": ep_check["dropped"],
            "train_steady_step_ms": train_res["steady_step_ms"],
            "train_losses": train_res["losses"],
+           "train_grad_norms": train_res["grad_norms"],
            "train_k4_launches": train_counts["flash_attention"],
            "train_k4_bwd_launches": train_counts["flash_attention_bwd"],
            "pipeline_max_rel_err": pipe["max_rel_err"],
@@ -3829,6 +3891,98 @@ def _rank_path(K, name, fn, out):
     return res
 
 
+RANK_TRAIN_STEPS = 8                # as phase 7b's sharded_train
+RANK_TRAIN_LOSS_TOL = 1e-3         # every step's loss, relative to 7b's
+RANK_TRAIN_GNORM_TOL = 1e-4        # step 0's grad norm, relative to 7b's
+
+
+def rank_train(dev, K, ref, small=None):
+    """One rank of ``launch.train.main --production-mesh`` for
+    deepseek-moe-16b at full width and :data:`SHARDED_TRAIN_LAYERS`
+    layers, as phase 7b's :func:`sharded_train` runs it in one process
+    (batch 4 x 512, ``--micro 1``, remat, lr 3e-4, the same seed): EP 16
+    as the ranks x their model shards, each rank holding its experts and
+    their AdamW state, the expert exchanges differentiated across the
+    ranks, the clip's norm over every rank's gradient.  Held against
+    7b's run (``ref``: its losses and grad norms): step 0's loss bit for
+    bit, its grad norm within :data:`RANK_TRAIN_GNORM_TOL` relative,
+    every loss within :data:`RANK_TRAIN_LOSS_TOL`; finite, no gradient
+    missing, exactly ``lm.train_launches`` a step.  Returns the rank's
+    record: losses, grad norms, step ms, peak memory, launches and
+    collectives (calls and bytes) a step, and step 0's gradient digests.
+    ``small`` rehearses it on the CPU (the smoke config with 16
+    experts, ``small['train']``'s steps and sequence)."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.lm import train_launches
+    steps, seq = ((small["train"]["steps"], small["train"]["seq"]) if small
+                  else (RANK_TRAIN_STEPS, 512))
+    argv = ["--arch", SHARDED_ARCH, "--production-mesh", "--steps",
+            str(steps), "--batch", "4", "--seq", str(seq), "--micro", "1",
+            "--lr", "3e-4", "--log-every", "1", "--grad-digest"]
+    real = {"get_config": train_mod.get_config,
+            "get_smoke_config": train_mod.get_smoke_config}
+    if small:
+        argv += ["--smoke", "--device", "cpu"]
+        train_mod.get_smoke_config = lambda a: real["get_smoke_config"](
+            a).replace(n_experts=16)
+    else:
+        train_mod.get_config = lambda a: real["get_config"](a).replace(
+            n_layers=SHARDED_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cfg = (train_mod.get_smoke_config if small
+               else train_mod.get_config)(SHARDED_ARCH)
+        rec = train_mod.main(argv)
+    finally:
+        for k, fn in real.items():
+            setattr(train_mod, k, fn)
+    peak = torch.cuda.max_memory_allocated()
+    del rec["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    if not small:
+        want.update(train_launches(cfg))
+    rank = rec["rank"]
+    assert rec["mesh"] == {"data": 16, "model": 16} and rec["ep"] == 16
+    assert rec["world"] == RANKS and rec["n_micro"] == 1
+    assert np.isfinite(rec["losses"]).all() and \
+        np.isfinite(rec["grad_norms"]).all(), \
+        f"rank {rank}: non-finite training over ranks"
+    assert rec["grads_missing"] == 0, \
+        f"rank {rank}: {rec['grads_missing']} leaves got no gradient"
+    for i, got in enumerate(rec["launches"]):
+        assert got == want, f"rank {rank} step {i}: launches {got}, " \
+            f"want {want}"
+    losses, gnorms = rec["losses"], rec["grad_norms"]
+    ref_l, ref_g = ref["losses"][:steps], ref["grad_norms"][:steps]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_l)]
+    out = {"layers": cfg.n_layers, "steps": steps, "batch": 4, "seq": seq,
+           "losses": losses, "grad_norms": gnorms,
+           "ref_losses": ref_l, "ref_grad_norms": ref_g,
+           "step0_loss_bit_equal": losses[0] == ref_l[0],
+           "step0_grad_norm_rel": abs(gnorms[0] - ref_g[0]) / ref_g[0],
+           "loss_rel_err_by_step": loss_rel,
+           "step_ms": rec["step_ms"],
+           "steady_step_ms": float(np.median(rec["step_ms"][1:])),
+           "peak_mem_gb": peak / 1e9,
+           "launches_per_step": {k: n for k, n in want.items() if n},
+           # the driver resets the counts before each step
+           "launches_total": {k: n * steps for k, n in want.items() if n},
+           "collectives_per_step": rec["collectives"][-1],
+           "collectives_steps_equal": all(
+               c == rec["collectives"][-1] for c in rec["collectives"]),
+           "grads_missing": rec["grads_missing"],
+           "grad_digest_replicated": rec["grad_digest"]["replicated"],
+           "grad_leaves_ranked": len(rec["grad_digest"]["ranked"])}
+    assert out["step0_loss_bit_equal"], \
+        f"rank {rank}: step 0's loss {losses[0]} is not 7b's {ref_l[0]}"
+    assert out["step0_grad_norm_rel"] <= RANK_TRAIN_GNORM_TOL, out
+    assert max(loss_rel) <= RANK_TRAIN_LOSS_TOL, out
+    return out
+
+
 def rank_main(rank, world, tmp):
     """One of phase 7d's ranks: joins the gloo group of the ranks that
     share the card (``parallel.dist.init``), loads the kernels the parent
@@ -3840,10 +3994,13 @@ def rank_main(rank, world, tmp):
     ``launch.serve --production-mesh`` (EP 16 as 4 ranks x 4 model
     shards, 16 experts a rank), teacher-forced on phase 7b's first batch,
     its logits against 7b's, then ``moe_card_check`` on this rank's
-    shards; (d) the pipeline, one stage a rank.  Writes
-    ``rank<r>.json``.  A ``small`` entry in the spec rehearses the ranks
-    on the CPU at its sizes (the smoke config with 16 experts for (c),
-    no ``moe_card_check``)."""
+    shards; (d) the pipeline, one stage a rank; (e) after the serve
+    paths' memory is freed, deepseek-moe-16b's training through
+    ``launch.train --production-mesh`` against phase 7b's one-process
+    run (:func:`rank_train`).  Writes ``rank<r>.json``.  A ``small``
+    entry in the spec rehearses the ranks on the CPU at its sizes (the
+    smoke config with 16 experts for (c) and (e), no
+    ``moe_card_check``)."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3924,6 +4081,10 @@ def rank_main(rank, world, tmp):
     _rank_path(K, "pipeline", lambda: pipeline_check(
         dev, mesh=Mesh({"pipe": PIPE_STAGES}, dev, group=group),
         **(small or {}).get("pipe", {})), out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _rank_path(K, "train", lambda: rank_train(dev, K, spec["train"], small),
+               out)
     out["kernel_loads"] = _build.LOADS - loads0
     out["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -3954,19 +4115,21 @@ def nccl_world1(dev, tmp) -> dict:
             "all_reduce": "ok"}
 
 
-def ranks_phase(dev, flat_serve, tree_sha, logits_ref) -> dict:
+def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
     """Phase 7d: the ``shard_map`` bodies over :data:`RANKS` gloo ranks
     that share the card (:func:`rank_main`, spawned after the parent
     frees its cached memory, joined within :data:`RANK_JOIN_S`; a
     failing or late rank ends the run), then a world-1 nccl group
-    (:func:`nccl_world1`).  Prints each rank's record; returns the
-    ranks' launches by kernel, summed."""
+    (:func:`nccl_world1`).  ``train_ref`` is phase 7b's training run
+    (its losses and grad norms).  Prints each rank's record; returns the
+    ranks' launches by kernel, summed, on the serve paths and on the
+    train path."""
     from repro_torch.parallel.dist import spawn
     tmp = tempfile.mkdtemp(prefix="ranks_")
     try:
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump({"flat_serve": flat_serve, "tree_sha256": tree_sha,
-                       "logits": logits_ref}, f)
+                       "logits": logits_ref, "train": train_ref}, f)
         gc.collect()
         torch.cuda.empty_cache()
         parent_gb = torch.cuda.memory_allocated() / 1e9
@@ -3976,10 +4139,10 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref) -> dict:
         nccl = nccl_world1(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = collections.Counter()
+    launches, train_launches = collections.Counter(), collections.Counter()
     for rec in recs:
         paths = {p: rec[p] for p in ("serve", "tree", "deepseek",
-                                     "moe_check", "pipeline")}
+                                     "moe_check", "pipeline", "train")}
         log(f"ranks rank {rec['rank']}: " + json.dumps({
             "backend": rec["backend"], "device": rec["device"],
             "join_s": rec["join_s"], "wall_s": rec["wall_s"],
@@ -3997,6 +4160,19 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref) -> dict:
                 f"rank {rec['rank']}: {name} never launched on its {path}"
         for p in ("serve", "tree", "deepseek"):
             launches.update(rec[p]["launches"])
+        tr = rec["train"]["result"]
+        log(f"ranks train rank {rec['rank']}: " + json.dumps({
+            k: tr[k] for k in ("steady_step_ms", "step_ms", "peak_mem_gb",
+                               "collectives_per_step", "launches_per_step",
+                               "losses", "step0_grad_norm_rel",
+                               "loss_rel_err_by_step")}))
+        for name in ("flash_attention", "flash_attention_bwd"):
+            assert rec["train"]["launches"][name] > 0, \
+                f"rank {rec['rank']}: {name} never launched on its train"
+        train_launches.update(tr["launches_total"])
+    digests = [r["train"]["result"]["grad_digest_replicated"] for r in recs]
+    assert digests[0] and all(d == digests[0] for d in digests), \
+        "the replicated gradients differ across the ranks at step 0"
     out = {"ranks": RANKS, "backend": recs[0]["backend"],
            "spawn_to_join_s": seconds, "parent_allocated_gb": parent_gb,
            "host_staging": "none: the ranks hand gloo their CUDA tensors "
@@ -4016,9 +4192,23 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref) -> dict:
                "max_rel_err"],
            "pipeline_ms": recs[0]["pipeline"]["result"]["pipeline_ms"],
            "pipeline_loop_ms": recs[0]["pipeline"]["result"]["loop_ms"],
+           "train_wall_s": [r["train"]["wall_s"] for r in recs],
+           "train_steady_step_ms": [r["train"]["result"]["steady_step_ms"]
+                                    for r in recs],
+           "train_peak_gb_a_rank": [r["train"]["result"]["peak_mem_gb"]
+                                    for r in recs],
+           "train_collectives_per_step": recs[0]["train"]["result"][
+               "collectives_per_step"],
+           "train_step0_loss_bit_equal": all(
+               r["train"]["result"]["step0_loss_bit_equal"] for r in recs),
+           "train_step0_grad_norm_rel": recs[0]["train"]["result"][
+               "step0_grad_norm_rel"],
+           "train_loss_rel_err_max": max(max(
+               r["train"]["result"]["loss_rel_err_by_step"]) for r in recs),
+           "train_replicated_grad_leaves_equal": len(digests[0]),
            "nccl_world1": nccl}
     log("ranks: " + json.dumps(out))
-    return dict(launches)
+    return dict(launches), dict(train_launches)
 
 
 # ---------------------------------------------- phase 7c: the dry-run
@@ -4434,6 +4624,10 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
         log(f"{path} launches: " + json.dumps(side_paths[path]))
         for name, n in side_paths[path].items():
             assert n > 0, f"kernel {name} never launched on the {path} path"
+    t_ex = time.perf_counter()
+    examples, example_launches = examples_phase(dev, K)
+    log("examples: " + json.dumps(examples))
+    log(f"examples phase: {time.perf_counter() - t_ex:.3f} s")
     K.reset_launch_counts()
     sharded = sharded_phase(dev, flat_serve)
     window = K.launch_counts()
@@ -4550,7 +4744,8 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
     logits_dir = tempfile.mkdtemp(prefix="logits_")
     try:
         logits_ref = os.path.join(logits_dir, "deepseek_one_process.npz")
-        _, sharded_lm = sharded_lm_phase(dev, K, logits_out=logits_ref)
+        sharded_out, sharded_lm = sharded_lm_phase(dev, K,
+                                                   logits_out=logits_ref)
         for path in sharded_lm.values():
             for name, n in path.items():
                 counts[name] = counts.get(name, 0) + n
@@ -4558,18 +4753,27 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
         for name, n in dryrun_launches.items():
             counts[name] = counts.get(name, 0) + n
         t_ranks = time.perf_counter()
-        rank_launches = ranks_phase(dev, flat_serve,
-                                    sharded["tree"]["state_sha256"],
-                                    logits_ref)
+        rank_launches, rank_train_launches = ranks_phase(
+            dev, flat_serve, sharded["tree"]["state_sha256"], logits_ref,
+            {"losses": sharded_out["train_losses"],
+             "grad_norms": sharded_out["train_grad_norms"]})
         log(f"phase 7d: {time.perf_counter() - t_ranks:.3f} s")
     finally:
         shutil.rmtree(logits_dir, ignore_errors=True)
-    for name, n in rank_launches.items():
-        counts[name] = counts.get(name, 0) + n
+    for launches in (rank_launches, rank_train_launches,
+                     *example_launches.values()):
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+    for ex, c in example_launches.items():
+        by_path[f"example_{ex}"] = {k: c.get(k, 0)
+                                    for k in ("latch_ops", "gcl_fetch")}
     by_path["ranks"] = {k: rank_launches.get(k, 0)
                         for k in ("latch_ops", "gcl_fetch")}
     rows[2]["launches_by_path"]["ranks"] = rank_launches.get(
         "paged_attention", 0)
+    for ex, c in example_launches.items():
+        rows[2]["launches_by_path"][f"example_{ex}"] = c.get(
+            "paged_attention", 0)
 
     for row in rows[:2]:
         row["launches_by_path"] = {p: c[row["name"]]
@@ -4584,7 +4788,10 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
             **{f"sharded_lm_{p}": c[row["name"]]
                for p, c in sharded_lm.items()},
             dryrun_card=dryrun_launches.get(row["name"], 0),
-            ranks=rank_launches.get(row["name"], 0))
+            ranks=rank_launches.get(row["name"], 0),
+            ranks_train=rank_train_launches.get(row["name"], 0),
+            **{f"example_{ex}": c.get(row["name"], 0)
+               for ex, c in example_launches.items()})
         row["train_launches_by_arch"] = train[row["name"]]
 
     kernels = []

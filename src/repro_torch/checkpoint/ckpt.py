@@ -21,9 +21,16 @@ or, given
 ``shardings`` (a matching tree of ``parallel.sharding.NamedSharding``,
 e.g. ``to_named(mesh, state_specs(mesh, ...))`` of a new mesh after an
 elastic remesh), on its sharding's mesh device, refusing a spec that
-does not divide the leaf's shape as JAX's placement would.  The shards
-of a mesh share its one device; spreading them over several cards
-waits for several cards (ROADMAP.md queue 1 item 9).
+does not divide the leaf's shape as JAX's placement would.
+
+Over ``torch.distributed`` ranks (``shardings`` over a mesh with a
+``group``) a checkpoint is the same whatever the world size: ``save``
+all-gathers the leaves each rank holds as its block (a sharding's
+``rank_dim``: the routed experts and their optimizer state) on every
+rank, synchronously and before any write, and only the group's rank 0
+writes the whole state in the one-process layout; ``restore`` waits at
+a barrier for rank 0's publish (rank 0 joins its pending write first),
+reads the whole state on every rank and keeps each ranked leaf's block.
 """
 
 from __future__ import annotations
@@ -72,13 +79,36 @@ def _crc(arr) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
 
 
-def save(tree, step: int, directory, async_: bool = False):
+def _ranked_mesh(shardings):
+    """The ranked mesh of a tree of shardings, or None."""
+    if shardings is None:
+        return None
+    for sh in pt.leaves(shardings):
+        if getattr(sh.mesh, "ranked", False):
+            return sh.mesh
+    return None
+
+
+def save(tree, step: int, directory, async_: bool = False, shardings=None):
     """Write ``tree`` (nested dicts/lists of tensors or arrays) as step
-    ``step``; returns the writer thread when ``async_`` else None."""
+    ``step``; returns the writer thread when ``async_`` else None.  With
+    ``shardings`` over a ranked mesh every rank calls it: the ranked
+    leaves are all-gathered, and only rank 0 writes."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     leaves, spec = pt.flatten(tree)
+    mesh = _ranked_mesh(shardings)
+    if mesh is not None:
+        places = pt.leaves(shardings)
+        if len(places) != len(leaves):
+            raise ValueError("shardings/tree structure mismatch")
+        leaves = [x if sh.rank_dim is None
+                  else mesh.all_gather(x.contiguous(), sh.rank_dim)
+                  for x, sh in zip(leaves, places)]
+        if mesh.rank != 0:
+            return None
+    directory.mkdir(parents=True, exist_ok=True)
     host = [_host(x) for x in leaves]
+    del leaves
 
     def _write():
         tmp = directory / f"step_{step:06d}.tmp"
@@ -151,8 +181,12 @@ def restore(tree_like, directory, step: int | None = None, shardings=None):
     each leaf a tensor on the device of ``tree_like``'s leaf (a leaf
     that is not a tensor gives a CPU tensor), or with ``shardings`` on
     its sharding's device after its spec is checked against the leaf's
-    shape."""
+    shape; over a ranked mesh every rank calls it, after rank 0's save
+    has returned, and gets its block of each ranked leaf."""
     directory = Path(directory)
+    mesh = _ranked_mesh(shardings)
+    if mesh is not None:
+        mesh.barrier()
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -173,7 +207,8 @@ def restore(tree_like, directory, step: int | None = None, shardings=None):
         arr = _loaded(np.load(step_dir / info["file"]), info["dtype"],
                       info["shape"])
         if sh is not None:
-            sh.check(info["shape"])
+            arr = sh.block(arr)
+            sh.check(arr.shape)
             dev = sh.device
         else:
             dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
@@ -182,18 +217,26 @@ def restore(tree_like, directory, step: int | None = None, shardings=None):
 
 
 class CheckpointManager:
-    """Keeps N newest checkpoints, async by default, join-safe."""
+    """Keeps N newest checkpoints, async by default, join-safe.
+    ``shardings`` (a tree matching the saved state) is the default of
+    :meth:`save` and :meth:`restore`: over a ranked mesh every rank
+    calls both, and only rank 0 writes and prunes."""
 
-    def __init__(self, directory, keep: int = 3, async_: bool = True):
+    def __init__(self, directory, keep: int = 3, async_: bool = True,
+                 shardings=None):
         self.directory = Path(directory)
         self.keep = keep
         self.async_ = async_
+        self.shardings = shardings
+        mesh = _ranked_mesh(shardings)
+        self.writer = mesh is None or mesh.rank == 0
         self._pending: threading.Thread | None = None
 
     def save(self, tree, step: int) -> None:
         self.wait()
-        self._pending = save(tree, step, self.directory, async_=self.async_)
-        if not self.async_:
+        self._pending = save(tree, step, self.directory, async_=self.async_,
+                             shardings=self.shardings)
+        if not self.async_ and self.writer:
             self._gc()
 
     def wait(self) -> None:
@@ -204,7 +247,9 @@ class CheckpointManager:
 
     def restore(self, tree_like, shardings=None):
         self.wait()
-        return restore(tree_like, self.directory, shardings=shardings)
+        return restore(tree_like, self.directory,
+                       shardings=self.shardings if shardings is None
+                       else shardings)
 
     def _gc(self) -> None:
         for s in _steps(self.directory)[self.keep:]:

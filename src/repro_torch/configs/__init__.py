@@ -2,7 +2,8 @@
 
 ``get_config(name)`` returns the full published config;
 ``get_smoke_config(name)`` returns the reduced same-family config the
-CPU tests use (tiny widths, few layers, small vocab).  The names are the
+CPU tests use (tiny widths, few layers, small vocab); ``on_device``
+gives a config the head dim the card's attention kernels take.  The names are the
 JAX package's, and the port runs every one of its architectures: the
 ``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``encdec``
 families.
@@ -56,3 +57,17 @@ def get_smoke_config(name: str):
 def all_arch_ids():
     inv = {v: k for k, v in CANON.items()}
     return [inv[a] for a in ARCHS]
+
+
+def on_device(cfg, device):
+    """``cfg`` as it runs on ``device`` (a ``torch.device`` or a name):
+    on the card, a head dim that the attention kernels do not take (the
+    smoke configs' 16) becomes the smallest one they take (64); on the
+    CPU ``cfg`` itself."""
+    import torch
+
+    from ..kernels.flash_attention import HEAD_DIMS
+    if torch.device(device).type != "cuda" or cfg.hd in HEAD_DIMS:
+        return cfg
+    return cfg.replace(head_dim=min(h for h in HEAD_DIMS if h >= cfg.hd))
+

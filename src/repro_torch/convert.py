@@ -11,9 +11,9 @@ path from a JAX pool's ``pool`` and ``cache`` dicts.
 :func:`sharded_state_from_arrays` carries a JAX sharded round state
 (its leaves gathered with ``np.asarray``, in stripe layout) onto a
 port :class:`~repro_torch.core.rounds.Mesh`.
-:func:`rank_experts` cuts an LM parameter tree (the JAX package's numpy
-leaves or the port's tensors) down to the routed experts of one
-expert-parallel rank; :func:`lm_params_to_torch` carries a JAX LM
+:func:`rank_experts` cuts an LM parameter tree or a whole train state
+(the JAX package's numpy leaves or the port's tensors) down to the
+routed experts of one expert-parallel rank; :func:`lm_params_to_torch` carries a JAX LM
 parameter tree across, and
 :func:`train_state_to_torch` / :func:`train_state_to_numpy` a whole
 train state (params, the AdamW ``mu`` in any tier, ``step``, the
@@ -67,29 +67,42 @@ def sharded_state_from_arrays(state: dict, mesh) -> dict:
 EXPERT_LEAVES = ("we_g", "we_u", "we_d")
 
 
-def rank_experts(params, mesh, axis: str = "model"):
-    """``params`` (an LM parameter tree, or one moe layer's dict; numpy
-    arrays or tensors) with each routed-expert leaf (``we_g``, ``we_u``,
-    ``we_d``: ``[..., E, a, b]``) cut to the experts of this rank's
-    block of ``mesh``'s expert axis, ``E / W`` of them: the share an
-    expert-parallel rank holds.  Every other leaf is kept as it is (the
-    same object)."""
+def rank_experts(tree, mesh, axis: str = "model"):
+    """``tree`` (an LM parameter tree, one moe layer's dict, or a whole
+    train state: the parameters, the AdamW ``opt.mu`` m and v in any
+    tier, ``err``; numpy arrays or tensors) with every leaf under a
+    routed-expert key (``we_g``, ``we_u``, ``we_d``: a parameter ``[...,
+    E, a, b]``, or its int8 ``{"q", "scale"}`` blocks ``[..., E, a, nb,
+    k]``) cut to the experts of this rank's block of ``mesh``'s expert
+    axis, ``E / W`` of them: the share an expert-parallel rank holds.
+    Every other leaf is kept as it is (the same object)."""
     n = mesh.shape[axis]
     first, stop = mesh.block(axis)
 
-    def cut(leaf):
-        e = leaf.shape[-3]
+    def cut(leaf, trailing):
+        ax = leaf.ndim - trailing
+        e = leaf.shape[ax]
         if e % n:
             raise ValueError(f"{e} experts do not split over {n} shards")
-        return leaf[..., first * e // n:stop * e // n, :, :]
+        idx = (slice(None),) * ax + (slice(first * e // n, stop * e // n),)
+        return leaf[idx]
+
+    def experts(node):
+        if isinstance(node, dict):
+            if set(node) == {"q", "scale"}:     # int8 blocks: one more axis
+                return {k: cut(v, 4) for k, v in node.items()}
+            return {k: experts(v) for k, v in node.items()}
+        return cut(node, 3)
 
     def walk(node, key=None):
+        if key in EXPERT_LEAVES:
+            return experts(node)
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
-        return cut(node) if key in EXPERT_LEAVES else node
-    return walk(params)
+        return node
+    return walk(tree)
 
 
 def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,

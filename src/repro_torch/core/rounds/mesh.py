@@ -33,8 +33,9 @@ collectives below, built on the two primitives every backend runs,
 :meth:`Mesh.all_to_all`, :meth:`Mesh.all_reduce`, :meth:`Mesh.all_gather`
 (an all-to-all that sends a rank's block to every rank) and
 :meth:`Mesh.ppermute` (an all-to-all whose only nonzero split is the
-neighbour's).  With no group the mesh is world 1 and issues no
-collective.  ``COLLECTIVES`` counts each collective's calls and the
+neighbour's), and :meth:`Mesh.barrier`.  With no group the mesh is
+world 1 and issues no collective.  :mod:`repro_torch.parallel.collectives`
+wraps the moves as autograd functions.  ``COLLECTIVES`` counts each collective's calls and the
 bytes a rank sent through it.
 
 A state on another device than its mesh's is refused, never moved.
@@ -204,6 +205,15 @@ class Mesh:
         out = self.all_to_all(send.reshape((self.world * x.shape[0],)
                                            + tuple(x.shape[1:])))
         return out.movedim(0, dim)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the group gets here (world 1 without
+        a group returns at once)."""
+        if not self.ranked:
+            return
+        import torch.distributed as dist
+        COLLECTIVES["barrier_calls"] += 1
+        dist.barrier(group=self.group)
 
     def ppermute(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
         """Rank ``r``'s ``x`` arrives at rank ``(r + shift) % world``

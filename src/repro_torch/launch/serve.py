@@ -50,6 +50,7 @@ from ..models import lm
 from ..parallel.dist import finish as dist_finish
 from ..parallel.dist import in_ranks
 from ..parallel.dist import init as dist_init
+from ..parallel.sharding import expert_block
 from ..train.step import build_serve_step
 from .mesh import make_local_mesh, make_production_mesh
 
@@ -133,12 +134,9 @@ def main(argv=None) -> dict:
             else make_local_mesh(device=dev, group=group))
     serve_step, serve_prefill, ctx = build_serve_step(cfg, mesh)
     # an expert-parallel rank draws every parameter, keeps its experts
-    mine = {}
-    if mesh.ranked and ctx.ep > 1:
-        per = cfg.n_experts // mesh.world
-        mine["experts"] = (mesh.rank * per, (mesh.rank + 1) * per)
+    block = expert_block(cfg, ctx)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            dev, **mine)
+                            dev, **({"experts": block} if block else {}))
     teacher = (None if args.teacher is None
                else np.load(args.teacher)["inputs"])
     kept = []

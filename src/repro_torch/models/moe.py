@@ -42,7 +42,11 @@ second sends the results back, and an all-gather of the token blocks
 (and an ``all_reduce`` of ``aux``) gives every rank the whole output.
 Where the sequence is replicated along the model axis, every rank
 routes the same tokens, runs its own experts on their slots and
-all-gathers the experts' results.
+all-gathers the experts' results.  Every move across ranks (the block
+slices of a replicated tensor included) is one of
+:mod:`repro_torch.parallel.collectives`' autograd functions, so the
+routed path's gradient reaches ``x``, the router and every layer below:
+a replicated tensor's gradient is the same on every rank.
 """
 
 from __future__ import annotations
@@ -184,6 +188,7 @@ def _moe_ep(x, p, cfg, parallel):
     [nb * ns_l, T_l*K] (shard (i, j) of the distinct ones held here at
     row i * ns_l + j; ``ns_l = ns`` in one process, a rank's block over
     ranks), with the shard-local capacity."""
+    from ..parallel import collectives as cl   # (parallel imports models)
     nb, ns, n = ep_layout(x.shape, parallel)
     mesh = parallel.mesh
     ranked = getattr(mesh, "ranked", False)
@@ -213,24 +218,23 @@ def _moe_ep(x, p, cfg, parallel):
     xs = x.reshape(nb, b_l, ns, s_l, d).transpose(1, 2).reshape(
         nb * ns, t, d)
     logits = xs.float() @ p["router"].float()
-    if split:
-        mine = slice(mesh.rank * ns_l, (mesh.rank + 1) * ns_l)
-        xs = xs.view(nb, ns, t, d)[:, mine].reshape(nb * ns_l, t, d)
-        logits = logits.view(nb, ns, t, e_total)[:, mine].reshape(
+    if split:                           # this rank's model shards
+        xs = cl.block(xs.view(nb, ns, t, d), mesh, 1).reshape(
+            nb * ns_l, t, d)
+        logits = cl.block(logits.view(nb, ns, t, e_total), mesh, 1).reshape(
             nb * ns_l, t, e_total)
     buf, route, aux = _dispatch(xs, logits, cfg.top_k, e_total, cap)
     # all_to_all: [nb, src, dst, E_loc, C, d] -> [nb, dst, src, ...]
     send = buf.reshape(nb, ns_l, n, e_loc, cap, d)
     if split:
         # to rank q: the slots of its destinations [q*n_l, (q+1)*n_l)
-        got = mesh.all_to_all(
+        got = cl.all_to_all(
             send.reshape(nb, ns_l, w, n_l, e_loc, cap, d)
-            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d))
+            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d), mesh)
         recv = got.view(w, nb, ns_l, n_l, e_loc, cap, d).permute(
             1, 3, 0, 2, 4, 5, 6).reshape(nb, n_l, ns, e_loc, cap, d)
     elif ranked:                        # every rank routed the same slots
-        lo = mesh.rank * n_l
-        recv = send[:, :, lo:lo + n_l].transpose(1, 2)
+        recv = cl.block(send, mesh, 2).transpose(1, 2)
     else:
         recv = send.transpose(1, 2)
     # each destination's experts take their slots source-major; every
@@ -243,24 +247,24 @@ def _moe_ep(x, p, cfg, parallel):
     # all_to_all back: [nb, dst, src, ...] -> [nb, src, dst, ...]
     if split:
         # to rank q: the results for its sources [q*ns_l, (q+1)*ns_l)
-        got = mesh.all_to_all(
+        got = cl.all_to_all(
             back.reshape(nb, n_l, w, ns_l, e_loc, cap, d)
-            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d))
+            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d), mesh)
         y_buf = got.view(w, nb, n_l, ns_l, e_loc, cap, d).permute(
             1, 3, 0, 2, 4, 5, 6)
     elif ranked:                        # every rank needs every expert
-        y_buf = mesh.all_gather(back, 1).transpose(1, 2)
+        y_buf = cl.all_gather(back, mesh, 1).transpose(1, 2)
     else:
         y_buf = back.transpose(1, 2)
     y_buf = y_buf.reshape(nb * ns_l, e_total, cap, d)
     out = _combine(y_buf, route, t).reshape(nb, ns_l, b_l, s_l, d)
     if split:                           # the token blocks, on every rank
-        out = mesh.all_gather(out, 1)
+        out = cl.all_gather(out, mesh, 1)
     out = out.transpose(1, 2).reshape(b, s, d)
     # pmean over every mesh axis: each distinct shard is replicated
     # equally often
     if split:
-        aux = mesh.all_reduce(aux.sum().reshape(1))[0] / (nb * ns)
+        aux = cl.all_reduce(aux.sum().reshape(1), mesh)[0] / (nb * ns)
     else:
         aux = aux.mean()
     return out, aux, route

@@ -8,7 +8,8 @@ State tiers (per-tensor, uniform across the tree), as in JAX:
      the state keeps the parameter's leading dims)
 
 The arithmetic is JAX's, in fp32: the global norm over every gradient
-leaf, summed in JAX's leaf order (sorted dict keys), clipping, the bias
+leaf, summed in JAX's leaf order (sorted dict keys; over ranks the
+expert blocks' partial sums all-reduced first), clipping, the bias
 corrections, and weight decay on every leaf.  :func:`adamw_update`
 updates the parameters and the state in place (JAX's is functional), a
 leaf at a time and a large leaf in slices of its leading axis of at most
@@ -117,11 +118,21 @@ def adamw_init(params, cfg: AdamWConfig):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree):
+def global_norm(tree, mesh=None, ranked=None):
     """sqrt of the sum of squares of every leaf, in fp32, the leaves'
-    sums stacked in JAX's leaf order."""
-    return torch.sqrt(torch.stack([x.float().square().sum()
-                                   for x in pt.leaves(tree)]).sum())
+    sums stacked in JAX's leaf order.  Over a ranked ``mesh``,
+    ``ranked`` (a bool a leaf, in that order) marks the leaves that a
+    rank holds as its block: their sums are partial, and one
+    ``all_reduce`` of their vector makes them whole before the same
+    stack and sum, so every rank gets the same norm; a leaf every rank
+    holds whole counts once."""
+    sums = [x.float().square().sum() for x in pt.leaves(tree)]
+    idx = [i for i, r in enumerate(ranked or ()) if r]
+    if idx and mesh is not None and mesh.ranked:
+        whole = mesh.all_reduce(torch.stack([sums[i] for i in idx]))
+        for j, i in enumerate(idx):
+            sums[i] = whole[j]
+    return torch.sqrt(torch.stack(sums).sum())
 
 
 def _copy_into(dst, src):
@@ -150,13 +161,17 @@ def _at(state, sl):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, mesh=None,
+                 ranked=None):
     """One AdamW step: ``params`` and ``state`` (from :func:`adamw_init`)
     are updated in place; ``grads`` is a tree of the params' structure.
-    Returns (params, state, {"grad_norm", "lr"})."""
+    Over a ranked ``mesh`` the clip's norm is :func:`global_norm`'s over
+    the whole gradient (``ranked``: the leaves held as rank blocks); the
+    update itself stays local.  Returns (params, state, {"grad_norm",
+    "lr"})."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, ranked)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.float()

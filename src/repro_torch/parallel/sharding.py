@@ -39,6 +39,7 @@ from dataclasses import dataclass
 from typing import Any
 
 from .. import tree as pt
+from ..convert import EXPERT_LEAVES
 from ..models.lm import ParallelCtx
 
 
@@ -60,21 +61,46 @@ class P(tuple):
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """A spec over a mesh (JAX's ``NamedSharding``)."""
+    """A spec over a mesh (JAX's ``NamedSharding``).  ``rank_dim`` names
+    the dim that a rank of a ranked mesh holds as its block (the leaf's
+    ``world`` blocks in rank order), None for a leaf every rank holds
+    whole; :func:`to_named` sets it from :func:`rank_dims`."""
     mesh: Any
     spec: P
+    rank_dim: int | None = None
 
     @property
     def device(self):
         return self.mesh.device
 
+    def global_shape(self, shape) -> tuple:
+        """The whole leaf's shape from this rank's: the block times the
+        world along ``rank_dim``."""
+        shape = tuple(shape)
+        if self.rank_dim is None:
+            return shape
+        d = self.rank_dim
+        return shape[:d] + (shape[d] * self.mesh.world,) + shape[d + 1:]
+
+    def block(self, x):
+        """This rank's block of the whole leaf ``x`` (a tensor or numpy
+        array; ``x`` itself for a leaf every rank holds whole)."""
+        if self.rank_dim is None:
+            return x
+        d, w = self.rank_dim, self.mesh.world
+        n = x.shape[d] // w
+        r = self.mesh.rank
+        return x[(slice(None),) * d + (slice(r * n, (r + 1) * n),)]
+
     def check(self, shape) -> None:
-        """``ValueError`` unless the spec fits ``shape``: no more entries
-        than dims, and every sharded dim a multiple of its axes' size
-        (what JAX's placement refuses)."""
+        """``ValueError`` unless the spec fits this rank's leaf of
+        ``shape``: no more entries than dims, and every sharded dim of
+        the whole leaf (:meth:`global_shape`) a multiple of its axes'
+        size (what JAX's placement refuses)."""
         if len(self.spec) > len(shape):
             raise ValueError(f"spec {self.spec} has more entries than "
                              f"shape {tuple(shape)} has dims")
+        shape = self.global_shape(shape)
         for size, ax in zip(shape, self.spec):
             n = _axis_size(self.mesh, ax)
             if size % n:
@@ -135,16 +161,26 @@ def _map(fn, tree, *rest, key=None):
     return fn(key, tree, *rest)
 
 
+# the leaves an expert-parallel rank holds as its block of the model axis
+RANKED_KEYS = EXPERT_LEAVES
+
+
 def param_specs(mesh, params, policy: ShardingPolicy | None = None):
-    """A tree of specs matching ``params`` (leaves need only a shape)."""
+    """A tree of specs matching ``params`` (leaves need only a shape).
+    On a ranked mesh a routed-expert leaf is a rank's block of the
+    experts (``convert.rank_experts``), and its spec is the whole
+    leaf's: ``E / W`` rows times the world."""
     policy = policy or ShardingPolicy()
     dp, tp = _axes(mesh, policy)
     fs = "data" if (policy.fsdp_params and "data" in mesh.axis_names) \
         else None
+    world = mesh.world if getattr(mesh, "ranked", False) else 1
 
     def rule(key, leaf):
         shape = tuple(leaf.shape)
         nd = len(shape)
+        if key in RANKED_KEYS and world > 1:
+            shape = shape[:nd - 3] + (shape[nd - 3] * world,) + shape[nd - 2:]
 
         def spec(*dims):
             """dims for the TRAILING len(dims) axes; leading axes (layer
@@ -264,16 +300,59 @@ def make_ctx(mesh, cfg, policy: ShardingPolicy | None = None) -> ParallelCtx:
                        tp_axis=tp or "model", ep=ep)
 
 
+def expert_block(cfg, ctx):
+    """``(first, stop)``: the routed experts a rank of ``ctx``'s ranked
+    mesh holds under expert parallelism (``E / W`` of them, its model
+    shards' experts), or None where it holds them all (no ranks, or no
+    expert parallelism) — the ``experts`` argument of
+    ``lm.init_params`` and ``train.init_train_state``."""
+    mesh = ctx.mesh
+    if not getattr(mesh, "ranked", False) or ctx.ep <= 1:
+        return None
+    per = cfg.n_experts // mesh.world
+    return mesh.rank * per, (mesh.rank + 1) * per
+
+
+def rank_dims(mesh, specs):
+    """A tree matching ``specs`` (a train state's, or a parameter tree's)
+    of the dim each leaf holds as this rank's block on a ranked mesh:
+    the leaves under a routed-expert key (:data:`RANKED_KEYS`: the
+    parameter, its m and v in any tier, its error feedback) whose spec
+    names the mesh's ranked axis, at that entry; None for every other
+    leaf, which each rank holds whole, and for every leaf off a ranked
+    mesh."""
+    ranked = getattr(mesh, "ranked", False)
+    axis = getattr(mesh, "ranked_axis", None)
+
+    def walk(node, under):
+        if isinstance(node, dict):
+            return {k: walk(v, under or k in RANKED_KEYS)
+                    for k, v in node.items()}
+        if _is_node(node):
+            out = [walk(v, under) for v in node]
+            return out if isinstance(node, list) else tuple(out)
+        if not (ranked and under):
+            return None
+        for i, ax in enumerate(node):
+            if ax == axis or (isinstance(ax, tuple) and axis in ax):
+                return i
+        return None
+    return walk(specs, False)
+
+
 def to_named(mesh, specs):
-    """A tree of :class:`NamedSharding` over ``mesh`` for a tree of specs."""
-    return _map(lambda _, s: NamedSharding(mesh, s), specs)
+    """A tree of :class:`NamedSharding` over ``mesh`` for a tree of
+    specs, each with its :func:`rank_dims` entry."""
+    return _map(lambda _, s, d: NamedSharding(mesh, s, d), specs,
+                rank_dims(mesh, specs))
 
 
 def device_put(tree, shardings):
     """Each leaf of ``tree`` on its sharding's mesh device, after checking
-    that the sharding's spec divides the leaf's shape (JAX's
-    ``device_put`` refuses such a placement); a leaf already there is
-    returned as it is."""
+    that the sharding's spec divides the leaf's whole shape (JAX's
+    ``device_put`` refuses such a placement; over ranks a ranked leaf is
+    this rank's block of it); a leaf already there is returned as it
+    is."""
     leaves, spec = pt.flatten(tree)
     placements = pt.leaves(shardings)
     if len(placements) != len(leaves):

@@ -10,8 +10,19 @@ context ``parallel.sharding.make_ctx`` builds for ``mesh`` (a
 the step runs there).  ``resolve_micro`` splits the global batch by the
 mesh's data-parallel size, as the reference does, and
 ``state_specs`` / ``opt_specs`` give the state's specs (the int8 m and v
-blocks' ``[*lead, nb, Q_BLOCK]`` rule included).  Only the exchanges
-between cards wait for several cards (ROADMAP.md queue 1 item 9).
+blocks' ``[*lead, nb, Q_BLOCK]`` rule included).
+
+Over ``torch.distributed`` ranks (a mesh with a ``group``: its model
+axis split over the ranks) each rank holds its block of the routed
+experts (``init_train_state(..., experts=)``, or
+``convert.rank_experts`` of a whole state) and everything else whole.
+Only the model axis is ranked, so every rank computes the whole batch's
+loss; the expert exchanges differentiate through
+:mod:`repro_torch.parallel.collectives`, so a replicated leaf's
+gradient comes out the same on every rank, bit for bit, with no
+reduction, and the clip's global norm all-reduces the expert blocks'
+partial sums (``state_specs`` name them, :func:`ranked_leaves`).  The
+data axis stays within each rank (ROADMAP.md queue 1 item 9d).
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves in
 JAX's leaf order; a leaf that the loss does not reach gets zeros, as
@@ -71,11 +82,15 @@ def resolve_micro(tcfg: TrainConfig, mesh, global_batch: int,
 
 
 def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
-                     generator: torch.Generator, device=None):
+                     generator: torch.Generator, device=None, experts=None):
     """{"params", "opt"} (+ "err", fp32 zeros, with compression) on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for), the parameters
-    drawn from ``generator``."""
-    params = lm.init_params(cfg, generator, device)
+    drawn from ``generator``.  ``experts`` (``(first, stop)``) keeps
+    only those routed experts, as :func:`lm.init_params` does (an
+    expert-parallel rank's share, ``parallel.sharding.expert_block``); the
+    optimizer state follows the parameters' shapes, so the state equals
+    ``convert.rank_experts`` of the whole draw."""
+    params = lm.init_params(cfg, generator, device, experts=experts)
     state = {"params": params, "opt": adamw_init(params, tcfg.opt)}
     if tcfg.compress_grads:
         state["err"] = pt.tree_map(lambda p: torch.zeros(
@@ -129,6 +144,34 @@ def state_specs(mesh, state_shapes, tcfg: TrainConfig,
     return out
 
 
+def ranked_leaves(mesh, params, tcfg: TrainConfig | None = None,
+                  policy: shard.ShardingPolicy | None = None) -> list:
+    """One bool a parameter leaf, in JAX's leaf order: whether a rank of
+    ``mesh`` holds it as its block (from :func:`state_specs`'
+    parameter specs, :func:`parallel.sharding.rank_dims`); all False off
+    a ranked mesh."""
+    specs = state_specs(mesh, {"params": params}, tcfg or TrainConfig(),
+                        policy)["params"]
+    return [d is not None for d in pt.leaves(shard.rank_dims(mesh, specs))]
+
+
+def grad_digest(grads, ranked) -> dict:
+    """sha256 digests (16 hex digits) of the gradient leaves' bytes, in
+    JAX's leaf order: ``replicated``, one a leaf every rank holds whole
+    (equal on every rank over ranks), and ``ranked``, one a rank's
+    block."""
+    import hashlib
+
+    out = {"replicated": [], "ranked": []}
+    for g, r in zip(pt.leaves(grads), ranked):
+        t = g.detach().contiguous().cpu()
+        raw = t.view(torch.uint8) if t.dim() else t.reshape(1).view(
+            torch.uint8)
+        out["ranked" if r else "replicated"].append(
+            hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16])
+    return out
+
+
 def value_and_grad(loss_fn, params, batch):
     """(loss, grads, missing): the loss, a gradient for every leaf of
     ``params`` (zeros where the loss does not reach it) and the number
@@ -160,13 +203,16 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
                      policy: shard.ShardingPolicy | None = None,
                      global_batch: int | None = None):
     """Returns ``(train_step, ctx, n_micro)``; ``train_step(state,
-    batch)`` -> (state, metrics {loss, grad_norm, lr, grads_missing}),
-    the batch's tensors moved to the mesh's device, the state already
-    there.  Its two halves are attributes of it: ``grads_of(state,
-    batch, n_run=None)`` -> (loss, grads, missing), the mean over the
-    micro-batches (only the first ``n_run`` run when given: the
-    dry-run counts one and multiplies), and ``apply_grads(state, grads,
-    loss, missing)``, compression and the AdamW update."""
+    batch, grads_hook=None)`` -> (state, metrics {loss, grad_norm, lr,
+    grads_missing}), the batch's tensors moved to the mesh's device, the
+    state already there (``grads_hook(grads)``, when given, sees the
+    step's gradients before the update).  Its two halves are attributes
+    of it: ``grads_of(state, batch, n_run=None)`` -> (loss, grads,
+    missing), the mean over the micro-batches (only the first ``n_run``
+    run when given: the dry-run counts one and multiplies), and
+    ``apply_grads(state, grads, loss, missing)``, compression and the
+    AdamW update (over ranks with the clip's norm over every rank's
+    expert block)."""
     tcfg = tcfg or TrainConfig()
     dev = mesh.device
     ctx = shard.make_ctx(mesh, cfg, policy)
@@ -198,22 +244,28 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
         grads = pt.tree_map(lambda g: g / n_micro, gsum)
         return lsum / n_micro, grads, missing
 
+    ranked = []                         # the parameters' rank blocks
+
     def apply_grads(state, grads, loss, missing):
         new_state = dict(state)
         if tcfg.compress_grads:
             q, new_err = compress_grads(grads, state.get("err"))
             grads = decompress_grads(q, grads)
             new_state["err"] = new_err
-
-        new_params, new_opt, metrics = adamw_update(state["params"], grads,
-                                                    state["opt"], tcfg.opt)
+        if getattr(mesh, "ranked", False) and not ranked:
+            ranked.extend(ranked_leaves(mesh, state["params"], tcfg, policy))
+        new_params, new_opt, metrics = adamw_update(
+            state["params"], grads, state["opt"], tcfg.opt, mesh=mesh,
+            ranked=ranked or None)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, dict(metrics, loss=loss, grads_missing=missing)
 
-    def train_step(state, batch):
+    def train_step(state, batch, grads_hook=None):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         loss, grads, missing = grads_of(state, batch)
+        if grads_hook is not None:
+            grads_hook(grads)
         return apply_grads(state, grads, loss, missing)
 
     train_step.grads_of = grads_of

@@ -2,7 +2,9 @@
 
 * an AST scan finds no import of ``jax``, ``repro`` or ``ml_dtypes``
   (the card's machine has none) anywhere under
-  ``src/repro_torch``, in ``chip_smoke.py`` or in the profiling scripts;
+  ``src/repro_torch``, in ``chip_smoke.py``, in the profiling scripts,
+  in the ranks' test workers or in the port's examples
+  (``examples/torch_*.py``);
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
   imports the port, serves a small trace on the CPU, runs the LM serve
   of the dense, ssm, moe, hybrid, vlm and encdec families (the moe FFN
@@ -12,7 +14,8 @@
   checkpoint and a resume, the optimizer tiers, gradient compression,
   the fault runtime, the input specs and the train-state conversions),
   and the sharded LM stack (the named-axis meshes, the sharding specs
-  and contexts, expert-parallel ``moe_ffn`` and the pipeline); another
+  and contexts, expert-parallel ``moe_ffn`` and the pipeline), and the
+  port's quickstart example; another
   runs one rank of a process group with ``jax`` and ``repro`` blocked;
 * without a GPU, the entry points raise unless the CPU is asked for;
 * CPU runs launch no kernel: the launch counters stay at 0;
@@ -65,8 +68,13 @@ def test_port_imports_neither_jax_nor_repro():
         root / "scripts" / "profile_torch_lm.py",
         root / "scripts" / "profile_torch_apps.py",
         root / "tests" / "_torch_rank_worker.py",
-        root / "tests" / "_torch_serve_side.py"]
+        root / "tests" / "_torch_rank_train_worker.py",
+        root / "tests" / "_torch_serve_side.py"] + sorted(
+        (root / "examples").glob("torch_*.py"))
     assert len(files) > 25
+    assert {f.name for f in files if f.parent.name == "examples"} == {
+        "torch_quickstart.py", "torch_serve_paged.py",
+        "torch_train_micro.py", "torch_elastic_restart.py"}
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"parallel/__init__.py", "parallel/sharding.py",
             "parallel/pipeline.py", "parallel/dist.py", "launch/mesh.py",
@@ -241,6 +249,10 @@ def test_port_serves_with_jax_blocked():
                                   ShapeSpec("s", 32, 32, "train"), False, d)
         assert rec["status"] == "ok", rec.get("traceback")
         assert "qwen_v1_notp" in hillclimb.VARIANTS
+        sys.path.insert(0, "examples")
+        import torch_quickstart
+        seen = torch_quickstart.run("cpu", say=lambda *a: None)
+        assert seen["lookup"] == 137 * 137 and seen["rdma"] == 0
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         assert "ml_dtypes" not in sys.modules

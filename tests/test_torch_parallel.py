@@ -322,26 +322,17 @@ REFERENCE = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     sys.path.insert(0, "src")
     import jax, jax.numpy as jnp, numpy as np
-    from jax.sharding import Mesh, PartitionSpec as P
+    from jax.sharding import PartitionSpec as P
     from repro.compat import shard_map
     from repro.configs import get_smoke_config
-    from repro.models import lm, moe
+    from repro.models import moe
     from repro.parallel.sharding import make_ctx
+    sys.path.insert(0, "tests")
+    from _torch_moe_reference import keep_params, mesh_of, moe_model
 
     out_path, ckpt_dir = sys.argv[1], sys.argv[2]
     spec = __SPEC__
     out = {}
-
-    def keep_params(prefix, params):
-        # bf16 as its uint16 bits, which convert.lm_params_to_torch reads
-        for path, v in jax.tree_util.tree_leaves_with_path(params):
-            v = np.asarray(v)
-            out[prefix + "/".join(k.key for k in path)] = (
-                v.view(np.uint16) if v.dtype == jnp.bfloat16 else v)
-
-    def mesh_of(shape):
-        devs = np.array(jax.devices()[:int(np.prod(shape))])
-        return Mesh(devs.reshape(shape), ("data", "model"))
 
     def routes(x, router, cfg, ctx):
         # the reference's shard_map split of moe_ffn (its b_ax and s_ax
@@ -402,38 +393,7 @@ REFERENCE = textwrap.dedent("""
                 out[key + "/keep"] = np.asarray(keep)
 
     # ---- the moe smoke model in fp32 on (2, 4)
-    cfg = get_smoke_config("deepseek-moe-16b").replace(dtype="float32")
-    ctx = make_ctx(mesh_of((2, 4)), cfg)
-    params = lm.init_params(jax.random.PRNGKey(0), cfg)
-    keep_params("model/params/", params)
-    rng = np.random.default_rng(11)
-    b, s, n_dec = 4, 16, 2
-    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
-    dec = rng.integers(0, cfg.vocab, (n_dec, b, 1)).astype(np.int32)
-    out["model/toks"], out["model/dec"] = toks, dec
-    logits, cache = jax.jit(lambda p, t: lm.prefill(p, {"tokens": t}, cfg,
-                                                    ctx))(
-        params, jnp.asarray(toks[:, :-1]))
-    out["model/prefill"] = np.asarray(logits)
-    full = lm.init_decode_cache(cfg, b, s + n_dec)
-    for k in cache:
-        if k != "pos":
-            full[k] = full[k].at[tuple(slice(0, n) for n in
-                                       cache[k].shape)].set(cache[k])
-        else:
-            full[k] = cache[k]
-    step = jax.jit(lambda p, c, t: lm.decode_step(p, c, t, cfg, ctx))
-    for i in range(n_dec):
-        logits, full = step(params, full, jnp.asarray(dec[i]))
-        out[f"model/decode{i}"] = np.asarray(logits)
-    batch = {"tokens": jnp.asarray(toks[:, :-1]),
-             "labels": jnp.asarray(toks[:, 1:])}
-    loss, grads = jax.jit(jax.value_and_grad(
-        lambda p: lm.train_loss(p, batch, cfg, ctx, remat=False,
-                                loss_chunk=16)))(params)
-    out["model/loss"] = np.asarray(loss)
-    for i, g in enumerate(jax.tree.leaves(grads)):
-        out[f"model/grad{i}"] = np.asarray(g)
+    moe_model(out)
 
     # ---- the elastic chain of tests/test_elastic_e2e.py, its losses kept
     from repro.checkpoint import CheckpointManager
@@ -456,7 +416,7 @@ REFERENCE = textwrap.dedent("""
     mesh = make_mesh_from_devices(devices, data=4, model=2)
     step_fn, _, n1 = build_train_step(cfg, mesh, tcfg, global_batch=8)
     state = init_train_state(jax.random.PRNGKey(0), cfg, tcfg)
-    keep_params("elastic/params/", state["params"])
+    keep_params(out, "elastic/params/", state["params"])
     sspecs = state_specs(mesh, jax.eval_shape(lambda: state), tcfg)
     state = jax.device_put(state, named(mesh, sspecs))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=8, seq_len=64))

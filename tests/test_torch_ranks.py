@@ -332,15 +332,18 @@ SMALL = {"kv": dict(n_pages=256, n_kv_heads=2, head_dim=8), "n_q_heads": 4,
          "tree": dict(n_keys=3000, n_lines=512, slots=64, c_batches=2,
                       a_batches=1),
          "prompt": 16,
-         "pipe": dict(micro=8, width=16, n_layers=8, rows=4)}
+         "pipe": dict(micro=8, width=16, n_layers=8, rows=4),
+         "train": dict(steps=3, seq=32)}
 
 
 def test_chip_smoke_ranks_phase_on_cpu(monkeypatch, tmp_path):
     """``chip_smoke.py``'s phase 7d rehearsed on the CPU: 4 ranks of
     ``rank_main`` at small sizes against one-process references made
     here (the serve's hashes, the 4-shard tree's state hash, the first
-    batch's logits of the production-mesh serve), each rank's record
-    written."""
+    batch's logits of the production-mesh serve, the production-mesh
+    train's losses and grad norms), each rank's record written: the
+    train path's step 0 loss bit for bit the one-process run's, every
+    rank's replicated gradients equal."""
     import json
 
     from repro_torch.core.rounds import Mesh
@@ -364,9 +367,20 @@ def test_chip_smoke_ranks_phase_on_cpu(monkeypatch, tmp_path):
                     "--production-mesh", "--requests", "4", "--batch", "4",
                     "--prompt-len", str(SMALL["prompt"]), "--gen",
                     str(cs.RANK_GEN), "--logits-out", logits])
+    from repro_torch.launch import train as train_mod
+    real_train = train_mod.get_smoke_config
+    monkeypatch.setattr(train_mod, "get_smoke_config",
+                        lambda a: real_train(a).replace(n_experts=16))
+    one = train_mod.main([
+        "--arch", cs.SHARDED_ARCH, "--smoke", "--device", "cpu",
+        "--production-mesh", "--steps", str(SMALL["train"]["steps"]),
+        "--batch", "4", "--seq", str(SMALL["train"]["seq"]), "--micro", "1",
+        "--lr", "3e-4", "--log-every", "1"])
     (tmp_path / "spec.json").write_text(json.dumps({
         "flat_serve": flat, "tree_sha256": tree["state_sha256"],
-        "logits": logits, "small": SMALL}))
+        "logits": logits, "small": SMALL,
+        "train": {"losses": one["losses"],
+                  "grad_norms": one["grad_norms"]}}))
     pd.spawn(cs.rank_main, 4, args=(str(tmp_path),), timeout=JOIN_S)
     recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
             for r in range(4)]
@@ -377,4 +391,11 @@ def test_chip_smoke_ranks_phase_on_cpu(monkeypatch, tmp_path):
         assert rec["tree"]["result"]["upserted_keys_checked"] > 0
         assert rec["deepseek"]["result"]["ep"] == 16
         assert rec["pipeline"]["result"]["max_rel_err"] < 1e-5
+        tr = rec["train"]["result"]
+        assert tr["step0_loss_bit_equal"] and tr["grads_missing"] == 0
+        assert tr["losses"] == pytest.approx(one["losses"], rel=1e-5)
+        assert tr["collectives_steps_equal"]
+        assert tr["collectives_per_step"]["all_to_all_calls"] > 0
+        assert tr["grad_digest_replicated"] == recs[0]["train"]["result"][
+            "grad_digest_replicated"]
     assert recs[0]["deepseek_logits"]["rel_err"] < 1e-5
