@@ -214,13 +214,26 @@ Phases (any failure exits non-zero; nothing is caught):
    logits, ``moe_card_check`` rank by rank, and the pipeline a stage a
    rank; then a world-1 nccl group runs both collectives; each rank's
    walls, launches and collective bytes are printed;
+7e. the data axis over ranks (:func:`data_ranks_phase`, after 7d): in
+   the parent Qwen3-1.7B's training (batch 16 x 256, 4 steps) and serve
+   (16 requests of 128 + 16 tokens) and deepseek-moe-16b's training at 4
+   layers, all on the production mesh, the serve of data rank 0's 4 rows
+   alone (the witness), and one full-width ``moe_ffn`` on 2048 tokens;
+   then :data:`RANKS` gloo ranks sharing the card
+   (:func:`rank_data_main`): Qwen3's training over 4 data ranks (its
+   state sharded 4 ways as the reference's ``state_specs`` place it),
+   its serve teacher-forced over 4 data ranks (within ``REPLAY_TOL`` of
+   the 16-row serve, rank 0's rows bit-equal to the witness), deepseek's
+   training and the ``moe_ffn`` over 2 data x 2 model ranks, each held
+   to the parent's run (:func:`data_ranks_checks`);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
    sharded plane, the LM serves, the tree, the transactions, the DES
    oracle, Fig. 7's rounds, the training runs and the sharded LM
    stack's serve and training (``sharded_lm_serve``,
    ``sharded_lm_train``), the dry-run's card steps
-   (``dryrun_card``) and phase 7d's ranks (``ranks``), split
+   (``dryrun_card``), phase 7d's ranks (``ranks``) and phase 7e's
+   references and ranks (``ranks_data_ref``, ``ranks_data``), split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -4211,6 +4224,555 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
     return dict(launches), dict(train_launches)
 
 
+# ---------------------------------------- phase 7e: the data axis over ranks
+
+DATA_ARCH = "qwen3-1.7b"
+DATA_TRAIN = {"batch": 16, "seq": 256, "steps": 4}
+DATA_SERVE = {"requests": 16, "batch": 16, "prompt": 128, "gen": 16}
+DATA_RANKS = 4                     # Qwen3's data ranks: its state 4 ways
+DATA_MOE_LAYOUT = {"data": 2, "model": 2}
+DATA_MOE_ROWS = (16, 128)          # moe_ffn's 2048 tokens, a row a data shard
+DATA_LOSS0_TOL = 1e-4              # Qwen3's step-0 loss, relative to (a)
+DATA_GNORM0_TOL = 1e-3             # ... its step-0 grad norm
+DATA_LOSS_TOL = 1e-2               # ... every step's loss
+DATA_MOE_LOSS0_TOL = 1e-3          # deepseek's step-0 loss, relative to (a)
+DATA_PEAK_SHARE = 0.5              # a Qwen3 rank's peak over (a)'s, at most
+DATA_JOIN_S = 400
+
+
+def _data_train_argv(arch, small, extra=()):
+    tr = small["train"] if small else DATA_TRAIN
+    argv = ["--arch", arch, "--production-mesh", "--steps",
+            str(tr["steps"]), "--batch", str(tr["batch"]), "--seq",
+            str(tr["seq"]), "--micro", "1", "--lr", "3e-4", "--log-every",
+            "1", *extra]
+    return argv + (["--smoke", "--device", "cpu"] if small else [])
+
+
+def _data_serve_argv(small, extra=(), rows=None):
+    """The Qwen3 serve's arguments (``rows``: serve only the first
+    ``rows`` requests, in one batch)."""
+    sv = small["serve"] if small else DATA_SERVE
+    argv = ["--arch", DATA_ARCH, "--production-mesh", "--requests",
+            str(rows or sv["requests"]), "--batch", str(rows or sv["batch"]),
+            "--prompt-len", str(sv["prompt"]), "--gen", str(sv["gen"]),
+            *extra]
+    return argv + (["--smoke", "--device", "cpu"] if small else [])
+
+
+def _rank0_rows(small) -> int:
+    """How many rows of the serve's first batch data rank 0 serves: the
+    first quarter where the production mesh's data axis divides the
+    batch, else every row (``parallel.sharding.data_rows``, data-major
+    layout)."""
+    b = (small["serve"] if small else DATA_SERVE)["batch"]
+    return b // DATA_RANKS if b % 16 == 0 else b
+
+
+@contextlib.contextmanager
+def _config(small):
+    """The drivers' configs for phase 7e: deepseek-moe-16b cut to
+    :data:`SHARDED_TRAIN_LAYERS` layers at full width; with ``small``
+    the smoke configs, deepseek's with 16 experts (EP 16 on the
+    production mesh)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    saved = [(m, k, getattr(m, k)) for m in (train_mod, serve_mod)
+             for k in ("get_config", "get_smoke_config")]
+    real_full, real_smoke = train_mod.get_config, train_mod.get_smoke_config
+
+    def full(a):
+        cfg = real_full(a)
+        return cfg.replace(n_layers=SHARDED_TRAIN_LAYERS) \
+            if a == SHARDED_ARCH else cfg
+
+    def smoke(a):
+        cfg = real_smoke(a)
+        return cfg.replace(n_experts=16) if a == SHARDED_ARCH else cfg
+    for m in (train_mod, serve_mod):
+        m.get_config, m.get_smoke_config = full, smoke
+    try:
+        yield (smoke if small else full)
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+
+
+def _top_e(calls, n_layers, k):
+    """Each of the first ``n_layers`` dispatch calls' (step 0's forward)
+    top-``k`` experts, [layer, groups, tokens, k]."""
+    from repro_torch.models import moe
+    return np.stack([moe._top_k(torch.softmax(lg.float(), -1), k)[1]
+                     .cpu().numpy() for lg, _ in calls[:n_layers]])
+
+
+def _data_moe_inputs(dev, small, experts=None):
+    """The moe_ffn check's layer (deepseek-moe-16b at full width, or the
+    smoke one with 16 experts) and its 2048 bf16 tokens sharing a common
+    direction, :data:`DATA_MOE_ROWS` rows of them, drawn from one seed
+    on every process."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import moe
+    cfg = (get_smoke_config(SHARDED_ARCH).replace(n_experts=16) if small
+           else get_config(SHARDED_ARCH))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    p = moe.init_moe(gen, cfg, torch.bfloat16, experts=experts)
+    b, s = small["moe_rows"] if small else DATA_MOE_ROWS
+    x = (torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+         + 1.5 * torch.randn((cfg.d_model,), generator=gen, device=dev)
+         ).bfloat16()
+    return cfg, p, x
+
+
+def data_refs(dev, K, tmp, small=None):
+    """Phase 7e (a), in one process on the production mesh: Qwen3-1.7B's
+    training (:data:`DATA_TRAIN`) and serve (:data:`DATA_SERVE`, its
+    logits kept for the ranks), the witness (data rank 0's rows served
+    alone, :func:`_rank0_rows`, teacher-forced on that serve's inputs as
+    the ranks are), deepseek-moe-16b's training at
+    :data:`SHARDED_TRAIN_LAYERS` layers with step 0's routes kept, and
+    one full-width ``moe_ffn`` on :data:`DATA_MOE_ROWS` tokens with its
+    router logits, routes and output kept.  Returns the references and
+    each path's kernel launches."""
+    from repro_torch import tree as pt
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shard
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import state_shapes
+    ref, launches = {}, {}
+    with _config(small) as get:
+        for arch in (DATA_ARCH, SHARDED_ARCH):
+            torch.cuda.empty_cache()
+            K.reset_launch_counts()
+            with dispatch_calls() as calls:
+                rec = train_mod.main(_data_train_argv(arch, small))
+                top = (_top_e(calls, get(arch).n_layers, get(arch).top_k)
+                       if arch == SHARDED_ARCH else None)
+                del calls[:]
+            # the driver sets the counts to 0 before each step
+            launches[f"train_{arch}"] = _summed(rec["launches"])
+            del rec["state"]
+            gc.collect()
+            cfg = get(arch)
+            shapes = state_shapes(cfg, TrainConfig())["params"]
+            specs = shard.param_specs(make_production_mesh(device="cpu"),
+                                      shapes)
+            data_bytes = sum(
+                p.numel() * p.element_size() for p, s in zip(
+                    pt.leaves(shapes), _spec_leaves(specs)) if "data" in s)
+            ref[arch] = {k: rec[k] for k in ("losses", "grad_norms",
+                                              "step_ms", "param_bytes",
+                                              "peak_bytes")}
+            ref[arch].update(data_param_bytes=data_bytes,
+                             steady_step_ms=float(np.median(
+                                 rec["step_ms"][1:])))
+            if top is not None:
+                np.save(os.path.join(tmp, "routes_one.npy"), top)
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        logits = os.path.join(tmp, "qwen3_one.npz")
+        res = serve_mod.main(_data_serve_argv(small, ("--logits-out",
+                                                      logits)))
+        launches["serve"] = K.launch_counts()
+        ref["serve"] = {"logits": logits, "tokens": res["tokens"],
+                        "seconds": res["seconds"],
+                        "generated": res["generated"].tolist()}
+        # the witness: data rank 0's rows served alone in one process,
+        # teacher-forced as the ranks are
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        n0 = _rank0_rows(small)
+        witness = os.path.join(tmp, "qwen3_witness.npz")
+        serve_mod.main(_data_serve_argv(small, (
+            "--teacher", logits, "--logits-out", witness), rows=n0))
+        launches["serve_witness"] = K.launch_counts()
+        ref["serve"].update(witness=witness, witness_rows=n0)
+    cfg, p, x = _data_moe_inputs(dev, small)
+    ctx = make_ctx(make_production_mesh(device=dev), cfg)
+    with dispatch_calls() as calls:
+        y, _ = moe.moe_ffn(x, p, cfg, ctx)
+        (lg, route), = calls
+        np.savez(os.path.join(tmp, "moe_one.npz"), logits=lg.cpu().numpy(),
+                 e_idx=route[1].cpu().numpy(), s_idx=route[2].cpu().numpy(),
+                 keep=route[4].cpu().numpy(), y=y.float().cpu().numpy())
+        del calls[:]
+    del p, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, launches
+
+
+def _summed(counts) -> dict:
+    """A list of launch counts (a driver's, one a step) summed."""
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
+
+
+def _spec_leaves(specs) -> list:
+    """The specs of a tree of them as a list, in JAX's leaf order (dict
+    keys sorted; a spec is a tuple, which the tree walk would open)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [tuple(specs)]
+
+
+def data_collectives(n_layers, remat=True):
+    """A Qwen3 step's collectives over 4 data ranks (and nothing over
+    another axis): a layer's data-sharded leaves packed into one
+    all-gather in the forward and again under remat and one
+    reduce-scatter in the backward, the embedding gathered and
+    reduce-scattered once, all ``all_to_all``s; ``all_reduce``s of the
+    loss's mask count, of the gradients held whole along data, of the
+    reported loss and of the clip's partial sums."""
+    runs = 2 if remat else 1
+    return {"all_to_all.data_calls": n_layers * (runs + 1) + 2,
+            "all_reduce.data_calls": 4}
+
+
+def _rank_moe_check(dev, mesh, tmp, small):
+    """One rank of the 2 x 2 ``moe_ffn`` check: this rank's rows
+    (``data_rows``), its experts; its router logits and routes bit-equal
+    to the one-process mesh's for its (data, model) shards, its output
+    within 2e-2 of the reference's scale of the one-process output
+    (``moe_card_check``'s bf16 tolerance)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import (data_rows, expert_block,
+                                               make_ctx)
+    cfg0 = (get_smoke_config(SHARDED_ARCH).replace(n_experts=16) if small
+            else get_config(SHARDED_ARCH))
+    ctx = make_ctx(mesh, cfg0)
+    cfg, p, x = _data_moe_inputs(dev, small, expert_block(cfg0, ctx))
+    rows = data_rows(mesh, x.shape[0])
+    ctx = dataclasses.replace(ctx, data_block=True)
+    with dispatch_calls() as calls:
+        y, _ = moe.moe_ffn(x[torch.from_numpy(rows).to(dev)], p, cfg, ctx)
+        (lg, route), = calls
+        got = {"logits": lg.cpu().numpy(), "e_idx": route[1].cpu().numpy(),
+               "s_idx": route[2].cpu().numpy(),
+               "keep": route[4].cpu().numpy()}
+        del calls[:]
+    want = np.load(os.path.join(tmp, "moe_one.npz"))
+    nb, ns, _ = moe.ep_layout(x.shape, make_ctx(
+        make_production_mesh(device="cpu"), cfg))
+    d0, d1 = mesh.block("data")
+    m0, m1 = mesh.block("model")
+    groups = np.arange(nb * ns).reshape(nb, ns)[d0:d1, m0:m1].reshape(-1)
+    equal = {k: bool(np.array_equal(got[k], want[k][groups])) for k in got}
+    yw = want["y"][rows]
+    err = float(np.abs(y.float().cpu().numpy() - yw).max())
+    scale = float(np.abs(yw).max())
+    out = {"shards_here": int(groups.size), "bit_equal": equal,
+           "max_abs_err": err, "scale": scale, "rel_err": err / scale,
+           "tolerance_rel": 2e-2}
+    assert all(equal.values()), f"rank {mesh.rank}: moe_ffn in 2 x 2 " \
+        f"differs from the one-process mesh: {out}"
+    assert err <= 2e-2 * scale, out
+    return out
+
+
+def rank_data_main(rank, world, tmp):
+    """One of phase 7e's ranks: joins the gloo group of the ranks that
+    share the card, loads the kernels the parent built, and runs (a)
+    Qwen3-1.7B's training with ``--data-ranks 4`` (its state 4 ways),
+    (b) its serve with ``--data-ranks 4`` teacher-forced on the parent's
+    first batch, (c) deepseek-moe-16b's training with ``--data-ranks 2``
+    (2 data x 2 model ranks) with step 0's routes against the parent's,
+    and (d) the 2 x 2 ``moe_ffn`` check (:func:`_rank_moe_check`), each
+    a path of :func:`_rank_path`.  Writes ``rank<r>.json``.  A ``small``
+    entry in the spec rehearses the ranks on the CPU at its sizes."""
+    # four processes share the card: let their caches grow in place
+    # rather than strand reserved blocks (set before CUDA starts here)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import dist as pd
+    tmp = os.fspath(tmp)
+    spec = json.loads(open(os.path.join(tmp, "spec.json")).read())
+    small = spec.get("small")
+    if small:
+        torch.cuda.synchronize = lambda *a, **k: None
+        torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    t0 = time.perf_counter()
+    group, dev = pd.init(init_method="file://" + os.path.join(
+        tmp, "rendezvous"), device="cpu" if small else "cuda")
+    backend = torch.distributed.get_backend(group)
+    assert backend == "gloo", backend
+    out = {"rank": rank, "world": world, "backend": backend,
+           "device": str(dev), "join_s": time.perf_counter() - t0}
+    loads0 = _build.LOADS
+    with _config(small) as get:
+        rec = _rank_path(K, "train", lambda: train_mod.main(
+            _data_train_argv(DATA_ARCH, small,
+                             ("--data-ranks", str(DATA_RANKS)))), out)
+        del rec["state"], out["train"]["result"]
+        # the driver sets the counts to 0 before each step
+        out["train"]["launches"] = _summed(rec["launches"])
+        out["train"]["result"] = {k: rec[k] for k in (
+            "losses", "grad_norms", "step_ms", "param_bytes", "peak_bytes",
+            "ranks", "launches", "collectives", "grads_missing")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        logits = os.path.join(tmp, "qwen3_ranks.npz")
+        res = _rank_path(K, "serve", lambda: serve_mod.main(
+            _data_serve_argv(small, ("--data-ranks", str(DATA_RANKS),
+                                     "--teacher", spec["serve"]["logits"],
+                                     "--logits-out", logits))), out)
+        out["serve"]["result"] = {"tokens": res["tokens"],
+                                  "seconds": res["seconds"],
+                                  "finite": res["finite"],
+                                  "layout": res["layout"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        with dispatch_calls() as calls:
+            rec = _rank_path(K, "deepseek", lambda: train_mod.main(
+                _data_train_argv(SHARDED_ARCH, small, (
+                    "--data-ranks", str(DATA_MOE_LAYOUT["data"])))), out)
+            top = _top_e(calls, get(SHARDED_ARCH).n_layers,
+                         get(SHARDED_ARCH).top_k)
+            del calls[:]
+        del rec["state"], out["deepseek"]["result"]
+        out["deepseek"]["launches"] = _summed(rec["launches"])
+        mesh = make_production_mesh(device=dev, group=group,
+                                    ranks=DATA_MOE_LAYOUT)
+        d0, d1 = mesh.block("data")
+        m0, m1 = mesh.block("model")
+        one = np.load(os.path.join(tmp, "routes_one.npy"))
+        nl, g, t, k = one.shape
+        want = one.reshape(nl, 16, 16, t, k)[:, d0:d1, m0:m1].reshape(
+            nl, -1, t, k)
+        out["deepseek"]["result"] = {k: rec[k] for k in (
+            "losses", "grad_norms", "step_ms", "param_bytes", "peak_bytes",
+            "ranks", "grads_missing")}
+        out["deepseek"]["result"].update(
+            flipped_routes=int((top != want).any(-1).sum()),
+            routes=int(top.shape[0] * top.shape[1] * top.shape[2]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _rank_path(K, "moe_check", lambda: _rank_moe_check(
+            dev, mesh, tmp, small), out)
+    if rank == 0:
+        got, want = np.load(logits), np.load(spec["serve"]["logits"])
+        wit = np.load(spec["serve"]["witness"])
+        n0 = spec["serve"]["witness_rows"]
+        out["serve_logits"] = dict(
+            _drift(got["logits"], want["logits"]), steps=int(
+                want["logits"].shape[0]), tolerance_rel=REPLAY_TOL,
+            teacher_equal=bool(np.array_equal(got["inputs"],
+                                              want["inputs"])),
+            witness_rows=n0,
+            # rank 0's rows against the same rows served alone
+            witness_bit_equal=bool(np.array_equal(
+                got["logits"][:, :n0], wit["logits"])),
+            ranks_vs_witness=_drift(got["logits"][:, :n0], wit["logits"]),
+            # the same rows alone against the batch of every row
+            witness_vs_one=_drift(wit["logits"], want["logits"][:, :n0]))
+    out["kernel_loads"] = _build.LOADS - loads0
+    out["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+    pd.finish()
+
+
+def _drift(got, want) -> dict:
+    """Logits ``got`` against ``want``: the largest difference, the
+    scale (max |want|), their ratio and the share of equal argmaxes."""
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    return {"max_abs_err": err, "scale": scale, "rel_err": err / scale,
+            "argmax_agree": float((got.argmax(-1)
+                                   == want.argmax(-1)).mean())}
+
+
+def data_ranks_phase(dev, K, small=None):
+    """Phase 7e: the data axis over :data:`RANKS` gloo ranks sharing the
+    card.  (a) the one-process references (:func:`data_refs`), then the
+    parent frees its cached memory and spawns the ranks
+    (:func:`rank_data_main`, joined within :data:`DATA_JOIN_S`; a failing
+    or late rank ends the run).  Checks: every Qwen3 rank reports the
+    same losses and grad norms, step 0's loss within
+    :data:`DATA_LOSS0_TOL` and grad norm within :data:`DATA_GNORM0_TOL`
+    of (a)'s, every loss within :data:`DATA_LOSS_TOL`; a rank's
+    parameter bytes (a)'s with its data-sharded leaves' a quarter,
+    exactly; its peak at most :data:`DATA_PEAK_SHARE` of (a)'s; K4 and
+    its backward ``lm.train_launches`` a step on every rank; the
+    collectives a step :func:`data_collectives`'; the serve's logits
+    within ``REPLAY_TOL`` of (a)'s 16-row batch, and data rank 0's
+    logits bit-equal to its rows served alone in one process (the
+    witness, :func:`data_refs`); the 2 x 2 ``moe_ffn`` bit-equal in its
+    router; deepseek finite, every leaf reached, step 0's loss within
+    :data:`DATA_MOE_LOSS0_TOL` of (a)'s, its flipped routes printed.
+    Returns the launches of (a) and of the ranks, by kernel, and the
+    references and the ranks' records that :func:`data_ranks_checks`
+    held."""
+    from repro_torch.parallel.dist import spawn
+    tmp = tempfile.mkdtemp(prefix="ranks_data_")
+    t0 = time.perf_counter()
+    try:
+        ref, ref_launches = data_refs(dev, K, tmp, small)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(dict(ref, small=small), f, default=float)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
+        seconds = spawn(rank_data_main, RANKS, args=(tmp,),
+                        timeout=DATA_JOIN_S)
+        recs = [json.loads(open(os.path.join(tmp, f"rank{r}.json")).read())
+                for r in range(RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = data_ranks_checks(K, ref, recs, small)
+    out.update(spawn_to_join_s=seconds, phase_s=time.perf_counter() - t0,
+               ranks_s=time.perf_counter() - t_spawn)
+    log("ranks_data: " + json.dumps(out, default=float))
+    ref_counts, launches = collections.Counter(), collections.Counter()
+    for c in ref_launches.values():
+        ref_counts.update(c)
+    for rec in recs:
+        for p in ("train", "serve", "deepseek", "moe_check"):
+            launches.update(rec[p]["launches"])
+    return dict(ref_counts), dict(launches), {"ref": ref, "recs": recs}
+
+
+def data_ranks_checks(K, ref, recs, small=None) -> dict:
+    """Phase 7e's checks of the ranks' records ``recs`` against the
+    one-process references ``ref`` (see :func:`data_ranks_phase`); prints
+    each rank's record and returns the phase's summary.  A failed check
+    raises."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.lm import train_launches
+    cfg = (get_smoke_config if small else get_config)(DATA_ARCH)
+    q = ref[DATA_ARCH]
+    for rec in recs:
+        tr = rec["train"]["result"]
+        r = rec["rank"]
+        log(f"ranks_data rank {r}: " + json.dumps({
+            "join_s": rec["join_s"], "wall_s": rec["wall_s"],
+            "kernel_loads": rec["kernel_loads"],
+            **{p: {"wall_s": rec[p]["wall_s"],
+                   "launches": {k: n for k, n in rec[p]["launches"].items()
+                                if n},
+                   "collectives": rec[p]["collectives"]}
+               for p in ("train", "serve", "deepseek", "moe_check")},
+            "qwen3": {k: tr[k] for k in ("losses", "grad_norms", "step_ms",
+                                         "param_bytes", "peak_bytes")},
+            "deepseek": rec["deepseek"]["result"],
+            "moe_check": rec["moe_check"]["result"]}, default=float))
+        assert tr["ranks"] == {"data": DATA_RANKS} and \
+            tr["grads_missing"] == 0, tr
+        assert tr["losses"] == recs[0]["train"]["result"]["losses"] and \
+            tr["grad_norms"] == recs[0]["train"]["result"]["grad_norms"], \
+            f"rank {r}: its losses differ from rank 0's"
+        want_bytes = q["param_bytes"] - q["data_param_bytes"] \
+            + q["data_param_bytes"] // DATA_RANKS
+        assert tr["param_bytes"] == want_bytes, (tr["param_bytes"],
+                                                 want_bytes)
+        if not small:
+            assert tr["peak_bytes"] <= DATA_PEAK_SHARE * q["peak_bytes"], \
+                (tr["peak_bytes"], q["peak_bytes"])
+            want = dict.fromkeys(K.WRAPPERS, 0)
+            want.update(train_launches(cfg))
+            for i, got in enumerate(tr["launches"]):
+                assert got == want, f"rank {r} step {i}: {got}"
+            for name in ("flash_attention", "flash_attention_bwd"):
+                assert rec["train"]["launches"][name] > 0
+            assert rec["serve"]["launches"]["flash_attention"] > 0
+        assert all(_qwen_blocks(cfg)), "no data-sharded leaf"
+        formula = data_collectives(cfg.n_layers, remat=not small)
+        for i, c in enumerate(tr["collectives"]):
+            got = {k: v for k, v in c.items()
+                   if "." in k and k.endswith("_calls")}
+            assert got == formula, (r, i, got, formula)
+        ds = rec["deepseek"]["result"]
+        assert np.isfinite(ds["losses"]).all() and ds["grads_missing"] == 0
+        assert ds["ranks"] == DATA_MOE_LAYOUT, ds["ranks"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in
+                zip(recs[0]["train"]["result"]["losses"], q["losses"])]
+    g0 = recs[0]["train"]["result"]["grad_norms"][0]
+    ds_rel = abs(recs[0]["deepseek"]["result"]["losses"][0]
+                 - ref[SHARDED_ARCH]["losses"][0]) \
+        / abs(ref[SHARDED_ARCH]["losses"][0])
+    out = {"ranks": RANKS, "qwen3_layout": {"data": DATA_RANKS},
+           "deepseek_layout": DATA_MOE_LAYOUT,
+           "qwen3_one_process": {k: q[k] for k in (
+               "losses", "grad_norms", "steady_step_ms", "param_bytes",
+               "data_param_bytes", "peak_bytes")},
+           "qwen3_ranks_losses": recs[0]["train"]["result"]["losses"],
+           "qwen3_ranks_grad_norms": recs[0]["train"]["result"][
+               "grad_norms"],
+           "qwen3_step0_loss_rel": loss_rel[0],
+           "qwen3_step0_grad_norm_rel": abs(g0 - q["grad_norms"][0])
+           / q["grad_norms"][0],
+           "qwen3_loss_rel_max": max(loss_rel),
+           "qwen3_rank_param_bytes": recs[0]["train"]["result"][
+               "param_bytes"],
+           "qwen3_rank_peak_bytes": [r["train"]["result"]["peak_bytes"]
+                                     for r in recs],
+           "qwen3_rank_steady_step_ms": [float(np.median(
+               r["train"]["result"]["step_ms"][1:])) for r in recs],
+           "qwen3_collectives_per_step": recs[0]["train"]["result"][
+               "collectives"][-1],
+           "serve_logits": recs[0]["serve_logits"],
+           "serve_wall_s": [r["serve"]["wall_s"] for r in recs],
+           "deepseek_one_process_losses": ref[SHARDED_ARCH]["losses"],
+           "deepseek_ranks_losses": recs[0]["deepseek"]["result"]["losses"],
+           "deepseek_step0_loss_rel": ds_rel,
+           "deepseek_flipped_routes": [
+               r["deepseek"]["result"]["flipped_routes"] for r in recs],
+           "deepseek_routes_a_rank": recs[0]["deepseek"]["result"]["routes"],
+           "deepseek_rank_param_bytes": [
+               r["deepseek"]["result"]["param_bytes"] for r in recs],
+           "deepseek_rank_peak_bytes": [
+               r["deepseek"]["result"]["peak_bytes"] for r in recs],
+           "moe_check_rel_err": [r["moe_check"]["result"]["rel_err"]
+                                 for r in recs]}
+    sv = out["serve_logits"]
+    assert sv["teacher_equal"], "the ranks' serve was not teacher-forced"
+    assert sv["rel_err"] <= REPLAY_TOL, \
+        f"Qwen3 over data ranks off the one-process logits: {sv}"
+    assert sv["witness_bit_equal"], \
+        f"data rank 0's logits differ from its rows served alone: {sv}"
+    assert loss_rel[0] <= DATA_LOSS0_TOL and \
+        out["qwen3_step0_grad_norm_rel"] <= DATA_GNORM0_TOL and \
+        max(loss_rel) <= DATA_LOSS_TOL, out
+    assert ds_rel <= DATA_MOE_LOSS0_TOL, out
+    return out
+
+
+def _qwen_blocks(cfg) -> tuple:
+    """(a layer's data-sharded leaves, the top-level ones) of ``cfg`` on
+    the production mesh, from the reference's specs."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import sharding as shard
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import state_shapes
+    shapes = state_shapes(cfg, TrainConfig())["params"]
+    specs = shard.param_specs(make_production_mesh(device="cpu"), shapes)
+    layer = sum("data" in s for s in _spec_leaves(specs["blocks"]))
+    top = sum("data" in s for k, v in specs.items() if k != "blocks"
+              for s in _spec_leaves(v))
+    return layer, top
+
+
 # ---------------------------------------------- phase 7c: the dry-run
 
 # (a) production cells counted on fake tensors: (arch, shape, multi-pod)
@@ -4760,8 +5322,11 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
         log(f"phase 7d: {time.perf_counter() - t_ranks:.3f} s")
     finally:
         shutil.rmtree(logits_dir, ignore_errors=True)
-    for launches in (rank_launches, rank_train_launches,
-                     *example_launches.values()):
+    t_data = time.perf_counter()
+    data_ref_launches, data_launches, _ = data_ranks_phase(dev, K)
+    log(f"phase 7e: {time.perf_counter() - t_data:.3f} s")
+    for launches in (rank_launches, rank_train_launches, data_ref_launches,
+                     data_launches, *example_launches.values()):
         for name, n in launches.items():
             counts[name] = counts.get(name, 0) + n
     for ex, c in example_launches.items():
@@ -4790,6 +5355,8 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
             dryrun_card=dryrun_launches.get(row["name"], 0),
             ranks=rank_launches.get(row["name"], 0),
             ranks_train=rank_train_launches.get(row["name"], 0),
+            ranks_data_ref=data_ref_launches.get(row["name"], 0),
+            ranks_data=data_launches.get(row["name"], 0),
             **{f"example_{ex}": c.get(row["name"], 0)
                for ex, c in example_launches.items()})
         row["train_launches_by_arch"] = train[row["name"]]

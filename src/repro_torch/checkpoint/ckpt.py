@@ -24,13 +24,17 @@ elastic remesh), on its sharding's mesh device, refusing a spec that
 does not divide the leaf's shape as JAX's placement would.
 
 Over ``torch.distributed`` ranks (``shardings`` over a mesh with a
-``group``) a checkpoint is the same whatever the world size: ``save``
-all-gathers the leaves each rank holds as its block (a sharding's
-``rank_dim``: the routed experts and their optimizer state) on every
-rank, synchronously and before any write, and only the group's rank 0
-writes the whole state in the one-process layout; ``restore`` waits at
-a barrier for rank 0's publish (rank 0 joins its pending write first),
-reads the whole state on every rank and keeps each ranked leaf's block.
+``group``) a checkpoint is the same whatever the world size and layout:
+``save`` all-gathers the leaves each rank holds as its block along each
+ranked axis (a sharding's ``rank_dims``: the routed experts and their
+optimizer state along the model axis, the FSDP blocks along the data
+axis), axis by axis over the axis's sub-group, on every rank,
+synchronously and before any write, and only the group's rank 0 writes
+the whole state in the one-process layout; ``restore`` waits at a
+barrier for rank 0's publish (rank 0 joins its pending write first),
+reads the whole state on every rank and keeps each leaf's block of the
+layout it is given, so 4 data ranks resume over 2 x 2 ranks, in one
+process, or back.
 """
 
 from __future__ import annotations
@@ -89,6 +93,14 @@ def _ranked_mesh(shardings):
     return None
 
 
+def _gather(mesh, x, dims):
+    """The whole leaf from this rank's block ``x`` (``dims``: its
+    ``{axis: dim}``), gathered axis by axis."""
+    for axis, d in (dims or {}).items():
+        x = mesh.all_gather(x.contiguous(), d, axis=axis)
+    return x
+
+
 def save(tree, step: int, directory, async_: bool = False, shardings=None):
     """Write ``tree`` (nested dicts/lists of tensors or arrays) as step
     ``step``; returns the writer thread when ``async_`` else None.  With
@@ -101,8 +113,7 @@ def save(tree, step: int, directory, async_: bool = False, shardings=None):
         places = pt.leaves(shardings)
         if len(places) != len(leaves):
             raise ValueError("shardings/tree structure mismatch")
-        leaves = [x if sh.rank_dim is None
-                  else mesh.all_gather(x.contiguous(), sh.rank_dim)
+        leaves = [_gather(mesh, x, sh.rank_dims)
                   for x, sh in zip(leaves, places)]
         if mesh.rank != 0:
             return None

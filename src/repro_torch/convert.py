@@ -13,7 +13,8 @@ path from a JAX pool's ``pool`` and ``cache`` dicts.
 port :class:`~repro_torch.core.rounds.Mesh`.
 :func:`rank_experts` cuts an LM parameter tree or a whole train state
 (the JAX package's numpy leaves or the port's tensors) down to the
-routed experts of one expert-parallel rank; :func:`lm_params_to_torch` carries a JAX LM
+routed experts of one expert-parallel rank, and :func:`rank_state` to a
+rank's block on every ranked axis (the data axis's too); :func:`lm_params_to_torch` carries a JAX LM
 parameter tree across, and
 :func:`train_state_to_torch` / :func:`train_state_to_numpy` a whole
 train state (params, the AdamW ``mu`` in any tier, ``step``, the
@@ -103,6 +104,28 @@ def rank_experts(tree, mesh, axis: str = "model"):
             return [walk(v) for v in node]
         return node
     return walk(tree)
+
+
+def rank_state(tree, mesh, specs, axes=None):
+    """``tree`` (a whole parameter tree, train state or single leaf:
+    the parameters, the AdamW ``opt.mu`` m and v in any tier, ``err``;
+    numpy arrays or tensors) cut to this rank's block on every ranked
+    axis of ``mesh`` (or only on ``axes``): each leaf by its
+    ``parallel.sharding.rank_dims`` entry of ``specs`` (``state_specs``
+    or ``param_specs`` of the whole shapes).  A cut leaf is a copy, so
+    the whole one can be freed; a leaf held whole is kept as it is (the
+    same object)."""
+    from .parallel.sharding import NamedSharding, RankDims, _map, rank_dims
+
+    def cut(_, spec, leaf, dims):
+        if axes is not None:
+            dims = RankDims({a: d for a, d in dims.items() if a in axes})
+        if not dims:
+            return leaf
+        out = NamedSharding(mesh, spec, dims).block(leaf)
+        return out.clone() if isinstance(out, torch.Tensor) \
+            else np.array(out, copy=True)
+    return _map(cut, specs, tree, rank_dims(mesh, specs))
 
 
 def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,

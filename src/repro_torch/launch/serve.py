@@ -20,6 +20,18 @@ exchanges run between the ranks, and rank 0 prints::
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --production-mesh
 
+With ``--data-ranks N`` the data axis is split over N of the ranks too
+(``{"data": N, "model": W / N}``, data-major): a data rank prefills and
+decodes its rows of each batch (``parallel.sharding.data_rows``: its
+block where the data axis divides the batch, else every row), with its
+own cache rows; it holds the parameters whole, as the reference's serve
+driver places nothing (its experts are still cut along the model axis),
+and the generated ids and ``--logits-out``'s rows are all-gathered over
+the data ranks, so every rank returns the whole batch's::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-1.7b --production-mesh --data-ranks 4 --batch 16
+
 Parameters are
 random, drawn from a ``torch.Generator`` seeded 0 on the device; the
 prompts are the JAX driver's (numpy seed 0), and so are the stand-ins of
@@ -50,9 +62,9 @@ from ..models import lm
 from ..parallel.dist import finish as dist_finish
 from ..parallel.dist import in_ranks
 from ..parallel.dist import init as dist_init
-from ..parallel.sharding import expert_block
+from ..parallel.sharding import data_rows, expert_block
 from ..train.step import build_serve_step
-from .mesh import make_local_mesh, make_production_mesh
+from .mesh import make_local_mesh, make_production_mesh, rank_layout
 
 
 # leaves a decode step reads whole: never padded
@@ -119,6 +131,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--teacher", default=None,
                     help="feed the first batch the decode inputs of an "
                          "earlier run's --logits-out file")
+    ap.add_argument("--data-ranks", type=int, default=1,
+                    help="ranks along the data axis, each serving its "
+                         "rows; the rest of the world splits the model "
+                         "axis")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -129,10 +145,20 @@ def main(argv=None) -> dict:
         joined = not torch.distributed.is_initialized()
         group, dev = dist_init(init_method=args.init_method, device=dev)
         rank = torch.distributed.get_rank(group)
-    mesh = (make_production_mesh(device=dev, group=group)
+    if group is None and args.data_ranks != 1:
+        raise ValueError("--data-ranks needs the driver started as ranks")
+    ranks = None if group is None else rank_layout(
+        torch.distributed.get_world_size(group), args.data_ranks)
+    mesh = (make_production_mesh(device=dev, group=group, ranks=ranks)
             if args.production_mesh
-            else make_local_mesh(device=dev, group=group))
+            else make_local_mesh(device=dev, group=group, ranks=ranks))
     serve_step, serve_prefill, ctx = build_serve_step(cfg, mesh)
+    dp = ctx.dp_axis
+
+    def whole_rows(x, split):
+        """This rank's rows gathered into the batch's (over the data
+        ranks) where they were its block."""
+        return mesh.all_gather(x.contiguous(), 0, axis=dp) if split else x
     # an expert-parallel rank draws every parameter, keeps its experts
     block = expert_block(cfg, ctx)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -153,9 +179,14 @@ def main(argv=None) -> dict:
         batch_reqs = pending[:args.batch]
         pending = pending[args.batch:]
         b = len(batch_reqs)
-        toks = torch.tensor(batch_reqs, dtype=torch.int32, device=dev)
+        rows = data_rows(mesh, b)
+        split = len(rows) < b
+        toks = torch.tensor(batch_reqs, dtype=torch.int32,
+                            device=dev)[torch.from_numpy(rows).to(dev)]
         logits, cache = serve_prefill(params, {
-            "tokens": toks, **frontend_stubs(cfg, b, args.prompt_len, dev)})
+            "tokens": toks,
+            **frontend_stubs(cfg, len(rows), args.prompt_len, dev)},
+            data_block=split)
         # grow the cache to prompt+gen (prefill returns prompt-sized),
         # after the patches of a vlm prompt
         cache = grow_cache(cfg, cache, prefix_len(cfg) + args.prompt_len
@@ -166,21 +197,22 @@ def main(argv=None) -> dict:
         out, fed = [], []
         for i in range(args.gen):
             if first and args.logits_out:
-                kept.append(logits.float().cpu())
+                kept.append(whole_rows(logits.float(), split).cpu())
             if first and teacher is not None:
-                nxt = torch.from_numpy(teacher[:, i:i + 1]).to(nxt)
+                nxt = torch.from_numpy(teacher[rows, i:i + 1]).to(nxt)
             fed.append(nxt)
-            logits, cache = serve_step(params, cache, nxt)
+            logits, cache = serve_step(params, cache, nxt, data_block=split)
             finite &= torch.isfinite(logits).all()
             nxt = logits.argmax(-1)[:, None].to(torch.int32)
             out.append(nxt)
             total_tokens += b
         if first and args.logits_out:
-            kept.append(logits.float().cpu())
+            kept.append(whole_rows(logits.float(), split).cpu())
+            inputs = whole_rows(torch.cat(fed, 1), split)
             if rank == 0:
                 np.savez(args.logits_out, logits=torch.stack(kept).numpy(),
-                         inputs=torch.cat(fed, 1).cpu().numpy())
-        generated.append(torch.cat(out, dim=1))
+                         inputs=inputs.cpu().numpy())
+        generated.append(whole_rows(torch.cat(out, dim=1), split))
         done += b
         if rank == 0:
             print(f"[serve] {done}/{args.requests} requests, "
@@ -189,6 +221,8 @@ def main(argv=None) -> dict:
     gen_ids = torch.cat(generated).cpu().numpy() if generated else \
         np.zeros((0, args.gen), np.int32)
     seconds = time.time() - t0
+    # every data rank's rows finite (no collective without data ranks)
+    finite = mesh.all_reduce((~finite).int().reshape(1), dp)[0] == 0
     if joined:
         dist_finish()
     if rank == 0:
@@ -197,7 +231,8 @@ def main(argv=None) -> dict:
                                    if mesh.ranked else ""))
     return {"requests": done, "tokens": total_tokens, "seconds": seconds,
             "generated": gen_ids, "finite": bool(finite),
-            "mesh": mesh.shape, "ep": ctx.ep, "ranks": mesh.world}
+            "mesh": mesh.shape, "ep": ctx.ep, "ranks": mesh.world,
+            "layout": dict(mesh.ranks)}
 
 
 if __name__ == "__main__":

@@ -28,17 +28,28 @@ parameters and keeps its model shards' experts and their optimizer
 state, computes the whole batch's loss (the expert exchanges run
 between the ranks, forward and backward), clips by the norm over every
 rank's gradient and updates its own state; checkpoints hold the whole
-state, written by rank 0, and restore on any world size.  Rank 0 prints
-the log lines::
+state, written by rank 0, and restore on any world size and layout.
+With ``--data-ranks N`` the mesh's data axis is split over N of the
+ranks too (data-major: ``{"data": N, "model": W / N}``): each rank keeps
+its data block of every leaf the reference's ``state_specs`` shard over
+``data`` (FSDP) and of its optimizer state, takes its rows of each
+global batch (``SyntheticLM.batch_at`` still gives the whole batch, the
+same tokens as one process) and its loss is its share of the global
+one.  Rank 0 prints the log lines::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch deepseek-moe-16b --production-mesh --steps 8 --batch 4 \\
         --seq 512
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3-1.7b --production-mesh --data-ranks 4 --steps 4 \\
+        --batch 16 --seq 256
 
 :func:`main` returns the run's record: per step the loss, grad norm,
 learning rate, wall time (ms, synchronised), kernel launches and the
 collectives' calls and bytes, the number of parameter leaves the first
-step's gradient missed, the rank and the world, and with
+step's gradient missed, the rank, the world and the layout (``ranks``),
+the bytes of the parameters this rank holds (``param_bytes``), its peak
+device memory (``peak_bytes``, None on the CPU), and with
 ``--grad-digest`` the first step's gradient digests
 (``train.step.grad_digest``).
 """
@@ -51,6 +62,7 @@ import time
 import torch
 
 from .. import kernels, resolve_device
+from .. import tree as pt
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..core.rounds.mesh import collective_counts, reset_collective_counts
@@ -62,8 +74,8 @@ from ..parallel.dist import init as dist_init
 from ..parallel.sharding import device_put, expert_block, to_named
 from ..runtime import StragglerWatchdog
 from ..train import TrainConfig, build_train_step, init_train_state
-from ..train.step import grad_digest, ranked_leaves, state_specs
-from .mesh import make_local_mesh, make_production_mesh
+from ..train.step import grad_digest, state_shapes, state_specs
+from .mesh import make_local_mesh, make_production_mesh, rank_layout
 from .specs import train_inputs
 
 
@@ -159,6 +171,9 @@ def main(argv=None) -> dict:
                     help="the ranks' rendezvous (with WORLD_SIZE set)")
     ap.add_argument("--grad-digest", action="store_true",
                     help="record the first step's gradient digests")
+    ap.add_argument("--data-ranks", type=int, default=1,
+                    help="ranks along the data axis (FSDP); the rest of "
+                         "the world splits the model axis")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -168,10 +183,16 @@ def main(argv=None) -> dict:
     if in_ranks():
         joined = not torch.distributed.is_initialized()
         group, dev = dist_init(init_method=args.init_method, device=dev)
-    mesh = (make_production_mesh(device=dev, group=group)
+    ranks = None if group is None else rank_layout(
+        torch.distributed.get_world_size(group), args.data_ranks)
+    if group is None and args.data_ranks != 1:
+        raise ValueError("--data-ranks needs the driver started as ranks")
+    mesh = (make_production_mesh(device=dev, group=group, ranks=ranks)
             if args.production_mesh
-            else make_local_mesh(device=dev, group=group))
+            else make_local_mesh(device=dev, group=group, ranks=ranks))
     lead = mesh.rank == 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     tcfg = TrainConfig(
         micro_batches=args.micro,
         remat=not args.smoke,
@@ -183,9 +204,12 @@ def main(argv=None) -> dict:
     block = expert_block(cfg, ctx)
     state = init_train_state(cfg, tcfg,
                              torch.Generator(device=dev).manual_seed(0), dev,
-                             **({"experts": block} if block else {}))
-    named = to_named(mesh, state_specs(mesh, state, tcfg))
+                             **({"experts": block} if block else {}),
+                             mesh=mesh)
+    named = to_named(mesh, state_specs(mesh, state_shapes(cfg, tcfg), tcfg))
     state = device_put(state, named)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in pt.leaves(state["params"]))
 
     start = 0
     mgr = CheckpointManager(args.ckpt, shardings=named) if args.ckpt \
@@ -205,7 +229,7 @@ def main(argv=None) -> dict:
         if cfg.family == "encdec" else {}
     digest, first_grads = {}, None
     if args.grad_digest:
-        ranked = ranked_leaves(mesh, state["params"], tcfg)
+        ranked = step_fn.leaf_dims()["params"]
 
         def first_grads(grads):
             digest.update(grad_digest(grads, ranked))
@@ -226,7 +250,10 @@ def main(argv=None) -> dict:
         dist_finish()
     rec.update(arch=cfg.name, start=start, seconds=tot,
                tokens_per_step=args.batch * args.seq, mesh=mesh.shape,
-               ep=ctx.ep, n_micro=n_micro, rank=mesh.rank, world=mesh.world)
+               ep=ctx.ep, n_micro=n_micro, rank=mesh.rank, world=mesh.world,
+               ranks=dict(mesh.ranks), param_bytes=param_bytes,
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None))
     if args.grad_digest:
         rec["grad_digest"] = digest
     return rec

@@ -74,37 +74,45 @@ def _he(gen, shape, fan_in, dtype):
     return normal(gen, shape, 1.0 / math.sqrt(max(1, fan_in)), dtype)
 
 
-def init_ffn(gen, d, ff, ffn_type, use_bias, dtype, stack=()):
+def keep_whole(key, leaf):
+    """The default ``cut`` of the init helpers: every leaf whole."""
+    return leaf
+
+
+def init_ffn(gen, d, ff, ffn_type, use_bias, dtype, stack=(),
+             cut=keep_whole):
+    """``cut(key, leaf)`` is applied to each leaf as soon as it is drawn
+    (a rank's block of it), as in every init helper."""
     s = tuple(stack)
     p = {}
     if ffn_type in ("swiglu", "geglu"):
-        p["wg"] = _he(gen, s + (d, ff), d, dtype)
-        p["wu"] = _he(gen, s + (d, ff), d, dtype)
-        p["wd"] = _he(gen, s + (ff, d), ff, dtype)
+        p["wg"] = cut("wg", _he(gen, s + (d, ff), d, dtype))
+        p["wu"] = cut("wu", _he(gen, s + (d, ff), d, dtype))
+        p["wd"] = cut("wd", _he(gen, s + (ff, d), ff, dtype))
     else:
-        p["wu"] = _he(gen, s + (d, ff), d, dtype)
-        p["wd"] = _he(gen, s + (ff, d), ff, dtype)
+        p["wu"] = cut("wu", _he(gen, s + (d, ff), d, dtype))
+        p["wd"] = cut("wd", _he(gen, s + (ff, d), ff, dtype))
         if use_bias:
-            p["bu"] = zeros(gen, s + (ff,), dtype)
-            p["bd"] = zeros(gen, s + (d,), dtype)
+            p["bu"] = cut("bu", zeros(gen, s + (ff,), dtype))
+            p["bd"] = cut("bd", zeros(gen, s + (d,), dtype))
     return p
 
 
 def init_attn(gen, d, n_heads, n_kv, hd, qk_norm, use_bias, dtype,
-              stack=()):
+              stack=(), cut=keep_whole):
     s = tuple(stack)
-    p = {
-        "wq": _he(gen, s + (d, n_heads * hd), d, dtype),
-        "wk": _he(gen, s + (d, n_kv * hd), d, dtype),
-        "wv": _he(gen, s + (d, n_kv * hd), d, dtype),
-        "wo": _he(gen, s + (n_heads * hd, d), n_heads * hd, dtype),
-    }
+    p = {}
+    p["wq"] = cut("wq", _he(gen, s + (d, n_heads * hd), d, dtype))
+    p["wk"] = cut("wk", _he(gen, s + (d, n_kv * hd), d, dtype))
+    p["wv"] = cut("wv", _he(gen, s + (d, n_kv * hd), d, dtype))
+    p["wo"] = cut("wo", _he(gen, s + (n_heads * hd, d), n_heads * hd,
+                            dtype))
     if use_bias:
-        p["bq"] = zeros(gen, s + (n_heads * hd,), dtype)
-        p["bk"] = zeros(gen, s + (n_kv * hd,), dtype)
-        p["bv"] = zeros(gen, s + (n_kv * hd,), dtype)
-        p["bo"] = zeros(gen, s + (d,), dtype)
+        p["bq"] = cut("bq", zeros(gen, s + (n_heads * hd,), dtype))
+        p["bk"] = cut("bk", zeros(gen, s + (n_kv * hd,), dtype))
+        p["bv"] = cut("bv", zeros(gen, s + (n_kv * hd,), dtype))
+        p["bo"] = cut("bo", zeros(gen, s + (d,), dtype))
     if qk_norm:
-        p["q_norm"] = zeros(gen, s + (hd,), dtype)
-        p["k_norm"] = zeros(gen, s + (hd,), dtype)
+        p["q_norm"] = cut("q_norm", zeros(gen, s + (hd,), dtype))
+        p["k_norm"] = cut("k_norm", zeros(gen, s + (hd,), dtype))
     return p

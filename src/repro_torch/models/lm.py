@@ -72,6 +72,12 @@ class ParallelCtx:
     tp_axis: str = "model"
     ep: int = 1                     # expert-parallel degree
     constrain: Callable = None      # (tensor, kind) -> tensor
+    # over data ranks: whether a batch's rows are this data rank's block
+    # of the global batch (else every data rank holds every row), and
+    # the parameters' data dims (a tree of ints / None matching them:
+    # the leaves a rank holds as its block, gathered where they are used)
+    data_block: bool = False
+    fsdp: Any = None
 
     @property
     def ep_axis(self):
@@ -79,6 +85,11 @@ class ParallelCtx:
 
     def c(self, t, kind):
         return self.constrain(t, kind) if self.constrain else t
+
+    @property
+    def data_ranks(self) -> int:
+        """The ranks that split the data axes (1 off ranks)."""
+        return moe.data_ranks(self) if self.mesh is not None else 1
 
 
 NO_PARALLEL = ParallelCtx()
@@ -110,16 +121,69 @@ def _maybe_remat(fn, remat, *args):
     return fn(*args)
 
 
+def _gather(p, dims, ctx):
+    """``p`` (a layer's dict, a tree of them, or a leaf) with every leaf
+    that ``dims`` (the matching subtree of ``ctx.fsdp``: an int where a
+    rank holds the leaf as its data block, None where it holds it whole)
+    names made whole over the data ranks, all in one
+    ``collectives.gather_blocks`` (one all-gather a dtype); the backward
+    reduce-scatters their gradients."""
+    if dims is None:
+        return p
+    from ..parallel import collectives as cl   # (parallel imports models)
+    held = []
+
+    def collect(node, d):
+        if d is None:
+            return
+        if isinstance(node, dict):
+            for k, v in node.items():
+                collect(v, d.get(k))
+        elif isinstance(node, (list, tuple)):
+            for v, di in zip(node, d):
+                collect(v, di)
+        else:
+            held.append((node, d))
+    collect(p, dims)
+    whole = iter(cl.gather_blocks([x for x, _ in held], ctx.mesh,
+                                  [d for _, d in held], "data"))
+
+    def rebuild(node, d):
+        if d is None:
+            return node
+        if isinstance(node, dict):
+            return {k: rebuild(v, d.get(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [rebuild(v, di) for v, di in zip(node, d)]
+        return next(whole)
+    return rebuild(p, dims)
+
+
+def _fsdp(ctx, key, stacked=False, skip=()):
+    """``ctx.fsdp``'s dims of the params' ``key`` subtree (None without
+    data blocks), a stacked leaf's dim shifted past the layer axis
+    (``stacked``: a layer's dict of ``_layers``), ``skip``'s keys left
+    out."""
+    dims = None if ctx.fsdp is None else ctx.fsdp.get(key)
+    if dims is None or not (stacked or skip):
+        return dims
+    return {k: (None if d is None else d - 1) if stacked else d
+            for k, d in dims.items() if k not in skip}
+
+
 # ============================================================ param init
 
 def init_params(cfg: LMConfig, generator: torch.Generator, device=None,
-                experts=None):
+                experts=None, cut=layers.keep_whole):
     """Random parameters with the JAX package's distributions, drawn from
     ``generator`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for;
     the generator must live there).  Not the same numbers as JAX's.
     ``experts`` (``(first, stop)``) keeps only those routed experts of a
     moe config, drawn as the whole set draws them (an expert-parallel
-    rank's share)."""
+    rank's share).  ``cut(key, leaf)`` is applied to every leaf as soon
+    as it is drawn, before the next one is (a data rank's block of it:
+    the same numbers, and never a whole copy of more than one stacked
+    leaf at a time)."""
     dev = resolve_device(device)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, "
@@ -128,58 +192,62 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None,
     dt = _dt(cfg)
     d, v = cfg.d_model, cfg.vocab_padded
     gen = generator
-    params = {"embed": layers.normal(gen, (v, d), 0.02, dt),
-              "final_norm": layers.zeros(gen, (d,), dt)}
+    params = {"embed": cut("embed", layers.normal(gen, (v, d), 0.02, dt)),
+              "final_norm": cut("final_norm", layers.zeros(gen, (d,), dt))}
     if not cfg.tie_embeddings:
-        params["head"] = layers.normal(gen, (d, v), d ** -0.5, dt)
+        params["head"] = cut("head", layers.normal(gen, (d, v), d ** -0.5,
+                                                   dt))
     L = cfg.n_layers
     if cfg.family in ("dense", "vlm"):
-        params["blocks"] = _init_dense_stack(gen, cfg, dt, L)
+        params["blocks"] = _init_dense_stack(gen, cfg, dt, L, cut=cut)
     elif cfg.family == "moe":
-        blk = _init_dense_stack(gen, cfg, dt, L, ffn=False)
-        blk.update(moe.init_moe(gen, cfg, dt, stack=(L,), experts=experts))
+        blk = _init_dense_stack(gen, cfg, dt, L, ffn=False, cut=cut)
+        blk.update(moe.init_moe(gen, cfg, dt, stack=(L,), experts=experts,
+                                cut=cut))
         params["blocks"] = blk
     elif cfg.family == "ssm":
-        blk = {"ln1": layers.zeros(gen, (L, d), dt)}
-        blk.update(ssm.init_mamba2(gen, cfg, dt, stack=(L,)))
+        blk = {"ln1": cut("ln1", layers.zeros(gen, (L, d), dt))}
+        blk.update(ssm.init_mamba2(gen, cfg, dt, stack=(L,), cut=cut))
         params["blocks"] = blk
     elif cfg.family == "encdec":
         params["enc_blocks"] = _init_dense_stack(gen, cfg, dt,
-                                                 cfg.n_enc_layers)
-        dec = _init_dense_stack(gen, cfg, dt, L)
+                                                 cfg.n_enc_layers, cut=cut)
+        dec = _init_dense_stack(gen, cfg, dt, L, cut=cut)
         dec.update({f"x_{k}": t for k, t in layers.init_attn(
             gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qk_norm,
-            cfg.use_bias, dt, stack=(L,)).items()})
-        dec["ln3"] = layers.zeros(gen, (L, d), dt)
+            cfg.use_bias, dt, stack=(L,),
+            cut=lambda k, t: cut(f"x_{k}", t)).items()})
+        dec["ln3"] = cut("ln3", layers.zeros(gen, (L, d), dt))
         params["dec_blocks"] = dec
-        params["enc_norm"] = layers.zeros(gen, (d,), dt)
+        params["enc_norm"] = cut("enc_norm", layers.zeros(gen, (d,), dt))
     else:                                              # hybrid
         params["blocks"] = []
         for i in range(L):
-            p = {"ln1": layers.zeros(gen, (d,), dt),
-                 "ln2": layers.zeros(gen, (d,), dt)}
+            p = {"ln1": cut("ln1", layers.zeros(gen, (d,), dt)),
+                 "ln2": cut("ln2", layers.zeros(gen, (d,), dt))}
             if cfg.pattern_at(i) == "r":
-                p["rec"] = rglru.init_recurrent(gen, cfg, dt)
+                p["rec"] = rglru.init_recurrent(gen, cfg, dt, cut=cut)
             else:
                 p["attn"] = layers.init_attn(gen, d, cfg.n_heads,
                                              cfg.n_kv_heads, cfg.hd,
-                                             cfg.qk_norm, cfg.use_bias, dt)
+                                             cfg.qk_norm, cfg.use_bias, dt,
+                                             cut=cut)
             p["ffn"] = layers.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type,
-                                       cfg.use_bias, dt)
+                                       cfg.use_bias, dt, cut=cut)
             params["blocks"].append(p)
     return params
 
 
-def _init_dense_stack(gen, cfg, dt, L, ffn=True):
+def _init_dense_stack(gen, cfg, dt, L, ffn=True, cut=layers.keep_whole):
     d = cfg.d_model
-    blk = {"ln1": layers.zeros(gen, (L, d), dt),
-           "ln2": layers.zeros(gen, (L, d), dt)}
+    blk = {"ln1": cut("ln1", layers.zeros(gen, (L, d), dt)),
+           "ln2": cut("ln2", layers.zeros(gen, (L, d), dt))}
     blk.update(layers.init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.hd, cfg.qk_norm, cfg.use_bias, dt,
-                                stack=(L,)))
+                                stack=(L,), cut=cut))
     if ffn:
         blk.update(layers.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type,
-                                   cfg.use_bias, dt, stack=(L,)))
+                                   cfg.use_bias, dt, stack=(L,), cut=cut))
     return blk
 
 
@@ -307,10 +375,13 @@ def _enc_layer(x, p, cfg, ctx):
 def _enc_forward(params, enc_embeds, cfg, ctx, remat=False):
     """The encoder over the frame embeddings [B, Se, d]: per layer a
     non-causal self-attention (rope over arange(Se)) and the FFN (each
-    layer checkpointed when ``remat``), then ``enc_norm``."""
+    layer checkpointed when ``remat``, its data blocks gathered inside),
+    then ``enc_norm``."""
     x = enc_embeds
+    dims = _fsdp(ctx, "enc_blocks", stacked=True)
     for p in _layers(params["enc_blocks"], cfg.n_enc_layers):
-        x = _maybe_remat(lambda x, p=p: _enc_layer(x, p, cfg, ctx), remat, x)
+        x = _maybe_remat(lambda x, p=p: _enc_layer(
+            x, _gather(p, dims, ctx), cfg, ctx), remat, x)
     return layers.rms_norm(x, params["enc_norm"], cfg.rms_eps)
 
 
@@ -327,13 +398,21 @@ def _dec_block(x, p, cfg, ctx, cross_kv, cache=None, pos=None):
     return x, kv
 
 
-def _cross_kv(params, enc_out, cfg):
+_CROSS_KV = ("x_wk", "x_wv", "x_bk", "x_bv")
+
+
+def _cross_kv(params, enc_out, cfg, ctx=None):
     """Every decoder layer's cross K/V of the encoder output:
-    ([L, B, Se, Hkv, hd], [L, B, Se, Hkv, hd])."""
+    ([L, B, Se, Hkv, hd], [L, B, Se, Hkv, hd]); the projections' data
+    blocks gathered layer by layer."""
     b, se, _ = enc_out.shape
     ks, vs = [], []
+    dims = None if ctx is None else _fsdp(ctx, "dec_blocks", stacked=True)
+    if dims is not None:
+        dims = {k: d for k, d in dims.items() if k in _CROSS_KV}
     for p in _layers(params["dec_blocks"], cfg.n_layers):
-        xp = _xattn_params(p)
+        xp = _xattn_params(_gather({k: v for k, v in p.items()
+                                    if k in _CROSS_KV}, dims, ctx))
         ks.append(layers.dense(enc_out, xp["wk"], xp.get("bk")).reshape(
             b, se, cfg.n_kv_heads, cfg.hd))
         vs.append(layers.dense(enc_out, xp["wv"], xp.get("bv")).reshape(
@@ -346,15 +425,21 @@ def _cross_kv(params, enc_out, cfg):
 def _run_stack(x, blocks, cfg, ctx, remat=False):
     """The decoder stack for training: a loop over layers (each under an
     activation checkpoint when ``remat``; the hybrid family's unrolled
-    layers never, as in JAX).  Returns (x, summed moe aux)."""
+    layers never, as in JAX), each layer's data blocks gathered inside
+    its body, so under remat they are gathered again in the backward
+    and one layer's whole weights live at a time.  Returns (x, summed
+    moe aux)."""
     if cfg.family == "hybrid":
+        dims = _fsdp(ctx, "blocks")
         for i, p in enumerate(blocks):
+            p = _gather(p, None if dims is None else dims[i], ctx)
             x, _ = hybrid_block(x, p, cfg, ctx, cfg.pattern_at(i))
         return x, 0.0
     block = _TRAIN_BLOCK[cfg.family]
+    dims = _fsdp(ctx, "blocks", stacked=True)
 
     def body(x, p):
-        x, _, a = block(ctx.c(x, "resid"), p, cfg, ctx)
+        x, _, a = block(ctx.c(x, "resid"), _gather(p, dims, ctx), cfg, ctx)
         return x, a
 
     aux = 0.0
@@ -381,7 +466,11 @@ def xent_loss(h, head_w, labels, mask, ctx, chunk: int = 512):
     divisor of S not above ``chunk``, each chunk's logits are fp32 and
     each chunk runs under an activation checkpoint, so its [B, chunk, V]
     logits are recomputed in the backward pass and [B, S, V] is never
-    held.  h [B,S,d], labels/mask [B,S]."""
+    held.  h [B,S,d], labels/mask [B,S].  Over data ranks it returns
+    this data rank's share: its masked sum over the global mask count
+    (all-reduced over the data ranks, outside autograd) where its rows
+    are its block of the batch (``ctx.data_block``), else its mean over
+    the data ranks' count, so the shares sum to the global mean."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     while s % chunk:            # largest divisor of s not above the target
@@ -400,6 +489,9 @@ def xent_loss(h, head_w, labels, mask, ctx, chunk: int = 512):
         loss_sum = loss_sum + checkpoint(body, h[:, sl], labels[:, sl],
                                          mask[:, sl], use_reentrant=False)
         cnt = cnt + mask[:, sl].sum()
+    if ctx.data_ranks > 1:              # this data rank's share
+        cnt = (ctx.mesh.all_reduce(cnt.detach().clone(), ctx.dp_axis)
+               if ctx.data_block else cnt * ctx.data_ranks)
     return loss_sum / torch.clamp(cnt, min=1.0)
 
 
@@ -409,8 +501,18 @@ def train_loss(params, batch, cfg, ctx, *, remat=True, aux_weight=0.01,
     the vlm family's optional patch_embeds [B, n_patches, d] (their
     positions carry no loss), the encdec family's enc_embeds [B, Se, d].
     Returns the mean cross-entropy plus ``aux_weight`` times the summed
-    moe aux."""
+    moe aux; over data ranks this data rank's share of it (the shares
+    sum to the global loss: its share of the cross-entropy,
+    :func:`xent_loss`, and ``1 / data_ranks`` of the aux, which the moe
+    all-reduces).  The leaves a rank holds as data blocks
+    (``ctx.fsdp``) are gathered where they are used: ``embed``, the head
+    and the norms once, each layer's inside its body."""
     _check_family(cfg)
+    if ctx.fsdp is not None:
+        top = {k: v for k, v in params.items()
+               if k not in ("blocks", "enc_blocks", "dec_blocks")}
+        params = dict(params, **_gather(
+            top, {k: ctx.fsdp.get(k) for k in top}, ctx))
     if cfg.family == "encdec":
         return _encdec_loss(params, batch, cfg, ctx, remat=remat,
                             loss_chunk=loss_chunk)
@@ -423,7 +525,7 @@ def train_loss(params, batch, cfg, ctx, *, remat=True, aux_weight=0.01,
     mask = (labels >= 0).float()
     loss = xent_loss(h, _head(params, cfg), torch.clamp(labels, min=0),
                      mask, ctx, chunk=loss_chunk)
-    return loss + aux_weight * aux
+    return loss + aux_weight * aux / ctx.data_ranks
 
 
 def _encdec_loss(params, batch, cfg, ctx, remat=True, loss_chunk=512):
@@ -433,9 +535,12 @@ def _encdec_loss(params, batch, cfg, ctx, remat=True, loss_chunk=512):
     enc_out = _enc_forward(params, batch["enc_embeds"], cfg, ctx,
                            remat=remat)
     x = embed_tokens(params, batch["tokens"], cfg)
-    cross_k, cross_v = _cross_kv(params, enc_out, cfg)
+    cross_k, cross_v = _cross_kv(params, enc_out, cfg, ctx)
+    dims = _fsdp(ctx, "dec_blocks", stacked=True, skip=_CROSS_KV)
 
     def body(x, p, ck, cv):
+        p = _gather({k: v for k, v in p.items() if k not in _CROSS_KV},
+                    dims, ctx)
         x, _ = _dec_block(ctx.c(x, "resid"), p, cfg, ctx, (ck, cv))
         return x
 
@@ -600,7 +705,7 @@ def prefill(params, batch, cfg, ctx):
     if cfg.family == "encdec":
         enc_out = _enc_forward(
             params, batch["enc_embeds"].to(params["embed"].dtype), cfg, ctx)
-        cross_k, cross_v = _cross_kv(params, enc_out, cfg)
+        cross_k, cross_v = _cross_kv(params, enc_out, cfg, ctx)
         ks, vs = [], []
         for i, p in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
             x, (k, v) = _dec_block(x, p, cfg, ctx, (cross_k[i], cross_v[i]))

@@ -33,20 +33,28 @@ computes the same thing, so the port computes it once.
 
 On a mesh whose model axis is split over ``torch.distributed`` ranks
 (``Mesh(..., group=...)``), rank ``r`` holds the model shards ``[r*n/W,
-(r+1)*n/W)`` and their experts (``n_experts / W`` of ``we_g``, ``we_u``
-and ``we_d``; ``convert.rank_experts`` cuts a whole set down), the rest
-of the layer on every rank.  Each rank routes its model shards' tokens,
-the first ``all_to_all`` sends every destination rank the slots of its
-experts (``all_to_all_single``), the experts run where they live, the
-second sends the results back, and an all-gather of the token blocks
-(and an ``all_reduce`` of ``aux``) gives every rank the whole output.
-Where the sequence is replicated along the model axis, every rank
-routes the same tokens, runs its own experts on their slots and
-all-gathers the experts' results.  Every move across ranks (the block
-slices of a replicated tensor included) is one of
-:mod:`repro_torch.parallel.collectives`' autograd functions, so the
-routed path's gradient reaches ``x``, the router and every layer below:
-a replicated tensor's gradient is the same on every rank.
+(r+1)*n/W)`` of its model coordinate and their experts (``n_experts /
+W`` of ``we_g``, ``we_u`` and ``we_d``; ``convert.rank_experts`` cuts a
+whole set down), the rest of the layer on every rank.  Each rank routes
+its model shards' tokens, the first ``all_to_all`` (over the model
+sub-group) sends every destination rank the slots of its experts
+(``all_to_all_single``), the experts run where they live, the second
+sends the results back, and an all-gather of the token blocks gives
+every rank of the sub-group the whole output.  Where the sequence is
+replicated along the model axis, every rank routes the same tokens,
+runs its own experts on their slots and all-gathers the experts'
+results.  Where the data axis is split over ranks too
+(``ranks={"data": a, "model": b}``) and ``x`` holds a data rank's rows
+(``ParallelCtx.data_block``), the rank holds ``nb / a`` data shards and
+returns their rows.  The router's product runs once per data shard,
+over that shard's ``b_l * S`` rows, in every layout, so any process
+that holds a data shard computes the same logits bit for bit.  ``aux``
+counts each distinct (data, model) shard once and is all-reduced over
+the ranks that hold distinct shards (the reference's ``pmean`` over
+every axis).  Every move across ranks (the block slices of a replicated
+tensor included) is one of :mod:`repro_torch.parallel.collectives`'
+autograd functions, so the routed path's gradient reaches ``x``, the
+router and every layer below.
 """
 
 from __future__ import annotations
@@ -167,17 +175,34 @@ def _moe_local(x, p, cfg):
     return out.reshape(b, s, d), aux
 
 
+def _dp_axes(parallel) -> tuple:
+    dp = parallel.dp_axis
+    return dp if isinstance(dp, tuple) else (dp,)
+
+
+def data_ranks(parallel) -> int:
+    """The ranks that split ``parallel``'s data axes, its ``dp_axis``
+    (``parallel.sharding.make_ctx`` sets them from the mesh and the
+    policy); 1 off ranks.  Every count of data ranks is this one
+    (``ParallelCtx.data_ranks``)."""
+    mesh = parallel.mesh
+    if not getattr(mesh, "ranked", False):
+        return 1
+    return mesh.n_ranks(_dp_axes(parallel))
+
+
 def ep_layout(x_shape, parallel):
     """(nb, ns, n): the data-axis and model-axis shard counts that hold
     distinct tokens of x [B, S, d] under ``parallel``, and the EP degree.
     The reference shards the batch over the data axes only where their
     size divides B, the sequence over the EP axis only where ep divides
-    S; along an axis it does not shard, the tokens are replicated."""
+    S; along an axis it does not shard, the tokens are replicated.  With
+    ``parallel.data_block`` x holds a data rank's block of the rows, and
+    B is the whole batch's."""
     mesh, n = parallel.mesh, parallel.ep
-    dp = parallel.dp_axis
-    dp_size = math.prod(mesh.shape[a] for a in
-                        (dp if isinstance(dp, tuple) else (dp,)))
-    nb = dp_size if x_shape[0] % dp_size == 0 else 1
+    dp_size = math.prod(mesh.shape[a] for a in _dp_axes(parallel))
+    b = x_shape[0] * (data_ranks(parallel) if parallel.data_block else 1)
+    nb = dp_size if b % dp_size == 0 else 1
     ns = n if x_shape[1] % n == 0 else 1
     return nb, ns, n
 
@@ -185,86 +210,105 @@ def ep_layout(x_shape, parallel):
 def _moe_ep(x, p, cfg, parallel):
     """Expert-parallel body over every shard of this process at once.
     Returns (y, aux, route): route's e_idx, s_idx, flat_w and keep are
-    [nb * ns_l, T_l*K] (shard (i, j) of the distinct ones held here at
-    row i * ns_l + j; ``ns_l = ns`` in one process, a rank's block over
-    ranks), with the shard-local capacity."""
+    [nb_l * ns_l, T_l*K] (shard (i, j) of the distinct ones held here at
+    row i * ns_l + j; ``nb_l = nb`` and ``ns_l = ns`` in one process, a
+    rank's blocks over ranks), with the shard-local capacity."""
     from ..parallel import collectives as cl   # (parallel imports models)
     nb, ns, n = ep_layout(x.shape, parallel)
-    mesh = parallel.mesh
+    mesh, ep_axis = parallel.mesh, parallel.ep_axis
+    dp = _dp_axes(parallel)
     ranked = getattr(mesh, "ranked", False)
-    w = mesh.world if ranked else 1
+    if ranked and any(a not in dp + (ep_axis,) for a in mesh.ranks):
+        raise ValueError(f"the mesh splits {tuple(mesh.ranks)} over its "
+                         f"ranks; expert parallelism takes the data axes "
+                         f"{dp} and the expert axis {ep_axis!r}")
+    model_ranked = ranked and ep_axis in mesh.ranks
+    w = mesh.n_ranks(ep_axis) if model_ranked else 1
+    n_d = data_ranks(parallel)
+    dsplit = parallel.data_block and n_d > 1    # x: a data rank's rows
+    if dsplit and nb % n_d:
+        raise ValueError(f"{n_d} data ranks do not split {nb} data shards")
+    nb_l = nb // n_d if dsplit else nb          # data shards held here
     b, s, d = x.shape
-    b_l, s_l = b // nb, s // ns
+    b_l, s_l = b // nb_l, s // ns
     t = b_l * s_l
     e_total = cfg.n_experts
     if e_total % n:
         raise ValueError(f"{e_total} experts do not split over {n} "
                          f"expert-parallel shards")
-    if ranked and mesh.ranked_axis != parallel.ep_axis:
-        raise ValueError(f"the mesh splits {mesh.ranked_axis!r} over its "
-                         f"ranks, not the expert axis {parallel.ep_axis!r}")
     e_loc = e_total // n
     n_l = n // w                        # model shards on this process
     if p["we_d"].shape[0] != n_l * e_loc:
         raise ValueError(f"{p['we_d'].shape[0]} experts here; this rank "
                          f"holds {n_l * e_loc} (convert.rank_experts)")
-    split = ranked and ns > 1           # sequence shards split over ranks
+    split = model_ranked and ns > 1     # sequence shards split over ranks
     ns_l = ns // w if split else ns
     cap = _capacity(t, cfg.top_k, e_total, cfg.capacity_factor)
     # shard (i, j) holds x[i*b_l:(i+1)*b_l, j*s_l:(j+1)*s_l]; the router
-    # product runs over every shard's tokens, as one product in one
-    # process (a rank's share alone would be another GEMM shape, whose
-    # rounding can flip a route at a gate margin)
-    xs = x.reshape(nb, b_l, ns, s_l, d).transpose(1, 2).reshape(
-        nb * ns, t, d)
-    logits = xs.float() @ p["router"].float()
+    # product runs once per data shard, over its b_l * S rows, in every
+    # layout: any process that holds a data shard computes the same
+    # bits (another GEMM shape can round a gate across a route's margin)
+    router = p["router"].float()
+    logits = torch.stack([
+        (xi.reshape(b_l * s, d).float() @ router).view(
+            b_l, ns, s_l, e_total).transpose(0, 1).reshape(ns, t, e_total)
+        for xi in x.reshape(nb_l, b_l, s, d).unbind(0)])      # [nb_l,ns,t,E]
+    xs = x.reshape(nb_l, b_l, ns, s_l, d).transpose(1, 2).reshape(
+        nb_l, ns, t, d)
     if split:                           # this rank's model shards
-        xs = cl.block(xs.view(nb, ns, t, d), mesh, 1).reshape(
-            nb * ns_l, t, d)
-        logits = cl.block(logits.view(nb, ns, t, e_total), mesh, 1).reshape(
-            nb * ns_l, t, e_total)
+        xs = cl.block(xs, mesh, 1, ep_axis)
+        logits = cl.block(logits, mesh, 1, ep_axis)
+    xs = xs.reshape(nb_l * ns_l, t, d)
+    logits = logits.reshape(nb_l * ns_l, t, e_total)
     buf, route, aux = _dispatch(xs, logits, cfg.top_k, e_total, cap)
-    # all_to_all: [nb, src, dst, E_loc, C, d] -> [nb, dst, src, ...]
-    send = buf.reshape(nb, ns_l, n, e_loc, cap, d)
+    # all_to_all: [nb_l, src, dst, E_loc, C, d] -> [nb_l, dst, src, ...]
+    send = buf.reshape(nb_l, ns_l, n, e_loc, cap, d)
     if split:
         # to rank q: the slots of its destinations [q*n_l, (q+1)*n_l)
         got = cl.all_to_all(
-            send.reshape(nb, ns_l, w, n_l, e_loc, cap, d)
-            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d), mesh)
-        recv = got.view(w, nb, ns_l, n_l, e_loc, cap, d).permute(
-            1, 3, 0, 2, 4, 5, 6).reshape(nb, n_l, ns, e_loc, cap, d)
-    elif ranked:                        # every rank routed the same slots
-        recv = cl.block(send, mesh, 2).transpose(1, 2)
+            send.reshape(nb_l, ns_l, w, n_l, e_loc, cap, d)
+            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d), mesh,
+            axis=ep_axis)
+        recv = got.view(w, nb_l, ns_l, n_l, e_loc, cap, d).permute(
+            1, 3, 0, 2, 4, 5, 6).reshape(nb_l, n_l, ns, e_loc, cap, d)
+    elif model_ranked:                  # every rank routed the same slots
+        recv = cl.block(send, mesh, 2, ep_axis).transpose(1, 2)
     else:
         recv = send.transpose(1, 2)
     # each destination's experts take their slots source-major; every
-    # expert's slots over every data row in one batched product
+    # expert's slots over every data row held here in one batched product
     xin = recv.permute(1, 3, 0, 2, 4, 5).reshape(n_l * e_loc,
-                                                 nb * ns * cap, d)
+                                                 nb_l * ns * cap, d)
     y = _expert_ffn(xin, p.get("we_g"), p.get("we_u"), p["we_d"],
                     cfg.ffn_type)
-    back = y.reshape(n_l, e_loc, nb, ns, cap, d).permute(2, 0, 3, 1, 4, 5)
-    # all_to_all back: [nb, dst, src, ...] -> [nb, src, dst, ...]
+    back = y.reshape(n_l, e_loc, nb_l, ns, cap, d).permute(2, 0, 3, 1, 4, 5)
+    # all_to_all back: [nb_l, dst, src, ...] -> [nb_l, src, dst, ...]
     if split:
         # to rank q: the results for its sources [q*ns_l, (q+1)*ns_l)
         got = cl.all_to_all(
-            back.reshape(nb, n_l, w, ns_l, e_loc, cap, d)
-            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d), mesh)
-        y_buf = got.view(w, nb, n_l, ns_l, e_loc, cap, d).permute(
+            back.reshape(nb_l, n_l, w, ns_l, e_loc, cap, d)
+            .permute(2, 0, 1, 3, 4, 5, 6).reshape(-1, e_loc, cap, d), mesh,
+            axis=ep_axis)
+        y_buf = got.view(w, nb_l, n_l, ns_l, e_loc, cap, d).permute(
             1, 3, 0, 2, 4, 5, 6)
-    elif ranked:                        # every rank needs every expert
-        y_buf = cl.all_gather(back, mesh, 1).transpose(1, 2)
+    elif model_ranked:                  # every rank needs every expert
+        y_buf = cl.all_gather(back, mesh, 1, ep_axis).transpose(1, 2)
     else:
         y_buf = back.transpose(1, 2)
-    y_buf = y_buf.reshape(nb * ns_l, e_total, cap, d)
-    out = _combine(y_buf, route, t).reshape(nb, ns_l, b_l, s_l, d)
+    y_buf = y_buf.reshape(nb_l * ns_l, e_total, cap, d)
+    out = _combine(y_buf, route, t).reshape(nb_l, ns_l, b_l, s_l, d)
     if split:                           # the token blocks, on every rank
-        out = cl.all_gather(out, mesh, 1)
+        out = cl.all_gather(out, mesh, 1, ep_axis)
     out = out.transpose(1, 2).reshape(b, s, d)
-    # pmean over every mesh axis: each distinct shard is replicated
-    # equally often
-    if split:
-        aux = cl.all_reduce(aux.sum().reshape(1), mesh)[0] / (nb * ns)
+    # pmean over every mesh axis: each distinct shard counted once; the
+    # ranks that hold distinct shards sum theirs (over the data axes
+    # each data rank's loss holds a share of aux, so its gradient is
+    # summed over them), the ranks that hold the same ones compute the
+    # same mean
+    over = (dp if dsplit else ()) + ((ep_axis,) if split else ())
+    if over:
+        aux = cl.all_reduce(aux.sum().reshape(1), mesh, over,
+                            grad_axis=dp if dsplit else None)[0] / (nb * ns)
     else:
         aux = aux.mean()
     return out, aux, route
@@ -285,14 +329,16 @@ def moe_ffn(x, p, cfg, parallel=None):
     return y, aux
 
 
-def init_moe(gen, cfg, dtype, stack=(), experts=None):
+def init_moe(gen, cfg, dtype, stack=(), experts=None,
+             cut=layers.keep_whole):
     """Router (fp32, std 0.02), routed experts (He-scaled) and shared
     experts, on the generator's device.  Stacked expert leaves are drawn
     one leading index at a time, so no fp32 copy of a whole stack
     exists (deepseek-moe-16b's [28, 64, 2048, 1408] would need 20.7 GB).
     ``experts`` (a ``(first, stop)`` pair) keeps only those routed
     experts, each layer drawn whole and cut: the same numbers as the
-    whole set's, without ever holding it."""
+    whole set's, without ever holding it.  ``cut(key, leaf)`` is
+    applied to each leaf as soon as it is drawn."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     s = tuple(stack)
     lo, hi = (0, e) if experts is None else experts
@@ -304,13 +350,15 @@ def init_moe(gen, cfg, dtype, stack=(), experts=None):
             leaf.copy_(layers.normal(gen, shape, fan ** -0.5, dtype)[lo:hi])
         return out
 
-    p = {"router": layers.normal(gen, s + (d, e), 0.02, torch.float32)}
+    p = {"router": cut("router", layers.normal(gen, s + (d, e), 0.02,
+                                                torch.float32))}
     if cfg.ffn_type in ("swiglu", "geglu"):
-        p["we_g"] = he((e, d, ff), d)
-    p["we_u"] = he((e, d, ff), d)
-    p["we_d"] = he((e, ff, d), ff)
+        p["we_g"] = cut("we_g", he((e, d, ff), d))
+    p["we_u"] = cut("we_u", he((e, d, ff), d))
+    p["we_d"] = cut("we_d", he((e, ff, d), ff))
     if cfg.n_shared_experts:
         sh = layers.init_ffn(gen, d, ff * cfg.n_shared_experts,
-                             cfg.ffn_type, cfg.use_bias, dtype, stack=stack)
+                             cfg.ffn_type, cfg.use_bias, dtype, stack=stack,
+                             cut=lambda k, v: cut(f"s_{k}", v))
         p.update({f"s_{k}": v for k, v in sh.items()})
     return p

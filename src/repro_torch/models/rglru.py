@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import gelu, normal, zeros
+from .layers import gelu, keep_whole, normal, zeros
 
 C_SCALE = 8.0
 
@@ -102,20 +102,23 @@ def recurrent_block(x, p, cfg, cache=None):
     return out, (h_last, tail)
 
 
-def init_recurrent(gen, cfg, dtype, stack=()):
+def init_recurrent(gen, cfg, dtype, stack=(), cut=keep_whole):
+    """``cut(key, leaf)`` is applied to each leaf as soon as it is
+    drawn."""
     d = cfg.d_model
     w = cfg.lru_width or d
     s = tuple(stack)
-    return {
-        "w_x": normal(gen, s + (d, w), d ** -0.5, dtype),
-        "w_gate": normal(gen, s + (d, w), d ** -0.5, dtype),
-        "w_conv": normal(gen, s + (cfg.conv_width, w), 0.1, dtype),
-        "w_r": normal(gen, s + (w, w), w ** -0.5, dtype),
-        "w_i": normal(gen, s + (w, w), w ** -0.5, dtype),
-        "b_r": zeros(gen, s + (w,), dtype),
-        "b_i": zeros(gen, s + (w,), dtype),
-        # Lambda init so that a ~ U(0.9, 0.999)^(1/c) territory (paper App.)
-        "lam": torch.full(s + (w,), 0.7, dtype=torch.float32,
-                          device=gen.device),
-        "w_out": normal(gen, s + (w, d), w ** -0.5, dtype),
-    }
+    p = {}
+    p["w_x"] = cut("w_x", normal(gen, s + (d, w), d ** -0.5, dtype))
+    p["w_gate"] = cut("w_gate", normal(gen, s + (d, w), d ** -0.5, dtype))
+    p["w_conv"] = cut("w_conv", normal(gen, s + (cfg.conv_width, w), 0.1,
+                                       dtype))
+    p["w_r"] = cut("w_r", normal(gen, s + (w, w), w ** -0.5, dtype))
+    p["w_i"] = cut("w_i", normal(gen, s + (w, w), w ** -0.5, dtype))
+    p["b_r"] = cut("b_r", zeros(gen, s + (w,), dtype))
+    p["b_i"] = cut("b_i", zeros(gen, s + (w,), dtype))
+    # Lambda init so that a ~ U(0.9, 0.999)^(1/c) territory (paper App.)
+    p["lam"] = cut("lam", torch.full(s + (w,), 0.7, dtype=torch.float32,
+                                     device=gen.device))
+    p["w_out"] = cut("w_out", normal(gen, s + (w, d), w ** -0.5, dtype))
+    return p

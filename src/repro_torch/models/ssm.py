@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_intra import ssd_intra
-from .layers import normal, rms_norm, zeros
+from .layers import keep_whole, normal, rms_norm, zeros
 
 
 def _depthwise_causal_conv(x, w):
@@ -143,18 +143,22 @@ def mamba2_block(x, p, cfg, cache=None):
     return out, (state, conv_tail)
 
 
-def init_mamba2(gen, cfg, dtype, stack=()):
+def init_mamba2(gen, cfg, dtype, stack=(), cut=keep_whole):
+    """``cut(key, leaf)`` is applied to each leaf as soon as it is
+    drawn."""
     d, d_in, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     s = tuple(stack)
     proj_out = 2 * d_in + 2 * n + h
-    return {
-        "w_in": normal(gen, s + (d, proj_out), 1.0 / math.sqrt(d), dtype),
-        "w_conv": normal(gen, s + (cfg.conv_width, d_in + 2 * n), 0.1,
-                         dtype),
-        "a_log": zeros(gen, s + (h,), torch.float32),
-        "dt_bias": zeros(gen, s + (h,), torch.float32),
-        "d_skip": torch.ones(s + (h,), dtype=torch.float32,
-                             device=gen.device),
-        "norm": zeros(gen, s + (d_in,), dtype),
-        "w_out": normal(gen, s + (d_in, d), 1.0 / math.sqrt(d_in), dtype),
-    }
+    p = {}
+    p["w_in"] = cut("w_in", normal(gen, s + (d, proj_out),
+                                   1.0 / math.sqrt(d), dtype))
+    p["w_conv"] = cut("w_conv", normal(
+        gen, s + (cfg.conv_width, d_in + 2 * n), 0.1, dtype))
+    p["a_log"] = cut("a_log", zeros(gen, s + (h,), torch.float32))
+    p["dt_bias"] = cut("dt_bias", zeros(gen, s + (h,), torch.float32))
+    p["d_skip"] = cut("d_skip", torch.ones(s + (h,), dtype=torch.float32,
+                                           device=gen.device))
+    p["norm"] = cut("norm", zeros(gen, s + (d_in,), dtype))
+    p["w_out"] = cut("w_out", normal(gen, s + (d_in, d),
+                                     1.0 / math.sqrt(d_in), dtype))
+    return p

@@ -9,8 +9,8 @@ State tiers (per-tensor, uniform across the tree), as in JAX:
 
 The arithmetic is JAX's, in fp32: the global norm over every gradient
 leaf, summed in JAX's leaf order (sorted dict keys; over ranks the
-expert blocks' partial sums all-reduced first), clipping, the bias
-corrections, and weight decay on every leaf.  :func:`adamw_update`
+blocks' partial sums all-reduced first, each distinct block counted
+once), clipping, the bias corrections, and weight decay on every leaf.  :func:`adamw_update`
 updates the parameters and the state in place (JAX's is functional), a
 leaf at a time and a large leaf in slices of its leading axis of at most
 ``SLICE`` elements (int8 blocks run along the last axis, so a slice holds
@@ -121,15 +121,22 @@ def adamw_init(params, cfg: AdamWConfig):
 def global_norm(tree, mesh=None, ranked=None):
     """sqrt of the sum of squares of every leaf, in fp32, the leaves'
     sums stacked in JAX's leaf order.  Over a ranked ``mesh``,
-    ``ranked`` (a bool a leaf, in that order) marks the leaves that a
-    rank holds as its block: their sums are partial, and one
-    ``all_reduce`` of their vector makes them whole before the same
-    stack and sum, so every rank gets the same norm; a leaf every rank
-    holds whole counts once."""
+    ``ranked`` (a leaf's ``{axis: dim}``, in that order) names the axes
+    along which a rank holds each leaf as its block: such a leaf's sum
+    is partial, and one ``all_reduce`` over the group of their vector
+    makes them whole before the same stack and sum, so every rank gets
+    the same norm.  Each distinct block counts once: a rank adds its sum
+    only where its coordinate is 0 along every ranked axis that does not
+    split the leaf (the ranks there hold copies), and a leaf every rank
+    holds whole counts once, unreduced."""
     sums = [x.float().square().sum() for x in pt.leaves(tree)]
     idx = [i for i, r in enumerate(ranked or ()) if r]
     if idx and mesh is not None and mesh.ranked:
-        whole = mesh.all_reduce(torch.stack([sums[i] for i in idx]))
+        axes = tuple(mesh.ranks)
+        part = [sums[i] if all(mesh.coord(a) == 0 for a in axes
+                               if a not in ranked[i])
+                else torch.zeros_like(sums[i]) for i in idx]
+        whole = mesh.all_reduce(torch.stack(part), axes)
         for j, i in enumerate(idx):
             sums[i] = whole[j]
     return torch.sqrt(torch.stack(sums).sum())
@@ -162,13 +169,18 @@ def _at(state, sl):
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig, *, mesh=None,
-                 ranked=None):
+                 ranked=None, whole_state=None):
     """One AdamW step: ``params`` and ``state`` (from :func:`adamw_init`)
     are updated in place; ``grads`` is a tree of the params' structure.
     Over a ranked ``mesh`` the clip's norm is :func:`global_norm`'s over
-    the whole gradient (``ranked``: the leaves held as rank blocks); the
-    update itself stays local.  Returns (params, state, {"grad_norm",
-    "lr"})."""
+    the whole gradient (``ranked``: each leaf's ``{axis: dim}`` of rank
+    blocks); the update itself stays local.  ``whole_state`` (per leaf
+    None or ``(dim, axis, m_whole, v_whole)``) names the leaves whose
+    parameter is this rank's block along ``dim`` (the last) but whose m
+    or v it holds whole along ``axis``: the gradient is all-gathered
+    over that axis, the whole state updated from it (the same on every
+    such rank) and the parameter's block from the state's block.
+    Returns (params, state, {"grad_norm", "lr"})."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     gnorm = global_norm(grads, mesh, ranked)
@@ -181,19 +193,35 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, mesh=None,
     flat_p, spec = pt.flatten(params)
     flat_g = pt.flatten_up_to(spec, grads)
     mus = pt.flatten_up_to(spec, state["mu"])
-    for p_leaf, g_leaf, mu in zip(flat_p, flat_g, mus):
+    for p_leaf, g_leaf, mu, ws in zip(flat_p, flat_g, mus,
+                                      whole_state or [None] * len(flat_p)):
+        m_whole = v_whole = False
+        if ws is not None:
+            dim, axis, m_whole, v_whole = ws
+            if dim != p_leaf.dim() - 1:
+                raise ValueError(f"a state whole along {axis!r} for a "
+                                 f"parameter split on dim {dim} of "
+                                 f"{p_leaf.dim()}")
+            n = p_leaf.shape[-1]
+            first = mesh.coord(axis) * n
+            g_all = mesh.all_gather(g_leaf.contiguous(), dim, axis=axis)
         for sl in _slices(p_leaf):
             p, m_st, v_st = p_leaf[sl], _at(mu["m"], sl), _at(mu["v"], sl)
             g = g_leaf[sl].float() * scale
+            g_w = g_all[sl].float() * scale if ws is not None else g
+            shape_m = g_w.shape if m_whole else p.shape
+            shape_v = g_w.shape if v_whole else p.shape
             if cfg.m_dtype == "int8":
-                m = dequantize_v(m_st, p.shape, signed=True)
+                m = dequantize_v(m_st, shape_m, signed=True)
             else:
                 m = m_st.float()
-            v = dequantize_v(v_st, p.shape) if cfg.v_mode == "int8" \
+            v = dequantize_v(v_st, shape_v) if cfg.v_mode == "int8" \
                 else v_st
-            m = cfg.b1 * m + (1 - cfg.b1) * g
-            v = cfg.b2 * v + (1 - cfg.b2) * g.square()
-            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+            m = cfg.b1 * m + (1 - cfg.b1) * (g_w if m_whole else g)
+            v = cfg.b2 * v + (1 - cfg.b2) * (g_w if v_whole else g).square()
+            mb = m.narrow(-1, first, n) if m_whole else m
+            vb = v.narrow(-1, first, n) if v_whole else v
+            delta = (mb / b1c) / (torch.sqrt(vb / b2c) + cfg.eps) \
                 + cfg.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)
             _copy_into(m_st, quantize_v(m, signed=True)

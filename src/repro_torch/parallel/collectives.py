@@ -3,11 +3,21 @@ loss over a ranked mesh differentiates through them.
 
 Each forward is the :class:`~repro_torch.core.rounds.Mesh` collective
 itself (:meth:`Mesh.all_to_all`, :meth:`Mesh.all_gather`,
-:meth:`Mesh.all_reduce`) or a plain slice, so the values are the ones
-the mesh computes without autograd.  The backward keeps one convention:
-a tensor that every rank holds whole (replicated) carries the same
-gradient on every rank, and the loss is one replicated value, not a sum
-of ``world`` copies.  So:
+:meth:`Mesh.all_reduce`) or a plain slice, over one ranked axis
+(``axis``: the mesh's ``ranked_axis`` unless named), so the values are
+the ones the mesh computes without autograd.  The backward keeps one
+convention an axis:
+
+* along ``model`` (and any axis but the data axes) a tensor that every
+  rank holds whole (replicated) carries the same gradient on every
+  rank, and the loss is one replicated value, not a sum of copies;
+* along ``data`` each rank's loss is its share of the global loss, and
+  the shares sum to it; so a rank's gradient of a tensor replicated
+  along ``data`` is its share of the whole one (the train step sums
+  those shares once, after the backward), and the gradient of a data
+  rank's block of a leaf is the sum of every data rank's.
+
+So:
 
 =====================  ==========================  ==========================
 move                   forward                     backward
@@ -19,9 +29,21 @@ move                   forward                     backward
                                                    gradient (a slice, no sum)
 :func:`block`          replicated -> this rank's   an all-gather of every
                        block along ``dim``         rank's block gradient
-:func:`all_reduce`     partial sums -> their       identity
-                       replicated sum
+:func:`all_reduce`     partial sums -> their       identity, or the sum of
+                       replicated sum              the gradient's shares
+                                                   over ``grad_axis``
+:func:`gather_block`   a data rank's block of a    the gradient reduce-
+                       leaf -> the whole leaf      scattered (summed in
+                                                   fp32) over the same ranks
 =====================  ==========================  ==========================
+
+:func:`gather_blocks` is :func:`gather_block` of several leaves at once:
+their blocks packed into one buffer a dtype, one all-gather forward and
+one reduce-scatter backward (a collective through gloo costs several ms
+before its first byte on ranks that share a card, so a layer's blocks
+travel together), a buffer at most :data:`PACK` whole elements (its fp32
+gradient and the received copy are the backward's transients), a larger
+leaf alone.
 
 ``torch.distributed.nn.functional`` would not do: its ``all_gather``
 backward reduce-scatters and its ``all_reduce`` backward all-reduces,
@@ -29,92 +51,189 @@ which scales a replicated gradient by ``world``.  The backward's
 collectives go through the same mesh methods, so ``mesh.COLLECTIVES``
 counts them; every rank runs the same graph and so issues them in the
 same order (under remat the checkpointed forward's collectives run
-again inside the backward, on every rank alike).  Without a group
-(world 1, no ranks) every move is the identity or a whole slice.
+again inside the backward, on every rank alike).  Where no rank splits
+the axis (world 1, no ranks) every move is the identity or a whole
+slice.
 """
 
 from __future__ import annotations
 
 import torch
 
+PACK = 1 << 26             # whole elements a packed gather carries at most
+
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, out_splits, in_splits):
-        ctx.mesh, ctx.splits = mesh, (out_splits, in_splits)
-        return mesh.all_to_all(x, out_splits, in_splits)
+    def forward(ctx, x, mesh, out_splits, in_splits, axis):
+        ctx.mesh, ctx.splits, ctx.axis = mesh, (out_splits, in_splits), axis
+        return mesh.all_to_all(x, out_splits, in_splits, axis=axis)
 
     @staticmethod
     def backward(ctx, g):
         out_splits, in_splits = ctx.splits
-        return ctx.mesh.all_to_all(g, in_splits, out_splits), None, None, None
+        return (ctx.mesh.all_to_all(g, in_splits, out_splits, axis=ctx.axis),
+                None, None, None, None)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim):
-        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
-        return mesh.all_gather(x, dim)
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.n, ctx.axis = mesh, dim, x.shape[dim], axis
+        return mesh.all_gather(x, dim, axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        first = ctx.mesh.rank * ctx.n
-        return g.narrow(ctx.dim, first, ctx.n).contiguous(), None, None
+        first = ctx.mesh.coord(ctx.axis) * ctx.n
+        return (g.narrow(ctx.dim, first, ctx.n).contiguous(), None, None,
+                None)
 
 
 class _Block(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
-        n = x.shape[dim] // mesh.world
-        return x.narrow(dim, mesh.rank * n, n)
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        n = x.shape[dim] // mesh.n_ranks(axis)
+        return x.narrow(dim, mesh.coord(axis) * n, n)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_gather(g.contiguous(), ctx.dim), None, None
+        return (ctx.mesh.all_gather(g.contiguous(), ctx.dim, axis=ctx.axis),
+                None, None, None)
 
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.all_reduce(x.clone())
+    def forward(ctx, x, mesh, axis, grad_axis):
+        ctx.mesh, ctx.grad_axis = mesh, grad_axis
+        return mesh.all_reduce(x.clone(), axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        if ctx.grad_axis is not None:
+            g = ctx.mesh.all_reduce(g.clone(), axis=ctx.grad_axis)
+        return g, None, None, None
 
 
-def all_to_all(x, mesh, out_splits=None, in_splits=None):
-    """:meth:`Mesh.all_to_all` along dim 0, differentiable."""
+class _GatherBlocks(torch.autograd.Function):
+    """Blocks of one dtype, packed: rank q's flattened blocks are row q
+    of the gathered [n, total] buffer; each whole leaf is its n row
+    pieces concatenated along its dim.  The backward packs each whole
+    gradient's n blocks (block q in row q) into [n, total] and
+    reduce-scatters it."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, axis, *xs):
+        ctx.mesh, ctx.dims, ctx.axis = mesh, dims, axis
+        ctx.shapes = [x.shape for x in xs]
+        n = mesh.n_ranks(axis)
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        got = mesh.all_gather(flat, 0, axis=axis).view(n, -1)
+        out, at = [], 0
+        for x, d in zip(xs, dims):
+            k = x.numel()
+            out.append(torch.cat(got[:, at:at + k].reshape(
+                (n,) + tuple(x.shape)).unbind(0), d))
+            at += k
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, n = ctx.mesh, ctx.mesh.n_ranks(ctx.axis)
+        total = sum(shape.numel() for shape in ctx.shapes)
+        # block q of every gradient, in fp32, in row q: one buffer
+        send = torch.empty((n, total), dtype=torch.float32,
+                           device=mesh.device)
+        at = 0
+        for g, shape, d in zip(gs, ctx.shapes, ctx.dims):
+            k = shape.numel()
+            if g is None:
+                send[:, at:at + k].zero_()
+            else:
+                for q, piece in enumerate(g.chunk(n, d)):
+                    send[q, at:at + k].view(shape).copy_(piece)
+            at += k
+        got = mesh.reduce_scatter(send.view(-1), 0, axis=ctx.axis)
+        del send
+        out, at = [], 0
+        for g, shape in zip(gs, ctx.shapes):
+            k = shape.numel()
+            dt = g.dtype if g is not None else torch.float32
+            out.append(got[at:at + k].view(shape).to(dt))
+            at += k
+        return (None, None, None, *out)
+
+
+def all_to_all(x, mesh, out_splits=None, in_splits=None, axis=None):
+    """:meth:`Mesh.all_to_all` along dim 0 over ``axis``'s ranks,
+    differentiable."""
     if not mesh.ranked:
         return x
-    return _AllToAll.apply(x, mesh, out_splits, in_splits)
+    return _AllToAll.apply(x, mesh, out_splits, in_splits, axis)
 
 
-def all_gather(x, mesh, dim: int = 0):
-    """Every rank's equal block ``x`` concatenated along ``dim`` in rank
-    order (block -> replicated); the backward keeps this rank's block of
-    the replicated gradient."""
+def all_gather(x, mesh, dim: int = 0, axis=None):
+    """Every ``axis`` rank's equal block ``x`` concatenated along ``dim``
+    in rank order (block -> replicated); the backward keeps this rank's
+    block of the replicated gradient."""
     if not mesh.ranked:
         return x
-    return _AllGather.apply(x, mesh, dim)
+    return _AllGather.apply(x, mesh, dim, axis)
 
 
-def block(x, mesh, dim: int = 0):
+def block(x, mesh, dim: int = 0, axis=None):
     """This rank's block of the replicated ``x`` along ``dim`` (the
-    ``world`` blocks of equal size, in rank order); the backward
+    ``axis`` ranks' blocks of equal size, in rank order); the backward
     all-gathers the blocks' gradients into the replicated one."""
     if not mesh.ranked:
         return x
-    if x.shape[dim] % mesh.world:
-        raise ValueError(f"{mesh.world} ranks do not split dim {dim} of "
-                         f"size {x.shape[dim]}")
-    return _Block.apply(x, mesh, dim)
+    if x.shape[dim] % mesh.n_ranks(axis):
+        raise ValueError(f"{mesh.n_ranks(axis)} ranks do not split dim "
+                         f"{dim} of size {x.shape[dim]}")
+    return _Block.apply(x, mesh, dim, axis)
 
 
-def all_reduce(x, mesh):
-    """The sum of every rank's ``x`` (a new tensor; ``x`` is left as it
-    is), its gradient passed through unchanged."""
+def all_reduce(x, mesh, axis=None, grad_axis=None):
+    """The sum of every ``axis`` rank's ``x`` (a new tensor; ``x`` is
+    left as it is).  Its gradient passes through unchanged, or, with
+    ``grad_axis`` (the data axes, where each rank's loss is a share), is
+    summed over those ranks first."""
     if not mesh.ranked:
         return x
-    return _AllReduce.apply(x, mesh)
+    return _AllReduce.apply(x, mesh, axis, grad_axis)
+
+
+def gather_block(x, mesh, dim: int, axis="data"):
+    """The whole leaf from every ``axis`` rank's block ``x`` along ``dim``
+    (an all-gather over the axis's sub-group); the backward reduce-
+    scatters the whole leaf's gradient over the same ranks, a sum in
+    fp32, so a rank gets its block of the summed gradient.  ``x`` as it
+    is where no rank splits ``axis``."""
+    return gather_blocks([x], mesh, [dim], axis)[0]
+
+
+def gather_blocks(xs, mesh, dims, axis="data") -> list:
+    """:func:`gather_block` of each of ``xs`` along its ``dims`` entry,
+    the blocks of a dtype in one collective each way."""
+    if not mesh.ranked or mesh.n_ranks(axis) == 1 or not xs:
+        return list(xs)
+    n = mesh.n_ranks(axis)
+    packs = []                  # index lists: a dtype, at most PACK whole
+    for dt in dict.fromkeys(x.dtype for x in xs):
+        pack, size = [], 0
+        for i, x in enumerate(xs):
+            if x.dtype != dt:
+                continue
+            if pack and size + n * x.numel() > PACK:
+                packs.append(pack)
+                pack, size = [], 0
+            pack.append(i)
+            size += n * x.numel()
+        packs.append(pack)
+    out = [None] * len(xs)
+    for idx in packs:
+        got = _GatherBlocks.apply(mesh, [dims[i] for i in idx], axis,
+                                  *(xs[i] for i in idx))
+        for i, y in zip(idx, got):
+            out[i] = y
+    return out

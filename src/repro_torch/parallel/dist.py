@@ -15,7 +15,8 @@ rank's device; hand the group to a :class:`~repro_torch.core.rounds.Mesh`
 (``Mesh(shape, device, group=group)``) and the mesh's ranked axis is
 split over the ranks.  :func:`spawn` starts ranks on this host without
 ``torchrun`` and joins them within a time limit: a rank that fails or
-outlasts it ends them all and raises.
+outlasts it ends them all and raises.  :func:`subgroups` makes the
+sub-groups of a layout of several ranked axes (``Mesh(..., ranks=)``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -108,9 +110,47 @@ def init(*, init_method: str, device=None, environ=None):
     return dist.group.WORLD, dev
 
 
+_SUBGROUPS: dict = {}
+
+
+def subgroups(group, ranks: dict) -> dict:
+    """``{axis: process group}`` for the layout ``ranks`` (an ordered
+    ``{axis: n}``, row-major, product the world of ``group``): along each
+    axis the ranks that share every other coordinate, this rank's group
+    of them.  Every rank of the world creates every sub-group with
+    ``new_group``, in the same order (axis by axis, then by the other
+    coordinates in row-major order), including the groups it is not in,
+    as ``new_group`` asks; so ``group`` must span the world.  A layout is
+    made once a process group (cached until :func:`finish`)."""
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    if world != dist.get_world_size():
+        raise ValueError(f"a layout of several ranked axes needs a group "
+                         f"that spans the world ({dist.get_world_size()} "
+                         f"ranks), not one of {world}")
+    members = dist.get_process_group_ranks(group)
+    key = (tuple(members), tuple(ranks.items()))
+    if key in _SUBGROUPS:
+        return _SUBGROUPS[key]
+    axes, sizes = tuple(ranks), tuple(ranks.values())
+    me = dist.get_rank(group)
+    coords = list(np.ndindex(*sizes))           # row-major: rank order
+    out = {}
+    for i, a in enumerate(axes):
+        for fixed in np.ndindex(*(sizes[:i] + sizes[i + 1:])):
+            mine = [r for r, c in enumerate(coords)
+                    if c[:i] + c[i + 1:] == fixed]
+            pg = dist.new_group([members[r] for r in mine])
+            if me in mine:
+                out[a] = pg
+    _SUBGROUPS[key] = out
+    return out
+
+
 def finish() -> None:
     """Leave the process group (a no-op when none was joined)."""
     import torch.distributed as dist
+    _SUBGROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 

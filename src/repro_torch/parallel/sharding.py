@@ -35,6 +35,7 @@ dicts and lists whose leaves have a ``shape`` (tensors,
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any
 
@@ -59,15 +60,43 @@ class P(tuple):
         return "P" + tuple.__repr__(tuple(self)).replace(",)", ")")
 
 
+class RankDims(Mapping):
+    """A leaf's ``{axis: dim}``: the dim a rank holds as its block along
+    each ranked axis that splits the leaf (empty for a leaf every rank
+    holds whole).  A mapping, not a dict, so the tree walks take it for
+    a leaf."""
+
+    __slots__ = ("_d",)
+
+    def __init__(self, dims=()):
+        self._d = dict(dims)
+
+    def __getitem__(self, axis):
+        return self._d[axis]
+
+    def __iter__(self):
+        return iter(self._d)
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __hash__(self) -> int:
+        return hash(tuple(self._d.items()))
+
+    def __repr__(self) -> str:
+        return f"RankDims({self._d!r})"
+
+
 @dataclass(frozen=True)
 class NamedSharding:
-    """A spec over a mesh (JAX's ``NamedSharding``).  ``rank_dim`` names
-    the dim that a rank of a ranked mesh holds as its block (the leaf's
-    ``world`` blocks in rank order), None for a leaf every rank holds
-    whole; :func:`to_named` sets it from :func:`rank_dims`."""
+    """A spec over a mesh (JAX's ``NamedSharding``).  ``rank_dims`` (a
+    :class:`RankDims`) names the dim that a rank of a ranked mesh holds
+    as its block along each ranked axis (the leaf's blocks in the axis's
+    rank order), empty or None for a leaf every rank holds whole;
+    :func:`to_named` sets it from :func:`rank_dims`."""
     mesh: Any
     spec: P
-    rank_dim: int | None = None
+    rank_dims: RankDims | None = None
 
     @property
     def device(self):
@@ -75,22 +104,20 @@ class NamedSharding:
 
     def global_shape(self, shape) -> tuple:
         """The whole leaf's shape from this rank's: the block times the
-        world along ``rank_dim``."""
-        shape = tuple(shape)
-        if self.rank_dim is None:
-            return shape
-        d = self.rank_dim
-        return shape[:d] + (shape[d] * self.mesh.world,) + shape[d + 1:]
+        axis's ranks along each of ``rank_dims``."""
+        shape = list(shape)
+        for axis, d in (self.rank_dims or {}).items():
+            shape[d] *= self.mesh.n_ranks(axis)
+        return tuple(shape)
 
     def block(self, x):
         """This rank's block of the whole leaf ``x`` (a tensor or numpy
         array; ``x`` itself for a leaf every rank holds whole)."""
-        if self.rank_dim is None:
-            return x
-        d, w = self.rank_dim, self.mesh.world
-        n = x.shape[d] // w
-        r = self.mesh.rank
-        return x[(slice(None),) * d + (slice(r * n, (r + 1) * n),)]
+        for axis, d in (self.rank_dims or {}).items():
+            n = x.shape[d] // self.mesh.n_ranks(axis)
+            c = self.mesh.coord(axis)
+            x = x[(slice(None),) * d + (slice(c * n, (c + 1) * n),)]
+        return x
 
     def check(self, shape) -> None:
         """``ValueError`` unless the spec fits this rank's leaf of
@@ -163,24 +190,22 @@ def _map(fn, tree, *rest, key=None):
 
 # the leaves an expert-parallel rank holds as its block of the model axis
 RANKED_KEYS = EXPERT_LEAVES
+EP_AXIS = "model"
 
 
 def param_specs(mesh, params, policy: ShardingPolicy | None = None):
-    """A tree of specs matching ``params`` (leaves need only a shape).
-    On a ranked mesh a routed-expert leaf is a rank's block of the
-    experts (``convert.rank_experts``), and its spec is the whole
-    leaf's: ``E / W`` rows times the world."""
+    """A tree of specs matching ``params``, the whole leaves (they need
+    only a shape: on a ranked mesh :func:`repro_torch.train.step.
+    state_shapes` gives them); :func:`rank_dims` says which dims a rank
+    holds as its block."""
     policy = policy or ShardingPolicy()
     dp, tp = _axes(mesh, policy)
     fs = "data" if (policy.fsdp_params and "data" in mesh.axis_names) \
         else None
-    world = mesh.world if getattr(mesh, "ranked", False) else 1
 
     def rule(key, leaf):
         shape = tuple(leaf.shape)
         nd = len(shape)
-        if key in RANKED_KEYS and world > 1:
-            shape = shape[:nd - 3] + (shape[nd - 3] * world,) + shape[nd - 2:]
 
         def spec(*dims):
             """dims for the TRAILING len(dims) axes; leading axes (layer
@@ -302,27 +327,67 @@ def make_ctx(mesh, cfg, policy: ShardingPolicy | None = None) -> ParallelCtx:
 
 def expert_block(cfg, ctx):
     """``(first, stop)``: the routed experts a rank of ``ctx``'s ranked
-    mesh holds under expert parallelism (``E / W`` of them, its model
-    shards' experts), or None where it holds them all (no ranks, or no
-    expert parallelism) — the ``experts`` argument of
-    ``lm.init_params`` and ``train.init_train_state``."""
+    mesh holds under expert parallelism (``E / n`` of them, its model
+    shards' experts, by its coordinate along the model axis's ``n``
+    ranks), or None where it holds them all (no ranks, or no expert
+    parallelism) — the ``experts`` argument of ``lm.init_params`` and
+    ``train.init_train_state``."""
     mesh = ctx.mesh
     if not getattr(mesh, "ranked", False) or ctx.ep <= 1:
         return None
-    per = cfg.n_experts // mesh.world
-    return mesh.rank * per, (mesh.rank + 1) * per
+    per = cfg.n_experts // mesh.n_ranks(EP_AXIS)
+    c = mesh.coord(EP_AXIS)
+    return c * per, (c + 1) * per
+
+
+def data_rows(mesh, batch_size: int, n_micro: int = 1,
+              policy: ShardingPolicy | None = None):
+    """This rank's rows of a global batch of ``batch_size`` (a numpy
+    index array, in order): where :func:`batch_specs` shards each of the
+    ``n_micro`` micro-batches over the data axes (their size divides its
+    rows), the rows of this rank's block of the data shards of every
+    micro-batch, so that splitting the rank's rows into ``n_micro``
+    gives its block of each; where it does not, every row (each data
+    rank takes the whole batch)."""
+    import numpy as np
+    rows = np.arange(batch_size)
+    dp, _ = _axes(mesh, policy)
+    dp_size = _axis_size(mesh, dp)
+    if (not getattr(mesh, "ranked", False) or batch_size % n_micro
+            or (batch_size // n_micro) % dp_size or mesh.n_ranks(dp) == 1):
+        return rows
+    # [micro, dp shard (the dp axes row-major), rows of a shard]
+    grid = rows.reshape((n_micro,) + tuple(mesh.shape[a] for a in dp)
+                        + (-1,))
+    for i, a in enumerate(dp):
+        first, stop = mesh.block(a)
+        grid = grid[(slice(None),) * (i + 1) + (slice(first, stop),)]
+    return grid.reshape(-1)
 
 
 def rank_dims(mesh, specs):
     """A tree matching ``specs`` (a train state's, or a parameter tree's)
-    of the dim each leaf holds as this rank's block on a ranked mesh:
-    the leaves under a routed-expert key (:data:`RANKED_KEYS`: the
-    parameter, its m and v in any tier, its error feedback) whose spec
-    names the mesh's ranked axis, at that entry; None for every other
-    leaf, which each rank holds whole, and for every leaf off a ranked
-    mesh."""
-    ranked = getattr(mesh, "ranked", False)
-    axis = getattr(mesh, "ranked_axis", None)
+    of each leaf's :class:`RankDims` on a ranked mesh: along the model
+    axis the leaves under a routed-expert key (:data:`RANKED_KEYS`: the
+    parameter, its m and v in any tier, its error feedback) at the entry
+    that names it; along any other ranked axis (the data axis) every
+    leaf whose spec names it, at that entry (a parameter's ``fs`` dim,
+    its m, v and error feedback alike; an int8 m or v where the axis
+    moved to its block count).  Empty for a leaf every rank holds whole,
+    and for every leaf off a ranked mesh."""
+    ranks = getattr(mesh, "ranks", {}) if getattr(mesh, "ranked", False) \
+        else {}
+
+    def dims(node, under):
+        out = {}
+        for axis in ranks:
+            if axis == EP_AXIS and not under:
+                continue
+            for i, ax in enumerate(node):
+                if ax == axis or (isinstance(ax, tuple) and axis in ax):
+                    out[axis] = i
+                    break
+        return RankDims(out)
 
     def walk(node, under):
         if isinstance(node, dict):
@@ -331,12 +396,7 @@ def rank_dims(mesh, specs):
         if _is_node(node):
             out = [walk(v, under) for v in node]
             return out if isinstance(node, list) else tuple(out)
-        if not (ranked and under):
-            return None
-        for i, ax in enumerate(node):
-            if ax == axis or (isinstance(ax, tuple) and axis in ax):
-                return i
-        return None
+        return dims(node, under)
     return walk(specs, False)
 
 

@@ -12,17 +12,26 @@ mesh's data-parallel size, as the reference does, and
 ``state_specs`` / ``opt_specs`` give the state's specs (the int8 m and v
 blocks' ``[*lead, nb, Q_BLOCK]`` rule included).
 
-Over ``torch.distributed`` ranks (a mesh with a ``group``: its model
-axis split over the ranks) each rank holds its block of the routed
-experts (``init_train_state(..., experts=)``, or
-``convert.rank_experts`` of a whole state) and everything else whole.
-Only the model axis is ranked, so every rank computes the whole batch's
-loss; the expert exchanges differentiate through
-:mod:`repro_torch.parallel.collectives`, so a replicated leaf's
-gradient comes out the same on every rank, bit for bit, with no
-reduction, and the clip's global norm all-reduces the expert blocks'
-partial sums (``state_specs`` name them, :func:`ranked_leaves`).  The
-data axis stays within each rank (ROADMAP.md queue 1 item 9d).
+Over ``torch.distributed`` ranks (a mesh with a ``group``) each rank
+holds its block of every leaf that ``state_specs`` shards along a
+ranked axis (``build_train_step``'s ``leaf_dims``; ``init_train_state(
+..., mesh=)`` draws it, ``convert.rank_state`` cuts a whole state down):
+along the model axis the routed experts (``experts=``, or
+``convert.rank_experts``), along the data axis every leaf's ``fs`` dim
+(FSDP, as the reference's ``state_specs`` place the state), and
+everything else whole.  Along the model axis every rank computes the
+same loss; the expert exchanges differentiate through
+:mod:`repro_torch.parallel.collectives`, so a leaf replicated along it
+gets the same gradient on every rank with no reduction.  Along the data
+axis a rank takes its rows of the batch (``parallel.sharding.data_rows``;
+micro-batches split them), gathers each layer's data blocks inside the
+layer (``lm.train_loss``), and its loss is its share of the global one:
+the gathers' backward reduce-scatters the blocks' gradients, one
+``all_reduce`` over the data ranks sums the gradients of the leaves a
+rank holds whole along data (norms, biases, the router, any dim that
+``_div`` leaves unsharded), and the reported loss is all-reduced over
+them.  The clip's global norm counts every distinct block once
+(``optim.adamw.global_norm``).
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves in
 JAX's leaf order; a leaf that the loss does not reach gets zeros, as
@@ -34,6 +43,7 @@ step returns the state dict with them.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 
@@ -82,20 +92,61 @@ def resolve_micro(tcfg: TrainConfig, mesh, global_batch: int,
 
 
 def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
-                     generator: torch.Generator, device=None, experts=None):
+                     generator: torch.Generator, device=None, experts=None,
+                     mesh=None, policy: shard.ShardingPolicy | None = None):
     """{"params", "opt"} (+ "err", fp32 zeros, with compression) on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for), the parameters
     drawn from ``generator``.  ``experts`` (``(first, stop)``) keeps
     only those routed experts, as :func:`lm.init_params` does (an
     expert-parallel rank's share, ``parallel.sharding.expert_block``); the
     optimizer state follows the parameters' shapes, so the state equals
-    ``convert.rank_experts`` of the whole draw."""
-    params = lm.init_params(cfg, generator, device, experts=experts)
-    state = {"params": params, "opt": adamw_init(params, tcfg.opt)}
+    ``convert.rank_experts`` of the whole draw.  On a ``mesh`` with ranks
+    along the data axis each leaf is cut to this rank's data block as
+    soon as it is drawn (``lm.init_params(cut=)``: no whole copy of more
+    than one stacked leaf at a time), and m and v follow the blocks, a
+    leaf at a time; the state equals ``convert.rank_state`` of the whole
+    draw under ``state_specs``."""
+    if mesh is None or shard.make_ctx(mesh, cfg, policy).data_ranks == 1:
+        params = lm.init_params(cfg, generator, device, experts=experts)
+        state = {"params": params, "opt": adamw_init(params, tcfg.opt)}
+    else:
+        state = _init_data_blocks(cfg, tcfg, generator, device, experts,
+                                  mesh, policy)
+        params = state["params"]
     if tcfg.compress_grads:
         state["err"] = pt.tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
     return state
+
+
+def _init_data_blocks(cfg, tcfg, generator, device, experts, mesh, policy):
+    from ..convert import rank_state
+    dp = shard.make_ctx(mesh, cfg, policy).dp_axis
+    data = tuple(a for a in (dp if isinstance(dp, tuple) else (dp,))
+                 if mesh.n_ranks(a) > 1)
+
+    def cut(key, leaf):
+        spec = shard.param_specs(mesh, {key: leaf}, policy)[key]
+        return rank_state(leaf, mesh, spec, axes=data)
+
+    params = lm.init_params(cfg, generator, device, experts=experts,
+                            cut=cut)
+    specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg, policy)
+    flat, tree = pt.flatten(params)
+    p_dims = pt.leaves(shard.rank_dims(mesh, specs["params"]))
+    mus = []
+    for p, dims, ospec in zip(flat, p_dims, pt.flatten_up_to(
+            tree, specs["opt"]["mu"])):
+        shape = list(p.shape)               # the leaf whole along data
+        for a in data:
+            if a in dims:
+                shape[dims[a]] *= mesh.n_ranks(a)
+        mu = adamw_init(torch.zeros(shape, device=p.device), tcfg.opt)["mu"]
+        mus.append(rank_state(mu, mesh, ospec, axes=data))
+        del mu
+    return {"params": params, "opt": {
+        "mu": pt.unflatten(tree, mus),
+        "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}}
 
 
 def state_shapes(cfg: LMConfig, tcfg: TrainConfig):
@@ -134,7 +185,9 @@ def opt_specs(param_specs_tree, params_shapes, tcfg: TrainConfig,
 
 def state_specs(mesh, state_shapes, tcfg: TrainConfig,
                 policy: shard.ShardingPolicy | None = None):
-    """Specs of a train state (its tensors or :func:`state_shapes`)."""
+    """Specs of a train state, from the whole state's shapes (its
+    tensors, or :func:`state_shapes`, as
+    ``parallel.sharding.param_specs`` reads them)."""
     pspecs = shard.param_specs(mesh, state_shapes["params"], policy)
     out = {"params": pspecs,
            "opt": opt_specs(pspecs, state_shapes["params"], tcfg,
@@ -142,17 +195,6 @@ def state_specs(mesh, state_shapes, tcfg: TrainConfig,
     if "err" in state_shapes:
         out["err"] = pspecs
     return out
-
-
-def ranked_leaves(mesh, params, tcfg: TrainConfig | None = None,
-                  policy: shard.ShardingPolicy | None = None) -> list:
-    """One bool a parameter leaf, in JAX's leaf order: whether a rank of
-    ``mesh`` holds it as its block (from :func:`state_specs`'
-    parameter specs, :func:`parallel.sharding.rank_dims`); all False off
-    a ranked mesh."""
-    specs = state_specs(mesh, {"params": params}, tcfg or TrainConfig(),
-                        policy)["params"]
-    return [d is not None for d in pt.leaves(shard.rank_dims(mesh, specs))]
 
 
 def grad_digest(grads, ranked) -> dict:
@@ -199,6 +241,61 @@ def micro_batch(batch, i: int, n_micro: int) -> dict:
                          + tuple(v.shape[1:]))[i] for k, v in batch.items()}
 
 
+def _data_dims(dims_tree):
+    """A tree of each leaf's data dim (None where a rank holds it whole
+    along data) from a tree of :class:`parallel.sharding.RankDims`."""
+    if isinstance(dims_tree, dict):
+        return {k: _data_dims(v) for k, v in dims_tree.items()}
+    if isinstance(dims_tree, (list, tuple)):
+        return [_data_dims(v) for v in dims_tree]
+    return dims_tree.get("data")
+
+
+def _sum_data_replicated(grads, dims, mesh, dp_axis):
+    """``grads`` with every leaf that a rank holds whole along the data
+    axes (``dims``: each leaf's RankDims, in JAX's leaf order) summed
+    over the data ranks: its shares of the global loss's gradient, in one
+    fp32 ``all_reduce``."""
+    flat, tree = pt.flatten(grads)
+    dp = dp_axis if isinstance(dp_axis, tuple) else (dp_axis,)
+    idx = [i for i, d in enumerate(dims) if not any(a in d for a in dp)]
+    if not idx:
+        return grads
+    buf = mesh.all_reduce(torch.cat([flat[i].float().reshape(-1)
+                                     for i in idx]), dp_axis)
+    out, at = list(flat), 0
+    for i in idx:
+        n = flat[i].numel()
+        out[i] = buf[at:at + n].view(flat[i].shape).to(flat[i].dtype)
+        at += n
+    return pt.unflatten(tree, out)
+
+
+def _whole_states(mesh, dims) -> list:
+    """Per parameter leaf, None, or ``(dim, m_whole, v_whole)`` where the
+    rank holds the parameter as its data block along ``dim`` but its m or
+    v whole along data (``opt_specs`` keeps an int8 state whole where a
+    rank's width is not whole ``Q_BLOCK``s): that state is updated whole
+    from the gathered gradient, and the parameter's block from its
+    block."""
+    def has(d, a):
+        if isinstance(d, dict):
+            return all(a in v for v in d.values())
+        return a in d
+
+    out = []
+    for p, st in zip(dims["params"], dims["opt"]):
+        data = [a for a in p if a != shard.EP_AXIS]
+        if not data:
+            out.append(None)
+            continue
+        (a,) = data
+        m_whole, v_whole = (not has(st[k], a) for k in ("m", "v"))
+        out.append((p[a], a, m_whole, v_whole) if m_whole or v_whole
+                   else None)
+    return out
+
+
 def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
                      policy: shard.ShardingPolicy | None = None,
                      global_batch: int | None = None):
@@ -212,39 +309,77 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
     run when given: the dry-run counts one and multiplies), and
     ``apply_grads(state, grads, loss, missing)``, compression and the
     AdamW update (over ranks with the clip's norm over every rank's
-    expert block)."""
+    blocks).  With ranks along the data axis ``batch`` is the global
+    batch: ``grads_of`` keeps this rank's rows, returns the global loss
+    and this rank's gradient blocks, the leaves it holds whole along
+    data summed over the data ranks."""
     tcfg = tcfg or TrainConfig()
     dev = mesh.device
     ctx = shard.make_ctx(mesh, cfg, policy)
-
-    def loss_fn(params, mb):
-        return lm.train_loss(params, mb, cfg, ctx, remat=tcfg.remat,
-                             aux_weight=tcfg.aux_weight,
-                             loss_chunk=tcfg.loss_chunk)
-
+    data_ranked = ctx.data_ranks > 1
     n_micro = resolve_micro(tcfg, mesh, global_batch, policy) \
         if global_batch else (tcfg.micro_batches or 1)
     acc_dt = torch.bfloat16 if tcfg.accum_dtype == "bfloat16" \
         else torch.float32
+    layout = {}                         # the leaves' rank blocks, lazily
+
+    def leaf_dims():
+        """{"params": each parameter leaf's RankDims, "tree": the
+        parameters' data dims (``ctx.fsdp``), "opt": each leaf's m and
+        v RankDims (a dict of them for int8 blocks)}, from the specs of
+        the whole state (:func:`state_shapes`)."""
+        if not layout:
+            specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg,
+                                policy)
+            dims = shard.rank_dims(mesh, specs["params"])
+            layout["params"], tree = pt.flatten(dims)
+            layout["tree"] = _data_dims(dims)
+            layout["opt"] = [{k: shard.rank_dims(mesh, mu[k])
+                              for k in ("m", "v")}
+                             for mu in pt.flatten_up_to(
+                                 tree, specs["opt"]["mu"])]
+        return layout
+
+    if data_ranked:
+        ctx = dataclasses.replace(ctx, fsdp=leaf_dims()["tree"])
+
+    def loss_fn(params, mb, data_block=False):
+        c = dataclasses.replace(ctx, data_block=True) if data_block else ctx
+        return lm.train_loss(params, mb, cfg, c, remat=tcfg.remat,
+                             aux_weight=tcfg.aux_weight,
+                             loss_chunk=tcfg.loss_chunk)
 
     def grads_of(state, batch, n_run=None):
         params = state["params"]
+        block = False
+        if data_ranked:                 # this rank's rows
+            b = next(iter(batch.values())).shape[0]
+            rows = shard.data_rows(mesh, b, n_micro, policy)
+            block = len(rows) < b
+            if block:
+                idx = torch.from_numpy(rows).to(dev)
+                batch = {k: v.index_select(0, idx) for k, v in batch.items()}
+        fn = lambda p, mb: loss_fn(p, mb, block)  # noqa: E731
         if n_micro == 1:
-            return value_and_grad(loss_fn, params, batch)
-        gsum = pt.tree_map(lambda p: torch.zeros(
-            p.shape, dtype=acc_dt, device=p.device), params)
-        lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        missing = 0
-        for i in range(n_micro if n_run is None else n_run):
-            loss, g, miss = value_and_grad(loss_fn, params,
-                                           micro_batch(batch, i, n_micro))
-            gsum = pt.tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
-            lsum = lsum + loss
-            missing = max(missing, miss)
-        grads = pt.tree_map(lambda g: g / n_micro, gsum)
-        return lsum / n_micro, grads, missing
-
-    ranked = []                         # the parameters' rank blocks
+            loss, grads, missing = value_and_grad(fn, params, batch)
+        else:
+            gsum = pt.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=acc_dt, device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            missing = 0
+            for i in range(n_micro if n_run is None else n_run):
+                loss, g, miss = value_and_grad(fn, params,
+                                               micro_batch(batch, i, n_micro))
+                gsum = pt.tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+                lsum = lsum + loss
+                missing = max(missing, miss)
+            grads = pt.tree_map(lambda g: g / n_micro, gsum)
+            loss = lsum / n_micro
+        if data_ranked:
+            grads = _sum_data_replicated(grads, leaf_dims()["params"], mesh,
+                                         ctx.dp_axis)
+            loss = mesh.all_reduce(loss.clone(), ctx.dp_axis)
+        return loss, grads, missing
 
     def apply_grads(state, grads, loss, missing):
         new_state = dict(state)
@@ -252,11 +387,14 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
             q, new_err = compress_grads(grads, state.get("err"))
             grads = decompress_grads(q, grads)
             new_state["err"] = new_err
-        if getattr(mesh, "ranked", False) and not ranked:
-            ranked.extend(ranked_leaves(mesh, state["params"], tcfg, policy))
+        ranked = whole = None
+        if getattr(mesh, "ranked", False):
+            dims = leaf_dims()
+            ranked = dims["params"]
+            whole = _whole_states(mesh, dims) if data_ranked else None
         new_params, new_opt, metrics = adamw_update(
             state["params"], grads, state["opt"], tcfg.opt, mesh=mesh,
-            ranked=ranked or None)
+            ranked=ranked, whole_state=whole)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, dict(metrics, loss=loss, grads_missing=missing)
@@ -270,6 +408,7 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
 
     train_step.grads_of = grads_of
     train_step.apply_grads = apply_grads
+    train_step.leaf_dims = leaf_dims
     return train_step, ctx, n_micro
 
 
@@ -278,18 +417,23 @@ def build_serve_step(cfg: LMConfig, mesh,
     """Returns ``(serve_step, serve_prefill, ctx)`` for ``cfg`` on
     ``mesh``.  Token ids, and a prefill's ``patch_embeds`` and
     ``enc_embeds``, are moved to the mesh's device; parameters and
-    caches must already live there.
+    caches must already live there.  ``data_block=True`` (either step)
+    says the rows are this data rank's block of the batch
+    (``parallel.sharding.data_rows``), its cache rows its own.
     """
     dev = mesh.device
     ctx = shard.make_ctx(mesh, cfg, policy)
+    rows_ctx = dataclasses.replace(ctx, data_block=True)
 
-    def serve_step(params, cache, tokens):
-        return lm.decode_step(params, cache, tokens.to(dev), cfg, ctx)
+    def serve_step(params, cache, tokens, data_block=False):
+        return lm.decode_step(params, cache, tokens.to(dev), cfg,
+                              rows_ctx if data_block else ctx)
 
-    def serve_prefill(params, batch):
+    def serve_prefill(params, batch, data_block=False):
         batch = {k: v.to(dev) if k in ("tokens", "patch_embeds",
                                         "enc_embeds") else v
                  for k, v in batch.items()}
-        return lm.prefill(params, batch, cfg, ctx)
+        return lm.prefill(params, batch, cfg,
+                          rows_ctx if data_block else ctx)
 
     return serve_step, serve_prefill, ctx

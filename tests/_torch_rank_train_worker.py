@@ -140,14 +140,14 @@ def _grads(mesh, tmp):
                                               reset_collective_counts)
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import make_ctx
-    from repro_torch.train.step import (grad_digest, ranked_leaves,
+    from repro_torch.train.step import (build_train_step, grad_digest,
                                         value_and_grad)
     cfg = model_config()
     params = convert.rank_experts(load_params(tmp / "model_in.npz"), mesh)
     ctx = make_ctx(mesh, cfg)
     batch = model_batch(cfg.vocab)
-    ranked = ranked_leaves(mesh, params)
-    out = {"ranked": np.asarray(ranked)}
+    ranked = build_train_step(cfg, mesh)[0].leaf_dims()["params"]
+    out = {"ranked": np.asarray([bool(d) for d in ranked])}
     for remat in (False, True):
         reset_collective_counts()
         loss, grads, missing = value_and_grad(
@@ -190,7 +190,7 @@ def _draw(mesh):
     cut = convert.rank_experts(whole, mesh)
     a, spec_a = pt.flatten(mine)
     b, spec_b = pt.flatten(cut)
-    specs = state_specs(mesh, mine, tcfg)
+    specs = state_specs(mesh, whole, tcfg)
     placed = device_put(mine, to_named(mesh, specs))
     return {"block": np.asarray(block),
             "same_tree": np.asarray(spec_a == spec_b),
@@ -200,7 +200,7 @@ def _draw(mesh):
             "placed": np.asarray(placed["params"]["blocks"]["we_d"]
                                  is mine["params"]["blocks"]["we_d"]),
             "specs": np.asarray([repr(x) for x in pt.leaves(specs)]),
-            "rank_dims": np.asarray([-1 if d is None else d for d in
+            "rank_dims": np.asarray([d.get("model", -1) for d in
                                      pt.leaves(rank_dims(mesh, specs))])}
 
 

@@ -2,7 +2,8 @@
 
 * an AST scan finds no import of ``jax``, ``repro`` or ``ml_dtypes``
   (the card's machine has none) anywhere under
-  ``src/repro_torch``, in ``chip_smoke.py``, in the profiling scripts,
+  ``src/repro_torch``, in ``chip_smoke.py``, in the port's scripts
+  (``scripts/*torch*.py``: the profiling scripts and the gloo probe),
   in the ranks' test workers or in the port's examples
   (``examples/torch_*.py``);
 * a subprocess in which ``jax`` and ``repro`` cannot be imported still
@@ -64,14 +65,17 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_repro():
     root = PORT.parents[1]
     files = sorted(PORT.rglob("*.py")) + [
-        root / "chip_smoke.py", root / "scripts" / "profile_torch_serve.py",
-        root / "scripts" / "profile_torch_lm.py",
-        root / "scripts" / "profile_torch_apps.py",
+        root / "chip_smoke.py",
         root / "tests" / "_torch_rank_worker.py",
         root / "tests" / "_torch_rank_train_worker.py",
+        root / "tests" / "_torch_rank_data_worker.py",
         root / "tests" / "_torch_serve_side.py"] + sorted(
+        (root / "scripts").glob("*torch*.py")) + sorted(
         (root / "examples").glob("torch_*.py"))
     assert len(files) > 25
+    assert {f.name for f in files if f.parent.name == "scripts"} == {
+        "profile_torch_serve.py", "profile_torch_lm.py",
+        "profile_torch_apps.py", "probe_torch_gloo.py"}
     assert {f.name for f in files if f.parent.name == "examples"} == {
         "torch_quickstart.py", "torch_serve_paged.py",
         "torch_train_micro.py", "torch_elastic_restart.py"}
