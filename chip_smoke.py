@@ -215,7 +215,7 @@ Phases (any failure exits non-zero; nothing is caught):
    rank; then a world-1 nccl group runs both collectives; each rank's
    walls, launches and collective bytes are printed;
 7e. the data axis over ranks (:func:`data_ranks_phase`, after 7d): in
-   the parent Qwen3-1.7B's training (batch 16 x 256, 4 steps) and serve
+   the parent Qwen3-1.7B's training (batch 16 x 256, 2 steps) and serve
    (16 requests of 128 + 16 tokens) and deepseek-moe-16b's training at 4
    layers, all on the production mesh, the serve of data rank 0's 4 rows
    alone (the witness), and one full-width ``moe_ffn`` on 2048 tokens;
@@ -250,6 +250,7 @@ import gc
 import hashlib
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -871,6 +872,9 @@ FLASH_CROSS_CASES = {
     # the prompt's 512 rows after llava's 1152 patches (the offset route:
     # a prefill of the prompt over a cache that already holds the image)
     "offset": (4, 512, 1664, 32, 8, 128, True, 1152),
+    # Qwen3-1.7B's layer on one of 4 tensor-parallel model ranks (phase
+    # 7f's training shape, batch 8 x 256: Hq 4 and Hkv 2 a rank)
+    "tp": (8, 256, 256, 4, 2, 128, True, 0),
 }
 
 
@@ -998,6 +1002,8 @@ FLASH_BWD_CASES = {
     # not bite, and S 4096, where it does
     "rg512": (4, 512, 512, 10, 1, 256, True, 0, 2048),
     "rgw4096": (4, 4096, 4096, 10, 1, 256, True, 0, 2048),
+    # Qwen3-1.7B on one of 4 tensor-parallel model ranks (phase 7f)
+    "tp": (8, 256, 256, 4, 2, 128, True, 0, None),
 }
 BWD_TOL = 3e-2     # K4 backward, bf16: x max(1, max |want|) per gradient
 BWD_ROW_TOL = 1e-2  # K4 backward, bf16: x each gradient row's L2 norm
@@ -3884,6 +3890,15 @@ def sharded_lm_phase(dev, K, logits_out=None):
 RANKS = 4                          # gloo ranks sharing the one card
 RANK_JOIN_S = 400                  # the limit on the ranks' join
 RANK_GEN = 8                       # teacher-forced decode steps of (c)
+RANK_SERVE_REQUESTS = 16           # (a)'s requests, the trace's first
+# (c)'s deepseek-moe-16b logits over the tensor-parallel model ranks
+# against 7b's one process, x max |logit|, and the share of steps whose
+# argmax agrees: the ranks' bf16 sums in another order flip routes at
+# gate margins, and a flipped route moves a token's logits by a routed
+# expert's output.  Read 0.2154 and 0.8056 on an NVIDIA H100 80GB HBM3
+# at 700 W; a wrong block takes every route and agreement with it
+RANK_MOE_SERVE_TOL = 0.4
+RANK_MOE_ARGMAX_MIN = 0.6
 
 
 def _rank_path(K, name, fn, out):
@@ -3906,7 +3921,10 @@ def _rank_path(K, name, fn, out):
 
 RANK_TRAIN_STEPS = 8                # as phase 7b's sharded_train
 RANK_TRAIN_LOSS_TOL = 1e-3         # every step's loss, relative to 7b's
-RANK_TRAIN_GNORM_TOL = 1e-4        # step 0's grad norm, relative to 7b's
+# step 0's grad norm, relative to 7b's: the tensor-parallel ranks' sums
+# reorder bf16 reductions and can flip a route at a gate margin (1.27e-3
+# in the CPU rehearsal at smoke width)
+RANK_TRAIN_GNORM_TOL = 5e-3
 
 
 def rank_train(dev, K, ref, small=None):
@@ -3916,10 +3934,13 @@ def rank_train(dev, K, ref, small=None):
     (batch 4 x 512, ``--micro 1``, remat, lr 3e-4, the same seed): EP 16
     as the ranks x their model shards, each rank holding its experts and
     their AdamW state, the expert exchanges differentiated across the
-    ranks, the clip's norm over every rank's gradient.  Held against
-    7b's run (``ref``: its losses and grad norms): step 0's loss bit for
-    bit, its grad norm within :data:`RANK_TRAIN_GNORM_TOL` relative,
-    every loss within :data:`RANK_TRAIN_LOSS_TOL`; finite, no gradient
+    ranks, the clip's norm over every rank's gradient.  The model ranks
+    are tensor parallel too (the dense leaves' blocks, their sums in
+    fp32 in rank order), so the ranks agree with one process within
+    rounding, not bit for bit.  Held against 7b's run (``ref``: its
+    losses and grad norms): step 0's grad norm within
+    :data:`RANK_TRAIN_GNORM_TOL` relative, every loss (step 0's
+    included) within :data:`RANK_TRAIN_LOSS_TOL`; finite, no gradient
     missing, exactly ``lm.train_launches`` a step.  Returns the rank's
     record: losses, grad norms, step ms, peak memory, launches and
     collectives (calls and bytes) a step, and step 0's gradient digests.
@@ -3989,8 +4010,6 @@ def rank_train(dev, K, ref, small=None):
            "grads_missing": rec["grads_missing"],
            "grad_digest_replicated": rec["grad_digest"]["replicated"],
            "grad_leaves_ranked": len(rec["grad_digest"]["ranked"])}
-    assert out["step0_loss_bit_equal"], \
-        f"rank {rank}: step 0's loss {losses[0]} is not 7b's {ref_l[0]}"
     assert out["step0_grad_norm_rel"] <= RANK_TRAIN_GNORM_TOL, out
     assert max(loss_rel) <= RANK_TRAIN_LOSS_TOL, out
     return out
@@ -3999,9 +4018,10 @@ def rank_train(dev, K, ref, small=None):
 def rank_main(rank, world, tmp):
     """One of phase 7d's ranks: joins the gloo group of the ranks that
     share the card (``parallel.dist.init``), loads the kernels the parent
-    built, and runs (a) the 48-request serve over a mesh-backed
-    ``KVPoolConfig()`` pool on ``Mesh(4)`` split one shard a rank, its
-    hashes against ``flat_serve``'s; (b) phase 5's tree on the same
+    built, and runs (a) the serve of :data:`RANK_SERVE_REQUESTS` requests
+    over a mesh-backed ``KVPoolConfig()`` pool on ``Mesh(4)`` split one
+    shard a rank, its hashes against ``flat_serve``'s (the same requests
+    served in one process); (b) phase 5's tree on the same
     mesh, its unsharded state's hash against the one-process 4-shard
     run's; (c) deepseek-moe-16b at full width and depth through
     ``launch.serve --production-mesh`` (EP 16 as 4 ranks x 4 model
@@ -4047,7 +4067,7 @@ def rank_main(rank, world, tmp):
     mesh = Mesh(SHARDS, dev, group=group)
     res = _rank_path(K, "serve", lambda: serve(
         dev, *(kv if small else ()), mesh=mesh,
-        **({"requests": small["requests"]} if small else {})), out)
+        requests=small["requests"] if small else RANK_SERVE_REQUESTS), out)
     for k in ("versions_sha256", "state_sha256", "ticks",
               "coherence_rounds", "tokens_generated"):
         assert res[k] == spec["flat_serve"][k], \
@@ -4071,6 +4091,7 @@ def rank_main(rank, world, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     if rank == 0:
+        # held in the parent (ranks_serve_check), beside the witness
         got, want = np.load(logits), np.load(spec["logits"])
         ref = want["logits"][:RANK_GEN + 1]
         err = float(np.abs(got["logits"] - ref).max())
@@ -4084,9 +4105,6 @@ def rank_main(rank, world, tmp):
                                    == ref.argmax(-1)).mean())}
         assert np.array_equal(got["inputs"],
                               want["inputs"][:, :RANK_GEN]), "teacher"
-        assert err <= REPLAY_TOL * scale, \
-            f"deepseek over ranks off the one-process logits: " \
-            f"{out['deepseek_logits']}"
     if not small:
         ep = _rank_path(K, "moe_check", lambda: moe_card_check(
             dev, mesh=make_production_mesh(device=dev, group=group)), out)
@@ -4103,6 +4121,46 @@ def rank_main(rank, world, tmp):
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     pd.finish()
+
+
+def deepseek_witness(teacher, ranks_logits, out, small=None) -> dict:
+    """Phase 7d's witness: deepseek-moe-16b served in one process through
+    the tensor-parallel path with the ranks' blocks (:func:`tp_witness`
+    over :data:`RANKS`; by head groups where the model axis divides Hq),
+    as the ranks' serve, teacher-forced on the same inputs; whether its
+    logits are the ranks' bits, and its drift from them.  ``small``
+    serves the smoke config on the CPU at its prompt length."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    cfg = (serve_mod.get_smoke_config if small else get_config)(SHARDED_ARCH)
+    argv = ["--arch", SHARDED_ARCH, "--production-mesh", "--requests", "4",
+            "--batch", "4", "--prompt-len",
+            str(small["prompt"] if small else 512), "--gen", str(RANK_GEN),
+            "--teacher", teacher, "--logits-out", out]
+    with tp_witness(RANKS, heads=cfg.n_heads % 16 == 0):
+        serve_mod.main(argv + (["--smoke", "--device", "cpu"] if small
+                               else []))
+    got, want = np.load(out)["logits"], np.load(ranks_logits)["logits"]
+    return dict(_drift(got, want), bit_equal=bool(np.array_equal(got, want)))
+
+
+def ranks_serve_check(logits, witness):
+    """Phase 7d's serve check of rank 0's record ``logits`` (its drift
+    from 7b's one-process logits): within :data:`RANK_MOE_SERVE_TOL` of
+    their scale, with at least :data:`RANK_MOE_ARGMAX_MIN` of the
+    argmax equal; and where past :data:`REPLAY_TOL` the witness
+    (:func:`deepseek_witness`) gives the ranks' bits, so rounding (a
+    route flipped at a gate margin by the tensor-parallel sums) is what
+    separates them, not a wrong block."""
+    if witness is not None:
+        logits["witness"] = witness
+    log("ranks deepseek logits: " + json.dumps(logits))
+    assert logits["rel_err"] <= RANK_MOE_SERVE_TOL and \
+        logits["argmax_agree"] >= RANK_MOE_ARGMAX_MIN, \
+        f"deepseek over ranks off the one-process logits: {logits}"
+    assert logits["rel_err"] <= REPLAY_TOL or (
+        witness is not None and witness["bit_equal"]), \
+        f"deepseek over ranks off the witness's logits: {logits}"
 
 
 def nccl_world1(dev, tmp) -> dict:
@@ -4133,7 +4191,9 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
     that share the card (:func:`rank_main`, spawned after the parent
     frees its cached memory, joined within :data:`RANK_JOIN_S`; a
     failing or late rank ends the run), then a world-1 nccl group
-    (:func:`nccl_world1`).  ``train_ref`` is phase 7b's training run
+    (:func:`nccl_world1`).  ``flat_serve`` is the one-process serve of
+    :data:`RANK_SERVE_REQUESTS` requests; ``train_ref`` is phase 7b's
+    training run
     (its losses and grad norms).  Prints each rank's record; returns the
     ranks' launches by kernel, summed, on the serve paths and on the
     train path."""
@@ -4149,6 +4209,11 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
         seconds = spawn(rank_main, RANKS, args=(tmp,), timeout=RANK_JOIN_S)
         recs = [json.loads(open(os.path.join(tmp, f"rank{r}.json")).read())
                 for r in range(RANKS)]
+        witness = None
+        if recs[0]["deepseek_logits"]["rel_err"] > REPLAY_TOL:
+            witness = deepseek_witness(
+                logits_ref, os.path.join(tmp, "deepseek_ranks.npz"),
+                os.path.join(tmp, "deepseek_witness.npz"))
         nccl = nccl_world1(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4186,6 +4251,7 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
     digests = [r["train"]["result"]["grad_digest_replicated"] for r in recs]
     assert digests[0] and all(d == digests[0] for d in digests), \
         "the replicated gradients differ across the ranks at step 0"
+    ranks_serve_check(recs[0]["deepseek_logits"], witness)
     out = {"ranks": RANKS, "backend": recs[0]["backend"],
            "spawn_to_join_s": seconds, "parent_allocated_gb": parent_gb,
            "host_staging": "none: the ranks hand gloo their CUDA tensors "
@@ -4227,7 +4293,7 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
 # ---------------------------------------- phase 7e: the data axis over ranks
 
 DATA_ARCH = "qwen3-1.7b"
-DATA_TRAIN = {"batch": 16, "seq": 256, "steps": 4}
+DATA_TRAIN = {"batch": 16, "seq": 256, "steps": 2}   # (the script's time)
 DATA_SERVE = {"requests": 16, "batch": 16, "prompt": 128, "gen": 16}
 DATA_RANKS = 4                     # Qwen3's data ranks: its state 4 ways
 DATA_MOE_LAYOUT = {"data": 2, "model": 2}
@@ -4236,6 +4302,12 @@ DATA_LOSS0_TOL = 1e-4              # Qwen3's step-0 loss, relative to (a)
 DATA_GNORM0_TOL = 1e-3             # ... its step-0 grad norm
 DATA_LOSS_TOL = 1e-2               # ... every step's loss
 DATA_MOE_LOSS0_TOL = 1e-3          # deepseek's step-0 loss, relative to (a)
+# deepseek's step-0 routes that differ from (a)'s, a share of a rank's:
+# its 2 model ranks are tensor parallel, and their bf16 sums in another
+# order flip routes at gate margins that compound over the layers.
+# Read 947-1030 of 4096 on an NVIDIA H100 80GB HBM3 at 700 W; a router
+# input gone wrong on a rank changes nearly every route
+DATA_MOE_FLIP_SHARE = 0.5
 DATA_PEAK_SHARE = 0.5              # a Qwen3 rank's peak over (a)'s, at most
 DATA_JOIN_S = 400
 
@@ -4755,6 +4827,9 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
         out["qwen3_step0_grad_norm_rel"] <= DATA_GNORM0_TOL and \
         max(loss_rel) <= DATA_LOSS_TOL, out
     assert ds_rel <= DATA_MOE_LOSS0_TOL, out
+    assert all(r["deepseek"]["result"]["flipped_routes"]
+               <= DATA_MOE_FLIP_SHARE * r["deepseek"]["result"]["routes"]
+               for r in recs), out
     return out
 
 
@@ -4771,6 +4846,402 @@ def _qwen_blocks(cfg) -> tuple:
     top = sum("data" in s for k, v in specs.items() if k != "blocks"
               for s in _spec_leaves(v))
     return layer, top
+
+
+# ------------------------------- phase 7f: tensor parallelism over ranks
+
+
+@contextlib.contextmanager
+def tp_witness(n, heads=False):
+    """One process through the tensor-parallel path, every leaf whole
+    (``ParallelCtx.tp`` set on a mesh without ranks), each row-parallel
+    product split into ``n`` ranks' blocks and the partial products
+    summed in fp32 in rank order, as the ranks sum them
+    (``collectives.sum_ranks``); the column-parallel products (q, k, v
+    and the logits, which these families form with ``layers.dense``, and
+    the FFN's hidden) computed block by block, and with
+    ``heads`` (where the model axis divides Hq, so a rank computes its
+    heads) the attention head group by head group, so every product has
+    a rank's shape.  Where model rank 0's results are these bits, what
+    separates the ranks from one process is the sums' rounding, not a
+    wrong block."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from repro_torch.models import layers, lm
+    from repro_torch.parallel import sharding as shard
+    real = {"make_ctx": (shard, shard.make_ctx),
+            "_row_parallel": (lm, lm._row_parallel),
+            "dense": (layers, layers.dense),
+            "ffn_hidden": (layers, layers.ffn_hidden),
+            "attention": (lm, lm.attention),
+            "decode_attention": (lm, lm.decode_attention)}
+
+    def make_ctx(mesh, cfg, policy=None):
+        ctx = real["make_ctx"][1](mesh, cfg, policy)
+        if cfg.family in shard.TP_FAMILIES and ctx.tp is None:
+            ctx = dataclasses.replace(ctx, tp=shard.model_dims(mesh, cfg,
+                                                               policy))
+        return ctx
+
+    def row_parallel(h, w, ctx, split):
+        if not split:
+            return h @ w
+        k = w.shape[0] // n
+        out = (h[..., :k] @ w[:k]).float()
+        for q in range(1, n):
+            out += (h[..., q * k:(q + 1) * k] @ w[q * k:(q + 1) * k]).float()
+        return out.to(h.dtype)
+
+    def cols(w):
+        k = w.shape[-1] // n
+        return [w[..., q * k:(q + 1) * k] for q in range(n)]
+
+    def col_parallel(x, w, b=None):
+        return torch.cat([real["dense"][1](x, wq, bq) for wq, bq in zip(
+            cols(w), cols(b) if b is not None else [None] * n)], -1)
+
+    def ffn_hidden(x, p, ffn_type):
+        blocks = [{k: c[q] for k, c in ((k, cols(v)) for k, v in p.items()
+                                        if k in ("wg", "wu", "bu"))}
+                  for q in range(n)]
+        return torch.cat([real["ffn_hidden"][1](x, bp, ffn_type)
+                          for bp in blocks], -1)
+
+    def by_heads(fn):
+        def run(q, k, v, *a, **kw):
+            hq, hkv = q.shape[2], k.shape[2]
+            per = hq // n
+            shape = SimpleNamespace(n_heads=hq, n_kv_heads=hkv)
+            out = []
+            for c in range(n):
+                sel = lm._kv_select(shape, c * per, per)
+                idx = (list(range(sel[0], sel[0] + sel[1]))
+                       if isinstance(sel, tuple) else sel)
+                idx = torch.tensor(idx, device=k.device)
+                out.append(fn(q[:, :, c * per:(c + 1) * per],
+                              k.index_select(2, idx),
+                              v.index_select(2, idx), *a, **kw))
+            return torch.cat(out, 2)
+        return run
+
+    patch = {"make_ctx": make_ctx, "_row_parallel": row_parallel,
+             "dense": col_parallel, "ffn_hidden": ffn_hidden}
+    if heads:
+        patch.update(attention=by_heads(real["attention"][1]),
+                     decode_attention=by_heads(
+                         real["decode_attention"][1]))
+    for name, fn in patch.items():
+        setattr(real[name][0], name, fn)
+    try:
+        yield
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+
+
+TP_ARCH = "qwen3-1.7b"
+TP_TRAIN = {"batch": 8, "seq": 256, "steps": 3}
+TP_SERVE = {"requests": 8, "batch": 8, "prompt": 128, "gen": 16}
+TP_LAYOUTS = {"m4": None, "d2m2": 2}  # --data-ranks: 4 model, 2 x 2
+TP_LOSS0_TOL = 1e-3                # step 0's loss, relative to (a)
+TP_LOSS_TOL = 5e-3                 # every step's loss, relative to (a)
+TP_JOIN_S = 400
+
+
+def _tp_train_argv(small, extra=()):
+    tr = small["train"] if small else TP_TRAIN
+    argv = ["--arch", TP_ARCH, "--production-mesh", "--steps",
+            str(tr["steps"]), "--batch", str(tr["batch"]), "--seq",
+            str(tr["seq"]), "--micro", "1", "--lr", "3e-4", "--log-every",
+            "1", *extra]
+    return argv + (["--smoke", "--device", "cpu"] if small else [])
+
+
+def _tp_serve_argv(small, extra=()):
+    sv = small["serve"] if small else TP_SERVE
+    argv = ["--arch", TP_ARCH, "--production-mesh", "--requests",
+            str(sv["requests"]), "--batch", str(sv["batch"]),
+            "--prompt-len", str(sv["prompt"]), "--gen", str(sv["gen"]),
+            *extra]
+    return argv + (["--smoke", "--device", "cpu"] if small else [])
+
+
+def _tp_cfg(small):
+    from repro_torch.configs import get_config, get_smoke_config
+    return (get_smoke_config if small else get_config)(TP_ARCH)
+
+
+def tp_refs(dev, K, tmp, small=None):
+    """Phase 7f (a), in one process on the production mesh: Qwen3-1.7B's
+    training (:data:`TP_TRAIN`) and its serve (:data:`TP_SERVE`, the
+    logits and decode inputs kept for the ranks).  Returns the references
+    and each path's kernel launches."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    rec = train_mod.main(_tp_train_argv(small))
+    launches = {"train": _summed(rec["launches"])}
+    del rec["state"]
+    gc.collect()
+    ref = {"train": {k: rec[k] for k in (
+        "losses", "grad_norms", "step_ms", "param_bytes", "state_bytes",
+        "peak_bytes")}}
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    logits = os.path.join(tmp, "qwen3_one.npz")
+    res = serve_mod.main(_tp_serve_argv(small, ("--logits-out", logits)))
+    launches["serve"] = K.launch_counts()
+    ref["serve"] = {"logits": logits, "seconds": res["seconds"],
+                    "param_bytes": res["param_bytes"],
+                    "kv_heads": res["kv_heads"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, launches
+
+
+def rank_tp_main(rank, world, tmp):
+    """One of phase 7f's ranks: joins the gloo group of the ranks that
+    share the card, loads the kernels the parent built, and runs
+    Qwen3-1.7B's training with the model axis over the 4 ranks (tensor
+    parallel) and over 2 data x 2 model ranks (``--data-ranks 2``), then
+    its serve over the 4 model ranks teacher-forced on the parent's
+    inputs, each a path of :func:`_rank_path`.  Writes ``rank<r>.json``.
+    A ``small`` entry in the spec rehearses the ranks on the CPU at its
+    sizes."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.parallel import dist as pd
+    tmp = os.fspath(tmp)
+    spec = json.loads(open(os.path.join(tmp, "spec.json")).read())
+    small = spec.get("small")
+    if small:
+        torch.cuda.synchronize = lambda *a, **k: None
+        torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    t0 = time.perf_counter()
+    group, dev = pd.init(init_method="file://" + os.path.join(
+        tmp, "rendezvous"), device="cpu" if small else "cuda")
+    backend = torch.distributed.get_backend(group)
+    assert backend == "gloo", backend
+    out = {"rank": rank, "world": world, "backend": backend,
+           "device": str(dev), "join_s": time.perf_counter() - t0}
+    loads0 = _build.LOADS
+    for name, data in TP_LAYOUTS.items():
+        extra = ("--data-ranks", str(data)) if data else ()
+        rec = _rank_path(K, f"train_{name}", lambda: train_mod.main(
+            _tp_train_argv(small, extra)), out)
+        del rec["state"], out[f"train_{name}"]["result"]
+        # the driver sets the counts to 0 before each step
+        out[f"train_{name}"]["launches"] = _summed(rec["launches"])
+        out[f"train_{name}"]["result"] = {k: rec[k] for k in (
+            "losses", "grad_norms", "step_ms", "param_bytes", "state_bytes",
+            "peak_bytes", "ranks", "launches", "collectives",
+            "grads_missing")}
+        gc.collect()
+        torch.cuda.empty_cache()
+    logits = os.path.join(tmp, "qwen3_ranks.npz")
+    torch.cuda.reset_peak_memory_stats()
+    res = _rank_path(K, "serve", lambda: serve_mod.main(_tp_serve_argv(
+        small, ("--teacher", spec["serve"]["logits"], "--logits-out",
+                logits))), out)
+    out["serve"]["result"] = {k: res[k] for k in (
+        "tokens", "seconds", "finite", "layout", "param_bytes", "kv_heads")}
+    out["serve"]["result"]["peak_bytes"] = (
+        None if small else torch.cuda.max_memory_allocated())
+    if rank == 0:
+        got, want = np.load(logits), np.load(spec["serve"]["logits"])
+        out["serve_logits"] = dict(
+            _drift(got["logits"], want["logits"]),
+            steps=int(want["logits"].shape[0]), tolerance_rel=REPLAY_TOL,
+            teacher_equal=bool(np.array_equal(got["inputs"],
+                                              want["inputs"])))
+    out["kernel_loads"] = _build.LOADS - loads0
+    out["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+    pd.finish()
+
+
+def tp_witness_serve(small, teacher, out, ranks_logits) -> dict:
+    """Phase 7f's witness: the Qwen3 serve in one process through the
+    tensor-parallel path with the ranks' blocks (:func:`tp_witness` over
+    :data:`RANKS`, by head groups where the model axis divides Hq),
+    teacher-forced on the ranks' inputs: whether its logits are the
+    ranks' bits, and its drift from them."""
+    from repro_torch.launch import serve as serve_mod
+    with tp_witness(RANKS, heads=_tp_cfg(small).n_heads % 16 == 0):
+        serve_mod.main(_tp_serve_argv(small, ("--teacher", teacher,
+                                              "--logits-out", out)))
+    got, want = np.load(out)["logits"], np.load(ranks_logits)["logits"]
+    return dict(_drift(got, want), bit_equal=bool(np.array_equal(got, want)))
+
+
+def tp_ranks_phase(dev, K, small=None):
+    """Phase 7f: tensor parallelism over :data:`RANKS` gloo ranks sharing
+    the card.  (a) the one-process references (:func:`tp_refs`), then
+    the parent frees its cached memory and spawns the ranks
+    (:func:`rank_tp_main`, joined within :data:`TP_JOIN_S`; a failing or
+    late rank ends the run), then the witness (:func:`tp_witness_serve`).
+    :func:`tp_ranks_checks` holds the records.  Returns the launches of
+    (a) and of the ranks, by kernel, and the references, the ranks'
+    records and the witness."""
+    from repro_torch.parallel.dist import spawn
+    tmp = tempfile.mkdtemp(prefix="ranks_tp_")
+    t0 = time.perf_counter()
+    try:
+        ref, ref_launches = tp_refs(dev, K, tmp, small)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(dict(ref, small=small), f, default=float)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
+        seconds = spawn(rank_tp_main, RANKS, args=(tmp,), timeout=TP_JOIN_S)
+        recs = [json.loads(open(os.path.join(tmp, f"rank{r}.json")).read())
+                for r in range(RANKS)]
+        t_wit = time.perf_counter()
+        K.reset_launch_counts()
+        witness = tp_witness_serve(small, ref["serve"]["logits"],
+                                   os.path.join(tmp, "qwen3_witness.npz"),
+                                   os.path.join(tmp, "qwen3_ranks.npz"))
+        ref_launches["witness"] = K.launch_counts()
+        witness["seconds"] = time.perf_counter() - t_wit
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = tp_ranks_checks(K, ref, recs, witness, small)
+    out.update(spawn_to_join_s=seconds, phase_s=time.perf_counter() - t0,
+               ranks_s=t_wit - t_spawn)
+    log("ranks_tp: " + json.dumps(out, default=float))
+    ref_counts, launches = collections.Counter(), collections.Counter()
+    for c in ref_launches.values():
+        ref_counts.update(c)
+    for rec in recs:
+        for p in (*(f"train_{n}" for n in TP_LAYOUTS), "serve"):
+            launches.update(rec[p]["launches"])
+    return dict(ref_counts), dict(launches), {"ref": ref, "recs": recs,
+                                              "witness": witness}
+
+
+def tp_rank_bytes(cfg, layout) -> int:
+    """A rank's parameter bytes under ``layout`` (``{"data": a, "model":
+    b}`` ranks of the production mesh): each leaf's bytes over the ranks
+    of every axis its spec names, from the reference's specs of the
+    whole shapes (the replicated leaves whole)."""
+    from repro_torch import tree as pt
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import sharding as shard
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import state_shapes
+    shapes = state_shapes(cfg, TrainConfig())["params"]
+    specs = shard.param_specs(make_production_mesh(device="cpu"), shapes)
+    total = 0
+    for p, sp in zip(pt.leaves(shapes), _spec_leaves(specs)):
+        n = math.prod(layout.get(a, 1) for a in sp if a is not None)
+        total += p.numel() * p.element_size() // n
+    return total
+
+
+def tp_ranks_checks(K, ref, recs, witness, small=None) -> dict:
+    """Phase 7f's checks of the ranks' records ``recs`` against the
+    one-process references ``ref`` (see :func:`tp_ranks_phase`); prints
+    each rank's record and returns the phase's summary.  Held: every
+    rank of a layout reports the same losses and grad norms, step 0's
+    loss within :data:`TP_LOSS0_TOL` and every loss within
+    :data:`TP_LOSS_TOL` of (a)'s, no gradient missing; a rank's
+    parameter bytes exactly :func:`tp_rank_bytes` (over 4 model ranks
+    the replicated leaves plus a quarter of the split ones); K4 and its
+    backward ``lm.train_launches`` a step; the serve's logits within
+    ``REPLAY_TOL`` of (a)'s scale, and the witness gives their bits;
+    its cache the KV heads of a rank's q heads.  A failed check
+    raises."""
+    from repro_torch.models.lm import train_launches
+    cfg = _tp_cfg(small)
+    q = ref["train"]
+    layouts = {"m4": {"model": RANKS}, "d2m2": {"data": 2, "model": 2}}
+    out = {"ranks": RANKS, "one_process": q,
+           "one_process_serve": {k: v for k, v in ref["serve"].items()
+                                 if k != "logits"}}
+    for rec in recs:
+        r = rec["rank"]
+        log(f"ranks_tp rank {r}: " + json.dumps({
+            "join_s": rec["join_s"], "wall_s": rec["wall_s"],
+            "kernel_loads": rec["kernel_loads"],
+            **{p: {"wall_s": rec[p]["wall_s"],
+                   "launches": {k: n for k, n in rec[p]["launches"].items()
+                                if n},
+                   "collectives_per_step": rec[p]["result"][
+                       "collectives"][-1]
+                   if "collectives" in rec[p]["result"]
+                   else rec[p]["collectives"],
+                   **{k: v for k, v in rec[p]["result"].items()
+                      if k not in ("launches", "collectives")}}
+               for p in (*(f"train_{n}" for n in TP_LAYOUTS), "serve")}},
+            default=float))
+        for name, layout in layouts.items():
+            tr = rec[f"train_{name}"]["result"]
+            first = recs[0][f"train_{name}"]["result"]
+            assert tr["ranks"] == layout and tr["grads_missing"] == 0, tr
+            assert tr["losses"] == first["losses"] and \
+                tr["grad_norms"] == first["grad_norms"], \
+                f"rank {r} {name}: its losses differ from rank 0's"
+            assert tr["param_bytes"] == tp_rank_bytes(cfg, layout), \
+                (name, tr["param_bytes"], tp_rank_bytes(cfg, layout))
+            if not small:
+                want = dict.fromkeys(K.WRAPPERS, 0)
+                want.update(train_launches(cfg))
+                for i, got in enumerate(tr["launches"]):
+                    assert got == want, f"rank {r} {name} step {i}: {got}"
+        sv = rec["serve"]["result"]
+        assert sv["finite"] and sv["layout"] == {"model": RANKS}, sv
+        assert sv["param_bytes"] == tp_rank_bytes(cfg, {"model": RANKS})
+        if not small:
+            assert rec["serve"]["launches"]["flash_attention"] > 0
+    for name in TP_LAYOUTS:
+        tr = recs[0][f"train_{name}"]["result"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                   q["losses"])]
+        out[name] = {
+            "losses": tr["losses"], "grad_norms": tr["grad_norms"],
+            "loss_rel_by_step": rel,
+            "grad_norm_rel_step0": abs(tr["grad_norms"][0]
+                                       - q["grad_norms"][0])
+            / q["grad_norms"][0],
+            "param_bytes": tr["param_bytes"],
+            "state_bytes": tr["state_bytes"],
+            "peak_bytes": [r[f"train_{name}"]["result"]["peak_bytes"]
+                           for r in recs],
+            "steady_step_ms": [float(np.median(
+                r[f"train_{name}"]["result"]["step_ms"][1:]))
+                for r in recs],
+            "collectives_per_step": tr["collectives"][-1]}
+        assert rel[0] <= TP_LOSS0_TOL and max(rel) <= TP_LOSS_TOL, \
+            (name, out[name])
+    sv = dict(recs[0]["serve_logits"], witness=witness,
+              kv_heads=recs[0]["serve"]["result"]["kv_heads"],
+              param_bytes=recs[0]["serve"]["result"]["param_bytes"],
+              peak_bytes=[r["serve"]["result"]["peak_bytes"] for r in recs],
+              wall_s=[r["serve"]["wall_s"] for r in recs],
+              collectives=recs[0]["serve"]["collectives"])
+    out["serve"] = sv
+    assert sv["teacher_equal"], "the ranks' serve was not teacher-forced"
+    assert sv["rel_err"] <= REPLAY_TOL, \
+        f"Qwen3 over model ranks off the one-process logits: {sv}"
+    assert witness["bit_equal"], \
+        f"model rank 0's logits differ from the witness's: {sv}"
+    # where the production mesh's 16 model shards divide Hq a rank keeps
+    # its Hq / 4 heads and the KV heads they read, else every head
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    assert sv["kv_heads"] == (max(1, hkv * (hq // RANKS) // hq)
+                              if hq % 16 == 0 else hkv), sv
+    return out
 
 
 # ---------------------------------------------- phase 7c: the dry-run
@@ -5316,7 +5787,8 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
             counts[name] = counts.get(name, 0) + n
         t_ranks = time.perf_counter()
         rank_launches, rank_train_launches = ranks_phase(
-            dev, flat_serve, sharded["tree"]["state_sha256"], logits_ref,
+            dev, serve(dev, requests=RANK_SERVE_REQUESTS),
+            sharded["tree"]["state_sha256"], logits_ref,
             {"losses": sharded_out["train_losses"],
              "grad_norms": sharded_out["train_grad_norms"]})
         log(f"phase 7d: {time.perf_counter() - t_ranks:.3f} s")
@@ -5325,8 +5797,12 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
     t_data = time.perf_counter()
     data_ref_launches, data_launches, _ = data_ranks_phase(dev, K)
     log(f"phase 7e: {time.perf_counter() - t_data:.3f} s")
+    t_tp = time.perf_counter()
+    tp_ref_launches, tp_launches, _ = tp_ranks_phase(dev, K)
+    log(f"phase 7f: {time.perf_counter() - t_tp:.3f} s")
     for launches in (rank_launches, rank_train_launches, data_ref_launches,
-                     data_launches, *example_launches.values()):
+                     data_launches, tp_ref_launches, tp_launches,
+                     *example_launches.values()):
         for name, n in launches.items():
             counts[name] = counts.get(name, 0) + n
     for ex, c in example_launches.items():
@@ -5357,6 +5833,8 @@ def _main(dev, K, _build, t_start, dryrun_proc, dryrun_dir) -> int:
             ranks_train=rank_train_launches.get(row["name"], 0),
             ranks_data_ref=data_ref_launches.get(row["name"], 0),
             ranks_data=data_launches.get(row["name"], 0),
+            ranks_tp_ref=tp_ref_launches.get(row["name"], 0),
+            ranks_tp=tp_launches.get(row["name"], 0),
             **{f"example_{ex}": c.get(row["name"], 0)
                for ex, c in example_launches.items()})
         row["train_launches_by_arch"] = train[row["name"]]

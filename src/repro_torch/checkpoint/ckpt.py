@@ -26,15 +26,17 @@ does not divide the leaf's shape as JAX's placement would.
 Over ``torch.distributed`` ranks (``shardings`` over a mesh with a
 ``group``) a checkpoint is the same whatever the world size and layout:
 ``save`` all-gathers the leaves each rank holds as its block along each
-ranked axis (a sharding's ``rank_dims``: the routed experts and their
-optimizer state along the model axis, the FSDP blocks along the data
-axis), axis by axis over the axis's sub-group, on every rank,
-synchronously and before any write, and only the group's rank 0 writes
-the whole state in the one-process layout; ``restore`` waits at a
+ranked axis (a sharding's ``rank_dims``: the routed experts and, for a
+dense or moe config, ``to_named(mesh, specs, cfg.family)``'s
+tensor-parallel blocks and their optimizer state along the model axis,
+the FSDP blocks along the data axis), axis by axis over the axis's
+sub-group, on every rank, synchronously and before any write, and
+only the group's rank 0 writes the whole state in the one-process
+layout; ``restore`` waits at a
 barrier for rank 0's publish (rank 0 joins its pending write first),
 reads the whole state on every rank and keeps each leaf's block of the
-layout it is given, so 4 data ranks resume over 2 x 2 ranks, in one
-process, or back.
+layout it is given, so 4 data ranks (or 4 model ranks) resume over
+2 x 2 ranks, in one process, or back.
 """
 
 from __future__ import annotations

@@ -14,8 +14,12 @@ one process every shard lives on the one device.  Started as ranks
 ranks' process group (``--init-method``, ``env://`` by default;
 :mod:`repro_torch.parallel.dist` picks the backend from the layout) and
 the production mesh's model axis is split over the ranks: each rank
-holds its model shards' experts and the rest of the model, the expert
-exchanges run between the ranks, and rank 0 prints::
+holds its model shards' experts, the expert exchanges run between the
+ranks, and, for the dense and moe families, tensor parallelism splits
+the rest (each rank holds its block of every leaf the reference's
+specs shard over ``model``, computes its heads and FFN columns, and its
+cache holds the KV heads its q heads read; ``models.lm``); rank 0
+prints::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --production-mesh
@@ -57,13 +61,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .. import tree as pt
 from ..configs import get_config, get_smoke_config
 from ..models import lm
 from ..parallel.dist import finish as dist_finish
 from ..parallel.dist import in_ranks
 from ..parallel.dist import init as dist_init
 from ..parallel.sharding import data_rows, expert_block
-from ..train.step import build_serve_step
+from ..train.step import build_serve_step, rank_cut
 from .mesh import make_local_mesh, make_production_mesh, rank_layout
 
 
@@ -77,7 +82,9 @@ def grow_cache(cfg, cache, max_len):
     whose shape does not grow, and the ``KEEP`` leaves, are kept as they
     are."""
     b = cache["pos"].shape[0]
-    full = lm.init_decode_cache(cfg, b, max_len, device=cache["pos"].device)
+    full = lm.init_decode_cache(cfg, b, max_len, device=cache["pos"].device,
+                                kv_heads=cache["k"].shape[-2]
+                                if "k" in cache else None)
     for k in cache:
         if k in full and k not in KEEP and cache[k].shape != full[k].shape \
                 and cache[k].dim() == full[k].dim():
@@ -112,8 +119,10 @@ def prefix_len(cfg) -> int:
 def main(argv=None) -> dict:
     """Serve ``--requests`` prompts in batches; returns what it prints
     (requests, tokens, seconds) plus the generated token ids
-    ([requests, gen]), whether every logit was finite, the mesh's shape
-    and the expert-parallel degree."""
+    ([requests, gen]), whether every logit was finite, the mesh's shape,
+    the expert-parallel degree, the bytes of the parameters this rank
+    holds and the KV heads its attention cache holds (None without
+    one)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true")
@@ -159,10 +168,15 @@ def main(argv=None) -> dict:
         """This rank's rows gathered into the batch's (over the data
         ranks) where they were its block."""
         return mesh.all_gather(x.contiguous(), 0, axis=dp) if split else x
-    # an expert-parallel rank draws every parameter, keeps its experts
+    # an expert-parallel rank draws every parameter, keeps its experts;
+    # a tensor-parallel one its model blocks, cut as each leaf is drawn
     block = expert_block(cfg, ctx)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            dev, **({"experts": block} if block else {}))
+                            dev, **({"experts": block} if block else {}),
+                            **({"cut": rank_cut(cfg, mesh, (ctx.tp_axis,))}
+                               if ctx.tp is not None else {}))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in pt.leaves(params))
     teacher = (None if args.teacher is None
                else np.load(args.teacher)["inputs"])
     kept = []
@@ -170,7 +184,7 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(0)
     pending = [rng.integers(0, cfg.vocab, args.prompt_len).tolist()
                for _ in range(args.requests)]
-    generated = []
+    generated, kv_heads = [], None
     finite = torch.ones((), dtype=torch.bool, device=dev)
     done = 0
     t0 = time.time()
@@ -191,6 +205,7 @@ def main(argv=None) -> dict:
         # after the patches of a vlm prompt
         cache = grow_cache(cfg, cache, prefix_len(cfg) + args.prompt_len
                            + args.gen)
+        kv_heads = cache["k"].shape[-2] if "k" in cache else None
         first = not generated
         finite &= torch.isfinite(logits).all()
         nxt = logits.argmax(-1)[:, None].to(torch.int32)
@@ -232,7 +247,8 @@ def main(argv=None) -> dict:
     return {"requests": done, "tokens": total_tokens, "seconds": seconds,
             "generated": gen_ids, "finite": bool(finite),
             "mesh": mesh.shape, "ep": ctx.ep, "ranks": mesh.world,
-            "layout": dict(mesh.ranks)}
+            "layout": dict(mesh.ranks), "param_bytes": param_bytes,
+            "kv_heads": kv_heads}
 
 
 if __name__ == "__main__":

@@ -29,6 +29,11 @@ state, computes the whole batch's loss (the expert exchanges run
 between the ranks, forward and backward), clips by the norm over every
 rank's gradient and updates its own state; checkpoints hold the whole
 state, written by rank 0, and restore on any world size and layout.
+A dense or moe config's model ranks are tensor-parallel: each keeps
+its block of every leaf the reference's ``state_specs`` shard over
+``model`` (the column-, row- and vocab-parallel leaves; ``param_bytes``
+then counts 1 / n of them plus the leaves held whole) and computes its
+block of every layer (``models.lm``).
 With ``--data-ranks N`` the mesh's data axis is split over N of the
 ranks too (data-major: ``{"data": N, "model": W / N}``): each rank keeps
 its data block of every leaf the reference's ``state_specs`` shard over
@@ -48,7 +53,8 @@ one.  Rank 0 prints the log lines::
 learning rate, wall time (ms, synchronised), kernel launches and the
 collectives' calls and bytes, the number of parameter leaves the first
 step's gradient missed, the rank, the world and the layout (``ranks``),
-the bytes of the parameters this rank holds (``param_bytes``), its peak
+the bytes of the parameters and of the whole train state this rank
+holds (``param_bytes``, ``state_bytes``), its peak
 device memory (``peak_bytes``, None on the CPU), and with
 ``--grad-digest`` the first step's gradient digests
 (``train.step.grad_digest``).
@@ -206,10 +212,12 @@ def main(argv=None) -> dict:
                              torch.Generator(device=dev).manual_seed(0), dev,
                              **({"experts": block} if block else {}),
                              mesh=mesh)
-    named = to_named(mesh, state_specs(mesh, state_shapes(cfg, tcfg), tcfg))
+    named = to_named(mesh, state_specs(mesh, state_shapes(cfg, tcfg), tcfg),
+                     cfg.family)
     state = device_put(state, named)
     param_bytes = sum(p.numel() * p.element_size()
                       for p in pt.leaves(state["params"]))
+    state_bytes = sum(x.numel() * x.element_size() for x in pt.leaves(state))
 
     start = 0
     mgr = CheckpointManager(args.ckpt, shardings=named) if args.ckpt \
@@ -252,6 +260,7 @@ def main(argv=None) -> dict:
                tokens_per_step=args.batch * args.seq, mesh=mesh.shape,
                ep=ctx.ep, n_micro=n_micro, rank=mesh.rank, world=mesh.world,
                ranks=dict(mesh.ranks), param_bytes=param_bytes,
+               state_bytes=state_bytes,
                peak_bytes=(torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None))
     if args.grad_digest:

@@ -44,16 +44,21 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def ffn_hidden(x, p, ffn_type: str):
+    """The FFN's activation before ``wd`` (its columns are those of
+    ``wg`` / ``wu``)."""
+    if ffn_type == "swiglu":
+        return F.silu(x @ p["wg"]) * (x @ p["wu"])
+    if ffn_type == "geglu":
+        return gelu(x @ p["wg"]) * (x @ p["wu"])
+    if ffn_type == "gelu":
+        return gelu(dense(x, p["wu"], p.get("bu")))
+    raise ValueError(ffn_type)
+
+
 def ffn(x, p, ffn_type: str):
     """p holds wg/wu/wd (+biases bu/bd optionally)."""
-    if ffn_type == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    if ffn_type == "geglu":
-        return (gelu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    if ffn_type == "gelu":
-        h = gelu(dense(x, p["wu"], p.get("bu")))
-        return dense(h, p["wd"], p.get("bd"))
-    raise ValueError(ffn_type)
+    return dense(ffn_hidden(x, p, ffn_type), p["wd"], p.get("bd"))
 
 
 # --------------------------------------------------------------------- init

@@ -37,6 +37,29 @@ split per layer with ``unbind``, whose backward stacks the layers'
 gradients in one copy.  :func:`xent_loss` checkpoints each chunk of its
 fp32 logits, so [B, S, V] is never held whole.  The blocks return the
 moe aux loss (0.0 for the other families), as JAX's do.
+
+Tensor parallelism (``ParallelCtx.tp``, set where ranks split the model
+axis of a dense or moe config): a model rank holds its block of every
+leaf the reference's ``param_specs`` shard over ``model`` and computes
+its block of each layer, as the reference's ``activation_rules`` place
+the activations.  The normed residual enters the column-parallel
+products through ``collectives.enter`` (its backward sums the ranks'
+partial gradients); q keeps the rank's heads where the model axis
+divides Hq (``attn_q``), else is gathered whole; k and v are gathered
+whole (``attn_kv``), normed and roped, and the rank keeps the KV heads
+its q heads read (the decode cache holds only those); each
+row-parallel product (``wo``, ``wd``, the shared experts' ``s_wd``) is
+a partial sum the ranks add in fp32 in rank order
+(``collectives.sum_ranks``: the same bits on every rank, so a moe
+router downstream routes alike); the embedding is vocab-parallel (a
+masked lookup of the rank's vocab rows, summed), and so are the head's
+logits: :func:`xent_loss` sums the ranks' ``exp`` and target logits,
+the serve gathers them.  Inside attention a rank's gradient of a
+whole q, k or v is its share (the rank uses its heads only), so the
+gathers' backward reduce-scatters, and a leaf held whole along model on
+that path (``q_norm``, ``k_norm``) is summed over the ranks once a step
+(:func:`_run_stack`).  A row-parallel sum reorders a reduction, so the
+ranks agree with one process within rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -78,6 +101,10 @@ class ParallelCtx:
     # the leaves a rank holds as its block, gathered where they are used)
     data_block: bool = False
     fsdp: Any = None
+    # over model ranks of a dense or moe config: the parameters' model
+    # dims (a tree of ints / None matching them: the leaves a rank holds
+    # as its block, tensor parallelism), else None
+    tp: Any = None
 
     @property
     def ep_axis(self):
@@ -171,6 +198,63 @@ def _fsdp(ctx, key, stacked=False, skip=()):
             for k, d in dims.items() if k not in skip}
 
 
+def _tp_split(ctx, *path) -> bool:
+    """Whether a model rank holds the parameter at ``path`` (``"embed"``,
+    or ``"blocks", "wo"``) as its block (tensor parallelism)."""
+    node = ctx.tp
+    for k in path:
+        node = node.get(k) if isinstance(node, dict) else None
+    return node is not None
+
+
+def _row_parallel(h, w, ctx, split):
+    """``h @ w``; where ``split`` (this model rank holds its block ``h``
+    of a replicated input and its block ``w`` of the weight's rows) the
+    ranks' partial products summed in fp32 in rank order
+    (``collectives.sum_ranks``)."""
+    y = h @ w
+    if not split:
+        return y
+    from ..parallel import collectives as cl   # (parallel imports models)
+    return cl.sum_ranks(y, ctx.mesh, ctx.tp_axis)
+
+
+def _enter(x, ctx, split):
+    """``x`` (replicated) as it is; where ``split`` (it enters this
+    model rank's column blocks) its gradient's partials are summed over
+    the model ranks."""
+    if not split:
+        return x
+    from ..parallel import collectives as cl
+    return cl.enter(x, ctx.mesh, ctx.tp_axis)
+
+
+def _kv_select(cfg, first, count):
+    """The KV heads that q heads ``first .. first + count - 1`` read, as
+    ``(kv_first, kv_count)`` where they are a contiguous run that the q
+    heads divide into equal groups (what GQA attention takes), else as
+    a list of one KV head per q head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = [(first + j) // g for j in range(count)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if count % n == 0 and idx == [lo + j // (count // n)
+                                  for j in range(count)]:
+        return lo, n
+    return idx
+
+
+def _q_heads(cfg, ctx):
+    """(first, count): the q heads a model rank computes: its block where
+    the model axis divides Hq (the reference's ``attn_q``), else every
+    head."""
+    mesh = ctx.mesh
+    hq = cfg.n_heads
+    if not _tp_split(ctx, "blocks", "wq") or hq % mesh.shape[ctx.tp_axis]:
+        return 0, hq
+    n = hq // mesh.n_ranks(ctx.tp_axis)
+    return mesh.coord(ctx.tp_axis) * n, n
+
+
 # ============================================================ param init
 
 def init_params(cfg: LMConfig, generator: torch.Generator, device=None,
@@ -253,20 +337,55 @@ def _init_dense_stack(gen, cfg, dt, L, ffn=True, cut=layers.keep_whole):
 
 # ============================================================ sub-blocks
 
-def _project_qkv(x, p, cfg, positions):
+def _project_qkv(x, p, cfg, ctx, positions):
+    """q of the heads this rank computes (every head, or a model rank's
+    block of them) and k and v of the KV heads those read.  On a model
+    rank (tensor parallelism) they come from its column blocks, the
+    blocks of whole tensors gathered over the model ranks in one
+    collective (the backward reduce-scatters: a rank's gradient of them
+    is its share), then the norms and rope on whole heads."""
+    from ..parallel import collectives as cl
     b, s, _ = x.shape
-    q = layers.dense(x, p["wq"], p.get("bq")).reshape(
-        b, s, cfg.n_heads, cfg.hd)
-    k = layers.dense(x, p["wk"], p.get("bk")).reshape(
-        b, s, cfg.n_kv_heads, cfg.hd)
-    v = layers.dense(x, p["wv"], p.get("bv")).reshape(
-        b, s, cfg.n_kv_heads, cfg.hd)
+    keys = ("wq", "wk", "wv")
+    split = [_tp_split(ctx, "blocks", key) for key in keys]
+    x = _enter(x, ctx, any(split))
+    first, count = _q_heads(cfg, ctx)
+    qkv = [layers.dense(x, p[key], p.get("b" + key[1])) for key in keys]
+    whole = [i for i in range(3)
+             if split[i] and not (i == 0 and count < cfg.n_heads)]
+    got = cl.gather_blocks([qkv[i] for i in whole], ctx.mesh,
+                           [2] * len(whole), ctx.tp_axis)
+    for i, t in zip(whole, got):
+        qkv[i] = t
+    q = qkv[0].reshape(b, s, count, cfg.hd)
+    k = qkv[1].reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = qkv[2].reshape(b, s, cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = layers.rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    sel = _kv_select(cfg, first, count)
+    if isinstance(sel, tuple):
+        k, v = k.narrow(2, *sel), v.narrow(2, *sel)
+    else:
+        idx = torch.tensor(sel, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     return q, k, v
+
+
+def _attn_out(o, p, ctx):
+    """``o`` [B, S, H, hd] through ``wo``, plus ``bo``.  On a model rank
+    that holds its rows of ``wo``: ``o``'s rank block of features (a
+    plain slice where ``o`` holds every head, so its gradient is the
+    rank's share) through them, summed over the model ranks."""
+    b, s = o.shape[:2]
+    o = o.reshape(b, s, -1)
+    rows = p["wo"].shape[0]
+    if o.shape[-1] != rows:
+        o = o.narrow(-1, ctx.mesh.coord(ctx.tp_axis) * rows, rows)
+    y = _row_parallel(o, p["wo"], ctx, _tp_split(ctx, "blocks", "wo"))
+    return y + p["bo"] if "bo" in p else y
 
 
 def _attn_sub(x, p, cfg, ctx, *, causal=True, window=None, cache=None,
@@ -276,7 +395,9 @@ def _attn_sub(x, p, cfg, ctx, *, causal=True, window=None, cache=None,
     with ``cross_kv`` = (k, v) [B, Se, Hkv, hd], cross-attention of x's
     queries (no rope, no qk norm, not causal) over every row of them.
     cache: (k_l, v_l) for decode, written in place at ``pos`` (at
-    ``pos % Wnd`` in the ring of a windowed layer)."""
+    ``pos % Wnd`` in the ring of a windowed layer).  On a model rank
+    (tensor parallelism) the rank's heads, as the module's docstring
+    says; its cache holds the KV heads they read."""
     b, s, _ = x.shape
     if cross_kv is not None:                          # cross-attention (dec)
         q = layers.dense(x, p["wq"], p.get("bq")).reshape(
@@ -286,15 +407,14 @@ def _attn_sub(x, p, cfg, ctx, *, causal=True, window=None, cache=None,
         return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), None
     if cache is None:
         positions = torch.arange(s, device=x.device)[None, :]
-        q, k, v = _project_qkv(x, p, cfg, positions)
+        q, k, v = _project_qkv(x, p, cfg, ctx, positions)
         q = ctx.c(q, "attn_q")
         k = ctx.c(k, "attn_kv")
         v = ctx.c(v, "attn_kv")
         o = attention(q, k, v, causal=causal, window=window)
-        o = ctx.c(o, "attn_out")
-        return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), (k, v)
+        return _attn_out(ctx.c(o, "attn_out"), p, ctx), (k, v)
     k_l, v_l = cache                                  # [B, Smax, Hkv, hd]
-    q, k_new, v_new = _project_qkv(x, p, cfg, pos[:, None])
+    q, k_new, v_new = _project_qkv(x, p, cfg, ctx, pos[:, None])
     slot = pos.long() if window is None else pos.long() % k_l.shape[1]
     bidx = torch.arange(b, device=x.device)
     k_l[bidx, slot] = k_new[:, 0].to(k_l.dtype)
@@ -302,13 +422,20 @@ def _attn_sub(x, p, cfg, ctx, *, causal=True, window=None, cache=None,
     kv_len = pos + 1 if window is None else \
         torch.clamp(pos + 1, max=k_l.shape[1])       # the ring bounds it
     o = decode_attention(q, k_l, v_l, kv_len)
-    return (layers.dense(o.reshape(b, 1, -1), p["wo"], p.get("bo")),
-            (k_l, v_l))
+    return _attn_out(o, p, ctx), (k_l, v_l)
 
 
-def _ffn_sub(x, p, cfg, ctx):
-    fp = {k: p[k] for k in ("wg", "wu", "wd", "bu", "bd") if k in p}
-    return ctx.c(layers.ffn(ctx.c(x, "ffn_in"), fp, cfg.ffn_type), "ffn_out")
+def _ffn_sub(x, p, cfg, ctx, prefix=""):
+    """The FFN (the shared experts' with ``prefix="s_"``); on a model
+    rank its column blocks of ``wg``/``wu``, its rows of ``wd``, the
+    partial products summed over the ranks, then ``bd``."""
+    fp = {k: p[prefix + k] for k in ("wg", "wu", "wd", "bu", "bd")
+          if prefix + k in p}
+    split = _tp_split(ctx, "blocks", prefix + "wd")
+    h = layers.ffn_hidden(_enter(ctx.c(x, "ffn_in"), ctx, split), fp,
+                          cfg.ffn_type)
+    y = _row_parallel(h, fp["wd"], ctx, split)
+    return ctx.c(y + fp["bd"] if "bd" in fp else y, "ffn_out")
 
 
 # ============================================================ block bodies
@@ -325,8 +452,13 @@ def moe_block(x, p, cfg, ctx, cache=None, pos=None):
     h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
                       cache=cache, pos=pos)
     x = x + h
-    y, aux = moe.moe_ffn(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg,
-                         ctx if ctx.ep > 1 else None)
+    xn = layers.rms_norm(x, p["ln2"], cfg.rms_eps)
+    # the routed experts expert-parallel; the shared ones as the dense
+    # FFN (column / row parallel on a model rank)
+    y, aux = moe.moe_ffn(xn, p, cfg, ctx if ctx.ep > 1 else None,
+                         shared=False)
+    if cfg.n_shared_experts:
+        y = y + _ffn_sub(xn, p, cfg, ctx, prefix="s_")
     return x + y, kv, aux
 
 
@@ -437,6 +569,16 @@ def _run_stack(x, blocks, cfg, ctx, remat=False):
         return x, 0.0
     block = _TRAIN_BLOCK[cfg.family]
     dims = _fsdp(ctx, "blocks", stacked=True)
+    if _tp_split(ctx, "blocks", "wo"):
+        # leaves held whole along model on the attention's q / k / v
+        # path: a rank's gradient of them is its share, summed over the
+        # model ranks once (on the stacked leaves)
+        from ..parallel import collectives as cl
+        keys = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
+                            "k_norm")
+                if k in blocks and not _tp_split(ctx, "blocks", k)]
+        blocks = dict(blocks, **dict(zip(keys, cl.enter_many(
+            [blocks[k] for k in keys], ctx.mesh, ctx.tp_axis))))
 
     def body(x, p):
         x, _, a = block(ctx.c(x, "resid"), _gather(p, dims, ctx), cfg, ctx)
@@ -452,7 +594,7 @@ def _run_stack(x, blocks, cfg, ctx, remat=False):
 def forward_hidden(params, tokens, cfg, ctx, *, patch_embeds=None,
                    remat=False):
     """Token ids -> final hidden states [B, S, d] and the moe aux."""
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     x = ctx.c(x, "resid")
@@ -461,7 +603,8 @@ def forward_hidden(params, tokens, cfg, ctx, *, patch_embeds=None,
     return x, aux
 
 
-def xent_loss(h, head_w, labels, mask, ctx, chunk: int = 512):
+def xent_loss(h, head_w, labels, mask, ctx, chunk: int = 512,
+              vocab_ranks: bool = False):
     """Chunked softmax cross-entropy, as JAX's: the chunk is the largest
     divisor of S not above ``chunk``, each chunk's logits are fp32 and
     each chunk runs under an activation checkpoint, so its [B, chunk, V]
@@ -470,17 +613,38 @@ def xent_loss(h, head_w, labels, mask, ctx, chunk: int = 512):
     this data rank's share: its masked sum over the global mask count
     (all-reduced over the data ranks, outside autograd) where its rows
     are its block of the batch (``ctx.data_block``), else its mean over
-    the data ranks' count, so the shares sum to the global mean."""
+    the data ranks' count, so the shares sum to the global mean.  With
+    ``vocab_ranks`` (a model rank's block ``head_w`` [d, V / n] of the
+    vocab, tensor parallelism) a chunk's log-sum-exp is taken over the
+    ranks' blocks: the max over the ranks' maxima (no gradient), the
+    ranks' ``exp`` sums and target logits summed in fp32 in rank order
+    (``collectives.sum_ranks``), so the loss is the same on every rank."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     while s % chunk:            # largest divisor of s not above the target
         chunk -= 1
+    if vocab_ranks:
+        from ..parallel import collectives as cl
+        mesh, ax = ctx.mesh, ctx.tp_axis
+        h = _enter(h, ctx, True)
+        n_v = head_w.shape[-1]
+        first = mesh.coord(ax) * n_v
 
     def body(hs, ls, ms):
         logits = ctx.c(hs.float() @ head_w.float(), "logits")
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, ls[..., None].long())[..., 0]
-        return ((lse - ll) * ms).sum()
+        if not vocab_ranks:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, ls[..., None].long())[..., 0]
+            return ((lse - ll) * ms).sum()
+        m = mesh.all_gather(logits.detach().amax(-1)[None], 0,
+                            axis=ax).amax(0)
+        local = ls.long() - first
+        mine = (local >= 0) & (local < n_v)
+        ll = logits.gather(-1, local.clamp(0, n_v - 1)[..., None])[..., 0]
+        se, ll = cl.sum_ranks(torch.stack([
+            torch.exp(logits - m[..., None]).sum(-1),
+            torch.where(mine, ll, 0.0)]), mesh, ax).unbind(0)
+        return ((m + torch.log(se) - ll) * ms).sum()
 
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -524,7 +688,8 @@ def train_loss(params, batch, cfg, ctx, *, remat=True, aux_weight=0.01,
         h = h[:, batch["patch_embeds"].shape[1]:]
     mask = (labels >= 0).float()
     loss = xent_loss(h, _head(params, cfg), torch.clamp(labels, min=0),
-                     mask, ctx, chunk=loss_chunk)
+                     mask, ctx, chunk=loss_chunk,
+                     vocab_ranks=_vocab_split(ctx, cfg))
     return loss + aux_weight * aux / ctx.data_ranks
 
 
@@ -577,7 +742,19 @@ def train_launches(cfg) -> dict:
 
 # ============================================================ serving paths
 
-def embed_tokens(params, tokens, cfg):
+def embed_tokens(params, tokens, cfg, ctx=NO_PARALLEL):
+    """The token embeddings; on a model rank that holds its vocab rows
+    (tensor parallelism) a lookup of the ids in its range, zeros
+    elsewhere, summed over the ranks (exact: one rank holds each id)."""
+    if _tp_split(ctx, "embed"):
+        emb = params["embed"]
+        local = tokens.long() - ctx.mesh.coord(ctx.tp_axis) * emb.shape[0]
+        mine = (local >= 0) & (local < emb.shape[0])
+        x = torch.where(mine[..., None], emb[local.clamp(0,
+                                                         emb.shape[0] - 1)],
+                        0)
+        from ..parallel import collectives as cl
+        return cl.sum_ranks(x, ctx.mesh, ctx.tp_axis)
     x = params["embed"][tokens]
     if cfg.family == "hybrid":                        # gemma-style scaling
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -588,22 +765,34 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _logits(params, x, cfg):
+def _vocab_split(ctx, cfg) -> bool:
+    """Whether a model rank holds its block of the head's vocab."""
+    return _tp_split(ctx, "embed" if cfg.tie_embeddings else "head")
+
+
+def _logits(params, x, cfg, ctx=NO_PARALLEL):
     # fp32 head product, as the JAX package computes it: with tied
-    # embeddings this copies the [V, d] table to fp32 on every call
-    return x.float() @ _head(params, cfg).float()
+    # embeddings this copies the [V, d] table to fp32 on every call; a
+    # model rank's vocab block gathered over the ranks
+    logits = layers.dense(x.float(), _head(params, cfg).float())
+    if not _vocab_split(ctx, cfg):
+        return logits
+    from ..parallel import collectives as cl
+    return cl.all_gather(logits, ctx.mesh, logits.dim() - 1, ctx.tp_axis)
 
 
 def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                      device=None):
+                      device=None, kv_heads: int | None = None):
     """Zeroed decode cache (bf16 unless asked, whatever ``cfg.dtype``, as
-    in JAX) on ``device`` (``cuda`` unless ``"cpu"`` is asked for)."""
+    in JAX) on ``device`` (``cuda`` unless ``"cpu"`` is asked for);
+    ``kv_heads`` of the attention leaves (every one unless given: a
+    model rank's, those its q heads read)."""
     dev = resolve_device(device)
     _check_family(cfg)
     L = cfg.n_layers
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.family in ("dense", "vlm", "moe", "encdec"):
-        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        shape = (L, batch, max_len, kv_heads or cfg.n_kv_heads, cfg.hd)
         cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                  "v": torch.zeros(shape, dtype=dtype, device=dev),
                  "pos": pos}
@@ -638,7 +827,7 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 def decode_step(params, cache, tokens, cfg, ctx):
     """One token for every sequence.  tokens [B,1] -> logits [B, V]."""
     _check_family(cfg)
-    x = ctx.c(embed_tokens(params, tokens, cfg), "resid_decode")
+    x = ctx.c(embed_tokens(params, tokens, cfg, ctx), "resid_decode")
     pos = cache["pos"]
     blocks = params.get("blocks")
     if cfg.family in _BLOCK:
@@ -683,7 +872,7 @@ def decode_step(params, cache, tokens, cfg, ctx):
         new_cache = {"state": cache["state"], "conv": torch.stack(tails),
                      "pos": pos + 1}
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return ctx.c(_logits(params, x[:, 0], cfg), "logits"), new_cache
+    return ctx.c(_logits(params, x[:, 0], cfg, ctx), "logits"), new_cache
 
 
 def prefill(params, batch, cfg, ctx):
@@ -697,7 +886,7 @@ def prefill(params, batch, cfg, ctx):
     _check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     x = ctx.c(x, "resid")
@@ -746,4 +935,4 @@ def prefill(params, batch, cfg, ctx):
     cache["pos"] = torch.full((b,), x.shape[1], dtype=torch.int32,
                               device=x.device)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _logits(params, x[:, -1], cfg), cache
+    return _logits(params, x[:, -1], cfg, ctx), cache

@@ -35,7 +35,9 @@ On a mesh whose model axis is split over ``torch.distributed`` ranks
 (``Mesh(..., group=...)``), rank ``r`` holds the model shards ``[r*n/W,
 (r+1)*n/W)`` of its model coordinate and their experts (``n_experts /
 W`` of ``we_g``, ``we_u`` and ``we_d``; ``convert.rank_experts`` cuts a
-whole set down), the rest of the layer on every rank.  Each rank routes
+whole set down), the router on every rank, and the shared experts whole
+or, under tensor parallelism, as the rank's column and row blocks that
+``models.lm`` computes itself (``shared=False``).  Each rank routes
 its model shards' tokens, the first ``all_to_all`` (over the model
 sub-group) sends every destination rank the slots of its experts
 (``all_to_all_single``), the experts run where they live, the second
@@ -314,18 +316,20 @@ def _moe_ep(x, p, cfg, parallel):
     return out, aux, route
 
 
-def moe_ffn(x, p, cfg, parallel=None):
+def moe_ffn(x, p, cfg, parallel=None, shared=True):
     """x: [B,S,d] global.  parallel: a ``ParallelCtx`` with ``ep > 1``
-    for expert parallelism, or None (one shard).  Returns (y, aux)."""
+    for expert parallelism, or None (one shard).  The shared experts
+    are added unless ``shared`` is False (a tensor-parallel caller adds
+    its own blocks of them).  Returns (y, aux)."""
     routed = {k: p[k] for k in ("router", "we_g", "we_u", "we_d") if k in p}
     if parallel is not None and parallel.ep > 1:
         y, aux, _ = _moe_ep(x, routed, cfg, parallel)
     else:
         y, aux = _moe_local(x, routed, cfg)
-    if cfg.n_shared_experts:
-        shared = {k.replace("s_", ""): v for k, v in p.items()
-                  if k.startswith("s_")}
-        y = y + layers.ffn(x, shared, cfg.ffn_type)
+    if cfg.n_shared_experts and shared:
+        sp = {k.replace("s_", ""): v for k, v in p.items()
+              if k.startswith("s_")}
+        y = y + layers.ffn(x, sp, cfg.ffn_type)
     return y, aux
 
 

@@ -35,7 +35,24 @@ move                   forward                     backward
 :func:`gather_block`   a data rank's block of a    the gradient reduce-
                        leaf -> the whole leaf      scattered (summed in
                                                    fp32) over the same ranks
+:func:`enter`          identity (a replicated      the gradient's partials
+                       input of column-parallel    summed over the ranks
+                       products; Megatron's *f*)   (:func:`sum_ranks`' sum)
+:func:`sum_ranks`      partial sums -> their sum,  identity
+                       in fp32 in rank order
+                       (Megatron's *g*)
 =====================  ==========================  ==========================
+
+Along the model axis under tensor parallelism (``models.lm``) a rank's
+gradient of a tensor it computes from its blocks alone is a partial
+sum: :func:`enter` sits where a replicated tensor meets the rank's
+column blocks (the normed residual before ``wq``/``wg``, a norm weight
+that acts on the rank's heads only) and sums those partials in its
+backward.  :func:`sum_ranks` adds the ranks' partials of a
+row-parallel product in fp32, in rank order, after one all-gather, so
+every rank gets the same bits on gloo and nccl alike (a moe router
+downstream routes the same tokens on every rank); its backward passes
+the replicated gradient through, as :func:`all_reduce`'s does.
 
 :func:`gather_blocks` is :func:`gather_block` of several leaves at once:
 their blocks packed into one buffer a dtype, one all-gather forward and
@@ -164,6 +181,77 @@ class _GatherBlocks(torch.autograd.Function):
         return (None, None, None, *out)
 
 
+def _rank_sum(mesh, xs, axis):
+    """Every ``axis`` rank's ``xs`` summed in fp32 in rank order after
+    one all-gather of their packed fp32 copy, each cast back to its
+    dtype: the same bits on every rank."""
+    n = mesh.n_ranks(axis)
+    flat = torch.cat([x.float().reshape(-1) for x in xs])
+    got = mesh.all_gather(flat.unsqueeze(0), 0, axis=axis).view(n, -1)
+    out = got[0].clone()            # (a view would keep all n alive)
+    for q in range(1, n):
+        out.add_(got[q])
+    res, at = [], 0
+    for x in xs:
+        k = x.numel()
+        res.append(out[at:at + k].view(x.shape).to(x.dtype))
+        at += k
+    return res
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.like = [(x.shape, x.dtype) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(s, dtype=d, device=ctx.mesh.device) if g is None
+              else g for g, (s, d) in zip(gs, ctx.like)]
+        return (None, None, *_rank_sum(ctx.mesh, gs, ctx.axis))
+
+
+class _SumRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _rank_sum(mesh, [x], axis)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _split(mesh, axis) -> bool:
+    return mesh.ranked and mesh.n_ranks(axis) > 1
+
+
+def enter(x, mesh, axis="model"):
+    """``x`` (a replicated tensor that enters this rank's blocks) as it
+    is; its gradient's partials are summed over the ``axis`` ranks in
+    fp32 in rank order (Megatron's *f*)."""
+    return enter_many([x], mesh, axis)[0]
+
+
+def enter_many(xs, mesh, axis="model") -> list:
+    """:func:`enter` of each of ``xs``, their gradients summed in one
+    collective."""
+    if not _split(mesh, axis) or not xs:
+        return list(xs)
+    return list(_Enter.apply(mesh, axis, *xs))
+
+
+def sum_ranks(x, mesh, axis="model"):
+    """The sum of every ``axis`` rank's partial ``x`` (a row-parallel
+    product's), in fp32 in rank order, cast back to ``x``'s dtype: the
+    same bits on every rank.  The replicated gradient passes through
+    (Megatron's *g*)."""
+    if not _split(mesh, axis):
+        return x
+    return _SumRanks.apply(x, mesh, axis)
+
+
 def all_to_all(x, mesh, out_splits=None, in_splits=None, axis=None):
     """:meth:`Mesh.all_to_all` along dim 0 over ``axis``'s ranks,
     differentiable."""
@@ -215,7 +303,7 @@ def gather_block(x, mesh, dim: int, axis="data"):
 def gather_blocks(xs, mesh, dims, axis="data") -> list:
     """:func:`gather_block` of each of ``xs`` along its ``dims`` entry,
     the blocks of a dtype in one collective each way."""
-    if not mesh.ranked or mesh.n_ranks(axis) == 1 or not xs:
+    if not xs or not mesh.ranked or mesh.n_ranks(axis) == 1:
         return list(xs)
     n = mesh.n_ranks(axis)
     packs = []                  # index lists: a dtype, at most PACK whole

@@ -17,7 +17,11 @@ Every dim rule is divisibility-guarded: a dim that an axis does not
 divide is replicated along it.
 
 On the port's mesh every shard lives on one device and a tensor keeps
-its global layout, so a spec is a record, not a placement: :class:`P`
+its global layout, so a spec is a record, not a placement, until a
+process group splits an axis over ranks: a rank then holds its block of
+every leaf whose spec names a ranked axis (:func:`rank_dims`; along the
+model axis, under tensor parallelism, every such leaf of the dense and
+moe families, of the other families only the routed experts).  :class:`P`
 is JAX's ``PartitionSpec`` as a tuple (a one-axis tuple entry is
 normalised to the axis, as JAX normalises it), :class:`NamedSharding`
 pairs it with a mesh and checks that it divides a shape, and the
@@ -34,6 +38,7 @@ dicts and lists whose leaves have a ``shape`` (tensors,
 
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Mapping
 from dataclasses import dataclass
@@ -191,6 +196,10 @@ def _map(fn, tree, *rest, key=None):
 # the leaves an expert-parallel rank holds as its block of the model axis
 RANKED_KEYS = EXPERT_LEAVES
 EP_AXIS = "model"
+# the families whose model ranks hold every leaf that names the model
+# axis as their block (tensor parallelism); the others rank only the
+# routed experts along it
+TP_FAMILIES = ("dense", "moe")
 
 
 def param_specs(mesh, params, policy: ShardingPolicy | None = None):
@@ -312,17 +321,56 @@ def activation_spec(mesh, policy: ShardingPolicy | None, kind, shape):
 
 
 def make_ctx(mesh, cfg, policy: ShardingPolicy | None = None) -> ParallelCtx:
-    """The model's context on ``mesh``: the data and model axes and the
-    expert-parallel degree (the model axis's size for the moe family).
-    It constrains nothing: on the one device a sharding constraint
-    leaves every value as it is (the spec the reference would apply is
+    """The model's context on ``mesh``: the data and model axes, the
+    expert-parallel degree (the model axis's size for the moe family)
+    and, where ranks split the model axis of a dense or moe config, the
+    parameters' model dims (:func:`model_dims`: the model then computes
+    each rank's block of every layer, tensor parallelism).  It
+    constrains nothing: on the one device a sharding constraint leaves
+    every value as it is (the spec the reference would apply is
     :func:`activation_spec`)."""
     policy = policy or ShardingPolicy()
     dp, tp = _axes(mesh, policy)
     ep = mesh.shape[tp] if (cfg.family == "moe" and tp is not None
                             and tp in mesh.axis_names) else 1
+    dims = None
+    if (tp is not None and cfg.family in TP_FAMILIES
+            and getattr(mesh, "ranked", False) and mesh.n_ranks(tp) > 1):
+        dims = model_dims(mesh, cfg, policy)
     return ParallelCtx(mesh=mesh, dp_axis=dp if len(dp) > 1 else dp[0],
-                       tp_axis=tp or "model", ep=ep)
+                       tp_axis=tp or "model", ep=ep, tp=dims)
+
+
+@functools.lru_cache(maxsize=16)
+def _model_dims(cfg, axes, policy):
+    from ..train.step import TrainConfig, state_shapes
+    shapes = state_shapes(cfg, TrainConfig())["params"]
+    specs = param_specs(_AxesOnly(dict(axes)), shapes, policy)
+
+    def dim(_, spec):
+        for i, ax in enumerate(spec):
+            if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+                return i
+        return None
+    return _map(dim, specs)
+
+
+class _AxesOnly:
+    """A mesh's axis sizes, all that the specs read."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def model_dims(mesh, cfg, policy: ShardingPolicy | None = None):
+    """A tree matching ``cfg``'s parameters of each leaf's model dim
+    (None where the spec leaves it whole along ``model``), from the
+    specs of the whole shapes on ``mesh``'s axes: what
+    :attr:`ParallelCtx.tp` holds.  Shared (cached): read, never
+    change."""
+    return _model_dims(cfg, tuple(mesh.shape.items()),
+                       policy or ShardingPolicy())
 
 
 def expert_block(cfg, ctx):
@@ -365,23 +413,30 @@ def data_rows(mesh, batch_size: int, n_micro: int = 1,
     return grid.reshape(-1)
 
 
-def rank_dims(mesh, specs):
+def rank_dims(mesh, specs, family=None):
     """A tree matching ``specs`` (a train state's, or a parameter tree's)
     of each leaf's :class:`RankDims` on a ranked mesh: along the model
-    axis the leaves under a routed-expert key (:data:`RANKED_KEYS`: the
-    parameter, its m and v in any tier, its error feedback) at the entry
-    that names it; along any other ranked axis (the data axis) every
-    leaf whose spec names it, at that entry (a parameter's ``fs`` dim,
-    its m, v and error feedback alike; an int8 m or v where the axis
-    moved to its block count).  Empty for a leaf every rank holds whole,
-    and for every leaf off a ranked mesh."""
+    axis, for a ``family`` of :data:`TP_FAMILIES` (tensor parallelism),
+    every leaf whose spec names it, and for any other family (or none)
+    only the leaves under a routed-expert key (:data:`RANKED_KEYS`: the
+    parameter, its m and v in any tier, its error feedback), at the
+    entry that names it; along any other ranked axis (the data axis)
+    every leaf whose spec names it, at that entry (a parameter's ``fs``
+    dim, its m, v and error feedback alike).  An int8 m or v counts
+    where the axis moved to its block count (``train.step.opt_specs``:
+    only where a shard's width is whole blocks; elsewhere a rank holds
+    it whole along the axis).  The divisibility guard is the spec's,
+    against the mesh axis, so a rank's block is its shards' blocks
+    concatenated.  Empty for a leaf every rank holds whole, and for
+    every leaf off a ranked mesh."""
     ranks = getattr(mesh, "ranks", {}) if getattr(mesh, "ranked", False) \
         else {}
+    tp = family in TP_FAMILIES
 
     def dims(node, under):
         out = {}
         for axis in ranks:
-            if axis == EP_AXIS and not under:
+            if axis == EP_AXIS and not (under or tp):
                 continue
             for i, ax in enumerate(node):
                 if ax == axis or (isinstance(ax, tuple) and axis in ax):
@@ -400,11 +455,11 @@ def rank_dims(mesh, specs):
     return walk(specs, False)
 
 
-def to_named(mesh, specs):
+def to_named(mesh, specs, family=None):
     """A tree of :class:`NamedSharding` over ``mesh`` for a tree of
-    specs, each with its :func:`rank_dims` entry."""
+    specs, each with its :func:`rank_dims` entry (for ``family``)."""
     return _map(lambda _, s, d: NamedSharding(mesh, s, d), specs,
-                rank_dims(mesh, specs))
+                rank_dims(mesh, specs, family))
 
 
 def device_put(tree, shardings):

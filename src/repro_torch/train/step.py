@@ -17,12 +17,17 @@ holds its block of every leaf that ``state_specs`` shards along a
 ranked axis (``build_train_step``'s ``leaf_dims``; ``init_train_state(
 ..., mesh=)`` draws it, ``convert.rank_state`` cuts a whole state down):
 along the model axis the routed experts (``experts=``, or
-``convert.rank_experts``), along the data axis every leaf's ``fs`` dim
-(FSDP, as the reference's ``state_specs`` place the state), and
-everything else whole.  Along the model axis every rank computes the
-same loss; the expert exchanges differentiate through
+``convert.rank_experts``) and, for the dense and moe families, every
+other leaf whose spec names ``model`` (tensor parallelism: the column-,
+row- and vocab-parallel leaves, their m, v and error feedback; an int8
+m or v whole along the axis where a rank's width is not whole blocks),
+along the data axis every leaf's ``fs`` dim (FSDP, as the reference's
+``state_specs`` place the state), and everything else whole.  Along the
+model axis every rank computes the same loss; the expert exchanges and
+the tensor-parallel sums differentiate through
 :mod:`repro_torch.parallel.collectives`, so a leaf replicated along it
-gets the same gradient on every rank with no reduction.  Along the data
+gets the same gradient on every rank (``lm`` sums the share of a whole
+leaf that acts on a rank's heads only).  Along the data
 axis a rank takes its rows of the batch (``parallel.sharding.data_rows``;
 micro-batches split them), gathers each layer's data blocks inside the
 layer (``lm.train_loss``), and its loss is its share of the global one:
@@ -105,13 +110,15 @@ def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
     soon as it is drawn (``lm.init_params(cut=)``: no whole copy of more
     than one stacked leaf at a time), and m and v follow the blocks, a
     leaf at a time; the state equals ``convert.rank_state`` of the whole
-    draw under ``state_specs``."""
-    if mesh is None or shard.make_ctx(mesh, cfg, policy).data_ranks == 1:
+    draw under ``state_specs``, and so do the model blocks of a dense or
+    moe config's tensor-parallel leaves on ranks along the model axis."""
+    axes = () if mesh is None else ranked_axes(cfg, mesh, policy)
+    if not axes:
         params = lm.init_params(cfg, generator, device, experts=experts)
         state = {"params": params, "opt": adamw_init(params, tcfg.opt)}
     else:
-        state = _init_data_blocks(cfg, tcfg, generator, device, experts,
-                                  mesh, policy)
+        state = _init_blocks(cfg, tcfg, generator, device, experts, mesh,
+                             policy, axes)
         params = state["params"]
     if tcfg.compress_grads:
         state["err"] = pt.tree_map(lambda p: torch.zeros(
@@ -119,30 +126,50 @@ def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
     return state
 
 
-def _init_data_blocks(cfg, tcfg, generator, device, experts, mesh, policy):
+def ranked_axes(cfg, mesh, policy=None) -> tuple:
+    """The axes along which a rank of ``mesh`` cuts ``cfg``'s leaves as it
+    draws them: the data axes its ranks split, and the model axis where
+    its ranks split it for tensor parallelism (the routed experts are
+    drawn as the rank's share, ``experts=``); empty off ranks."""
+    ctx = shard.make_ctx(mesh, cfg, policy)
+    dp = ctx.dp_axis if isinstance(ctx.dp_axis, tuple) else (ctx.dp_axis,)
+    axes = tuple(a for a in dp if mesh.n_ranks(a) > 1)
+    return axes + ((ctx.tp_axis,) if ctx.tp is not None else ())
+
+
+def rank_cut(cfg, mesh, axes, policy=None):
+    """``lm.init_params``' ``cut``: each leaf cut to this rank's block
+    along ``axes`` as soon as it is drawn (a routed expert never along
+    the model axis: ``experts=`` drew the rank's share)."""
     from ..convert import rank_state
-    dp = shard.make_ctx(mesh, cfg, policy).dp_axis
-    data = tuple(a for a in (dp if isinstance(dp, tuple) else (dp,))
-                 if mesh.n_ranks(a) > 1)
 
     def cut(key, leaf):
         spec = shard.param_specs(mesh, {key: leaf}, policy)[key]
-        return rank_state(leaf, mesh, spec, axes=data)
+        ax = tuple(a for a in axes if not (a == shard.EP_AXIS
+                                           and key in shard.RANKED_KEYS))
+        return rank_state(leaf, mesh, spec, axes=ax, family=cfg.family)
+    return cut
 
+
+def _init_blocks(cfg, tcfg, generator, device, experts, mesh, policy, axes):
+    from ..convert import rank_state
     params = lm.init_params(cfg, generator, device, experts=experts,
-                            cut=cut)
+                            cut=rank_cut(cfg, mesh, axes, policy))
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg, policy)
     flat, tree = pt.flatten(params)
-    p_dims = pt.leaves(shard.rank_dims(mesh, specs["params"]))
+    p_dims = pt.leaves(shard.rank_dims(mesh, specs["params"], cfg.family))
+    # the routed experts (drawn as the rank's share along model)
+    ep_dims = pt.leaves(shard.rank_dims(mesh, specs["params"]))
     mus = []
-    for p, dims, ospec in zip(flat, p_dims, pt.flatten_up_to(
+    for p, dims, ep, ospec in zip(flat, p_dims, ep_dims, pt.flatten_up_to(
             tree, specs["opt"]["mu"])):
-        shape = list(p.shape)               # the leaf whole along data
-        for a in data:
+        ax = tuple(a for a in axes if a not in ep)
+        shape = list(p.shape)               # the leaf whole along ax
+        for a in ax:
             if a in dims:
                 shape[dims[a]] *= mesh.n_ranks(a)
         mu = adamw_init(torch.zeros(shape, device=p.device), tcfg.opt)["mu"]
-        mus.append(rank_state(mu, mesh, ospec, axes=data))
+        mus.append(rank_state(mu, mesh, ospec, axes=ax, family=cfg.family))
         del mu
     return {"params": params, "opt": {
         "mu": pt.unflatten(tree, mus),
@@ -252,32 +279,41 @@ def _data_dims(dims_tree):
 
 
 def _sum_data_replicated(grads, dims, mesh, dp_axis):
-    """``grads`` with every leaf that a rank holds whole along the data
-    axes (``dims``: each leaf's RankDims, in JAX's leaf order) summed
-    over the data ranks: its shares of the global loss's gradient, in one
-    fp32 ``all_reduce``."""
+    """``grads`` with every leaf summed over the ranked data axes that do
+    not split it (``dims``: each leaf's RankDims, in JAX's leaf order):
+    its shares of the global loss's gradient, in one fp32 ``all_reduce``
+    for each set of such axes (a leaf held whole along data over the
+    data ranks; with the model axis a data axis too,
+    ``ShardingPolicy(tp_enable=False)``, a data block over the model
+    ranks, its gather's reduce-scatter having summed the data ranks')."""
     flat, tree = pt.flatten(grads)
     dp = dp_axis if isinstance(dp_axis, tuple) else (dp_axis,)
-    idx = [i for i, d in enumerate(dims) if not any(a in d for a in dp)]
-    if not idx:
-        return grads
-    buf = mesh.all_reduce(torch.cat([flat[i].float().reshape(-1)
-                                     for i in idx]), dp_axis)
-    out, at = list(flat), 0
-    for i in idx:
-        n = flat[i].numel()
-        out[i] = buf[at:at + n].view(flat[i].shape).to(flat[i].dtype)
-        at += n
+    ranked = tuple(a for a in dp if mesh.n_ranks(a) > 1)
+    groups = {}
+    for i, d in enumerate(dims):
+        over = tuple(a for a in ranked if a not in d)
+        if over:
+            groups.setdefault(over, []).append(i)
+    out = list(flat)
+    for over, idx in groups.items():
+        buf = mesh.all_reduce(torch.cat([flat[i].float().reshape(-1)
+                                         for i in idx]),
+                              over if len(over) > 1 else over[0])
+        at = 0
+        for i in idx:
+            n = flat[i].numel()
+            out[i] = buf[at:at + n].view(flat[i].shape).to(flat[i].dtype)
+            at += n
     return pt.unflatten(tree, out)
 
 
-def _whole_states(mesh, dims) -> list:
-    """Per parameter leaf, None, or ``(dim, m_whole, v_whole)`` where the
-    rank holds the parameter as its data block along ``dim`` but its m or
-    v whole along data (``opt_specs`` keeps an int8 state whole where a
-    rank's width is not whole ``Q_BLOCK``s): that state is updated whole
-    from the gathered gradient, and the parameter's block from its
-    block."""
+def _whole_states(dims) -> list:
+    """Per parameter leaf, None, or ``(dim, axis, m_whole, v_whole)``
+    where the rank holds the parameter as its block along ``axis`` (on
+    its last dim ``dim``) but its m or v whole along it (``opt_specs``
+    keeps an int8 state whole where a rank's width is not whole
+    ``Q_BLOCK``s): that state is updated whole from the gathered
+    gradient, and the parameter's block from its block."""
     def has(d, a):
         if isinstance(d, dict):
             return all(a in v for v in d.values())
@@ -285,14 +321,12 @@ def _whole_states(mesh, dims) -> list:
 
     out = []
     for p, st in zip(dims["params"], dims["opt"]):
-        data = [a for a in p if a != shard.EP_AXIS]
-        if not data:
-            out.append(None)
-            continue
-        (a,) = data
-        m_whole, v_whole = (not has(st[k], a) for k in ("m", "v"))
-        out.append((p[a], a, m_whole, v_whole) if m_whole or v_whole
-                   else None)
+        got = None
+        for a in p:
+            m_whole, v_whole = (not has(st[k], a) for k in ("m", "v"))
+            if m_whole or v_whole:
+                got = (p[a], a, m_whole, v_whole)
+        out.append(got)
     return out
 
 
@@ -331,10 +365,10 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
         if not layout:
             specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg,
                                 policy)
-            dims = shard.rank_dims(mesh, specs["params"])
+            dims = shard.rank_dims(mesh, specs["params"], cfg.family)
             layout["params"], tree = pt.flatten(dims)
             layout["tree"] = _data_dims(dims)
-            layout["opt"] = [{k: shard.rank_dims(mesh, mu[k])
+            layout["opt"] = [{k: shard.rank_dims(mesh, mu[k], cfg.family)
                               for k in ("m", "v")}
                              for mu in pt.flatten_up_to(
                                  tree, specs["opt"]["mu"])]
@@ -391,7 +425,7 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
         if getattr(mesh, "ranked", False):
             dims = leaf_dims()
             ranked = dims["params"]
-            whole = _whole_states(mesh, dims) if data_ranked else None
+            whole = _whole_states(dims)
         new_params, new_opt, metrics = adamw_update(
             state["params"], grads, state["opt"], tcfg.opt, mesh=mesh,
             ranked=ranked, whole_state=whole)

@@ -1,8 +1,11 @@
 """The reference's training of the fp32 qwen3-1.7b and deepseek-moe-16b
-smoke models on an ``Auto`` (data 4, model 2) mesh of 8 CPU devices
+smoke models on an ``Auto`` (data 4, model 2) mesh of 8 CPU devices (or
+the (data, model) shape given after the directory: (2, 4) for
+``tests/test_torch_ranks_tp.py``)
 (``jax.sharding.Mesh``: ``jax.make_mesh``'s ``Explicit`` axes make
 ``with_sharding_constraint`` raise under jax 0.9), with the train state
-placed by the reference's ``state_specs``, for
+placed by the reference's ``state_specs`` (so GSPMD shards every dense
+leaf over ``model`` as its default policy does), for
 ``tests/test_torch_ranks_data.py``.
 
 For each model: ``build_train_step``'s context, the state of
@@ -13,7 +16,7 @@ context without remat on a batch of 4 x 16 tokens from numpy seed 11,
 and one step of the train step itself (its grad norm).  Run as a
 script in a fresh process::
 
-    python tests/_torch_data_reference.py DIR
+    python tests/_torch_data_reference.py DIR [DATA MODEL]
 
 reads ``DIR/<arch>_in.npz``, writes ``DIR/<arch>_ref.npz``
 (``loss``, ``grad<i>`` in JAX's leaf order, ``grad_norm``, ``toks``) and
@@ -27,7 +30,7 @@ ARCHS = ("qwen3-1.7b", "deepseek-moe-16b")
 BATCH, SEQ, SEED, LOSS_CHUNK = 4, 16, 11, 16
 
 
-def run(arch, params_path, out_path):
+def run(arch, params_path, out_path, shape=(4, 2)):
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -38,7 +41,7 @@ def run(arch, params_path, out_path):
                                   init_train_state, state_specs)
     from _torch_moe_reference import _tree
     cfg = get_smoke_config(arch).replace(dtype="float32")
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(shape), ("data", "model"))
     tcfg = TrainConfig(remat=False, loss_chunk=LOSS_CHUNK)
     step, ctx, _ = build_train_step(cfg, mesh, tcfg)
     state = init_train_state(jax.random.PRNGKey(0), cfg, tcfg)
@@ -69,7 +72,8 @@ if __name__ == "__main__":
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [os.path.join(os.path.dirname(here), "src"), here]
     d = sys.argv[1]
+    shape = tuple(int(a) for a in sys.argv[2:4]) or (4, 2)
     for arch in ARCHS:
         run(arch, os.path.join(d, f"{arch}_in.npz"),
-            os.path.join(d, f"{arch}_ref.npz"))
+            os.path.join(d, f"{arch}_ref.npz"), shape)
     print("DATA_REFERENCE_OK")

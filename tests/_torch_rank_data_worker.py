@@ -5,7 +5,7 @@ runs, importing no JAX.
 rendezvous and runs every case once in each layout of :data:`LAYOUTS`
 over the (data 4, model 2) mesh :data:`MESH`: 4 data ranks (``d4``:
 each rank a block of the data axis, both model shards) and 2 data x 2
-model ranks (``d2m2``):
+model ranks (``d2m2``, its model ranks tensor parallel):
 
 * ``moves``: ``collectives.gather_block`` along two dims, its gradient
   under each data rank's own share of a loss, ``Mesh.reduce_scatter``,
@@ -153,7 +153,7 @@ def _draw(mesh, arch):
                             mesh=mesh)
     whole = init_train_state(cfg, tcfg, gen(), "cpu")
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg)
-    cut = convert.rank_state(whole, mesh, specs)
+    cut = convert.rank_state(whole, mesh, specs, family=cfg.family)
     a, spec_a = pt.flatten(mine)
     b, spec_b = pt.flatten(cut)
     return {"same_tree": np.asarray(spec_a == spec_b),
@@ -174,7 +174,7 @@ def _grads(mesh, arch, tmp):
     from repro_torch.train import TrainConfig, build_train_step
     cfg = model_config(arch)
     params = convert.rank_state(load_params(tmp / f"{arch}_in.npz"), mesh,
-                                param_specs(mesh, cfg))
+                                param_specs(mesh, cfg), family=cfg.family)
     out = {}
     for remat in (False, True):
         tcfg = TrainConfig(remat=remat, loss_chunk=MODEL["loss_chunk"])

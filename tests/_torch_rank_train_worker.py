@@ -10,14 +10,16 @@ of a (data 2, model 4) mesh:
   tensor, its output and its input's gradient under a replicated loss
   (and, beside it, ``torch.distributed.nn``'s all-gather, whose backward
   scales a replicated gradient by the world);
-* ``draw``: a rank's train state drawn with its experts against the cut
-  of the whole draw, and its placement by the state's specs;
+* ``draw``: a rank's train state drawn with its experts and its model
+  blocks (tensor parallelism) against the cut of the whole draw, and
+  its placement by the state's specs;
 * ``grads``: the fp32 deepseek smoke model's ``value_and_grad`` on the
-  parameters the test wrote, with and without remat: the loss, every
-  gradient leaf (a rank's expert block), the leaves missed, the
-  gradient digests and the collectives the call issued;
+  parameters the test wrote, cut to the rank's blocks, with and without
+  remat: the loss, every gradient leaf (a rank's block of a ranked
+  leaf), the leaves missed, the gradient digests and the collectives
+  the call issued;
 * ``step``: one train step (AdamW with the clip) from a state drawn with
-  the rank's experts: the grad norm and the updated parameters;
+  the rank's blocks: the grad norm and the updated parameters;
 * ``train``: ``launch.train --production-mesh`` at smoke width (16
   experts, fp32) over the 4 ranks, writing checkpoints, and the same
   driver resuming from the one-process checkpoint the test wrote.
@@ -140,14 +142,20 @@ def _grads(mesh, tmp):
                                               reset_collective_counts)
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.train import TrainConfig
     from repro_torch.train.step import (build_train_step, grad_digest,
+                                        state_shapes, state_specs,
                                         value_and_grad)
     cfg = model_config()
-    params = convert.rank_experts(load_params(tmp / "model_in.npz"), mesh)
+    tcfg = TrainConfig()
+    specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg)["params"]
+    params = convert.rank_state(load_params(tmp / "model_in.npz"), mesh,
+                                specs, family=cfg.family)
     ctx = make_ctx(mesh, cfg)
     batch = model_batch(cfg.vocab)
     ranked = build_train_step(cfg, mesh)[0].leaf_dims()["params"]
-    out = {"ranked": np.asarray([bool(d) for d in ranked])}
+    out = {"ranked": np.asarray([bool(d) for d in ranked]),
+           "dims": np.asarray([repr(dict(d)) for d in ranked])}
     for remat in (False, True):
         reset_collective_counts()
         loss, grads, missing = value_and_grad(
@@ -167,10 +175,11 @@ def _grads(mesh, tmp):
 
 
 def _draw(mesh):
-    """A rank's train state drawn with its experts against the cut of
-    the whole draw (int8 m and v and the error feedback included), and
-    its placement by the state's specs (a rank's 2 of 8 experts do not
-    divide the model axis of 4; the whole leaf does)."""
+    """A rank's train state drawn with its experts and its model blocks
+    against the cut of the whole draw (int8 m and v and the error
+    feedback included), and its placement by the state's specs (a
+    rank's 2 of 8 experts do not divide the model axis of 4; the whole
+    leaf does)."""
     from repro_torch import convert
     from repro_torch import tree as pt
     from repro_torch.optim import AdamWConfig
@@ -183,15 +192,15 @@ def _draw(mesh):
         m_dtype="int8", v_mode="int8"))
     block = expert_block(cfg, make_ctx(mesh, cfg))
 
-    def draw(experts=None):
+    def draw(experts=None, mesh=None):
         return init_train_state(cfg, tcfg, torch.Generator().manual_seed(5),
-                                "cpu", experts=experts)
-    mine, whole = draw(block), draw()
-    cut = convert.rank_experts(whole, mesh)
+                                "cpu", experts=experts, mesh=mesh)
+    mine, whole = draw(block, mesh), draw()
+    specs = state_specs(mesh, whole, tcfg)
+    cut = convert.rank_state(whole, mesh, specs, family=cfg.family)
     a, spec_a = pt.flatten(mine)
     b, spec_b = pt.flatten(cut)
-    specs = state_specs(mesh, whole, tcfg)
-    placed = device_put(mine, to_named(mesh, specs))
+    placed = device_put(mine, to_named(mesh, specs, cfg.family))
     return {"block": np.asarray(block),
             "same_tree": np.asarray(spec_a == spec_b),
             "equal": np.asarray([torch.equal(x, y) for x, y in zip(a, b)]),
@@ -201,7 +210,8 @@ def _draw(mesh):
                                  is mine["params"]["blocks"]["we_d"]),
             "specs": np.asarray([repr(x) for x in pt.leaves(specs)]),
             "rank_dims": np.asarray([d.get("model", -1) for d in
-                                     pt.leaves(rank_dims(mesh, specs))])}
+                                     pt.leaves(rank_dims(mesh, specs,
+                                                         cfg.family))])}
 
 
 def _step(mesh):
@@ -214,7 +224,8 @@ def _step(mesh):
     step_fn, ctx, _ = build_train_step(cfg, mesh, tcfg)
     state = init_train_state(cfg, tcfg,
                              torch.Generator().manual_seed(STEP_SEED), "cpu",
-                             experts=expert_block(cfg, make_ctx(mesh, cfg)))
+                             experts=expert_block(cfg, make_ctx(mesh, cfg)),
+                             mesh=mesh)
     state, m = step_fn(state, model_batch(cfg.vocab))
     out = {"grad_norm": m["grad_norm"].numpy(), "loss": m["loss"].numpy(),
            "missing": np.asarray(m["grads_missing"])}

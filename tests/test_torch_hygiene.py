@@ -69,6 +69,7 @@ def test_port_imports_neither_jax_nor_repro():
         root / "tests" / "_torch_rank_worker.py",
         root / "tests" / "_torch_rank_train_worker.py",
         root / "tests" / "_torch_rank_data_worker.py",
+        root / "tests" / "_torch_rank_tp_worker.py",
         root / "tests" / "_torch_serve_side.py"] + sorted(
         (root / "scripts").glob("*torch*.py")) + sorted(
         (root / "examples").glob("torch_*.py"))

@@ -342,8 +342,12 @@ def test_chip_smoke_ranks_phase_on_cpu(monkeypatch, tmp_path):
     here (the serve's hashes, the 4-shard tree's state hash, the first
     batch's logits of the production-mesh serve, the production-mesh
     train's losses and grad norms), each rank's record written: the
-    train path's step 0 loss bit for bit the one-process run's, every
-    rank's replicated gradients equal."""
+    train path's losses within ``RANK_TRAIN_LOSS_TOL`` of the
+    one-process run's (the model ranks are tensor parallel: their sums
+    reorder the bf16 reductions), every rank's replicated gradients
+    equal, and the deepseek serve's logits the witness's bits (one
+    process with the ranks' blocks, ``chip_smoke.deepseek_witness``);
+    ``chip_smoke.ranks_serve_check`` fails a record past its bounds."""
     import json
 
     from repro_torch.core.rounds import Mesh
@@ -392,10 +396,27 @@ def test_chip_smoke_ranks_phase_on_cpu(monkeypatch, tmp_path):
         assert rec["deepseek"]["result"]["ep"] == 16
         assert rec["pipeline"]["result"]["max_rel_err"] < 1e-5
         tr = rec["train"]["result"]
-        assert tr["step0_loss_bit_equal"] and tr["grads_missing"] == 0
-        assert tr["losses"] == pytest.approx(one["losses"], rel=1e-5)
+        assert tr["grads_missing"] == 0
+        assert tr["losses"] == pytest.approx(one["losses"],
+                                             rel=cs.RANK_TRAIN_LOSS_TOL)
         assert tr["collectives_steps_equal"]
         assert tr["collectives_per_step"]["all_to_all_calls"] > 0
         assert tr["grad_digest_replicated"] == recs[0]["train"]["result"][
             "grad_digest_replicated"]
-    assert recs[0]["deepseek_logits"]["rel_err"] < 1e-5
+    # the model ranks are tensor parallel, in bf16 here: the witness (one
+    # process with the ranks' blocks and their fp32 rank-order sums)
+    # gives the ranks' logits bit for bit, what the phase's serve check
+    # takes beyond its tolerance
+    witness = cs.deepseek_witness(logits, str(tmp_path / "deepseek_ranks.npz"),
+                                  str(tmp_path / "witness.npz"), SMALL)
+    assert witness["bit_equal"], witness
+    rec = recs[0]["deepseek_logits"]
+    cs.ranks_serve_check(dict(rec), witness)
+    # past the drift's bound, or its argmax floor, the check fails even
+    # with the witness bit-equal; past REPLAY_TOL, with it not
+    for bad, wit in (({"rel_err": 2 * cs.RANK_MOE_SERVE_TOL}, witness),
+                     ({"argmax_agree": cs.RANK_MOE_ARGMAX_MIN / 2}, witness),
+                     ({"rel_err": 2 * cs.REPLAY_TOL},
+                      dict(witness, bit_equal=False))):
+        with pytest.raises(AssertionError):
+            cs.ranks_serve_check(dict(rec, **bad), wit)

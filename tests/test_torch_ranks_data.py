@@ -20,12 +20,15 @@ the state placed by its ``state_specs``
   whole along data comes out the same on every rank after its sum;
 * a rank's draw equals ``convert.rank_state`` of the whole draw, and its
   parameter bytes are the whole tree's with each data-sharded leaf
-  divided by the data ranks (and each expert leaf by the model ranks);
+  divided by the data ranks (and each leaf held as a model block, the
+  experts' and, over 2 x 2, the tensor-parallel ones, by the model
+  ranks);
 * ``value_and_grad`` (the step's ``grads_of``), with and without remat:
   the data ranks' loss shares sum to the one-process loss within 1e-6
   relative, every gradient leaf by its block within 1e-6 x its largest
-  magnitude of the one-process mesh and within 2e-4 x max + 1e-6 of the
-  reference's, no leaf missed; a batch the data axis does not divide
+  magnitude of the one-process mesh (1e-5 over 2 x 2, whose model ranks
+  are tensor parallel) and within 2e-4 x max + 1e-6 of the reference's,
+  no leaf missed; a batch the data axis does not divide
   (rows replicated along data) gives the one-process gradients;
 * the collectives of one ``grads_of`` equal :func:`collectives_per_step`;
 * one train step with fp32 and with int8 m and v matches the
@@ -57,6 +60,9 @@ from _torch_threads import _one_thread  # noqa: E402,F401
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JOIN_S = 240
 N_RANKS = {"d4": {"data": 4, "model": 1}, "d2m2": {"data": 2, "model": 2}}
+# a gradient block against one process, x the leaf's largest magnitude:
+# over model ranks the tensor-parallel sums reorder reductions
+GRAD_TOL = {"d4": 1e-6, "d2m2": 1e-5}
 
 
 def _write_params(tmp):
@@ -295,7 +301,8 @@ def _check_grads(ranks, layout, arch, key, want, loss, rtol_share):
             g = got[f"{key}/grad{i}"]
             assert g.shape == ref.shape, i
             err = float(np.abs(g - ref).max())
-            assert err <= 1e-6 * float(np.abs(wl).max()), (i, err)
+            assert err <= GRAD_TOL[layout] * float(np.abs(wl).max()), \
+                (i, err)
     assert sum(shares.values()) == pytest.approx(loss, rel=rtol_share)
 
 
@@ -306,8 +313,8 @@ def test_grads_over_data_ranks_match_one_process(ranks, one_grads, layout,
                                                  arch, remat):
     """The data ranks' loss shares sum to the one-process loss within
     1e-6 relative; every gradient leaf, by this rank's block, is within
-    1e-6 x its largest magnitude of the one-process mesh's; no leaf
-    missed."""
+    1e-6 x its largest magnitude of the one-process mesh's (1e-5 over
+    2 x 2: :data:`GRAD_TOL`); no leaf missed."""
     loss, want = one_grads[(arch, remat, W.MODEL["b"])]
     _check_grads(ranks, layout, arch, f"remat{int(remat)}", want, loss,
                  1e-6)
@@ -353,7 +360,8 @@ def test_grads_over_data_ranks_match_the_reference(ranks, layout, arch):
             assert err <= 2e-4 * float(np.abs(wl).max()) + 1e-6, (i, err)
 
 
-def collectives_per_step(n_layers, top, remat, layout, moe):
+def collectives_per_step(n_layers, top, remat, layout, moe,
+                         qk_norm=False, chunks=1):
     """The collectives one ``grads_of`` issues on a rank, by axis.  Along
     data: a layer's data-sharded leaves (one dtype) are packed into one
     all-gather in the forward, again under remat, and one reduce-scatter
@@ -366,16 +374,30 @@ def collectives_per_step(n_layers, top, remat, layout, moe):
     data in the backward; with model ranks its exchanges (2
     ``all_to_all``s and the token blocks' all-gather a forward, 2
     ``all_to_all``s and the two block slices' all-gathers in the
-    backward) run over model."""
+    backward) run over model.  With model ranks (``d2m2``) tensor
+    parallelism adds over model, a layer, three in the forward (k and v
+    gathered in one, the sums of ``wo``'s and ``wd``'s or the shared
+    experts' partial products) and three in the backward (the sums of
+    the normed inputs' partial gradients, the reduce-scatter of k's and
+    v's), and once a step the embedding's sum, two a loss chunk (the
+    ranks' maxima, the ``exp`` sums and target logits) again where its
+    checkpoint recomputes it, the sum of the final hidden state's
+    partial gradients and, with qk norms, the sum of their gradients;
+    remat's rerun of a layer stops at its last saved tensor, before the
+    layer's last sum."""
     runs = 2 if remat else 1
     out = {"all_to_all.data_calls": n_layers * (runs + 1)
            + (2 if top else 0),
            "all_reduce.data_calls": 3 + (n_layers if moe else 0)}
     if moe and layout == "d4":
         out["all_reduce.data_calls"] += n_layers * runs
+    if layout == "d2m2":
+        out["all_to_all.model_calls"] = n_layers * (3 * runs - (runs - 1)
+                                                    + 3) + 1 \
+            + 4 * chunks + 1 + (1 if qk_norm else 0)
     if moe and layout == "d2m2":
         out["all_reduce.world_calls"] = n_layers * runs
-        out["all_to_all.model_calls"] = n_layers * (3 * runs + 4)
+        out["all_to_all.model_calls"] += n_layers * (3 * runs + 4)
     return out
 
 
@@ -393,7 +415,7 @@ def test_collectives_a_step_follow_the_formula(ranks, layout, arch, remat):
     assert any("data" in d for d, k in zip(dims, keys) if k[0] == "blocks")
     top = any("data" in d for d, k in zip(dims, keys) if k[0] != "blocks")
     want = collectives_per_step(cfg.n_layers, top, remat, layout,
-                                cfg.family == "moe")
+                                cfg.family == "moe", cfg.qk_norm)
     tag = f"remat{int(remat)}"
     for r in range(4):
         got = _of(ranks, r, f"grads_{layout}_{arch}")
@@ -538,7 +560,9 @@ def test_chip_smoke_data_ranks_phase_on_cpu(monkeypatch):
     check over 2 x 2) and the parent's checks all pass; the same records
     with one rank's loss moved past its tolerance, its parameter bytes
     off by one, or rank 0's serve logits off the witness (its rows served
-    alone), fail the checks."""
+    alone), or every deepseek route of a rank flipped, fail the checks.
+    Deepseek's routes flip against one process over 2 x 2 (tensor
+    parallel, bf16): counted, a few of a rank's."""
     import copy
 
     from repro_torch import kernels as K
@@ -553,8 +577,13 @@ def test_chip_smoke_data_ranks_phase_on_cpu(monkeypatch):
     assert recs[0]["serve_logits"]["rel_err"] < 1e-5
     assert recs[0]["serve_logits"]["witness_rows"] == 4
     assert recs[0]["serve_logits"]["witness_bit_equal"]
-    assert [r["deepseek"]["result"]["flipped_routes"] for r in recs] \
-        == [0] * 4
+    # deepseek's 2 model ranks are tensor parallel: their row-parallel
+    # bf16 sums move a gate across a route's margin here and there (2-6
+    # of 256 routes a rank); the flips are counted and printed, and a
+    # rank whose router input went wrong would flip most of them
+    assert all(r["deepseek"]["result"]["routes"] == 256
+               and r["deepseek"]["result"]["flipped_routes"] <= 16
+               for r in recs)
     cs.data_ranks_checks(K, ref, recs, SMALL)
     bad = copy.deepcopy(recs)
     for rec in bad:
@@ -567,5 +596,10 @@ def test_chip_smoke_data_ranks_phase_on_cpu(monkeypatch):
         cs.data_ranks_checks(K, ref, bad, SMALL)
     bad = copy.deepcopy(recs)
     bad[0]["serve_logits"]["witness_bit_equal"] = False
+    with pytest.raises(AssertionError):
+        cs.data_ranks_checks(K, ref, bad, SMALL)
+    bad = copy.deepcopy(recs)
+    ds = bad[3]["deepseek"]["result"]
+    ds["flipped_routes"] = ds["routes"]
     with pytest.raises(AssertionError):
         cs.data_ranks_checks(K, ref, bad, SMALL)
