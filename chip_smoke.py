@@ -33,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught):
    two calls, beside autograd of SDPA; K4's forward with and without
    that output) and
    K5's at Mamba2-2.7B's training shape (:func:`check_ssd_bwd`), each
-   against its plain backward, with no register spill in either;
+   against its plain backward, with no register spill in either; K4 and
+   its backward also at a tensor-parallel rank's shapes (``*_tp``:
+   Qwen3's and llava's), K5 and its backward at a rank's 20 heads
+   (:data:`SSD_CASES`);
 3. serve ~48 seeded requests through ``SELCCKVPool`` + ``ServeLoop`` at
    the attention width of Qwen3-1.7B (16 query heads, 8 kv heads, head
    dim 128; ``src/repro/configs/qwen3_1p7b.py``) over the default pool
@@ -215,25 +218,36 @@ Phases (any failure exits non-zero; nothing is caught):
    rank; then a world-1 nccl group runs both collectives; each rank's
    walls, launches and collective bytes are printed;
 7e. the data axis over ranks (:func:`data_ranks_phase`, after 7d): in
-   the parent Qwen3-1.7B's training (batch 16 x 256, 2 steps) and serve
-   (16 requests of 128 + 16 tokens) and deepseek-moe-16b's training at 4
-   layers, all on the production mesh, the serve of data rank 0's 4 rows
-   alone (the witness), and one full-width ``moe_ffn`` on 2048 tokens;
-   then :data:`RANKS` gloo ranks sharing the card
-   (:func:`rank_data_main`): Qwen3's training over 4 data ranks (its
-   state sharded 4 ways as the reference's ``state_specs`` place it),
-   its serve teacher-forced over 4 data ranks (within ``REPLAY_TOL`` of
-   the 16-row serve, rank 0's rows bit-equal to the witness), deepseek's
+   the parent Qwen3-1.7B's training at 4 layers (batch 16 x 256, 2
+   steps) and serve (16 requests of 128 + 16 tokens), Mamba2-2.7B's
+   training at 4 layers and deepseek-moe-16b's at 4 (:data:`DATA_CUTS`),
+   all on the production mesh, the serve of data rank 0's 4 rows alone
+   (the witness), and one full-width ``moe_ffn`` on 2048 tokens; then
+   :data:`RANKS` gloo ranks sharing the card (:func:`rank_data_main`):
+   Qwen3's and Mamba2's training over 4 data ranks (the state sharded 4
+   ways as the reference's ``state_specs`` place it), Qwen3's serve
+   teacher-forced over 4 data ranks (within ``REPLAY_TOL`` of the
+   16-row serve, rank 0's rows bit-equal to the witness), deepseek's
    training and the ``moe_ffn`` over 2 data x 2 model ranks, each held
    to the parent's run (:func:`data_ranks_checks`);
+7f. tensor parallelism over ranks (:func:`tp_ranks_phase`, after 7e):
+   one model of every family at full width and reduced depth
+   (:data:`TP_RUNS`) trained in the parent on the production mesh and
+   served (8 requests of 128 + 16 tokens), then over :data:`RANKS` gloo
+   ranks (:func:`rank_tp_main`): each trained over 4 model ranks and
+   over 2 x 2, and served over 4 model ranks teacher-forced; every
+   rank's parameter bytes exactly :func:`tp_rank_bytes`, its losses and
+   serve logits held to the parent's, Qwen3's serve bit-equal to the
+   witness (:func:`tp_witness`; :func:`tp_ranks_checks`);
 8. print the ``kernels`` JSON line (``launches`` counts every path:
    the serve, the legacy pool, the placement check, the DES bridge, the
    sharded plane, the LM serves, the tree, the transactions, the DES
    oracle, Fig. 7's rounds, the training runs and the sharded LM
    stack's serve and training (``sharded_lm_serve``,
    ``sharded_lm_train``), the dry-run's card steps
-   (``dryrun_card``), phase 7d's ranks (``ranks``) and phase 7e's
-   references and ranks (``ranks_data_ref``, ``ranks_data``), split
+   (``dryrun_card``), phase 7d's ranks (``ranks``) and phases 7e's
+   and 7f's references and ranks (``ranks_data_ref``, ``ranks_data``,
+   ``ranks_tp_ref``, ``ranks_tp``), split
    by path in ``launches_by_path`` and, for
    training, by arch in ``train_launches_by_arch``), the script's wall
    time before it, then the result line.
@@ -875,6 +889,9 @@ FLASH_CROSS_CASES = {
     # Qwen3-1.7B's layer on one of 4 tensor-parallel model ranks (phase
     # 7f's training shape, batch 8 x 256: Hq 4 and Hkv 2 a rank)
     "tp": (8, 256, 256, 4, 2, 128, True, 0),
+    # llava's layer on one of 4 tensor-parallel model ranks (phase 7f's
+    # training shape, batch 2 x (1152 patches + 256 tokens): Hq 8, Hkv 2)
+    "llava_tp": (2, 1408, 1408, 8, 2, 128, True, 0),
 }
 
 
@@ -949,40 +966,59 @@ def flash_cross_cases(dev, K):
     return out
 
 
+# K5 at the SSM path's shapes: tag -> (B * chunks, Q, H, P)
+SSD_CASES = {
+    # Mamba2-2.7B's prefill, batch 4, two chunks (the row's unsuffixed
+    # keys)
+    "": (8, 256, 80, 64),
+    # one of 4 tensor-parallel model ranks: its 20 heads (phase 7f's
+    # training shape, batch 4 x 256: one chunk a row)
+    "tp": (4, 256, 20, 64),
+}
+
+
 def check_ssd(dev, K):
-    """K5 at the Mamba2-2.7B prefill shape: B*nc 8 (batch 4, two chunks),
-    Q 256, H 80, P 64, fp32, with a cumsum steep enough that exp
-    overflows above the diagonal.  Tolerance 2e-4 of the output's scale
-    (fp32 sums of up to 256 terms in another order).  No single PyTorch
-    call computes this function: library_ms is null."""
+    """K5 at :data:`SSD_CASES` (the Mamba2-2.7B prefill: B*nc 8, Q 256,
+    H 80, P 64, fp32; and a tensor-parallel rank's 20 heads), with a
+    cumsum steep enough that exp overflows above the diagonal.
+    Tolerance 2e-4 of the output's scale (fp32 sums of up to 256 terms
+    in another order).  No single PyTorch call computes this function:
+    library_ms is null."""
     from repro_torch.kernels.ssd_intra import ssd_intra_plain
     rng = np.random.default_rng(SEED + 5)
-    bc, q, h, p = 8, 256, 80, 64
-    cb = torch.from_numpy(rng.normal(size=(bc, q, q)).astype(np.float32))
-    cs = torch.from_numpy((-np.abs(rng.normal(size=(bc, q, h)))
-                           .cumsum(axis=1)).astype(np.float32))
-    win = torch.from_numpy(rng.normal(size=(bc, q, h, p)).astype(np.float32))
-    cb, cs, win = cb.to(dev), cs.to(dev), win.to(dev)
-    got = K.ssd_intra(cb, cs, win)
-    want = ssd_intra_plain(cb, cs, win)
-    torch.cuda.synchronize()
-    assert bool(torch.isfinite(got).all()), "ssd_intra gave non-finite"
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    assert err < 2e-4 * scale, f"ssd_intra off by {err} (tol 2e-4 x {scale})"
-    n_bytes = 4 * (bc * q * q + bc * q * h + 2 * bc * q * h * p)
-    n_flops = bc * h * q * (q + 1) / 2 * (2.0 * p + 3)  # causal pairs
-    bms, by = bound_ms(n_bytes, n_flops, TF32_FLOPS)
-    row = {"name": "ssd_intra", "max_abs_err": err,
-           "ms": graph_ms(lambda: K.ssd_intra(cb, cs, win)),
-           "ms_graph20": graph20_ms(lambda: K.ssd_intra(cb, cs, win)),
-           "plain_ms": eager_ms(lambda: ssd_intra_plain(cb, cs, win)),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
-    log(f"rate ssd_intra: {n_bytes / row['ms'] / 1e6:.3f} GB/s, "
-        f"{3 * n_flops / row['ms'] / 1e9:.3f} TFLOP/s of TF32 products "
-        f"(3xTF32), {100 * bms / row['ms']:.2f} % of its bound; error "
-        f"{err / scale} of the scale (tolerance 2e-4); the fp32 FMA bound "
-        f"of the first port: {bound_ms(n_bytes, n_flops, FP32_FLOPS)[0]} ms")
+    row = {"name": "ssd_intra"}
+    for tag, (bc, q, h, p) in SSD_CASES.items():
+        cb = torch.from_numpy(rng.normal(size=(bc, q, q)).astype(np.float32))
+        cs = torch.from_numpy((-np.abs(rng.normal(size=(bc, q, h)))
+                               .cumsum(axis=1)).astype(np.float32))
+        win = torch.from_numpy(rng.normal(size=(bc, q, h, p))
+                               .astype(np.float32))
+        cb, cs, win = cb.to(dev), cs.to(dev), win.to(dev)
+        got = K.ssd_intra(cb, cs, win)
+        want = ssd_intra_plain(cb, cs, win)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), "ssd_intra gave non-finite"
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        assert err < 2e-4 * scale, \
+            f"ssd_intra {tag} off by {err} (tol 2e-4 x {scale})"
+        n_bytes = 4 * (bc * q * q + bc * q * h + 2 * bc * q * h * p)
+        n_flops = bc * h * q * (q + 1) / 2 * (2.0 * p + 3)  # causal pairs
+        bms, by = bound_ms(n_bytes, n_flops, TF32_FLOPS)
+        case = {"max_abs_err": err,
+                "ms": graph_ms(lambda: K.ssd_intra(cb, cs, win)),
+                "ms_graph20": graph20_ms(lambda: K.ssd_intra(cb, cs, win)),
+                "plain_ms": eager_ms(lambda: ssd_intra_plain(cb, cs, win)),
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+        sfx = f"_{tag}" if tag else ""
+        row.update({f"{k}{sfx}": v for k, v in case.items()})
+        log(f"rate ssd_intra {tag or 'mamba2'} (B*nc {bc}, Q {q}, H {h}, "
+            f"P {p}): {n_bytes / case['ms'] / 1e6:.3f} GB/s, "
+            f"{3 * n_flops / case['ms'] / 1e9:.3f} TFLOP/s of TF32 "
+            f"products (3xTF32), {100 * bms / case['ms']:.2f} % of its "
+            f"bound; error {err / scale} of the scale (tolerance 2e-4); "
+            f"the fp32 FMA bound of the first port: "
+            f"{bound_ms(n_bytes, n_flops, FP32_FLOPS)[0]} ms")
     return row
 
 
@@ -1004,6 +1040,8 @@ FLASH_BWD_CASES = {
     "rgw4096": (4, 4096, 4096, 10, 1, 256, True, 0, 2048),
     # Qwen3-1.7B on one of 4 tensor-parallel model ranks (phase 7f)
     "tp": (8, 256, 256, 4, 2, 128, True, 0, None),
+    # llava on one of 4 tensor-parallel model ranks (phase 7f)
+    "llava_tp": (2, 1408, 1408, 8, 2, 128, True, 0, None),
 }
 BWD_TOL = 3e-2     # K4 backward, bf16: x max(1, max |want|) per gradient
 BWD_ROW_TOL = 1e-2  # K4 backward, bf16: x each gradient row's L2 norm
@@ -1148,56 +1186,61 @@ def check_flash_bwd(dev, K, cases=None):
 
 
 def check_ssd_bwd(dev, K):
-    """K5's backward at the Mamba2-2.7B training shape (batch 4, seq 512:
-    8 chunks of Q 256, H 80, P 64, fp32), from the forward kernel's own
+    """K5's backward at :data:`SSD_CASES` (the Mamba2-2.7B training
+    shape, batch 4, seq 512: 8 chunks of Q 256, H 80, P 64, fp32; and a
+    tensor-parallel rank's 20 heads), from the forward kernel's own
     output, with a cumsum steep enough that exp overflows above the
     diagonal: (dcb, dcs, dwin) held against ``ssd_intra_bwd_plain``
-    within 1e-4 of max(1, each gradient's max |want|) (fp32 sums of up to
-    256 terms in another order; dcs a difference of two such sums), timed
-    beside its bound (the function's bytes: cb, cs, win and dy read, dcb,
-    dcs and dwin written; or its operations, 2 products of 2 P per (q, k,
-    h) pair of the triangle, over the TF32 tensor-core peak, as
-    :func:`check_ssd` bounds the forward; the kernel also reads the
-    forward's output, which the bound does not count).  No single
+    within 1e-4 of max(1, each gradient's max |want|) (fp32 sums of up
+    to 256 terms in another order; dcs a difference of two such sums),
+    timed beside its bound (the function's bytes: cb, cs, win and dy
+    read, dcb, dcs and dwin written; or its operations, 2 products of 2
+    P per (q, k, h) pair of the triangle, over the TF32 tensor-core
+    peak, as :func:`check_ssd` bounds the forward; the kernel also reads
+    the forward's output, which the bound does not count).  No single
     PyTorch call computes it: library_ms is null."""
     from repro_torch.kernels.ssd_intra import ssd_intra_bwd_plain
     rng = np.random.default_rng(SEED + 12)
-    bc, q, h, p = 8, 256, 80, 64
-    cb, cs, win, dy = [torch.from_numpy(a.astype(np.float32)).to(dev)
-                       for a in (rng.normal(size=(bc, q, q)),
-                                 -np.abs(rng.normal(size=(bc, q, h)))
-                                 .cumsum(axis=1),
-                                 rng.normal(size=(bc, q, h, p)),
-                                 rng.normal(size=(bc, q, h, p)))]
-    y = K.ssd_intra(cb, cs, win)
+    row = {"name": "ssd_intra_bwd"}
+    for tag, (bc, q, h, p) in SSD_CASES.items():
+        cb, cs, win, dy = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                           for a in (rng.normal(size=(bc, q, q)),
+                                     -np.abs(rng.normal(size=(bc, q, h)))
+                                     .cumsum(axis=1),
+                                     rng.normal(size=(bc, q, h, p)),
+                                     rng.normal(size=(bc, q, h, p)))]
+        y = K.ssd_intra(cb, cs, win)
 
-    def run():
-        return K.ssd_intra_bwd(cb, cs, win, dy, y)
-    got = run()
-    want = ssd_intra_bwd_plain(cb, cs, win, dy)
-    torch.cuda.synchronize()
-    assert all(bool(torch.isfinite(g).all()) for g in got), \
-        "ssd_intra_bwd gave non-finite"
-    rel = _grad_rel(got, want)
-    assert rel < 1e-4, f"ssd_intra_bwd off by {rel} (tol 1e-4)"
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    del want
-    n_bytes = 4 * (2 * bc * q * q + 2 * bc * q * h + 3 * bc * q * h * p)
-    n_flops = bc * h * q * (q + 1) / 2 * (4.0 * p + 6)
-    bms, by = bound_ms(n_bytes, n_flops, TF32_FLOPS)
-    row = {"name": "ssd_intra_bwd", "max_abs_err": err,
-           "ms": graph_ms(run, iters=50),
-           "ms_graph20": graph_ms(run, iters=10, calls=20),
-           "plain_ms": eager_ms(lambda: ssd_intra_bwd_plain(cb, cs, win, dy),
-                                iters=3),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
-    log(f"rate ssd_intra_bwd: {n_flops / row['ms'] / 1e9:.3f} TFLOP/s "
-        f"(3xTF32 tensor cores, each product counted once), "
-        f"{n_bytes / row['ms'] / 1e6:.3f} GB/s, "
-        f"{100 * bms / row['ms']:.2f} % of its bound ({by}); error {rel} of "
-        f"max(1, |want|) (tolerance 1e-4); the TF32 tensor-core bound of "
-        f"its three TF32 products: "
-        f"{bound_ms(0, 3 * n_flops, TF32_FLOPS)[0]} ms")
+        def run(cb=cb, cs=cs, win=win, dy=dy, y=y):
+            return K.ssd_intra_bwd(cb, cs, win, dy, y)
+        got = run()
+        want = ssd_intra_bwd_plain(cb, cs, win, dy)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(g).all()) for g in got), \
+            "ssd_intra_bwd gave non-finite"
+        rel = _grad_rel(got, want)
+        assert rel < 1e-4, f"ssd_intra_bwd {tag} off by {rel} (tol 1e-4)"
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        del want
+        n_bytes = 4 * (2 * bc * q * q + 2 * bc * q * h + 3 * bc * q * h * p)
+        n_flops = bc * h * q * (q + 1) / 2 * (4.0 * p + 6)
+        bms, by = bound_ms(n_bytes, n_flops, TF32_FLOPS)
+        case = {"max_abs_err": err, "ms": graph_ms(run, iters=50),
+                "ms_graph20": graph_ms(run, iters=10, calls=20),
+                "plain_ms": eager_ms(lambda cb=cb, cs=cs, win=win, dy=dy:
+                                     ssd_intra_bwd_plain(cb, cs, win, dy),
+                                     iters=3),
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+        sfx = f"_{tag}" if tag else ""
+        row.update({f"{k}{sfx}": v for k, v in case.items()})
+        log(f"rate ssd_intra_bwd {tag or 'mamba2'} (B*nc {bc}, Q {q}, H "
+            f"{h}, P {p}): {n_flops / case['ms'] / 1e9:.3f} TFLOP/s "
+            f"(3xTF32 tensor cores, each product counted once), "
+            f"{n_bytes / case['ms'] / 1e6:.3f} GB/s, "
+            f"{100 * bms / case['ms']:.2f} % of its bound ({by}); error "
+            f"{rel} of max(1, |want|) (tolerance 1e-4); the TF32 "
+            f"tensor-core bound of its three TF32 products: "
+            f"{bound_ms(0, 3 * n_flops, TF32_FLOPS)[0]} ms")
     return row
 
 
@@ -3224,12 +3267,13 @@ def sharded_placement(dev, mesh, launches, *, n_lines=PLACE_LINES,
 
 
 def sharded_tree(dev, mesh, launches, *, n_keys=BTREE_KEYS,
-                 n_lines=BTREE_LINES, slots=1024, c_batches=4,
-                 a_batches=2):
+                 n_lines=BTREE_LINES, slots=1024, c_batches=2,
+                 a_batches=1):
     """Phase 5's tree (:func:`load_btree`, the same image) on the
     sharded plane: YCSB C answers against the oracle, YCSB A upserts
     read back, the plane's invariants and the unsharded final state's
-    hash (``state_sha256``)."""
+    hash (``state_sha256``).  Two C batches and one A batch (4 and 2
+    before PR 31: the script's time; phase 7d runs it over the ranks)."""
     from repro_torch.apps import BTreeBatchConfig, btree_kv_batches
     from repro_torch.core.rounds import check_invariants
     t0 = time.perf_counter()
@@ -3890,7 +3934,7 @@ def sharded_lm_phase(dev, K, logits_out=None):
 RANKS = 4                          # gloo ranks sharing the one card
 RANK_JOIN_S = 400                  # the limit on the ranks' join
 RANK_GEN = 8                       # teacher-forced decode steps of (c)
-RANK_SERVE_REQUESTS = 16           # (a)'s requests, the trace's first
+RANK_SERVE_REQUESTS = 8            # (a)'s requests, the trace's first
 # (c)'s deepseek-moe-16b logits over the tensor-parallel model ranks
 # against 7b's one process, x max |logit|, and the share of steps whose
 # argmax agrees: the ranks' bf16 sums in another order flip routes at
@@ -3919,7 +3963,9 @@ def _rank_path(K, name, fn, out):
     return res
 
 
-RANK_TRAIN_STEPS = 8                # as phase 7b's sharded_train
+# phase 7b's first steps (8 before PR 31: the script's time); all in the
+# warmup, whose learning rate does not depend on the run's length
+RANK_TRAIN_STEPS = 4
 RANK_TRAIN_LOSS_TOL = 1e-3         # every step's loss, relative to 7b's
 # step 0's grad norm, relative to 7b's: the tensor-parallel ranks' sums
 # reorder bf16 reductions and can flip a route at a gate margin (1.27e-3
@@ -4293,6 +4339,7 @@ def ranks_phase(dev, flat_serve, tree_sha, logits_ref, train_ref):
 # ---------------------------------------- phase 7e: the data axis over ranks
 
 DATA_ARCH = "qwen3-1.7b"
+DATA_SSM_ARCH = "mamba2-2.7b"      # K5 and its backward over data ranks
 DATA_TRAIN = {"batch": 16, "seq": 256, "steps": 2}   # (the script's time)
 DATA_SERVE = {"requests": 16, "batch": 16, "prompt": 128, "gen": 16}
 DATA_RANKS = 4                     # Qwen3's data ranks: its state 4 ways
@@ -4310,6 +4357,20 @@ DATA_MOE_LOSS0_TOL = 1e-3          # deepseek's step-0 loss, relative to (a)
 DATA_MOE_FLIP_SHARE = 0.5
 DATA_PEAK_SHARE = 0.5              # a Qwen3 rank's peak over (a)'s, at most
 DATA_JOIN_S = 400
+# phase 7e's depth cuts at full width: deepseek as phase 7's, Mamba2 at 4
+# of its 64 layers, Qwen3 at 4 of its 28 (since PR 31: the script's time)
+DATA_CUTS = {SHARDED_ARCH: SHARDED_TRAIN_LAYERS, DATA_SSM_ARCH: 4,
+             DATA_ARCH: 4}
+
+
+def _phase_cfg(arch, small, cuts):
+    """``arch``'s config as a phase runs it: the smoke one with
+    ``small``, else the full one cut to its layers in ``cuts``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    if small:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    return _cut(cfg, cuts[arch]) if arch in cuts else cfg
 
 
 def _data_train_argv(arch, small, extra=()):
@@ -4341,22 +4402,30 @@ def _rank0_rows(small) -> int:
     return b // DATA_RANKS if b % 16 == 0 else b
 
 
+def _cut(cfg, layers):
+    """``cfg`` at ``layers`` layers (an encdec config's ``(encoder,
+    decoder)``), its widths whole."""
+    if isinstance(layers, tuple):
+        return cfg.replace(n_enc_layers=layers[0], n_layers=layers[1])
+    return cfg.replace(n_layers=layers)
+
+
 @contextlib.contextmanager
-def _config(small):
-    """The drivers' configs for phase 7e: deepseek-moe-16b cut to
-    :data:`SHARDED_TRAIN_LAYERS` layers at full width; with ``small``
-    the smoke configs, deepseek's with 16 experts (EP 16 on the
-    production mesh)."""
+def _config(small, cuts=None):
+    """The drivers' configs for phases 7e and 7f: each arch of ``cuts``
+    ({arch: layers}, :data:`DATA_CUTS` unless given) cut to its layers at
+    full width; with ``small`` the smoke configs, deepseek's with 16
+    experts (EP 16 on the production mesh)."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
+    cuts = DATA_CUTS if cuts is None else cuts
     saved = [(m, k, getattr(m, k)) for m in (train_mod, serve_mod)
              for k in ("get_config", "get_smoke_config")]
     real_full, real_smoke = train_mod.get_config, train_mod.get_smoke_config
 
     def full(a):
         cfg = real_full(a)
-        return cfg.replace(n_layers=SHARDED_TRAIN_LAYERS) \
-            if a == SHARDED_ARCH else cfg
+        return _cut(cfg, cuts[a]) if a in cuts else cfg
 
     def smoke(a):
         cfg = real_smoke(a)
@@ -4401,7 +4470,8 @@ def data_refs(dev, K, tmp, small=None):
     training (:data:`DATA_TRAIN`) and serve (:data:`DATA_SERVE`, its
     logits kept for the ranks), the witness (data rank 0's rows served
     alone, :func:`_rank0_rows`, teacher-forced on that serve's inputs as
-    the ranks are), deepseek-moe-16b's training at
+    the ranks are), Mamba2-2.7B's training at 4 layers
+    (:data:`DATA_CUTS`), deepseek-moe-16b's training at
     :data:`SHARDED_TRAIN_LAYERS` layers with step 0's routes kept, and
     one full-width ``moe_ffn`` on :data:`DATA_MOE_ROWS` tokens with its
     router logits, routes and output kept.  Returns the references and
@@ -4417,7 +4487,7 @@ def data_refs(dev, K, tmp, small=None):
     from repro_torch.train.step import state_shapes
     ref, launches = {}, {}
     with _config(small) as get:
-        for arch in (DATA_ARCH, SHARDED_ARCH):
+        for arch in (DATA_ARCH, DATA_SSM_ARCH, SHARDED_ARCH):
             torch.cuda.empty_cache()
             K.reset_launch_counts()
             with dispatch_calls() as calls:
@@ -4496,17 +4566,53 @@ def _spec_leaves(specs) -> list:
     return [tuple(specs)]
 
 
-def data_collectives(n_layers, remat=True):
-    """A Qwen3 step's collectives over 4 data ranks (and nothing over
-    another axis): a layer's data-sharded leaves packed into one
-    all-gather in the forward and again under remat and one
-    reduce-scatter in the backward, the embedding gathered and
-    reduce-scattered once, all ``all_to_all``s; ``all_reduce``s of the
-    loss's mask count, of the gradients held whole along data, of the
-    reported loss and of the clip's partial sums."""
+def data_packs(cfg) -> tuple:
+    """(a layer's, the top level's) gathers over the data ranks of a
+    stacked config: its data-sharded leaves (from the reference's specs
+    on the production mesh) packed as ``collectives.gather_blocks`` packs
+    them, a dtype at a time, at most ``collectives.PACK`` whole elements
+    a gather (a larger leaf alone)."""
+    from repro_torch import tree as pt
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import sharding as shard
+    from repro_torch.parallel.collectives import PACK
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import state_shapes
+    shapes = state_shapes(cfg, TrainConfig())["params"]
+    specs = shard.param_specs(make_production_mesh(device="cpu"), shapes)
+
+    def packs(tree, spec, per=1):
+        leaves = [(p.dtype, p.numel() // per) for p, sp in zip(
+            pt.leaves(tree), _spec_leaves(spec)) if "data" in sp]
+        n = 0
+        for dt in dict.fromkeys(d for d, _ in leaves):
+            size = 0
+            for d, k in leaves:
+                if d != dt:
+                    continue
+                if size and size + k > PACK:
+                    n, size = n + 1, 0
+                size += k
+            n += 1
+        return n
+    top = [k for k in shapes if k != "blocks"]
+    return (packs(shapes["blocks"], specs["blocks"], cfg.n_layers),
+            packs({k: shapes[k] for k in top}, {k: specs[k] for k in top}))
+
+
+def data_collectives(cfg, remat=True):
+    """A stacked config's step collectives over 4 data ranks (and nothing
+    over another axis): a layer's data-sharded leaves packed into
+    all-gathers (:func:`data_packs`) in the forward and again under remat
+    and reduce-scattered in the backward, the top level's (embedding,
+    head) gathered and reduce-scattered once, all ``all_to_all``s;
+    ``all_reduce``s of the loss's mask count, of the gradients held
+    whole along data, of the reported loss and of the clip's partial
+    sums."""
     runs = 2 if remat else 1
-    return {"all_to_all.data_calls": n_layers * (runs + 1) + 2,
-            "all_reduce.data_calls": 4}
+    layer, top = data_packs(cfg)
+    return {"all_to_all.data_calls": cfg.n_layers * layer * (runs + 1)
+            + 2 * top, "all_reduce.data_calls": 4}
 
 
 def _rank_moe_check(dev, mesh, tmp, small):
@@ -4559,7 +4665,9 @@ def rank_data_main(rank, world, tmp):
     share the card, loads the kernels the parent built, and runs (a)
     Qwen3-1.7B's training with ``--data-ranks 4`` (its state 4 ways),
     (b) its serve with ``--data-ranks 4`` teacher-forced on the parent's
-    first batch, (c) deepseek-moe-16b's training with ``--data-ranks 2``
+    first batch, (b') Mamba2-2.7B's training with ``--data-ranks 4`` (K5
+    and its backward over data ranks), (c) deepseek-moe-16b's training
+    with ``--data-ranks 2``
     (2 data x 2 model ranks) with step 0's routes against the parent's,
     and (d) the 2 x 2 ``moe_ffn`` check (:func:`_rank_moe_check`), each
     a path of :func:`_rank_path`.  Writes ``rank<r>.json``.  A ``small``
@@ -4613,6 +4721,16 @@ def rank_data_main(rank, world, tmp):
                                   "seconds": res["seconds"],
                                   "finite": res["finite"],
                                   "layout": res["layout"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = _rank_path(K, "mamba2", lambda: train_mod.main(
+            _data_train_argv(DATA_SSM_ARCH, small,
+                             ("--data-ranks", str(DATA_RANKS)))), out)
+        del rec["state"], out["mamba2"]["result"]
+        out["mamba2"]["launches"] = _summed(rec["launches"])
+        out["mamba2"]["result"] = {k: rec[k] for k in (
+            "losses", "grad_norms", "step_ms", "param_bytes", "peak_bytes",
+            "ranks", "launches", "collectives", "grads_missing")}
         gc.collect()
         torch.cuda.empty_cache()
         with dispatch_calls() as calls:
@@ -4720,7 +4838,7 @@ def data_ranks_phase(dev, K, small=None):
     for c in ref_launches.values():
         ref_counts.update(c)
     for rec in recs:
-        for p in ("train", "serve", "deepseek", "moe_check"):
+        for p in ("train", "serve", "mamba2", "deepseek", "moe_check"):
             launches.update(rec[p]["launches"])
     return dict(ref_counts), dict(launches), {"ref": ref, "recs": recs}
 
@@ -4730,9 +4848,8 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
     one-process references ``ref`` (see :func:`data_ranks_phase`); prints
     each rank's record and returns the phase's summary.  A failed check
     raises."""
-    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.lm import train_launches
-    cfg = (get_smoke_config if small else get_config)(DATA_ARCH)
+    cfg = _phase_cfg(DATA_ARCH, small, DATA_CUTS)
     q = ref[DATA_ARCH]
     for rec in recs:
         tr = rec["train"]["result"]
@@ -4744,9 +4861,13 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
                    "launches": {k: n for k, n in rec[p]["launches"].items()
                                 if n},
                    "collectives": rec[p]["collectives"]}
-               for p in ("train", "serve", "deepseek", "moe_check")},
+               for p in ("train", "serve", "mamba2", "deepseek",
+                         "moe_check")},
             "qwen3": {k: tr[k] for k in ("losses", "grad_norms", "step_ms",
                                          "param_bytes", "peak_bytes")},
+            "mamba2": {k: rec["mamba2"]["result"][k] for k in (
+                "losses", "grad_norms", "step_ms", "param_bytes",
+                "peak_bytes")},
             "deepseek": rec["deepseek"]["result"],
             "moe_check": rec["moe_check"]["result"]}, default=float))
         assert tr["ranks"] == {"data": DATA_RANKS} and \
@@ -4769,7 +4890,7 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
                 assert rec["train"]["launches"][name] > 0
             assert rec["serve"]["launches"]["flash_attention"] > 0
         assert all(_qwen_blocks(cfg)), "no data-sharded leaf"
-        formula = data_collectives(cfg.n_layers, remat=not small)
+        formula = data_collectives(cfg, remat=not small)
         for i, c in enumerate(tr["collectives"]):
             got = {k: v for k, v in c.items()
                    if "." in k and k.endswith("_calls")}
@@ -4777,8 +4898,10 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
         ds = rec["deepseek"]["result"]
         assert np.isfinite(ds["losses"]).all() and ds["grads_missing"] == 0
         assert ds["ranks"] == DATA_MOE_LAYOUT, ds["ranks"]
+        _data_ssm_checks(K, rec["mamba2"], recs[0]["mamba2"], small)
     loss_rel = [abs(a - b) / abs(b) for a, b in
                 zip(recs[0]["train"]["result"]["losses"], q["losses"])]
+    ssm = _data_ssm_drift(ref[DATA_SSM_ARCH], recs[0]["mamba2"]["result"])
     g0 = recs[0]["train"]["result"]["grad_norms"][0]
     ds_rel = abs(recs[0]["deepseek"]["result"]["losses"][0]
                  - ref[SHARDED_ARCH]["losses"][0]) \
@@ -4805,6 +4928,7 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
                "collectives"][-1],
            "serve_logits": recs[0]["serve_logits"],
            "serve_wall_s": [r["serve"]["wall_s"] for r in recs],
+           "mamba2": ssm,
            "deepseek_one_process_losses": ref[SHARDED_ARCH]["losses"],
            "deepseek_ranks_losses": recs[0]["deepseek"]["result"]["losses"],
            "deepseek_step0_loss_rel": ds_rel,
@@ -4826,11 +4950,58 @@ def data_ranks_checks(K, ref, recs, small=None) -> dict:
     assert loss_rel[0] <= DATA_LOSS0_TOL and \
         out["qwen3_step0_grad_norm_rel"] <= DATA_GNORM0_TOL and \
         max(loss_rel) <= DATA_LOSS_TOL, out
+    assert ssm["loss_rel_by_step"][0] <= DATA_LOSS0_TOL and \
+        ssm["grad_norm_rel_step0"] <= DATA_GNORM0_TOL and \
+        max(ssm["loss_rel_by_step"]) <= DATA_LOSS_TOL, ssm
     assert ds_rel <= DATA_MOE_LOSS0_TOL, out
     assert all(r["deepseek"]["result"]["flipped_routes"]
                <= DATA_MOE_FLIP_SHARE * r["deepseek"]["result"]["routes"]
                for r in recs), out
     return out
+
+
+def _data_ssm_checks(K, path, first, small):
+    """A rank's Mamba2 training over 4 data ranks (``path``: its
+    :func:`_rank_path` record; ``first``: rank 0's): the layout, every
+    leaf reached, rank 0's losses and grad norms bit for bit, the
+    parameter bytes :func:`tp_rank_bytes` gives for 4 data ranks
+    exactly, K5 and its backward ``lm.train_launches`` a step, the
+    collectives a step :func:`data_collectives`'."""
+    from repro_torch.models.lm import train_launches
+    cfg = _phase_cfg(DATA_SSM_ARCH, small, DATA_CUTS)
+    tr = path["result"]
+    assert tr["ranks"] == {"data": DATA_RANKS} and \
+        tr["grads_missing"] == 0, tr
+    assert tr["losses"] == first["result"]["losses"] and \
+        tr["grad_norms"] == first["result"]["grad_norms"], tr
+    want = tp_rank_bytes(cfg, {"data": DATA_RANKS})
+    assert tr["param_bytes"] == want, (tr["param_bytes"], want)
+    if not small:
+        launches = dict.fromkeys(K.WRAPPERS, 0)
+        launches.update(train_launches(cfg))
+        for i, got in enumerate(tr["launches"]):
+            assert got == launches, f"mamba2 step {i}: {got}"
+    formula = data_collectives(cfg, remat=not small)
+    for i, c in enumerate(tr["collectives"]):
+        got = {k: v for k, v in c.items()
+               if "." in k and k.endswith("_calls")}
+        assert got == formula, ("mamba2", i, got, formula)
+
+
+def _data_ssm_drift(one, ranks) -> dict:
+    """Mamba2 over data ranks against one process: each step's loss
+    and step 0's grad norm, relative; the ranks' step times."""
+    return {"one_process": {k: one[k] for k in (
+                "losses", "grad_norms", "steady_step_ms", "param_bytes",
+                "peak_bytes")},
+            "losses": ranks["losses"], "grad_norms": ranks["grad_norms"],
+            "loss_rel_by_step": [abs(a - b) / abs(b) for a, b in
+                                 zip(ranks["losses"], one["losses"])],
+            "grad_norm_rel_step0": abs(ranks["grad_norms"][0]
+                                       - one["grad_norms"][0])
+            / one["grad_norms"][0],
+            "param_bytes": ranks["param_bytes"],
+            "peak_bytes": ranks["peak_bytes"], "step_ms": ranks["step_ms"]}
 
 
 def _qwen_blocks(cfg) -> tuple:
@@ -4879,7 +5050,7 @@ def tp_witness(n, heads=False):
 
     def make_ctx(mesh, cfg, policy=None):
         ctx = real["make_ctx"][1](mesh, cfg, policy)
-        if cfg.family in shard.TP_FAMILIES and ctx.tp is None:
+        if ctx.tp is None:
             ctx = dataclasses.replace(ctx, tp=shard.model_dims(mesh, cfg,
                                                                policy))
         return ctx
@@ -4940,8 +5111,19 @@ def tp_witness(n, heads=False):
             setattr(mod, name, fn)
 
 
-TP_ARCH = "qwen3-1.7b"
-TP_TRAIN = {"batch": 8, "seq": 256, "steps": 3}
+TP_ARCH = "qwen3-1.7b"             # the witness's model
+# phase 7f's models: arch -> (layers at full width (an encdec's
+# (encoder, decoder)), batch, seq) of their training; Qwen3 at 4 of its
+# 28 layers since PR 31 (the script's time)
+TP_RUNS = {
+    "qwen3-1.7b": (4, 8, 256),
+    "mamba2-2.7b": (4, 4, 256),
+    "recurrentgemma-2b": (3, 4, 256),          # r, r, a
+    "llava-next-mistral-7b": (2, 2, 256),      # after its 1152 patches
+    "seamless-m4t-medium": ((2, 2), 4, 256),
+}
+TP_CUTS = {arch: run[0] for arch, run in TP_RUNS.items()}
+TP_STEPS = 2                       # (3 before PR 31)
 TP_SERVE = {"requests": 8, "batch": 8, "prompt": 128, "gen": 16}
 TP_LAYOUTS = {"m4": None, "d2m2": 2}  # --data-ranks: 4 model, 2 x 2
 TP_LOSS0_TOL = 1e-3                # step 0's loss, relative to (a)
@@ -4949,67 +5131,77 @@ TP_LOSS_TOL = 5e-3                 # every step's loss, relative to (a)
 TP_JOIN_S = 400
 
 
-def _tp_train_argv(small, extra=()):
-    tr = small["train"] if small else TP_TRAIN
-    argv = ["--arch", TP_ARCH, "--production-mesh", "--steps",
+def _tp_train_argv(arch, small, extra=()):
+    if small:
+        tr = small["train"]
+    else:
+        _, batch, seq = TP_RUNS[arch]
+        tr = {"batch": batch, "seq": seq, "steps": TP_STEPS}
+    argv = ["--arch", arch, "--production-mesh", "--steps",
             str(tr["steps"]), "--batch", str(tr["batch"]), "--seq",
             str(tr["seq"]), "--micro", "1", "--lr", "3e-4", "--log-every",
             "1", *extra]
     return argv + (["--smoke", "--device", "cpu"] if small else [])
 
 
-def _tp_serve_argv(small, extra=()):
+def _tp_serve_argv(arch, small, extra=()):
     sv = small["serve"] if small else TP_SERVE
-    argv = ["--arch", TP_ARCH, "--production-mesh", "--requests",
+    argv = ["--arch", arch, "--production-mesh", "--requests",
             str(sv["requests"]), "--batch", str(sv["batch"]),
             "--prompt-len", str(sv["prompt"]), "--gen", str(sv["gen"]),
             *extra]
     return argv + (["--smoke", "--device", "cpu"] if small else [])
 
 
-def _tp_cfg(small):
-    from repro_torch.configs import get_config, get_smoke_config
-    return (get_smoke_config if small else get_config)(TP_ARCH)
+def _tp_paths(arch):
+    """A rank's paths of ``arch`` in phase 7f."""
+    return (*(f"{arch}/train_{n}" for n in TP_LAYOUTS), f"{arch}/serve")
 
 
 def tp_refs(dev, K, tmp, small=None):
-    """Phase 7f (a), in one process on the production mesh: Qwen3-1.7B's
-    training (:data:`TP_TRAIN`) and its serve (:data:`TP_SERVE`, the
-    logits and decode inputs kept for the ranks).  Returns the references
-    and each path's kernel launches."""
+    """Phase 7f (a), in one process on the production mesh: each model of
+    :data:`TP_RUNS`' training (:data:`TP_STEPS` steps at its cut, batch
+    and sequence) and its serve (:data:`TP_SERVE`, the logits and decode
+    inputs kept for the ranks).  Returns the references ({arch: {"train",
+    "serve"}}) and each path's kernel launches."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    torch.cuda.empty_cache()
-    K.reset_launch_counts()
-    rec = train_mod.main(_tp_train_argv(small))
-    launches = {"train": _summed(rec["launches"])}
-    del rec["state"]
-    gc.collect()
-    ref = {"train": {k: rec[k] for k in (
-        "losses", "grad_norms", "step_ms", "param_bytes", "state_bytes",
-        "peak_bytes")}}
-    torch.cuda.empty_cache()
-    K.reset_launch_counts()
-    logits = os.path.join(tmp, "qwen3_one.npz")
-    res = serve_mod.main(_tp_serve_argv(small, ("--logits-out", logits)))
-    launches["serve"] = K.launch_counts()
-    ref["serve"] = {"logits": logits, "seconds": res["seconds"],
-                    "param_bytes": res["param_bytes"],
-                    "kv_heads": res["kv_heads"]}
-    gc.collect()
-    torch.cuda.empty_cache()
+    ref, launches = {}, {}
+    with _config(small, TP_CUTS):
+        for arch in TP_RUNS:
+            torch.cuda.empty_cache()
+            K.reset_launch_counts()
+            rec = train_mod.main(_tp_train_argv(arch, small))
+            launches[f"{arch}/train"] = _summed(rec["launches"])
+            del rec["state"]
+            gc.collect()
+            ref[arch] = {"train": {k: rec[k] for k in (
+                "losses", "grad_norms", "step_ms", "param_bytes",
+                "state_bytes", "peak_bytes")}}
+            torch.cuda.empty_cache()
+            K.reset_launch_counts()
+            logits = os.path.join(tmp, f"{arch}_one.npz")
+            res = serve_mod.main(_tp_serve_argv(arch, small,
+                                                ("--logits-out", logits)))
+            launches[f"{arch}/serve"] = K.launch_counts()
+            ref[arch]["serve"] = {"logits": logits,
+                                  "seconds": res["seconds"],
+                                  "param_bytes": res["param_bytes"],
+                                  "kv_heads": res["kv_heads"]}
+            gc.collect()
+            torch.cuda.empty_cache()
     return ref, launches
 
 
 def rank_tp_main(rank, world, tmp):
     """One of phase 7f's ranks: joins the gloo group of the ranks that
-    share the card, loads the kernels the parent built, and runs
-    Qwen3-1.7B's training with the model axis over the 4 ranks (tensor
-    parallel) and over 2 data x 2 model ranks (``--data-ranks 2``), then
-    its serve over the 4 model ranks teacher-forced on the parent's
-    inputs, each a path of :func:`_rank_path`.  Writes ``rank<r>.json``.
-    A ``small`` entry in the spec rehearses the ranks on the CPU at its
-    sizes."""
+    share the card, loads the kernels the parent built, and runs each
+    model of :data:`TP_RUNS`: its training with the model axis over the
+    4 ranks (tensor parallel) and over 2 data x 2 model ranks
+    (``--data-ranks 2``), then its serve over the 4 model ranks
+    teacher-forced on the parent's inputs, each a path of
+    :func:`_rank_path`.  Writes ``rank<r>.json``.  A ``small`` entry in
+    the spec rehearses the ranks on the CPU at its sizes."""
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5033,37 +5225,48 @@ def rank_tp_main(rank, world, tmp):
     backend = torch.distributed.get_backend(group)
     assert backend == "gloo", backend
     out = {"rank": rank, "world": world, "backend": backend,
-           "device": str(dev), "join_s": time.perf_counter() - t0}
+           "device": str(dev), "join_s": time.perf_counter() - t0,
+           "serve_logits": {}}
     loads0 = _build.LOADS
-    for name, data in TP_LAYOUTS.items():
-        extra = ("--data-ranks", str(data)) if data else ()
-        rec = _rank_path(K, f"train_{name}", lambda: train_mod.main(
-            _tp_train_argv(small, extra)), out)
-        del rec["state"], out[f"train_{name}"]["result"]
-        # the driver sets the counts to 0 before each step
-        out[f"train_{name}"]["launches"] = _summed(rec["launches"])
-        out[f"train_{name}"]["result"] = {k: rec[k] for k in (
-            "losses", "grad_norms", "step_ms", "param_bytes", "state_bytes",
-            "peak_bytes", "ranks", "launches", "collectives",
-            "grads_missing")}
-        gc.collect()
-        torch.cuda.empty_cache()
-    logits = os.path.join(tmp, "qwen3_ranks.npz")
-    torch.cuda.reset_peak_memory_stats()
-    res = _rank_path(K, "serve", lambda: serve_mod.main(_tp_serve_argv(
-        small, ("--teacher", spec["serve"]["logits"], "--logits-out",
-                logits))), out)
-    out["serve"]["result"] = {k: res[k] for k in (
-        "tokens", "seconds", "finite", "layout", "param_bytes", "kv_heads")}
-    out["serve"]["result"]["peak_bytes"] = (
-        None if small else torch.cuda.max_memory_allocated())
-    if rank == 0:
-        got, want = np.load(logits), np.load(spec["serve"]["logits"])
-        out["serve_logits"] = dict(
-            _drift(got["logits"], want["logits"]),
-            steps=int(want["logits"].shape[0]), tolerance_rel=REPLAY_TOL,
-            teacher_equal=bool(np.array_equal(got["inputs"],
-                                              want["inputs"])))
+    with _config(small, TP_CUTS):
+        for arch in TP_RUNS:
+            for name, data in TP_LAYOUTS.items():
+                extra = ("--data-ranks", str(data)) if data else ()
+                path = f"{arch}/train_{name}"
+                rec = _rank_path(K, path, lambda a=arch, e=extra:
+                                 train_mod.main(_tp_train_argv(a, small, e)),
+                                 out)
+                del rec["state"], out[path]["result"]
+                # the driver sets the counts to 0 before each step
+                out[path]["launches"] = _summed(rec["launches"])
+                out[path]["result"] = {k: rec[k] for k in (
+                    "losses", "grad_norms", "step_ms", "param_bytes",
+                    "state_bytes", "peak_bytes", "ranks", "launches",
+                    "collectives", "grads_missing")}
+                gc.collect()
+                torch.cuda.empty_cache()
+            logits = os.path.join(tmp, f"{arch}_ranks.npz")
+            teacher = spec[arch]["serve"]["logits"]
+            torch.cuda.reset_peak_memory_stats()
+            path = f"{arch}/serve"
+            res = _rank_path(K, path, lambda a=arch: serve_mod.main(
+                _tp_serve_argv(a, small, ("--teacher", teacher,
+                                          "--logits-out", logits))), out)
+            out[path]["result"] = {k: res[k] for k in (
+                "tokens", "seconds", "finite", "layout", "param_bytes",
+                "kv_heads")}
+            out[path]["result"]["peak_bytes"] = (
+                None if small else torch.cuda.max_memory_allocated())
+            if rank == 0:
+                got, want = np.load(logits), np.load(teacher)
+                out["serve_logits"][arch] = dict(
+                    _drift(got["logits"], want["logits"]),
+                    steps=int(want["logits"].shape[0]),
+                    tolerance_rel=REPLAY_TOL,
+                    teacher_equal=bool(np.array_equal(got["inputs"],
+                                                      want["inputs"])))
+            gc.collect()
+            torch.cuda.empty_cache()
     out["kernel_loads"] = _build.LOADS - loads0
     out["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -5078,22 +5281,23 @@ def tp_witness_serve(small, teacher, out, ranks_logits) -> dict:
     teacher-forced on the ranks' inputs: whether its logits are the
     ranks' bits, and its drift from them."""
     from repro_torch.launch import serve as serve_mod
-    with tp_witness(RANKS, heads=_tp_cfg(small).n_heads % 16 == 0):
-        serve_mod.main(_tp_serve_argv(small, ("--teacher", teacher,
-                                              "--logits-out", out)))
+    hq = _phase_cfg(TP_ARCH, small, TP_CUTS).n_heads
+    with _config(small, TP_CUTS), tp_witness(RANKS, heads=hq % 16 == 0):
+        serve_mod.main(_tp_serve_argv(TP_ARCH, small, (
+            "--teacher", teacher, "--logits-out", out)))
     got, want = np.load(out)["logits"], np.load(ranks_logits)["logits"]
     return dict(_drift(got, want), bit_equal=bool(np.array_equal(got, want)))
 
 
 def tp_ranks_phase(dev, K, small=None):
     """Phase 7f: tensor parallelism over :data:`RANKS` gloo ranks sharing
-    the card.  (a) the one-process references (:func:`tp_refs`), then
-    the parent frees its cached memory and spawns the ranks
-    (:func:`rank_tp_main`, joined within :data:`TP_JOIN_S`; a failing or
-    late rank ends the run), then the witness (:func:`tp_witness_serve`).
-    :func:`tp_ranks_checks` holds the records.  Returns the launches of
-    (a) and of the ranks, by kernel, and the references, the ranks'
-    records and the witness."""
+    the card, for one model of every family (:data:`TP_RUNS`).  (a) the
+    one-process references (:func:`tp_refs`), then the parent frees its
+    cached memory and spawns the ranks (:func:`rank_tp_main`, joined
+    within :data:`TP_JOIN_S`; a failing or late rank ends the run), then
+    the witness (:func:`tp_witness_serve`).  :func:`tp_ranks_checks`
+    holds the records.  Returns the launches of (a) and of the ranks, by
+    kernel, and the references, the ranks' records and the witness."""
     from repro_torch.parallel.dist import spawn
     tmp = tempfile.mkdtemp(prefix="ranks_tp_")
     t0 = time.perf_counter()
@@ -5109,9 +5313,10 @@ def tp_ranks_phase(dev, K, small=None):
                 for r in range(RANKS)]
         t_wit = time.perf_counter()
         K.reset_launch_counts()
-        witness = tp_witness_serve(small, ref["serve"]["logits"],
-                                   os.path.join(tmp, "qwen3_witness.npz"),
-                                   os.path.join(tmp, "qwen3_ranks.npz"))
+        witness = tp_witness_serve(
+            small, ref[TP_ARCH]["serve"]["logits"],
+            os.path.join(tmp, "qwen3_witness.npz"),
+            os.path.join(tmp, f"{TP_ARCH}_ranks.npz"))
         ref_launches["witness"] = K.launch_counts()
         witness["seconds"] = time.perf_counter() - t_wit
     finally:
@@ -5124,8 +5329,9 @@ def tp_ranks_phase(dev, K, small=None):
     for c in ref_launches.values():
         ref_counts.update(c)
     for rec in recs:
-        for p in (*(f"train_{n}" for n in TP_LAYOUTS), "serve"):
-            launches.update(rec[p]["launches"])
+        for arch in TP_RUNS:
+            for p in _tp_paths(arch):
+                launches.update(rec[p]["launches"])
     return dict(ref_counts), dict(launches), {"ref": ref, "recs": recs,
                                               "witness": witness}
 
@@ -5149,29 +5355,36 @@ def tp_rank_bytes(cfg, layout) -> int:
     return total
 
 
+def _tp_kv_heads(cfg):
+    """The KV heads a rank's attention cache holds over :data:`RANKS`
+    model ranks of the production mesh: where its 16 model shards divide
+    Hq a rank keeps its Hq / 4 heads and the KV heads they read, else
+    every head (None without an attention cache)."""
+    if cfg.family == "ssm":
+        return None
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    return max(1, hkv * (hq // RANKS) // hq) if hq % 16 == 0 else hkv
+
+
 def tp_ranks_checks(K, ref, recs, witness, small=None) -> dict:
     """Phase 7f's checks of the ranks' records ``recs`` against the
     one-process references ``ref`` (see :func:`tp_ranks_phase`); prints
-    each rank's record and returns the phase's summary.  Held: every
-    rank of a layout reports the same losses and grad norms, step 0's
-    loss within :data:`TP_LOSS0_TOL` and every loss within
-    :data:`TP_LOSS_TOL` of (a)'s, no gradient missing; a rank's
-    parameter bytes exactly :func:`tp_rank_bytes` (over 4 model ranks
-    the replicated leaves plus a quarter of the split ones); K4 and its
-    backward ``lm.train_launches`` a step; the serve's logits within
-    ``REPLAY_TOL`` of (a)'s scale, and the witness gives their bits;
-    its cache the KV heads of a rank's q heads.  A failed check
-    raises."""
+    each rank's record and returns the phase's summary.  Held, for each
+    model of :data:`TP_RUNS`: every rank of a layout reports the same
+    losses and grad norms, step 0's loss within :data:`TP_LOSS0_TOL` and
+    every loss within :data:`TP_LOSS_TOL` of (a)'s, no gradient missing;
+    a rank's parameter bytes exactly :func:`tp_rank_bytes` (over 4 model
+    ranks the replicated leaves plus a quarter of the split ones); K4,
+    K5 and their backward ``lm.train_launches`` a step, the serve's
+    kernel launched; the serve's logits within ``REPLAY_TOL`` of (a)'s
+    scale; its cache the KV heads of a rank's q heads
+    (:func:`_tp_kv_heads`); and for Qwen3 the witness gives the serve's
+    bits.  A failed check raises."""
     from repro_torch.models.lm import train_launches
-    cfg = _tp_cfg(small)
-    q = ref["train"]
     layouts = {"m4": {"model": RANKS}, "d2m2": {"data": 2, "model": 2}}
-    out = {"ranks": RANKS, "one_process": q,
-           "one_process_serve": {k: v for k, v in ref["serve"].items()
-                                 if k != "logits"}}
+    out = {"ranks": RANKS}
     for rec in recs:
-        r = rec["rank"]
-        log(f"ranks_tp rank {r}: " + json.dumps({
+        log(f"ranks_tp rank {rec['rank']}: " + json.dumps({
             "join_s": rec["join_s"], "wall_s": rec["wall_s"],
             "kernel_loads": rec["kernel_loads"],
             **{p: {"wall_s": rec[p]["wall_s"],
@@ -5183,64 +5396,80 @@ def tp_ranks_checks(K, ref, recs, witness, small=None) -> dict:
                    else rec[p]["collectives"],
                    **{k: v for k, v in rec[p]["result"].items()
                       if k not in ("launches", "collectives")}}
-               for p in (*(f"train_{n}" for n in TP_LAYOUTS), "serve")}},
+               for arch in TP_RUNS for p in _tp_paths(arch)}},
             default=float))
-        for name, layout in layouts.items():
-            tr = rec[f"train_{name}"]["result"]
-            first = recs[0][f"train_{name}"]["result"]
-            assert tr["ranks"] == layout and tr["grads_missing"] == 0, tr
-            assert tr["losses"] == first["losses"] and \
-                tr["grad_norms"] == first["grad_norms"], \
-                f"rank {r} {name}: its losses differ from rank 0's"
-            assert tr["param_bytes"] == tp_rank_bytes(cfg, layout), \
-                (name, tr["param_bytes"], tp_rank_bytes(cfg, layout))
+    for arch in TP_RUNS:
+        cfg = _phase_cfg(arch, small, TP_CUTS)
+        q = ref[arch]["train"]
+        for rec in recs:
+            r = rec["rank"]
+            for name, layout in layouts.items():
+                tr = rec[f"{arch}/train_{name}"]["result"]
+                first = recs[0][f"{arch}/train_{name}"]["result"]
+                assert tr["ranks"] == layout and tr["grads_missing"] == 0, \
+                    (arch, tr)
+                assert tr["losses"] == first["losses"] and \
+                    tr["grad_norms"] == first["grad_norms"], \
+                    f"rank {r} {arch} {name}: its losses differ from rank 0's"
+                want = tp_rank_bytes(cfg, layout)
+                assert tr["param_bytes"] == want, \
+                    (arch, name, tr["param_bytes"], want)
+                if not small:
+                    steps = dict.fromkeys(K.WRAPPERS, 0)
+                    steps.update(train_launches(cfg))
+                    for i, got in enumerate(tr["launches"]):
+                        assert got == steps, \
+                            f"rank {r} {arch} {name} step {i}: {got}"
+            sv = rec[f"{arch}/serve"]["result"]
+            assert sv["finite"] and sv["layout"] == {"model": RANKS}, \
+                (arch, sv)
+            assert sv["param_bytes"] == tp_rank_bytes(cfg,
+                                                      {"model": RANKS})
+            assert sv["kv_heads"] == _tp_kv_heads(cfg), (arch, sv)
             if not small:
-                want = dict.fromkeys(K.WRAPPERS, 0)
-                want.update(train_launches(cfg))
-                for i, got in enumerate(tr["launches"]):
-                    assert got == want, f"rank {r} {name} step {i}: {got}"
-        sv = rec["serve"]["result"]
-        assert sv["finite"] and sv["layout"] == {"model": RANKS}, sv
-        assert sv["param_bytes"] == tp_rank_bytes(cfg, {"model": RANKS})
-        if not small:
-            assert rec["serve"]["launches"]["flash_attention"] > 0
-    for name in TP_LAYOUTS:
-        tr = recs[0][f"train_{name}"]["result"]
-        rel = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
-                                                   q["losses"])]
-        out[name] = {
-            "losses": tr["losses"], "grad_norms": tr["grad_norms"],
-            "loss_rel_by_step": rel,
-            "grad_norm_rel_step0": abs(tr["grad_norms"][0]
-                                       - q["grad_norms"][0])
-            / q["grad_norms"][0],
-            "param_bytes": tr["param_bytes"],
-            "state_bytes": tr["state_bytes"],
-            "peak_bytes": [r[f"train_{name}"]["result"]["peak_bytes"]
-                           for r in recs],
-            "steady_step_ms": [float(np.median(
-                r[f"train_{name}"]["result"]["step_ms"][1:]))
-                for r in recs],
-            "collectives_per_step": tr["collectives"][-1]}
-        assert rel[0] <= TP_LOSS0_TOL and max(rel) <= TP_LOSS_TOL, \
-            (name, out[name])
-    sv = dict(recs[0]["serve_logits"], witness=witness,
-              kv_heads=recs[0]["serve"]["result"]["kv_heads"],
-              param_bytes=recs[0]["serve"]["result"]["param_bytes"],
-              peak_bytes=[r["serve"]["result"]["peak_bytes"] for r in recs],
-              wall_s=[r["serve"]["wall_s"] for r in recs],
-              collectives=recs[0]["serve"]["collectives"])
-    out["serve"] = sv
-    assert sv["teacher_equal"], "the ranks' serve was not teacher-forced"
-    assert sv["rel_err"] <= REPLAY_TOL, \
-        f"Qwen3 over model ranks off the one-process logits: {sv}"
+                kernel = ("ssd_intra" if cfg.family == "ssm"
+                          else "flash_attention")
+                assert rec[f"{arch}/serve"]["launches"][kernel] > 0, arch
+        got = out[arch] = {"one_process": q}
+        for name in TP_LAYOUTS:
+            tr = recs[0][f"{arch}/train_{name}"]["result"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                       q["losses"])]
+            got[name] = {
+                "losses": tr["losses"], "grad_norms": tr["grad_norms"],
+                "loss_rel_by_step": rel,
+                "grad_norm_rel_step0": abs(tr["grad_norms"][0]
+                                           - q["grad_norms"][0])
+                / q["grad_norms"][0],
+                "param_bytes": tr["param_bytes"],
+                "state_bytes": tr["state_bytes"],
+                "peak_bytes": [r[f"{arch}/train_{name}"]["result"][
+                    "peak_bytes"] for r in recs],
+                "steady_step_ms": [float(np.median(
+                    r[f"{arch}/train_{name}"]["result"]["step_ms"][1:]
+                    or r[f"{arch}/train_{name}"]["result"]["step_ms"]))
+                    for r in recs],
+                "collectives_per_step": tr["collectives"][-1]}
+            assert rel[0] <= TP_LOSS0_TOL and max(rel) <= TP_LOSS_TOL, \
+                (arch, name, got[name])
+        sv = dict(recs[0]["serve_logits"][arch],
+                  one_process={k: v for k, v in ref[arch]["serve"].items()
+                               if k != "logits"},
+                  kv_heads=recs[0][f"{arch}/serve"]["result"]["kv_heads"],
+                  param_bytes=recs[0][f"{arch}/serve"]["result"][
+                      "param_bytes"],
+                  peak_bytes=[r[f"{arch}/serve"]["result"]["peak_bytes"]
+                              for r in recs],
+                  wall_s=[r[f"{arch}/serve"]["wall_s"] for r in recs],
+                  collectives=recs[0][f"{arch}/serve"]["collectives"])
+        got["serve"] = sv
+        assert sv["teacher_equal"], \
+            f"{arch}: the ranks' serve was not teacher-forced"
+        assert sv["rel_err"] <= REPLAY_TOL, \
+            f"{arch} over model ranks off the one-process logits: {sv}"
+    out[TP_ARCH]["serve"]["witness"] = witness
     assert witness["bit_equal"], \
-        f"model rank 0's logits differ from the witness's: {sv}"
-    # where the production mesh's 16 model shards divide Hq a rank keeps
-    # its Hq / 4 heads and the KV heads they read, else every head
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    assert sv["kv_heads"] == (max(1, hkv * (hq // RANKS) // hq)
-                              if hq % 16 == 0 else hkv), sv
+        f"model rank 0's logits differ from the witness's: {witness}"
     return out
 
 

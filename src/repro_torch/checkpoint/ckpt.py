@@ -26,10 +26,10 @@ does not divide the leaf's shape as JAX's placement would.
 Over ``torch.distributed`` ranks (``shardings`` over a mesh with a
 ``group``) a checkpoint is the same whatever the world size and layout:
 ``save`` all-gathers the leaves each rank holds as its block along each
-ranked axis (a sharding's ``rank_dims``: the routed experts and, for a
-dense or moe config, ``to_named(mesh, specs, cfg.family)``'s
-tensor-parallel blocks and their optimizer state along the model axis,
-the FSDP blocks along the data axis), axis by axis over the axis's
+ranked axis (a sharding's ``rank_dims``: ``to_named(mesh, specs)``'s
+tensor-parallel blocks and routed experts and their optimizer state
+along the model axis, the FSDP blocks along the data axis), axis by
+axis over the axis's
 sub-group, on every rank, synchronously and before any write, and
 only the group's rank 0 writes the whole state in the one-process
 layout; ``restore`` waits at a

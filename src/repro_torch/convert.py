@@ -106,15 +106,14 @@ def rank_experts(tree, mesh, axis: str = "model"):
     return walk(tree)
 
 
-def rank_state(tree, mesh, specs, axes=None, family=None):
+def rank_state(tree, mesh, specs, axes=None):
     """``tree`` (a whole parameter tree, train state or single leaf:
     the parameters, the AdamW ``opt.mu`` m and v in any tier, ``err``;
     numpy arrays or tensors) cut to this rank's block on every ranked
     axis of ``mesh`` (or only on ``axes``): each leaf by its
     ``parallel.sharding.rank_dims`` entry of ``specs`` (``state_specs``
-    or ``param_specs`` of the whole shapes) for the config's ``family``
-    (a dense or moe one's model ranks hold every leaf the specs shard
-    over ``model``, any other's the routed experts only).  A cut leaf is
+    or ``param_specs`` of the whole shapes: a model rank holds every
+    leaf the specs shard over ``model``).  A cut leaf is
     a copy, so the whole one can be freed; a leaf held whole is kept as
     it is (the same object)."""
     from .parallel.sharding import NamedSharding, RankDims, _map, rank_dims
@@ -127,7 +126,7 @@ def rank_state(tree, mesh, specs, axes=None, family=None):
         out = NamedSharding(mesh, spec, dims).block(leaf)
         return out.clone() if isinstance(out, torch.Tensor) \
             else np.array(out, copy=True)
-    return _map(cut, specs, tree, rank_dims(mesh, specs, family))
+    return _map(cut, specs, tree, rank_dims(mesh, specs))
 
 
 def pool_from_arrays(cfg, rounds_state: dict, *, alloc_top: int,

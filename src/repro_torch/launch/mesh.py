@@ -8,8 +8,8 @@ sharded reference computes, expert parallelism included, with the
 exchanges as index moves.  With one (``group=``, from
 :func:`repro_torch.parallel.dist.init`) the ``model`` axis is split
 over the group's ranks in blocks, each rank on its own ``device``, and
-the expert exchanges run between the ranks (a dense or moe config's
-model ranks are tensor parallel too: ``parallel.sharding.make_ctx``);
+the expert exchanges run between the ranks (the model ranks are
+tensor parallel too: ``parallel.sharding.make_ctx``);
 ``ranks`` (``{"data": a, "model": b}``, data-major, ``a * b`` the
 world) splits the data axis over ranks too.
 """

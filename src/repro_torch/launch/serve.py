@@ -15,10 +15,11 @@ ranks' process group (``--init-method``, ``env://`` by default;
 :mod:`repro_torch.parallel.dist` picks the backend from the layout) and
 the production mesh's model axis is split over the ranks: each rank
 holds its model shards' experts, the expert exchanges run between the
-ranks, and, for the dense and moe families, tensor parallelism splits
-the rest (each rank holds its block of every leaf the reference's
-specs shard over ``model``, computes its heads and FFN columns, and its
-cache holds the KV heads its q heads read; ``models.lm``); rank 0
+ranks, and tensor parallelism splits the rest (each rank holds its
+block of every leaf the reference's specs shard over ``model``,
+computes its heads, FFN columns, Mamba2 heads or RG-LRU width block,
+and its cache holds the KV heads its q heads read and its share of the
+recurrent state; ``models.lm``); rank 0
 prints::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
@@ -72,26 +73,28 @@ from ..train.step import build_serve_step, rank_cut
 from .mesh import make_local_mesh, make_production_mesh, rank_layout
 
 
-# leaves a decode step reads whole: never padded
-KEEP = ("pos", "cross_k", "cross_v")
+# the leaves a decode step writes at new positions: the attention K/V
+GROW = ("k", "v")
 
 
 def grow_cache(cfg, cache, max_len):
-    """The prefill cache (prompt-sized) copied into a decode cache of
-    ``max_len`` slots (bf16, as ``init_decode_cache`` makes it); leaves
-    whose shape does not grow, and the ``KEEP`` leaves, are kept as they
-    are."""
+    """The prefill cache (prompt-sized) with its attention ``k`` and
+    ``v`` copied into ``max_len`` slots (the ring's window at most; bf16,
+    as ``init_decode_cache`` makes them); every other leaf is kept as it
+    is (the position, a recurrent state or conv tail, which do not grow,
+    a model rank's of them included, and the encoder's cross K/V, which
+    a decode step reads whole)."""
     b = cache["pos"].shape[0]
+    out = dict(cache)
+    if "k" not in cache:
+        return out
     full = lm.init_decode_cache(cfg, b, max_len, device=cache["pos"].device,
-                                kv_heads=cache["k"].shape[-2]
-                                if "k" in cache else None)
-    for k in cache:
-        if k in full and k not in KEEP and cache[k].shape != full[k].shape \
-                and cache[k].dim() == full[k].dim():
+                                kv_heads=cache["k"].shape[-2])
+    for k in GROW:
+        if cache[k].shape != full[k].shape:
             full[k][tuple(slice(0, s) for s in cache[k].shape)] = cache[k]
-        else:
-            full[k] = cache[k]
-    return full
+            out[k] = full[k]
+    return out
 
 
 def frontend_stubs(cfg, batch: int, prompt_len: int, device) -> dict:

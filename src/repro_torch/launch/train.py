@@ -13,7 +13,9 @@ valid checkpoint.  Parameters are random, drawn from a
 loss needs encoder frames that the token pipeline does not make, gets
 :func:`frontend_stand_ins`: seeded random bf16 ``enc_embeds`` of
 ``launch.specs``' shape (JAX's driver passes none, and its encdec loss
-raises without them).  The step runs over ``make_local_mesh()``, or
+raises without them); the vlm family gets its ``n_patches`` patch
+embeddings the same way, before the ``--seq`` tokens.  The step runs
+over ``make_local_mesh()``, or
 with ``--production-mesh`` over ``make_production_mesh()`` (data 16,
 model 16, every shard on the one device: the micro-batch count splits
 the batch by the 16 data rows, and a moe config runs expert parallelism
@@ -29,9 +31,9 @@ state, computes the whole batch's loss (the expert exchanges run
 between the ranks, forward and backward), clips by the norm over every
 rank's gradient and updates its own state; checkpoints hold the whole
 state, written by rank 0, and restore on any world size and layout.
-A dense or moe config's model ranks are tensor-parallel: each keeps
-its block of every leaf the reference's ``state_specs`` shard over
-``model`` (the column-, row- and vocab-parallel leaves; ``param_bytes``
+The model ranks are tensor-parallel: each keeps its block of every
+leaf the reference's ``state_specs`` shard over ``model`` (the column-,
+row- and vocab-parallel leaves of every family; ``param_bytes``
 then counts 1 / n of them plus the leaves held whole) and computes its
 block of every layer (``models.lm``).
 With ``--data-ranks N`` the mesh's data axis is split over N of the
@@ -212,8 +214,7 @@ def main(argv=None) -> dict:
                              torch.Generator(device=dev).manual_seed(0), dev,
                              **({"experts": block} if block else {}),
                              mesh=mesh)
-    named = to_named(mesh, state_specs(mesh, state_shapes(cfg, tcfg), tcfg),
-                     cfg.family)
+    named = to_named(mesh, state_specs(mesh, state_shapes(cfg, tcfg), tcfg))
     state = device_put(state, named)
     param_bytes = sum(p.numel() * p.element_size()
                       for p in pt.leaves(state["params"]))
@@ -234,7 +235,7 @@ def main(argv=None) -> dict:
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, batch=args.batch,
                                   seq_len=args.seq))
     extra = frontend_stand_ins(cfg, args.seq, args.batch, dev) \
-        if cfg.family == "encdec" else {}
+        if cfg.family in ("vlm", "encdec") else {}
     digest, first_grads = {}, None
     if args.grad_digest:
         ranked = step_fn.leaf_dims()["params"]

@@ -39,31 +39,38 @@ fp32 logits, so [B, S, V] is never held whole.  The blocks return the
 moe aux loss (0.0 for the other families), as JAX's do.
 
 Tensor parallelism (``ParallelCtx.tp``, set where ranks split the model
-axis of a dense or moe config): a model rank holds its block of every
-leaf the reference's ``param_specs`` shard over ``model`` and computes
-its block of each layer, as the reference's ``activation_rules`` place
-the activations.  The normed residual enters the column-parallel
-products through ``collectives.enter`` (its backward sums the ranks'
-partial gradients); q keeps the rank's heads where the model axis
-divides Hq (``attn_q``), else is gathered whole; k and v are gathered
-whole (``attn_kv``), normed and roped, and the rank keeps the KV heads
-its q heads read (the decode cache holds only those); each
-row-parallel product (``wo``, ``wd``, the shared experts' ``s_wd``) is
-a partial sum the ranks add in fp32 in rank order
-(``collectives.sum_ranks``: the same bits on every rank, so a moe
-router downstream routes alike); the embedding is vocab-parallel (a
-masked lookup of the rank's vocab rows, summed), and so are the head's
-logits: :func:`xent_loss` sums the ranks' ``exp`` and target logits,
-the serve gathers them.  Inside attention a rank's gradient of a
+axis, every family): a model rank holds its block of every leaf the
+reference's ``param_specs`` shard over ``model`` and computes its block
+of each layer, as the reference's ``activation_rules`` place the
+activations; a layer's code reads its own leaves' dims
+(``ParallelCtx.at``: a stack's, a hybrid layer's, the decoder's
+cross-attention's ``x_`` leaves).  The normed residual enters the
+column-parallel products through ``collectives.enter`` (its backward
+sums the ranks' partial gradients); q keeps the rank's heads where the
+model axis divides Hq (``attn_q``), else is gathered whole; k and v
+(and the decoder's cross K/V of the encoder output) are gathered whole
+(``attn_kv``), normed and roped, and the rank keeps the KV heads its q
+heads read (the decode cache holds only those); each row-parallel
+product (``wo``, ``wd``, the shared experts' ``s_wd``, the cross
+attention's ``x_wo``, Mamba2's and RG-LRU's ``w_out``) is a partial sum
+the ranks add in fp32 in rank order (``collectives.sum_ranks``: the
+same bits on every rank, so a moe router downstream routes alike); the
+embedding is vocab-parallel (a masked lookup of the rank's vocab rows,
+summed), and so are the head's logits: :func:`xent_loss` sums the
+ranks' ``exp`` and target logits, the serve gathers them.  Mamba2 and
+RG-LRU split by heads and channels (``ssm.mamba2_block``,
+``rglru.recurrent_block``).  Inside a layer a rank's gradient of a
 whole q, k or v is its share (the rank uses its heads only), so the
 gathers' backward reduce-scatters, and a leaf held whole along model on
-that path (``q_norm``, ``k_norm``) is summed over the ranks once a step
-(:func:`_run_stack`).  A row-parallel sum reorders a reduction, so the
-ranks agree with one process within rounding, not bit for bit.
+such a path (``q_norm``, ``k_norm``, a projection the spec's guard
+leaves whole) is summed over the ranks once a step
+(:func:`_enter_shared`).  A row-parallel sum reorders a reduction, so
+the ranks agree with one process within rounding, not bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -101,14 +108,29 @@ class ParallelCtx:
     # the leaves a rank holds as its block, gathered where they are used)
     data_block: bool = False
     fsdp: Any = None
-    # over model ranks of a dense or moe config: the parameters' model
-    # dims (a tree of ints / None matching them: the leaves a rank holds
-    # as its block, tensor parallelism), else None
+    # over model ranks: the model dims (a tree of ints / None: the
+    # leaves a rank holds as its block, tensor parallelism) of the
+    # parameters the code at hand reads, the whole tree's at the model's
+    # entry points and a layer's inside it (:meth:`at`), else None
     tp: Any = None
 
     @property
     def ep_axis(self):
         return self.tp_axis
+
+    def at(self, *path) -> "ParallelCtx":
+        """This context for the parameters at ``path`` of :attr:`tp`'s
+        tree (a stack's key, a hybrid layer's index, a sub-block's key),
+        so a layer asks :meth:`split` of its own leaves' keys."""
+        if self.tp is None:
+            return self
+        return dataclasses.replace(self, tp=_subtree(self.tp, path))
+
+    def split(self, *path) -> bool:
+        """Whether a model rank holds the parameter at ``path`` of
+        :attr:`tp`'s tree (``"embed"``, or a layer's ``"wo"``) as its
+        block (tensor parallelism)."""
+        return _subtree(self.tp, path) is not None
 
     def c(self, t, kind):
         return self.constrain(t, kind) if self.constrain else t
@@ -120,6 +142,17 @@ class ParallelCtx:
 
 
 NO_PARALLEL = ParallelCtx()
+
+
+def _subtree(node, path):
+    for k in path:
+        if isinstance(node, dict):
+            node = node.get(k)
+        elif isinstance(node, (list, tuple)) and isinstance(k, int):
+            node = node[k] if k < len(node) else None
+        else:
+            return None
+    return node
 
 
 def _dt(cfg):
@@ -198,15 +231,6 @@ def _fsdp(ctx, key, stacked=False, skip=()):
             for k, d in dims.items() if k not in skip}
 
 
-def _tp_split(ctx, *path) -> bool:
-    """Whether a model rank holds the parameter at ``path`` (``"embed"``,
-    or ``"blocks", "wo"``) as its block (tensor parallelism)."""
-    node = ctx.tp
-    for k in path:
-        node = node.get(k) if isinstance(node, dict) else None
-    return node is not None
-
-
 def _row_parallel(h, w, ctx, split):
     """``h @ w``; where ``split`` (this model rank holds its block ``h``
     of a replicated input and its block ``w`` of the weight's rows) the
@@ -249,7 +273,7 @@ def _q_heads(cfg, ctx):
     head."""
     mesh = ctx.mesh
     hq = cfg.n_heads
-    if not _tp_split(ctx, "blocks", "wq") or hq % mesh.shape[ctx.tp_axis]:
+    if not ctx.split("wq") or hq % mesh.shape[ctx.tp_axis]:
         return 0, hq
     n = hq // mesh.n_ranks(ctx.tp_axis)
     return mesh.coord(ctx.tp_axis) * n, n
@@ -347,7 +371,7 @@ def _project_qkv(x, p, cfg, ctx, positions):
     from ..parallel import collectives as cl
     b, s, _ = x.shape
     keys = ("wq", "wk", "wv")
-    split = [_tp_split(ctx, "blocks", key) for key in keys]
+    split = [ctx.split(key) for key in keys]
     x = _enter(x, ctx, any(split))
     first, count = _q_heads(cfg, ctx)
     qkv = [layers.dense(x, p[key], p.get("b" + key[1])) for key in keys]
@@ -365,13 +389,31 @@ def _project_qkv(x, p, cfg, ctx, positions):
         k = layers.rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    sel = _kv_select(cfg, first, count)
-    if isinstance(sel, tuple):
-        k, v = k.narrow(2, *sel), v.narrow(2, *sel)
-    else:
-        idx = torch.tensor(sel, device=x.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    k, v = _keep_kv(k, v, _kv_select(cfg, first, count))
     return q, k, v
+
+
+def _keep_kv(k, v, sel):
+    """k and v [B, S, Hkv, hd] at the KV heads ``sel`` names
+    (:func:`_kv_select`)."""
+    if isinstance(sel, tuple):
+        return k.narrow(2, *sel), v.narrow(2, *sel)
+    idx = torch.tensor(sel, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _cross_q(x, p, cfg, ctx):
+    """The cross-attention's q [B, S, count, hd] of the heads this rank
+    computes (no rope, no qk norm): a model rank's column block of
+    ``wq``, gathered whole where the model axis does not divide Hq."""
+    from ..parallel import collectives as cl
+    b, s, _ = x.shape
+    x = _enter(x, ctx, ctx.split("wo"))
+    first, count = _q_heads(cfg, ctx)
+    q = layers.dense(x, p["wq"], p.get("bq"))
+    if ctx.split("wq") and count == cfg.n_heads:
+        q, = cl.gather_blocks([q], ctx.mesh, [2], ctx.tp_axis)
+    return q.reshape(b, s, count, cfg.hd)
 
 
 def _attn_out(o, p, ctx):
@@ -384,7 +426,7 @@ def _attn_out(o, p, ctx):
     rows = p["wo"].shape[0]
     if o.shape[-1] != rows:
         o = o.narrow(-1, ctx.mesh.coord(ctx.tp_axis) * rows, rows)
-    y = _row_parallel(o, p["wo"], ctx, _tp_split(ctx, "blocks", "wo"))
+    y = _row_parallel(o, p["wo"], ctx, ctx.split("wo"))
     return y + p["bo"] if "bo" in p else y
 
 
@@ -397,14 +439,13 @@ def _attn_sub(x, p, cfg, ctx, *, causal=True, window=None, cache=None,
     cache: (k_l, v_l) for decode, written in place at ``pos`` (at
     ``pos % Wnd`` in the ring of a windowed layer).  On a model rank
     (tensor parallelism) the rank's heads, as the module's docstring
-    says; its cache holds the KV heads they read."""
+    says; its cache (and ``cross_kv``) holds the KV heads they read."""
     b, s, _ = x.shape
     if cross_kv is not None:                          # cross-attention (dec)
-        q = layers.dense(x, p["wq"], p.get("bq")).reshape(
-            b, s, cfg.n_heads, cfg.hd)
+        q = _cross_q(x, p, cfg, ctx)
         k, v = cross_kv
         o = ctx.c(attention(q, k, v, causal=False), "attn_out")
-        return layers.dense(o.reshape(b, s, -1), p["wo"], p.get("bo")), None
+        return _attn_out(o, p, ctx), None
     if cache is None:
         positions = torch.arange(s, device=x.device)[None, :]
         q, k, v = _project_qkv(x, p, cfg, ctx, positions)
@@ -431,7 +472,7 @@ def _ffn_sub(x, p, cfg, ctx, prefix=""):
     partial products summed over the ranks, then ``bd``."""
     fp = {k: p[prefix + k] for k in ("wg", "wu", "wd", "bu", "bd")
           if prefix + k in p}
-    split = _tp_split(ctx, "blocks", prefix + "wd")
+    split = ctx.split(prefix + "wd")
     h = layers.ffn_hidden(_enter(ctx.c(x, "ffn_in"), ctx, split), fp,
                           cfg.ffn_type)
     y = _row_parallel(h, fp["wd"], ctx, split)
@@ -464,23 +505,26 @@ def moe_block(x, p, cfg, ctx, cache=None, pos=None):
 
 def ssm_block(x, p, cfg, ctx, cache=None):
     h, new_cache = ssm.mamba2_block(
-        layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, cache=cache)
+        layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, cache=cache,
+        ctx=ctx)
     return x + h, new_cache, 0.0
 
 
 def hybrid_block(x, p, cfg, ctx, kind, cache=None, pos=None):
+    """A hybrid layer (``ctx`` at the layer: ``ParallelCtx.at("blocks",
+    i)``): the RG-LRU block or windowed attention, then the FFN."""
     if kind == "r":
         h, new_cache = rglru.recurrent_block(
             layers.rms_norm(x, p["ln1"], cfg.rms_eps), p["rec"], cfg,
-            cache=cache)
+            cache=cache, ctx=ctx.at("rec"))
     else:
         h, new_cache = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps),
-                                 p["attn"], cfg, ctx,
+                                 p["attn"], cfg, ctx.at("attn"),
                                  window=cfg.local_window, cache=cache,
                                  pos=pos)
     x = x + h
     x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p["ffn"],
-                     cfg, ctx)
+                     cfg, ctx.at("ffn"))
     return x, new_cache
 
 
@@ -492,8 +536,16 @@ _TRAIN_BLOCK = dict(_BLOCK, ssm=ssm_block)
 
 def _xattn_params(p):
     """The cross-attention weights of a decoder layer (its ``x_`` leaves,
-    prefix dropped)."""
+    prefix dropped), or their dims."""
     return {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+
+
+def _xattn_ctx(ctx):
+    """A decoder layer's context (``ctx.at("dec_blocks")``) for its
+    cross-attention's ``x_`` leaves."""
+    if ctx.tp is None:
+        return ctx
+    return dataclasses.replace(ctx, tp=_xattn_params(ctx.tp))
 
 
 def _enc_layer(x, p, cfg, ctx):
@@ -511,20 +563,23 @@ def _enc_forward(params, enc_embeds, cfg, ctx, remat=False):
     then ``enc_norm``."""
     x = enc_embeds
     dims = _fsdp(ctx, "enc_blocks", stacked=True)
+    ectx = ctx.at("enc_blocks")
     for p in _layers(params["enc_blocks"], cfg.n_enc_layers):
         x = _maybe_remat(lambda x, p=p: _enc_layer(
-            x, _gather(p, dims, ctx), cfg, ctx), remat, x)
+            x, _gather(p, dims, ctx), cfg, ectx), remat, x)
     return layers.rms_norm(x, params["enc_norm"], cfg.rms_eps)
 
 
 def _dec_block(x, p, cfg, ctx, cross_kv, cache=None, pos=None):
-    """Decoder layer: causal self-attention, cross-attention over the
-    encoder's K/V (the ``x_`` weights, after ``ln3``), then the FFN."""
+    """Decoder layer (``ctx`` at ``"dec_blocks"``): causal
+    self-attention, cross-attention over the encoder's K/V (the ``x_``
+    weights, after ``ln3``), then the FFN."""
     h, kv = _attn_sub(layers.rms_norm(x, p["ln1"], cfg.rms_eps), p, cfg, ctx,
                       cache=cache, pos=pos)
     x = x + h
     h, _ = _attn_sub(layers.rms_norm(x, p["ln3"], cfg.rms_eps),
-                     _xattn_params(p), cfg, ctx, cross_kv=cross_kv)
+                     _xattn_params(p), cfg, _xattn_ctx(ctx),
+                     cross_kv=cross_kv)
     x = x + h
     x = x + _ffn_sub(layers.rms_norm(x, p["ln2"], cfg.rms_eps), p, cfg, ctx)
     return x, kv
@@ -533,22 +588,37 @@ def _dec_block(x, p, cfg, ctx, cross_kv, cache=None, pos=None):
 _CROSS_KV = ("x_wk", "x_wv", "x_bk", "x_bv")
 
 
-def _cross_kv(params, enc_out, cfg, ctx=None):
+def _cross_kv(params, enc_out, cfg, ctx=NO_PARALLEL):
     """Every decoder layer's cross K/V of the encoder output:
     ([L, B, Se, Hkv, hd], [L, B, Se, Hkv, hd]); the projections' data
-    blocks gathered layer by layer."""
+    blocks gathered layer by layer.  On a model rank (tensor
+    parallelism) its column blocks of ``x_wk`` and ``x_wv`` project the
+    encoder output, gathered whole over the model ranks (one collective
+    a layer), and it keeps the KV heads its cross-attention's q heads
+    read (``Hkv`` is then theirs)."""
+    from ..parallel import collectives as cl
     b, se, _ = enc_out.shape
     ks, vs = [], []
-    dims = None if ctx is None else _fsdp(ctx, "dec_blocks", stacked=True)
+    dims = _fsdp(ctx, "dec_blocks", stacked=True)
     if dims is not None:
         dims = {k: d for k, d in dims.items() if k in _CROSS_KV}
+    xctx = _xattn_ctx(ctx.at("dec_blocks"))
+    whole = [i for i, key in enumerate(("wk", "wv")) if xctx.split(key)]
+    enc_out = _enter(enc_out, ctx, xctx.split("wo"))
+    sel = _kv_select(cfg, *_q_heads(cfg, xctx))
     for p in _layers(params["dec_blocks"], cfg.n_layers):
         xp = _xattn_params(_gather({k: v for k, v in p.items()
                                     if k in _CROSS_KV}, dims, ctx))
-        ks.append(layers.dense(enc_out, xp["wk"], xp.get("bk")).reshape(
-            b, se, cfg.n_kv_heads, cfg.hd))
-        vs.append(layers.dense(enc_out, xp["wv"], xp.get("bv")).reshape(
-            b, se, cfg.n_kv_heads, cfg.hd))
+        kv = [layers.dense(enc_out, xp["wk"], xp.get("bk")),
+              layers.dense(enc_out, xp["wv"], xp.get("bv"))]
+        got = cl.gather_blocks([kv[i] for i in whole], ctx.mesh,
+                               [2] * len(whole), ctx.tp_axis)
+        for i, t in zip(whole, got):
+            kv[i] = t
+        k, v = _keep_kv(*(t.reshape(b, se, cfg.n_kv_heads, cfg.hd)
+                          for t in kv), sel)
+        ks.append(k)
+        vs.append(v)
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -565,23 +635,15 @@ def _run_stack(x, blocks, cfg, ctx, remat=False):
         dims = _fsdp(ctx, "blocks")
         for i, p in enumerate(blocks):
             p = _gather(p, None if dims is None else dims[i], ctx)
-            x, _ = hybrid_block(x, p, cfg, ctx, cfg.pattern_at(i))
+            x, _ = hybrid_block(x, p, cfg, ctx.at("blocks", i),
+                                cfg.pattern_at(i))
         return x, 0.0
     block = _TRAIN_BLOCK[cfg.family]
     dims = _fsdp(ctx, "blocks", stacked=True)
-    if _tp_split(ctx, "blocks", "wo"):
-        # leaves held whole along model on the attention's q / k / v
-        # path: a rank's gradient of them is its share, summed over the
-        # model ranks once (on the stacked leaves)
-        from ..parallel import collectives as cl
-        keys = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
-                            "k_norm")
-                if k in blocks and not _tp_split(ctx, "blocks", k)]
-        blocks = dict(blocks, **dict(zip(keys, cl.enter_many(
-            [blocks[k] for k in keys], ctx.mesh, ctx.tp_axis))))
+    lctx = ctx.at("blocks")
 
     def body(x, p):
-        x, _, a = block(ctx.c(x, "resid"), _gather(p, dims, ctx), cfg, ctx)
+        x, _, a = block(ctx.c(x, "resid"), _gather(p, dims, ctx), cfg, lctx)
         return x, a
 
     aux = 0.0
@@ -589,6 +651,58 @@ def _run_stack(x, blocks, cfg, ctx, remat=False):
         x, a = _maybe_remat(body, remat, x, p)
         aux = aux + a
     return x, aux
+
+
+# a model rank's leaves that it may hold whole along model though it
+# uses them for its heads or channels only, by the row-parallel leaf
+# that says a layer is tensor parallel: self-attention's, the decoder's
+# cross-attention's and Mamba2's (RG-LRU's leaves all split by ``W``)
+_SHARED = {"wo": ("wq", "wk", "wv", "bq", "bk", "bv", "q_norm", "k_norm"),
+           "x_wo": ("x_wq", "x_wk", "x_wv", "x_bq", "x_bk", "x_bv"),
+           "w_out": ("w_in", "w_conv", "a_log", "dt_bias", "d_skip")}
+
+
+def _enter_shared(params, ctx):
+    """``params`` with every leaf of :data:`_SHARED` that a model rank
+    holds whole in a tensor-parallel layer entered (``collectives.
+    enter_many``: identity forward; its gradient, the rank's share, is
+    summed over the model ranks), all in one collective."""
+    if ctx.tp is None:
+        return params
+    from ..parallel import collectives as cl
+
+    def shared(node, dims):
+        return {k for row, keys in _SHARED.items()
+                if dims.get(row) is not None
+                for k in keys if k in node and dims.get(k) is None}
+
+    picked = []
+
+    def collect(node, dims):
+        if isinstance(node, list):
+            for n, d in zip(node, dims):
+                collect(n, d)
+        elif isinstance(node, dict):
+            keys = shared(node, dims)
+            for k, v in node.items():
+                if k in keys:
+                    picked.append(v)
+                elif isinstance(v, (dict, list)):
+                    collect(v, dims[k])
+    collect(params, ctx.tp)
+    if not picked:
+        return params
+    got = iter(cl.enter_many(picked, ctx.mesh, ctx.tp_axis))
+
+    def rebuild(node, dims):
+        if isinstance(node, list):
+            return [rebuild(n, d) for n, d in zip(node, dims)]
+        if not isinstance(node, dict):
+            return node
+        keys = shared(node, dims)
+        return {k: next(got) if k in keys else rebuild(v, dims.get(k))
+                for k, v in node.items()}
+    return rebuild(params, ctx.tp)
 
 
 def forward_hidden(params, tokens, cfg, ctx, *, patch_embeds=None,
@@ -677,6 +791,7 @@ def train_loss(params, batch, cfg, ctx, *, remat=True, aux_weight=0.01,
                if k not in ("blocks", "enc_blocks", "dec_blocks")}
         params = dict(params, **_gather(
             top, {k: ctx.fsdp.get(k) for k in top}, ctx))
+    params = _enter_shared(params, ctx)
     if cfg.family == "encdec":
         return _encdec_loss(params, batch, cfg, ctx, remat=remat,
                             loss_chunk=loss_chunk)
@@ -699,14 +814,15 @@ def _encdec_loss(params, batch, cfg, ctx, remat=True, loss_chunk=512):
     when ``remat``) and the chunked cross-entropy."""
     enc_out = _enc_forward(params, batch["enc_embeds"], cfg, ctx,
                            remat=remat)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, ctx)
     cross_k, cross_v = _cross_kv(params, enc_out, cfg, ctx)
     dims = _fsdp(ctx, "dec_blocks", stacked=True, skip=_CROSS_KV)
+    dctx = ctx.at("dec_blocks")
 
     def body(x, p, ck, cv):
         p = _gather({k: v for k, v in p.items() if k not in _CROSS_KV},
                     dims, ctx)
-        x, _ = _dec_block(ctx.c(x, "resid"), p, cfg, ctx, (ck, cv))
+        x, _ = _dec_block(ctx.c(x, "resid"), p, cfg, dctx, (ck, cv))
         return x
 
     for p, ck, cv in zip(_layers(params["dec_blocks"], cfg.n_layers),
@@ -716,7 +832,8 @@ def _encdec_loss(params, batch, cfg, ctx, remat=True, loss_chunk=512):
     labels = batch["labels"]
     mask = (labels >= 0).float()
     return xent_loss(x, _head(params, cfg), torch.clamp(labels, min=0),
-                     mask, ctx, chunk=loss_chunk)
+                     mask, ctx, chunk=loss_chunk,
+                     vocab_ranks=_vocab_split(ctx, cfg))
 
 
 def train_launches(cfg) -> dict:
@@ -745,8 +862,9 @@ def train_launches(cfg) -> dict:
 def embed_tokens(params, tokens, cfg, ctx=NO_PARALLEL):
     """The token embeddings; on a model rank that holds its vocab rows
     (tensor parallelism) a lookup of the ids in its range, zeros
-    elsewhere, summed over the ranks (exact: one rank holds each id)."""
-    if _tp_split(ctx, "embed"):
+    elsewhere, summed over the ranks (exact: one rank holds each id);
+    the hybrid family's then scaled by sqrt(d_model)."""
+    if ctx.split("embed"):
         emb = params["embed"]
         local = tokens.long() - ctx.mesh.coord(ctx.tp_axis) * emb.shape[0]
         mine = (local >= 0) & (local < emb.shape[0])
@@ -754,8 +872,9 @@ def embed_tokens(params, tokens, cfg, ctx=NO_PARALLEL):
                                                          emb.shape[0] - 1)],
                         0)
         from ..parallel import collectives as cl
-        return cl.sum_ranks(x, ctx.mesh, ctx.tp_axis)
-    x = params["embed"][tokens]
+        x = cl.sum_ranks(x, ctx.mesh, ctx.tp_axis)
+    else:
+        x = params["embed"][tokens]
     if cfg.family == "hybrid":                        # gemma-style scaling
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -767,7 +886,7 @@ def _head(params, cfg):
 
 def _vocab_split(ctx, cfg) -> bool:
     """Whether a model rank holds its block of the head's vocab."""
-    return _tp_split(ctx, "embed" if cfg.tie_embeddings else "head")
+    return ctx.split("embed" if cfg.tie_embeddings else "head")
 
 
 def _logits(params, x, cfg, ctx=NO_PARALLEL):
@@ -786,28 +905,31 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     """Zeroed decode cache (bf16 unless asked, whatever ``cfg.dtype``, as
     in JAX) on ``device`` (``cuda`` unless ``"cpu"`` is asked for);
     ``kv_heads`` of the attention leaves (every one unless given: a
-    model rank's, those its q heads read)."""
+    model rank's, those its q heads read).  The ssm and hybrid leaves
+    are one process's (a model rank's prefill gives its heads' state and
+    channels)."""
     dev = resolve_device(device)
     _check_family(cfg)
     L = cfg.n_layers
+    hkv = kv_heads or cfg.n_kv_heads
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.family in ("dense", "vlm", "moe", "encdec"):
-        shape = (L, batch, max_len, kv_heads or cfg.n_kv_heads, cfg.hd)
+        shape = (L, batch, max_len, hkv, cfg.hd)
         cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                  "v": torch.zeros(shape, dtype=dtype, device=dev),
                  "pos": pos}
         if cfg.family == "encdec":    # JAX's size; a serve keeps the
             # prefill's own cross leaves (launch.serve.grow_cache)
-            shape = (L, batch, max(1, max_len // cfg.enc_ratio),
-                     cfg.n_kv_heads, cfg.hd)
+            shape = (L, batch, max(1, max_len // cfg.enc_ratio), hkv,
+                     cfg.hd)
             cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
             cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
         return cache
     if cfg.family == "hybrid":
         w = cfg.lru_width or cfg.d_model
         n_r = sum(1 for i in range(L) if cfg.pattern_at(i) == "r")
-        shape = (L - n_r, batch, min(cfg.local_window, max_len),
-                 cfg.n_kv_heads, cfg.hd)
+        shape = (L - n_r, batch, min(cfg.local_window, max_len), hkv,
+                 cfg.hd)
         return {"hrec": torch.zeros((n_r, batch, w), dtype=torch.float32,
                                     device=dev),
                 "conv": torch.zeros((n_r, batch, cfg.conv_width - 1, w),
@@ -830,15 +952,17 @@ def decode_step(params, cache, tokens, cfg, ctx):
     x = ctx.c(embed_tokens(params, tokens, cfg, ctx), "resid_decode")
     pos = cache["pos"]
     blocks = params.get("blocks")
+    lctx = ctx.at("blocks")
     if cfg.family in _BLOCK:
         block = _BLOCK[cfg.family]
         for i, p in enumerate(_layers(blocks, cfg.n_layers)):
-            x, _, _ = block(x, p, cfg, ctx,
+            x, _, _ = block(x, p, cfg, lctx,
                             cache=(cache["k"][i], cache["v"][i]), pos=pos)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     elif cfg.family == "encdec":
+        dctx = ctx.at("dec_blocks")
         for i, p in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
-            x, _ = _dec_block(x, p, cfg, ctx,
+            x, _ = _dec_block(x, p, cfg, dctx,
                               (cache["cross_k"][i], cache["cross_v"][i]),
                               cache=(cache["k"][i], cache["v"][i]), pos=pos)
         new_cache = dict(cache, pos=pos + 1)
@@ -849,13 +973,14 @@ def decode_step(params, cache, tokens, cfg, ctx):
             kind = cfg.pattern_at(i)
             if kind == "r":
                 x, (h_new, tail) = hybrid_block(
-                    x, blocks[i], cfg, ctx, kind,
+                    x, blocks[i], cfg, ctx.at("blocks", i), kind,
                     cache=(cache["hrec"][ir], cache["conv"][ir]))
                 cache["hrec"][ir].copy_(h_new)
                 tails.append(tail)
                 ir += 1
             else:
-                x, _ = hybrid_block(x, blocks[i], cfg, ctx, kind,
+                x, _ = hybrid_block(x, blocks[i], cfg, ctx.at("blocks", i),
+                                    kind,
                                     cache=(cache["k"][ia], cache["v"][ia]),
                                     pos=pos)
                 ia += 1
@@ -865,7 +990,7 @@ def decode_step(params, cache, tokens, cfg, ctx):
         tails = []
         for i, p in enumerate(_layers(blocks, cfg.n_layers)):
             x, (st, tail), _ = ssm_block(
-                x, p, cfg, ctx, cache=(cache["state"][i], cache["conv"][i]))
+                x, p, cfg, lctx, cache=(cache["state"][i], cache["conv"][i]))
             cache["state"][i].copy_(st)
             tails.append(tail)
         # a fresh conv leaf: its dtype follows the window's, as in JAX
@@ -891,13 +1016,15 @@ def prefill(params, batch, cfg, ctx):
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     x = ctx.c(x, "resid")
     blocks = params.get("blocks")
+    lctx = ctx.at("blocks")
     if cfg.family == "encdec":
         enc_out = _enc_forward(
             params, batch["enc_embeds"].to(params["embed"].dtype), cfg, ctx)
         cross_k, cross_v = _cross_kv(params, enc_out, cfg, ctx)
         ks, vs = [], []
+        dctx = ctx.at("dec_blocks")
         for i, p in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
-            x, (k, v) = _dec_block(x, p, cfg, ctx, (cross_k[i], cross_v[i]))
+            x, (k, v) = _dec_block(x, p, cfg, dctx, (cross_k[i], cross_v[i]))
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -906,7 +1033,7 @@ def prefill(params, batch, cfg, ctx):
         block = _BLOCK[cfg.family]
         ks, vs = [], []
         for p in _layers(blocks, cfg.n_layers):
-            x, (k, v), _ = block(ctx.c(x, "resid"), p, cfg, ctx)
+            x, (k, v), _ = block(ctx.c(x, "resid"), p, cfg, lctx)
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -915,7 +1042,7 @@ def prefill(params, batch, cfg, ctx):
         wnd = min(cfg.local_window, s)
         for i in range(cfg.n_layers):
             kind = cfg.pattern_at(i)
-            x, c = hybrid_block(x, blocks[i], cfg, ctx, kind)
+            x, c = hybrid_block(x, blocks[i], cfg, ctx.at("blocks", i), kind)
             if kind == "r":
                 hrec.append(c[0])
                 conv.append(c[1])
@@ -928,7 +1055,7 @@ def prefill(params, batch, cfg, ctx):
     else:
         states, tails = [], []
         for p in _layers(blocks, cfg.n_layers):
-            x, (st, tail), _ = ssm_block(ctx.c(x, "resid"), p, cfg, ctx)
+            x, (st, tail), _ = ssm_block(ctx.c(x, "resid"), p, cfg, lctx)
             states.append(st)
             tails.append(tail)
         cache = {"state": torch.stack(states), "conv": torch.stack(tails)}

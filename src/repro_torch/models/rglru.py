@@ -13,6 +13,16 @@ The linear recurrence with diagonal coefficients runs as a log-depth
 of a alone (``cumprod`` of a in (0, 1) underflows over long sequences).
 Plain PyTorch on both devices: JAX computes this outside any Pallas
 kernel.
+
+On a model rank (tensor parallelism, ``ctx`` a layer's ``ParallelCtx``
+that splits ``w_out``) the block runs the rank's block of the width
+``W``: its columns of ``w_x``, ``w_gate``, ``w_conv``, ``b_r``, ``b_i``
+and ``lam``, so the conv output is its block; that output is gathered
+whole over the model ranks (its backward reduce-scatters), since
+``w_r`` and ``w_i`` are dense ``[W, W]`` products whose columns the rank
+holds; the scan runs on its block, and ``w_out`` is row-parallel.  Its
+decode cache holds its block of ``hrec`` and of the conv tail, as the
+reference's ``cache_specs`` split them.
 """
 
 from __future__ import annotations
@@ -80,25 +90,38 @@ def _causal_conv(x, w, cache=None):
     return y, window[:, 1:, :]
 
 
-def recurrent_block(x, p, cfg, cache=None):
+def recurrent_block(x, p, cfg, cache=None, ctx=None):
     """RG recurrent block.  Prefill: x [B,S,d], cache None.
     Decode: x [B,1,d], cache=(h [B,W] fp32, conv_tail [B,K-1,W]).
-    Returns (out [B,S,d], (h_last fp32, conv tail))."""
+    Returns (out [B,S,d], (h_last fp32, conv tail)).  On a model rank
+    (``ctx`` splits ``w_out``: the module's docstring) W is the rank's
+    block."""
+    tp = ctx is not None and ctx.split("w_out")
+    if tp:
+        from ..parallel import collectives as cl
+        x = cl.enter(x, ctx.mesh, ctx.tp_axis)
     lru_in = x @ p["w_x"]                                    # [B,S,W]
     gate = gelu(x @ p["w_gate"])
     if cache is None:
         conv, tail = _causal_conv(lru_in, p["w_conv"])
-        r = conv @ p["w_r"] + p["b_r"]
-        i = conv @ p["w_i"] + p["b_i"]
-        y, h_last = rg_lru(conv, r, i, p["lam"])
     else:
         h_prev, conv_cache = cache
         conv, tail = _causal_conv(lru_in, p["w_conv"], conv_cache)
-        r = conv[:, 0] @ p["w_r"] + p["b_r"]
-        i = conv[:, 0] @ p["w_i"] + p["b_i"]
+    whole = conv
+    if tp and ctx.split("w_r"):
+        whole, = cl.gather_blocks([conv], ctx.mesh, [2], ctx.tp_axis)
+    if cache is None:
+        r = whole @ p["w_r"] + p["b_r"]
+        i = whole @ p["w_i"] + p["b_i"]
+        y, h_last = rg_lru(conv, r, i, p["lam"])
+    else:
+        r = whole[:, 0] @ p["w_r"] + p["b_r"]
+        i = whole[:, 0] @ p["w_i"] + p["b_i"]
         y1, h_last = rg_lru_step(conv[:, 0], r, i, p["lam"], h_prev)
         y = y1[:, None]
     out = (y * gate) @ p["w_out"]
+    if tp:
+        out = cl.sum_ranks(out, ctx.mesh, ctx.tp_axis)
     return out, (h_last, tail)
 
 

@@ -13,6 +13,24 @@ evaluated in chunks of Q tokens:
                 Y_inter = (C ∘ exp(cumsum dA)) H_{c-1}.
 
 Every exp of a cumsum difference is taken in fp32.
+
+On a model rank (tensor parallelism, ``ctx`` a layer's
+``ParallelCtx`` that splits ``w_out``) the block runs the rank's heads.
+The rank holds the reference's even column block of ``w_in`` (which does
+not fall on heads: z, x, B, C and dt share its one column dim) and of
+``w_conv``: it projects its block, gathers the ``[B, S, 2di+2N+H]``
+output and ``w_conv`` whole over the model ranks (one collective; the
+backward reduce-scatters its share), then keeps z, x and dt of its heads
+and B and C whole (one group, read by every head); the depthwise conv
+runs on the channels it reads (its heads' x, B, C), so its decode conv
+tail holds those, not the reference's even split of the channels.
+``a_log``, ``dt_bias``, ``d_skip``, ``norm`` and ``w_out``'s rows fall on
+heads; K5 runs on the rank's heads, the gated RMS norm's per-row sum of
+squares over all ``di`` features is the ranks' sums added in fp32 in
+rank order (``collectives.sum_ranks``, its gradient summed back over
+them), and ``w_out`` is row-parallel.  Where the model axis does not
+divide the heads the rank computes every head and keeps its block of
+features from the norm on.
 """
 
 from __future__ import annotations
@@ -95,24 +113,80 @@ def ssd_decode_step(x, dt, a_log, b, c, d_skip, state):
     return y, state
 
 
-def mamba2_block(x, p, cfg, cache=None):
+def _heads(cfg, ctx, tp):
+    """(first, count): the heads a model rank computes, its block where
+    it holds its block of ``a_log`` (the model axis divides H), else
+    every head."""
+    h = cfg.n_ssm_heads
+    if not (tp and ctx.split("a_log")):
+        return 0, h
+    n = h // ctx.mesh.n_ranks(ctx.tp_axis)
+    return ctx.mesh.coord(ctx.tp_axis) * n, n
+
+
+def _gated_norm(y, z, scale, cfg, ctx, tp, split_heads):
+    """``rms_norm(y * silu(z), scale)`` over all ``d_inner`` features.
+    On a model rank (``tp``) with its heads' features
+    (``split_heads``) the per-row sum of squares is the ranks' summed in
+    fp32 in rank order (its gradient, the rank's share, summed back
+    over them: ``enter`` then ``sum_ranks``); with every head's it is
+    taken here and the rank keeps its block of features (``scale``'s)."""
+    y = y.to(z.dtype) * F.silu(z)
+    if not tp:
+        return rms_norm(y, scale, cfg.rms_eps)
+    from ..parallel import collectives as cl
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    yf = y.float()
+    ss = yf.square().sum(-1, keepdim=True)
+    if split_heads:
+        ss = cl.sum_ranks(cl.enter(ss, mesh, ax), mesh, ax)
+    yf = yf * torch.rsqrt(ss / cfg.d_inner + cfg.rms_eps)
+    rows = scale.shape[-1]
+    if yf.shape[-1] != rows:
+        yf = yf.narrow(-1, mesh.coord(ax) * rows, rows)
+    return (yf * (1.0 + scale.float())).to(y.dtype)
+
+
+def mamba2_block(x, p, cfg, cache=None, ctx=None):
     """Full block: in_proj -> conv -> SSD -> gated norm -> out_proj.
 
     Prefill: x [B,S,d], cache None -> (y, (ssm_state, conv_tail)).
     Decode: x [B,1,d] with cache=(ssm_state [B,H,P,N], conv_tail
-    [B,K-1,Cc]) -> (y, new_cache).
+    [B,K-1,Cc]) -> (y, new_cache).  On a model rank (``ctx`` splits
+    ``w_out``: the module's docstring) H is the rank's heads and Cc the
+    channels its conv reads.
     """
     bsz, s, _ = x.shape
     d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     p_dim = cfg.ssm_head_dim
+    tp = ctx is not None and ctx.split("w_out")
+    first, count = _heads(cfg, ctx, tp)
+    w_conv = p["w_conv"]
+    if tp:
+        from ..parallel import collectives as cl
+        x = cl.enter(x, ctx.mesh, ctx.tp_axis)
 
     zxbcdt = x @ p["w_in"]                                   # [B,S,2di+2N+H]
+    if tp:
+        whole = [(t, d) for t, d, key in ((zxbcdt, 2, "w_in"),
+                                          (w_conv, 1, "w_conv"))
+                 if ctx.split(key)]
+        got = iter(cl.gather_blocks([t for t, _ in whole], ctx.mesh,
+                                    [d for _, d in whole], ctx.tp_axis))
+        zxbcdt = next(got) if ctx.split("w_in") else zxbcdt
+        w_conv = next(got) if ctx.split("w_conv") else w_conv
     z, xc, bmat, cmat, dt = torch.split(zxbcdt, [d_in, d_in, n, n, h],
                                         dim=-1)
+    if count < h:                                  # the rank's heads
+        lo, k = first * p_dim, count * p_dim
+        z, xc = z.narrow(-1, lo, k), xc.narrow(-1, lo, k)
+        dt = dt.narrow(-1, first, count)
+        w_conv = torch.cat([w_conv[:, lo:lo + k], w_conv[:, d_in:]], -1)
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)            # [B,S,Cc]
+    d_in = count * p_dim
 
     if cache is None:
-        conv = _depthwise_causal_conv(conv_in, p["w_conv"])
+        conv = _depthwise_causal_conv(conv_in, w_conv)
         conv_tail = conv_in[:, -(cfg.conv_width - 1):, :]
     else:
         ssm_state, prev_tail = cache
@@ -120,7 +194,7 @@ def mamba2_block(x, p, cfg, cache=None):
         window = torch.cat([prev_tail.to(wdt), conv_in.to(wdt)],
                            dim=1)                            # [B,K,Cc]
         conv = torch.einsum("bkc,kc->bc", window,
-                            p["w_conv"].to(wdt))[:, None]
+                            w_conv.to(wdt))[:, None]
         conv_tail = window[:, 1:, :]
     conv = F.silu(conv)
     xs, bs, cs = torch.split(conv, [d_in, n, n], dim=-1)
@@ -128,18 +202,19 @@ def mamba2_block(x, p, cfg, cache=None):
 
     if cache is None:
         y, state = ssd_chunked(
-            xs.reshape(bsz, s, h, p_dim), dt, p["a_log"], bs, cs,
+            xs.reshape(bsz, s, count, p_dim), dt, p["a_log"], bs, cs,
             p["d_skip"], min(cfg.ssm_chunk, s))
         y = y.reshape(bsz, s, d_in)
     else:
         y, state = ssd_decode_step(
-            xs[:, 0].reshape(bsz, h, p_dim), dt[:, 0], p["a_log"],
+            xs[:, 0].reshape(bsz, count, p_dim), dt[:, 0], p["a_log"],
             bs[:, 0], cs[:, 0], p["d_skip"], ssm_state)
         y = y.reshape(bsz, 1, d_in)
 
-    y = y.to(x.dtype) * F.silu(z)                            # gated
-    y = rms_norm(y, p["norm"], cfg.rms_eps)
+    y = _gated_norm(y.to(x.dtype), z, p["norm"], cfg, ctx, tp, count < h)
     out = y @ p["w_out"]
+    if tp:
+        out = cl.sum_ranks(out, ctx.mesh, ctx.tp_axis)
     return out, (state, conv_tail)
 
 

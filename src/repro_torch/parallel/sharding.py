@@ -20,8 +20,8 @@ On the port's mesh every shard lives on one device and a tensor keeps
 its global layout, so a spec is a record, not a placement, until a
 process group splits an axis over ranks: a rank then holds its block of
 every leaf whose spec names a ranked axis (:func:`rank_dims`; along the
-model axis, under tensor parallelism, every such leaf of the dense and
-moe families, of the other families only the routed experts).  :class:`P`
+model axis that is tensor parallelism, for every family, and expert
+parallelism's routed experts).  :class:`P`
 is JAX's ``PartitionSpec`` as a tuple (a one-axis tuple entry is
 normalised to the axis, as JAX normalises it), :class:`NamedSharding`
 pairs it with a mesh and checks that it divides a shape, and the
@@ -193,13 +193,10 @@ def _map(fn, tree, *rest, key=None):
     return fn(key, tree, *rest)
 
 
-# the leaves an expert-parallel rank holds as its block of the model axis
+# the leaves an expert-parallel rank draws as its share of the experts
+# (``lm.init_params(experts=)``), not cut from the whole draw
 RANKED_KEYS = EXPERT_LEAVES
 EP_AXIS = "model"
-# the families whose model ranks hold every leaf that names the model
-# axis as their block (tensor parallelism); the others rank only the
-# routed experts along it
-TP_FAMILIES = ("dense", "moe")
 
 
 def param_specs(mesh, params, policy: ShardingPolicy | None = None):
@@ -323,9 +320,9 @@ def activation_spec(mesh, policy: ShardingPolicy | None, kind, shape):
 def make_ctx(mesh, cfg, policy: ShardingPolicy | None = None) -> ParallelCtx:
     """The model's context on ``mesh``: the data and model axes, the
     expert-parallel degree (the model axis's size for the moe family)
-    and, where ranks split the model axis of a dense or moe config, the
-    parameters' model dims (:func:`model_dims`: the model then computes
-    each rank's block of every layer, tensor parallelism).  It
+    and, where ranks split the model axis, the parameters' model dims
+    (:func:`model_dims`: the model then computes each rank's block of
+    every layer, tensor parallelism).  It
     constrains nothing: on the one device a sharding constraint leaves
     every value as it is (the spec the reference would apply is
     :func:`activation_spec`)."""
@@ -334,8 +331,8 @@ def make_ctx(mesh, cfg, policy: ShardingPolicy | None = None) -> ParallelCtx:
     ep = mesh.shape[tp] if (cfg.family == "moe" and tp is not None
                             and tp in mesh.axis_names) else 1
     dims = None
-    if (tp is not None and cfg.family in TP_FAMILIES
-            and getattr(mesh, "ranked", False) and mesh.n_ranks(tp) > 1):
+    if (tp is not None and getattr(mesh, "ranked", False)
+            and mesh.n_ranks(tp) > 1):
         dims = model_dims(mesh, cfg, policy)
     return ParallelCtx(mesh=mesh, dp_axis=dp if len(dp) > 1 else dp[0],
                        tp_axis=tp or "model", ep=ep, tp=dims)
@@ -413,53 +410,38 @@ def data_rows(mesh, batch_size: int, n_micro: int = 1,
     return grid.reshape(-1)
 
 
-def rank_dims(mesh, specs, family=None):
+def rank_dims(mesh, specs):
     """A tree matching ``specs`` (a train state's, or a parameter tree's)
-    of each leaf's :class:`RankDims` on a ranked mesh: along the model
-    axis, for a ``family`` of :data:`TP_FAMILIES` (tensor parallelism),
-    every leaf whose spec names it, and for any other family (or none)
-    only the leaves under a routed-expert key (:data:`RANKED_KEYS`: the
-    parameter, its m and v in any tier, its error feedback), at the
-    entry that names it; along any other ranked axis (the data axis)
-    every leaf whose spec names it, at that entry (a parameter's ``fs``
-    dim, its m, v and error feedback alike).  An int8 m or v counts
-    where the axis moved to its block count (``train.step.opt_specs``:
-    only where a shard's width is whole blocks; elsewhere a rank holds
-    it whole along the axis).  The divisibility guard is the spec's,
-    against the mesh axis, so a rank's block is its shards' blocks
-    concatenated.  Empty for a leaf every rank holds whole, and for
-    every leaf off a ranked mesh."""
+    of each leaf's :class:`RankDims` on a ranked mesh: along each ranked
+    axis, every leaf whose spec names it, at the entry that names it
+    (along the model axis the column-, row- and vocab-parallel leaves
+    and the routed experts, their m, v and error feedback; along the
+    data axis a parameter's ``fs`` dim, its m, v and error feedback
+    alike).  An int8 m or v counts where the axis moved to its block
+    count (``train.step.opt_specs``: only where a shard's width is whole
+    blocks; elsewhere a rank holds it whole along the axis).  The
+    divisibility guard is the spec's, against the mesh axis, so a rank's
+    block is its shards' blocks concatenated.  Empty for a leaf every
+    rank holds whole, and for every leaf off a ranked mesh."""
     ranks = getattr(mesh, "ranks", {}) if getattr(mesh, "ranked", False) \
         else {}
-    tp = family in TP_FAMILIES
 
-    def dims(node, under):
+    def dims(_, spec):
         out = {}
         for axis in ranks:
-            if axis == EP_AXIS and not (under or tp):
-                continue
-            for i, ax in enumerate(node):
+            for i, ax in enumerate(spec):
                 if ax == axis or (isinstance(ax, tuple) and axis in ax):
                     out[axis] = i
                     break
         return RankDims(out)
-
-    def walk(node, under):
-        if isinstance(node, dict):
-            return {k: walk(v, under or k in RANKED_KEYS)
-                    for k, v in node.items()}
-        if _is_node(node):
-            out = [walk(v, under) for v in node]
-            return out if isinstance(node, list) else tuple(out)
-        return dims(node, under)
-    return walk(specs, False)
+    return _map(dims, specs)
 
 
-def to_named(mesh, specs, family=None):
+def to_named(mesh, specs):
     """A tree of :class:`NamedSharding` over ``mesh`` for a tree of
-    specs, each with its :func:`rank_dims` entry (for ``family``)."""
+    specs, each with its :func:`rank_dims` entry."""
     return _map(lambda _, s, d: NamedSharding(mesh, s, d), specs,
-                rank_dims(mesh, specs, family))
+                rank_dims(mesh, specs))
 
 
 def device_put(tree, shardings):

@@ -17,10 +17,10 @@ holds its block of every leaf that ``state_specs`` shards along a
 ranked axis (``build_train_step``'s ``leaf_dims``; ``init_train_state(
 ..., mesh=)`` draws it, ``convert.rank_state`` cuts a whole state down):
 along the model axis the routed experts (``experts=``, or
-``convert.rank_experts``) and, for the dense and moe families, every
-other leaf whose spec names ``model`` (tensor parallelism: the column-,
-row- and vocab-parallel leaves, their m, v and error feedback; an int8
-m or v whole along the axis where a rank's width is not whole blocks),
+``convert.rank_experts``) and every other leaf whose spec names
+``model`` (tensor parallelism, every family: the column-, row- and
+vocab-parallel leaves, their m, v and error feedback; an int8 m or v
+whole along the axis where a rank's width is not whole blocks),
 along the data axis every leaf's ``fs`` dim (FSDP, as the reference's
 ``state_specs`` place the state), and everything else whole.  Along the
 model axis every rank computes the same loss; the expert exchanges and
@@ -110,8 +110,8 @@ def init_train_state(cfg: LMConfig, tcfg: TrainConfig,
     soon as it is drawn (``lm.init_params(cut=)``: no whole copy of more
     than one stacked leaf at a time), and m and v follow the blocks, a
     leaf at a time; the state equals ``convert.rank_state`` of the whole
-    draw under ``state_specs``, and so do the model blocks of a dense or
-    moe config's tensor-parallel leaves on ranks along the model axis."""
+    draw under ``state_specs``, and so do the model blocks of the
+    tensor-parallel leaves on ranks along the model axis."""
     axes = () if mesh is None else ranked_axes(cfg, mesh, policy)
     if not axes:
         params = lm.init_params(cfg, generator, device, experts=experts)
@@ -147,7 +147,7 @@ def rank_cut(cfg, mesh, axes, policy=None):
         spec = shard.param_specs(mesh, {key: leaf}, policy)[key]
         ax = tuple(a for a in axes if not (a == shard.EP_AXIS
                                            and key in shard.RANKED_KEYS))
-        return rank_state(leaf, mesh, spec, axes=ax, family=cfg.family)
+        return rank_state(leaf, mesh, spec, axes=ax)
     return cut
 
 
@@ -157,19 +157,23 @@ def _init_blocks(cfg, tcfg, generator, device, experts, mesh, policy, axes):
                             cut=rank_cut(cfg, mesh, axes, policy))
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg, policy)
     flat, tree = pt.flatten(params)
-    p_dims = pt.leaves(shard.rank_dims(mesh, specs["params"], cfg.family))
-    # the routed experts (drawn as the rank's share along model)
-    ep_dims = pt.leaves(shard.rank_dims(mesh, specs["params"]))
+    p_dims = pt.leaves(shard.rank_dims(mesh, specs["params"]))
+    keys = pt.leaves(shard._map(lambda key, _: key, specs["params"]))
     mus = []
-    for p, dims, ep, ospec in zip(flat, p_dims, ep_dims, pt.flatten_up_to(
+    for p, dims, key, ospec in zip(flat, p_dims, keys, pt.flatten_up_to(
             tree, specs["opt"]["mu"])):
-        ax = tuple(a for a in axes if a not in ep)
+        # the axes along which m and v are cut from their whole shape by
+        # their own specs; along a ranked data axis they follow the
+        # parameter's block, and a routed expert was drawn as the rank's
+        # share along model
+        ax = tuple(a for a in axes if a not in dims or (
+            a == shard.EP_AXIS and key not in shard.RANKED_KEYS))
         shape = list(p.shape)               # the leaf whole along ax
         for a in ax:
             if a in dims:
                 shape[dims[a]] *= mesh.n_ranks(a)
         mu = adamw_init(torch.zeros(shape, device=p.device), tcfg.opt)["mu"]
-        mus.append(rank_state(mu, mesh, ospec, axes=ax, family=cfg.family))
+        mus.append(rank_state(mu, mesh, ospec, axes=ax))
         del mu
     return {"params": params, "opt": {
         "mu": pt.unflatten(tree, mus),
@@ -365,10 +369,10 @@ def build_train_step(cfg: LMConfig, mesh, tcfg: TrainConfig | None = None,
         if not layout:
             specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg,
                                 policy)
-            dims = shard.rank_dims(mesh, specs["params"], cfg.family)
+            dims = shard.rank_dims(mesh, specs["params"])
             layout["params"], tree = pt.flatten(dims)
             layout["tree"] = _data_dims(dims)
-            layout["opt"] = [{k: shard.rank_dims(mesh, mu[k], cfg.family)
+            layout["opt"] = [{k: shard.rank_dims(mesh, mu[k])
                               for k in ("m", "v")}
                              for mu in pt.flatten_up_to(
                                  tree, specs["opt"]["mu"])]

@@ -1,5 +1,5 @@
-"""The reference's training of the fp32 qwen3-1.7b and deepseek-moe-16b
-smoke models on an ``Auto`` (data 4, model 2) mesh of 8 CPU devices (or
+"""The reference's training of the fp32 smoke models of :data:`ARCHS` (one
+of every family) on an ``Auto`` (data 4, model 2) mesh of 8 CPU devices (or
 the (data, model) shape given after the directory: (2, 4) for
 ``tests/test_torch_ranks_tp.py``)
 (``jax.sharding.Mesh``: ``jax.make_mesh``'s ``Explicit`` axes make
@@ -12,7 +12,9 @@ For each model: ``build_train_step``'s context, the state of
 ``init_train_state`` with the parameters of ``<arch>_in.npz`` (the
 port's draw, ``params/...`` arrays) placed by ``state_specs`` with
 ``jax.device_put``, then ``jax.value_and_grad(lm.train_loss)`` under that
-context without remat on a batch of 4 x 16 tokens from numpy seed 11,
+context without remat on a batch of 4 x 16 tokens from numpy seed 11
+(with the vlm's patch or the encdec's frame embeddings of
+``<arch>_in.npz``'s ``batch/...`` arrays: the port's seeded stand-ins),
 and one step of the train step itself (its grad norm).  Run as a
 script in a fresh process::
 
@@ -26,7 +28,9 @@ prints ``DATA_REFERENCE_OK``.
 import os
 import sys
 
-ARCHS = ("qwen3-1.7b", "deepseek-moe-16b")
+ARCHS = ("qwen3-1.7b", "deepseek-moe-16b", "mamba2-2.7b",
+         "recurrentgemma-2b", "llava-next-mistral-7b",
+         "seamless-m4t-medium")
 BATCH, SEQ, SEED, LOSS_CHUNK = 4, 16, 11, 16
 
 
@@ -47,6 +51,7 @@ def run(arch, params_path, out_path, shape=(4, 2)):
     state = init_train_state(jax.random.PRNGKey(0), cfg, tcfg)
     with np.load(params_path) as z:
         state["params"] = _tree({k: z[k] for k in z.files}, "params/")
+        embeds = _tree({k: z[k] for k in z.files}, "batch/")
     specs = state_specs(mesh, jax.eval_shape(lambda: state), tcfg)
     state = jax.device_put(state, jax.tree.map(
         lambda s: NamedSharding(mesh, s), specs,
@@ -54,7 +59,7 @@ def run(arch, params_path, out_path, shape=(4, 2)):
     rng = np.random.default_rng(SEED)
     toks = rng.integers(0, cfg.vocab, (BATCH, SEQ + 1)).astype(np.int32)
     batch = {"tokens": jnp.asarray(toks[:, :-1]),
-             "labels": jnp.asarray(toks[:, 1:])}
+             "labels": jnp.asarray(toks[:, 1:]), **embeds}
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: lm.train_loss(p, batch, cfg, ctx, remat=False,
                                 loss_chunk=LOSS_CHUNK)))(state["params"])

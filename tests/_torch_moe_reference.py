@@ -47,6 +47,8 @@ def keep_params(out, prefix, params):
 
 
 def _tree(arrays, prefix):
+    """The tree of ``arrays``' ``prefix/a/b`` entries as JAX arrays (a
+    ``#i`` segment an index of a list: the hybrid family's blocks)."""
     import jax.numpy as jnp
     tree = {}
     for k, v in arrays.items():
@@ -56,7 +58,14 @@ def _tree(arrays, prefix):
             for key in keys:
                 node = node.setdefault(key, {})
             node[leaf] = jnp.asarray(v)
-    return tree
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [lists(node[f"#{i}"]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
 
 
 def moe_model(out, params=None, serve=True):

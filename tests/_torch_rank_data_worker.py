@@ -13,13 +13,18 @@ model ranks (``d2m2``, its model ranks tensor parallel):
 * ``draw``: a rank's train state drawn with ``mesh=`` (int8 m and v and
   the error feedback) against ``convert.rank_state`` of the whole draw,
   and the rank's parameter bytes;
-* ``grads``: the fp32 smoke models' (qwen3-1.7b and deepseek-moe-16b)
-  ``grads_of`` on the parameters the test wrote, cut to the rank's
+* ``grads``: the fp32 smoke models' (:data:`ARCHS`: one of every
+  family) ``grads_of`` on the parameters the test wrote, cut to the rank's
   blocks, with and without remat: the global loss, this rank's share,
   every gradient block, the leaves missed, the collectives by axis; and
   a 2-row batch the data axis does not divide;
 * ``step``: one train step with fp32 and with int8 m and v from a state
-  drawn with ``mesh=``: the grad norm and the parameter blocks;
+  drawn with ``mesh=``: the grad norm and the parameter blocks; the fp32
+  step's state checkpointed (``CheckpointManager(shardings=)``), and in
+  the second layout the first layout's checkpoint restored, its
+  parameter blocks kept;
+* ``mserve``: :func:`serve_run` of every model (a prefill and
+  teacher-forced decode steps of the rank's rows);
 * ``train``: ``launch.train --production-mesh --data-ranks`` at smoke
   width (deepseek, 16 experts, fp32), writing checkpoints, and resuming
   from the checkpoints the test or the other layout wrote;
@@ -36,7 +41,9 @@ import shutil
 import numpy as np
 import torch
 
-ARCHS = ("qwen3-1.7b", "deepseek-moe-16b")
+ARCHS = ("qwen3-1.7b", "deepseek-moe-16b", "mamba2-2.7b",
+         "recurrentgemma-2b", "llava-next-mistral-7b",
+         "seamless-m4t-medium")
 MESH = {"data": 4, "model": 2}
 LAYOUTS = {"d4": {"data": 4}, "d2m2": {"data": 2, "model": 2}}
 # the model case: batch, sequence and the xent chunk; ODD_B rows are
@@ -44,6 +51,7 @@ LAYOUTS = {"d4": {"data": 4}, "d2m2": {"data": 2, "model": 2}}
 MODEL = dict(b=4, s=16, loss_chunk=16, seed=11)
 ODD_B = 2
 STEP_SEED = 21
+SERVE = dict(b=4, prompt=8, gen=3, seed=13)
 # the driver case: a few steps at smoke width, a checkpoint after step 2
 TRAIN_ARCH = "deepseek-moe-16b"
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cpu",
@@ -67,26 +75,117 @@ def train_config(cfg):
     return cfg.replace(n_experts=16, dtype="float32")
 
 
-def model_batch(vocab, b=MODEL["b"]):
+def model_batch(cfg, b=MODEL["b"]):
+    """The model cases' batch of ``b`` rows: tokens and labels from numpy
+    seed ``MODEL["seed"]``, and the vlm's patch or the encdec's frame
+    embeddings, the training driver's seeded stand-ins
+    (``launch.train.frontend_stand_ins``) in fp32."""
+    from repro_torch.launch.train import frontend_stand_ins
     rng = np.random.default_rng(MODEL["seed"])
-    toks = rng.integers(0, vocab, (b, MODEL["s"] + 1)).astype(np.int32)
-    return {"tokens": torch.from_numpy(toks[:, :-1]).long(),
-            "labels": torch.from_numpy(toks[:, 1:]).long()}
+    toks = rng.integers(0, cfg.vocab, (b, MODEL["s"] + 1)).astype(np.int32)
+    out = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+           "labels": torch.from_numpy(toks[:, 1:]).long()}
+    out.update({k: v.float() for k, v in frontend_stand_ins(
+        cfg, MODEL["s"], b, torch.device("cpu")).items()})
+    return out
+
+
+def serve_inputs(cfg):
+    """The serve case's prompts [b, prompt], teacher inputs [b, gen] and
+    the vlm's patch or the encdec's frame embeddings (the training
+    driver's seeded stand-ins, in the config's dtype)."""
+    from repro_torch.launch.train import frontend_stand_ins
+    rng = np.random.default_rng(SERVE["seed"])
+    toks = rng.integers(0, cfg.vocab, (SERVE["b"], SERVE["prompt"]
+                                       + SERVE["gen"]))
+    toks = torch.from_numpy(toks.astype(np.int32))
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    embeds = {k: v.to(dt) for k, v in frontend_stand_ins(
+        cfg, SERVE["prompt"], SERVE["b"], torch.device("cpu")).items()}
+    return toks[:, :SERVE["prompt"]], toks[:, SERVE["prompt"]:], embeds
+
+
+def serve_run(mesh, cfg, rows=None):
+    """``build_serve_step`` on ``mesh``: this rank's rows (or ``rows``) of
+    the prompts prefilled, then a decode step for each teacher input.
+    Returns the logits [gen + 1, rows, V] and the decode cache's leaf
+    shapes ({name: shape}, ``pos`` left out)."""
+    from repro_torch.launch.serve import grow_cache, prefix_len
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import data_rows, expert_block
+    from repro_torch.train.step import build_serve_step, rank_cut
+    step, prefill, ctx = build_serve_step(cfg, mesh)
+    block = expert_block(cfg, ctx)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            **({"experts": block} if block else {}),
+                            cut=rank_cut(cfg, mesh, (ctx.tp_axis,)))
+    prompts, feed, embeds = serve_inputs(cfg)
+    b = prompts.shape[0]
+    if rows is None:
+        rows = data_rows(mesh, b)
+    split = len(rows) < b and mesh.ranked
+    rows = torch.from_numpy(np.asarray(rows))
+    with torch.no_grad():
+        logits, cache = prefill(params, {"tokens": prompts[rows], **{
+            k: v[rows] for k, v in embeds.items()}}, data_block=split)
+        cache = grow_cache(cfg, cache, prefix_len(cfg) + SERVE["prompt"]
+                           + SERVE["gen"])
+        out = [logits]
+        for i in range(SERVE["gen"]):
+            logits, cache = step(params, cache, feed[rows, i:i + 1],
+                                 data_block=split)
+            out.append(logits)
+    return torch.stack(out).numpy(), {k: tuple(v.shape)
+                                      for k, v in cache.items()
+                                      if k != "pos"}
+
+
+def tree_of(arrays, prefix, leaf=lambda a: a):
+    """The tree of ``arrays``' ``prefix/a/b`` entries (a ``#i`` segment
+    an index of a list, the hybrid family's per-layer blocks), each
+    array through ``leaf``."""
+    tree = {}
+    for k, v in arrays.items():
+        if not k.startswith(prefix):
+            continue
+        *keys, name = k[len(prefix):].split("/")
+        node = tree
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[name] = leaf(v)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [lists(node[f"#{i}"]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
+def arrays_of(tree, prefix):
+    """:func:`tree_of`'s inverse for a tree of tensors: ``prefix/a/b``
+    numpy arrays."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + [f"#{i}"])
+        else:
+            out[prefix + "/".join(path)] = node.numpy()
+    walk(tree, [])
+    return out
 
 
 def load_params(path):
     """A parameter tree from ``path``'s ``params/a/b`` arrays."""
-    tree = {}
     with np.load(path) as z:
-        for k in z.files:
-            if not k.startswith("params/"):
-                continue
-            *keys, leaf = k[len("params/"):].split("/")
-            node = tree
-            for key in keys:
-                node = node.setdefault(key, {})
-            node[leaf] = torch.from_numpy(z[k].copy())
-    return tree
+        return tree_of({k: z[k] for k in z.files}, "params/",
+                       lambda a: torch.from_numpy(a.copy()))
 
 
 def param_specs(mesh, cfg):
@@ -153,7 +252,7 @@ def _draw(mesh, arch):
                             mesh=mesh)
     whole = init_train_state(cfg, tcfg, gen(), "cpu")
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg)
-    cut = convert.rank_state(whole, mesh, specs, family=cfg.family)
+    cut = convert.rank_state(whole, mesh, specs)
     a, spec_a = pt.flatten(mine)
     b, spec_b = pt.flatten(cut)
     return {"same_tree": np.asarray(spec_a == spec_b),
@@ -174,7 +273,7 @@ def _grads(mesh, arch, tmp):
     from repro_torch.train import TrainConfig, build_train_step
     cfg = model_config(arch)
     params = convert.rank_state(load_params(tmp / f"{arch}_in.npz"), mesh,
-                                param_specs(mesh, cfg), family=cfg.family)
+                                param_specs(mesh, cfg))
     out = {}
     for remat in (False, True):
         tcfg = TrainConfig(remat=remat, loss_chunk=MODEL["loss_chunk"])
@@ -182,7 +281,7 @@ def _grads(mesh, arch, tmp):
         dims = step_fn.leaf_dims()["params"]
         tag = f"remat{int(remat)}"
         for b in ((MODEL["b"], ODD_B) if not remat else (MODEL["b"],)):
-            batch = model_batch(cfg.vocab, b)
+            batch = model_batch(cfg, b)
             key = tag if b == MODEL["b"] else f"{tag}_odd"
             reset_collective_counts()
             loss, grads, missing = step_fn.grads_of({"params": params},
@@ -205,12 +304,18 @@ def _grads(mesh, arch, tmp):
     return out
 
 
-def _step(mesh, arch):
+def step_case(mesh, arch, tmp, name, restore_from=None):
+    """One train step with fp32 and with int8 m and v; the fp32 step's
+    state checkpointed under ``ckpt_<arch>_<name>``; with
+    ``restore_from`` (a layout's name) that layout's checkpoint restored
+    into this one, its parameter blocks kept."""
     from repro_torch import tree as pt
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.optim import AdamWConfig
-    from repro_torch.parallel.sharding import expert_block, make_ctx
+    from repro_torch.parallel.sharding import expert_block, make_ctx, to_named
     from repro_torch.train import TrainConfig, build_train_step
-    from repro_torch.train.step import init_train_state
+    from repro_torch.train.step import (init_train_state, state_shapes,
+                                        state_specs)
     cfg = model_config(arch)
     out = {}
     for tier in ("float32", "int8"):
@@ -220,13 +325,35 @@ def _step(mesh, arch):
         state = init_train_state(
             cfg, tcfg, torch.Generator().manual_seed(STEP_SEED), "cpu",
             experts=expert_block(cfg, make_ctx(mesh, cfg)), mesh=mesh)
-        state, m = step_fn(state, model_batch(cfg.vocab))
+        state, m = step_fn(state, model_batch(cfg))
         out[f"{tier}/grad_norm"] = m["grad_norm"].numpy()
         out[f"{tier}/loss"] = m["loss"].numpy()
         out[f"{tier}/missing"] = np.asarray(m["grads_missing"])
         for i, p in enumerate(pt.leaves(state["params"])):
             out[f"{tier}/param{i}"] = p.numpy()
+        if tier != "float32":
+            continue
+        named = to_named(mesh, state_specs(mesh, state_shapes(cfg, tcfg),
+                                           tcfg))
+        mgr = CheckpointManager(tmp / f"ckpt_{arch}_{name}", async_=False,
+                                shardings=named)
+        mgr.save(state, 0)
+        if restore_from is not None:
+            got, _ = CheckpointManager(
+                tmp / f"ckpt_{arch}_{restore_from}",
+                shardings=named).restore(state)
+            for i, p in enumerate(pt.leaves(got["params"])):
+                out[f"restored/param{i}"] = p.numpy()
     return out
+
+
+def serve_case(mesh, arch):
+    """:func:`serve_run` of ``arch`` on this rank: its logits, rows and
+    cache shapes."""
+    from repro_torch.parallel.sharding import data_rows
+    logits, shapes = serve_run(mesh, model_config(arch))
+    return {"logits": logits, "rows": np.asarray(data_rows(mesh, SERVE["b"])),
+            **{f"cache/{k}": np.asarray(v) for k, v in shapes.items()}}
 
 
 def _train(tmp, name, mesh):
@@ -291,6 +418,7 @@ def main(rank, world, tmp):
         secs[name] = time.perf_counter() - t0
         out.update({f"{name}/{k}": v for k, v in got.items()})
 
+    first = next(iter(LAYOUTS))
     for name, ranks in LAYOUTS.items():
         mesh = Mesh(MESH, "cpu", group=group, ranks=ranks)
         out[f"coords_{name}"] = np.asarray([mesh.coord("data"),
@@ -299,7 +427,9 @@ def main(rank, world, tmp):
         for arch in ARCHS:
             timed(f"draw_{name}_{arch}", _draw, mesh, arch)
             timed(f"grads_{name}_{arch}", _grads, mesh, arch, tmp)
-            timed(f"step_{name}_{arch}", _step, mesh, arch)
+            timed(f"step_{name}_{arch}", step_case, mesh, arch, tmp, name,
+                  None if name == first else first)
+            timed(f"mserve_{name}_{arch}", serve_case, mesh, arch)
         timed(f"train_{name}", _train, tmp, name, mesh)
     timed("serve", _serve, tmp)
     out.update({f"seconds/{k}": np.asarray(v) for k, v in secs.items()})

@@ -10,18 +10,26 @@ ranks (``d2m2``: each rank a data block and two model shards):
 * ``draw``: a rank's train state drawn with ``mesh=`` (int8 m and v and
   the error feedback) against ``convert.rank_state`` of the whole draw,
   and the rank's parameter and state bytes;
-* ``grads``: the fp32 smoke models' (qwen3-1.7b and deepseek-moe-16b)
-  ``grads_of`` on the parameters the test wrote, cut to the rank's
+* ``grads``: the fp32 smoke models' (:data:`ARCHS`, one of every
+  family) ``grads_of`` on the parameters the test wrote, cut to the rank's
   blocks, with and without remat: the loss, every gradient block, the
   leaves missed, the replicated gradients' digests, the digests of
   every moe router input, the collectives by axis;
 * ``step``: one train step with fp32 and with int8 m and v from a state
-  drawn with ``mesh=``: the grad norm and the parameter blocks;
+  drawn with ``mesh=``: the grad norm and the parameter blocks; the fp32
+  step's state checkpointed, and over 2 x 2 the 4 model ranks'
+  checkpoint restored (``_torch_rank_data_worker.step_case``);
 * ``serve``: ``build_serve_step`` on :data:`MESH` (Hq 4 on model 4: each
   rank its heads), a prefill and teacher-forced decode steps of the
-  rank's rows: the logits and the KV heads of the rank's cache;
+  rank's rows: the logits and the shapes of the rank's cache (its KV
+  heads, Mamba2 heads and conv channels, RG-LRU width block);
 * ``policy`` (qwen3): ``ShardingPolicy(tp_enable=False)``: the leaves'
   rank dims, the loss and every gradient;
+* ``bodies``: :func:`body_case`, one layer of each body that tensor
+  parallelism reshaped, on the rank's blocks; once more over 4 model
+  ranks of the production mesh (``bodies_prod``: 16 model shards, so
+  Mamba2's and the cross-attention's heads stay whole on a rank and
+  some of their leaves too);
 * ``train``: ``launch.train --production-mesh`` at smoke width
   (deepseek, 16 experts, fp32), writing checkpoints, and resuming from
   the checkpoint the test or the other layout wrote;
@@ -39,15 +47,14 @@ import shutil
 import numpy as np
 import torch
 
-from _torch_rank_data_worker import load_params
+from _torch_rank_data_worker import (ARCHS, MODEL, STEP_SEED,  # noqa
+                                     load_params, model_batch, serve_case,
+                                     serve_run, step_case)
 
-ARCHS = ("qwen3-1.7b", "deepseek-moe-16b")
 MESH = {"data": 2, "model": 4}
 LAYOUTS = {"m4": {"model": 4}, "d2m2": {"data": 2, "model": 2}}
-MODEL = dict(b=4, s=16, loss_chunk=16, seed=11)
 POLICY_B = 8                       # rows of the policy case: 8 shards
-STEP_SEED = 21
-SERVE = dict(b=4, prompt=8, gen=3, seed=13)
+BODY = dict(b=2, s=16, se=4, seed=17)
 TRAIN_ARCH = "deepseek-moe-16b"
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cpu",
               "--production-mesh", "--steps", "5", "--batch", "4",
@@ -68,53 +75,6 @@ def driver_config(cfg):
     """The drivers' config from the smoke one: enough experts for 16
     model shards, in fp32."""
     return cfg.replace(n_experts=16, dtype="float32")
-
-
-def model_batch(vocab, b=MODEL["b"]):
-    rng = np.random.default_rng(MODEL["seed"])
-    toks = rng.integers(0, vocab, (b, MODEL["s"] + 1)).astype(np.int32)
-    return {"tokens": torch.from_numpy(toks[:, :-1]).long(),
-            "labels": torch.from_numpy(toks[:, 1:]).long()}
-
-
-def serve_tokens(vocab):
-    """The serve case's prompts [b, prompt] and teacher inputs [b, gen]."""
-    rng = np.random.default_rng(SERVE["seed"])
-    toks = rng.integers(0, vocab, (SERVE["b"], SERVE["prompt"]
-                                   + SERVE["gen"]))
-    toks = torch.from_numpy(toks.astype(np.int32))
-    return toks[:, :SERVE["prompt"]], toks[:, SERVE["prompt"]:]
-
-
-def serve_run(mesh, cfg, rows=None):
-    """``build_serve_step`` on ``mesh``: this rank's rows (or ``rows``) of
-    the prompts prefilled, then a decode step for each teacher input.
-    Returns the logits [gen + 1, rows, V] and the cache's KV heads."""
-    from repro_torch.launch.serve import grow_cache
-    from repro_torch.models import lm
-    from repro_torch.parallel.sharding import data_rows, expert_block
-    from repro_torch.train.step import build_serve_step, rank_cut
-    step, prefill, ctx = build_serve_step(cfg, mesh)
-    block = expert_block(cfg, ctx)
-    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
-                            **({"experts": block} if block else {}),
-                            cut=rank_cut(cfg, mesh, (ctx.tp_axis,)))
-    prompts, feed = serve_tokens(cfg.vocab)
-    b = prompts.shape[0]
-    if rows is None:
-        rows = data_rows(mesh, b)
-    split = len(rows) < b and mesh.ranked
-    rows = torch.from_numpy(np.asarray(rows))
-    with torch.no_grad():
-        logits, cache = prefill(params, {"tokens": prompts[rows]},
-                                data_block=split)
-        cache = grow_cache(cfg, cache, SERVE["prompt"] + SERVE["gen"])
-        out = [logits]
-        for i in range(SERVE["gen"]):
-            logits, cache = step(params, cache, feed[rows, i:i + 1],
-                                 data_block=split)
-            out.append(logits)
-    return torch.stack(out).numpy(), int(cache["k"].shape[-2])
 
 
 def _digest(t) -> str:
@@ -142,7 +102,7 @@ def _draw(mesh, arch):
                             mesh=mesh)
     whole = init_train_state(cfg, tcfg, gen(), "cpu")
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg)
-    cut = convert.rank_state(whole, mesh, specs, family=cfg.family)
+    cut = convert.rank_state(whole, mesh, specs)
     a, spec_a = pt.flatten(mine)
     b, spec_b = pt.flatten(cut)
 
@@ -168,7 +128,7 @@ def _grads(mesh, arch, tmp):
     specs = state_specs(mesh, state_shapes(cfg, TrainConfig()),
                         TrainConfig())["params"]
     params = convert.rank_state(load_params(tmp / f"{arch}_in.npz"), mesh,
-                                specs, family=cfg.family)
+                                specs)
     routed = []
     real = moe.moe_ffn
 
@@ -186,7 +146,7 @@ def _grads(mesh, arch, tmp):
             reset_collective_counts()
             del routed[:]
             loss, grads, missing = step_fn.grads_of({"params": params},
-                                                    model_batch(cfg.vocab))
+                                                    model_batch(cfg))
             for k, v in collective_counts().items():
                 out[f"{tag}/coll/{k}"] = np.asarray(v)
             out[f"{tag}/loss"] = loss.numpy()
@@ -202,34 +162,104 @@ def _grads(mesh, arch, tmp):
     return out
 
 
-def _step(mesh, arch):
-    from repro_torch import tree as pt
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.parallel.sharding import expert_block, make_ctx
-    from repro_torch.train import TrainConfig, build_train_step
-    from repro_torch.train.step import init_train_state
-    cfg = model_config(arch)
+def _layer(tree, dims, index):
+    """``tree``'s leaves (requiring grad) and their model dims at
+    ``index`` of a stack (an int: one layer of the stacked leaves, whose
+    dims lose the layer axis) or whole (None)."""
+    leaves = {k: (v if index is None else v[index]).clone()
+              .requires_grad_(True) for k, v in tree.items()}
+    return leaves, {k: -1 if dims is None or dims.get(k) is None
+                    else dims[k] - (index is not None) for k in tree}
+
+
+def body_case(mesh):
+    """One layer of each body that tensor parallelism reshaped, on this
+    rank's model blocks of the fp32 smoke models' parameters (seed 0),
+    or whole on a mesh without ranks; each under the loss ``(y *
+    c).sum()`` with a seeded ``c`` (its block where ``y`` is a rank's
+    block): Mamba2's gated norm alone (the rank's heads' features:
+    ``ssm._gated_norm``, its sum of squares over the ranks) and its whole
+    block (``w_in``'s output gathered and cut to the rank's heads, its
+    state and conv tail), RG-LRU's block (its conv output gathered), and
+    the decoder's cross-attention (``lm._cross_kv``'s KV heads, the
+    attention's output).  Returns the outputs, the input gradients, the
+    parameter gradients and each parameter's model dim (``dim/<key>``,
+    -1 where the rank holds it whole).  A leaf the rank holds whole but
+    uses in part is entered as ``lm.train_loss`` enters it
+    (``lm._enter_shared``), so every gradient is the whole one's block."""
+    from repro_torch import convert
+    from repro_torch.models import lm, rglru, ssm
+    from repro_torch.parallel.sharding import make_ctx, param_specs
+
+    def draw(*shape, seed):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            BODY["seed"] + seed))
+
+    def mine(cfg):
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        if not mesh.ranked:
+            return params
+        return convert.rank_state(params, mesh, param_specs(mesh, params),
+                                  axes=("model",))
+
+    def record(tag, outs, ins, p, dims):
+        out.update({f"{tag}/{k}": v.detach().numpy() for k, v in outs.items()})
+        out.update({f"{tag}/g_{k}": v.grad.numpy() for k, v in ins.items()})
+        out.update({f"{tag}/g/{k}": v.grad.numpy() for k, v in p.items()})
+        out.update({f"{tag}/dim/{k}": np.asarray(d) for k, d in dims.items()})
+
+    b, s = BODY["b"], BODY["s"]
     out = {}
-    for tier in ("float32", "int8"):
-        tcfg = TrainConfig(remat=True, loss_chunk=MODEL["loss_chunk"],
-                           opt=AdamWConfig(m_dtype=tier, v_mode=tier))
-        step_fn, _, _ = build_train_step(cfg, mesh, tcfg)
-        state = init_train_state(
-            cfg, tcfg, torch.Generator().manual_seed(STEP_SEED), "cpu",
-            experts=expert_block(cfg, make_ctx(mesh, cfg)), mesh=mesh)
-        state, m = step_fn(state, model_batch(cfg.vocab))
-        out[f"{tier}/grad_norm"] = m["grad_norm"].numpy()
-        out[f"{tier}/missing"] = np.asarray(m["grads_missing"])
-        for i, p in enumerate(pt.leaves(state["params"])):
-            out[f"{tier}/param{i}"] = p.numpy()
+    # Mamba2's gated norm, on the rank's heads' features
+    cfg = model_config("mamba2-2.7b")
+    lctx = make_ctx(mesh, cfg).at("blocks")
+    tp = lctx.split("w_out")
+    first, count = ssm._heads(cfg, lctx, tp)
+    lo, k = first * cfg.ssm_head_dim, count * cfg.ssm_head_dim
+    ins = {n: draw(b, s, cfg.d_inner, seed=i).narrow(-1, lo, k).clone()
+           .requires_grad_(True) for i, n in enumerate(("y", "z"))}
+    scale = draw(cfg.d_inner, seed=2).narrow(-1, lo, k).clone() \
+        .requires_grad_(True)
+    y = ssm._gated_norm(ins["y"], ins["z"], scale, cfg, lctx, tp,
+                        count < cfg.n_ssm_heads)
+    (y * draw(b, s, cfg.d_inner, seed=3).narrow(-1, lo, k)).sum().backward()
+    record("norm", {"y": y}, ins, {"scale": scale}, {"scale": -1})
+    # Mamba2's block
+    p, dims = _layer({k: v for k, v in mine(cfg)["blocks"].items()
+                      if k != "ln1"}, lctx.tp, 0)
+    ins = {"x": draw(b, s, cfg.d_model, seed=4).requires_grad_(True)}
+    y, (state, tail) = ssm.mamba2_block(ins["x"], lm._enter_shared(
+        p, lctx), cfg, ctx=lctx)
+    (y * draw(b, s, cfg.d_model, seed=5)).sum().backward()
+    record("ssm", {"y": y, "state": state, "tail": tail}, ins, p, dims)
+    # RG-LRU's block (layer 0 of the pattern r, r, a)
+    cfg = model_config("recurrentgemma-2b")
+    rctx = make_ctx(mesh, cfg).at("blocks", 0, "rec")
+    p, dims = _layer(mine(cfg)["blocks"][0]["rec"], rctx.tp, None)
+    ins = {"x": draw(b, s, cfg.d_model, seed=6).requires_grad_(True)}
+    y, (h_last, tail) = rglru.recurrent_block(
+        ins["x"], lm._enter_shared(p, rctx), cfg, ctx=rctx)
+    (y * draw(b, s, cfg.d_model, seed=7)).sum().backward()
+    record("rec", {"y": y, "h_last": h_last, "tail": tail}, ins, p, dims)
+    # the decoder's cross-attention: every layer's cross K/V, then layer
+    # 0's attention over them
+    cfg = model_config("seamless-m4t-medium")
+    ctx = make_ctx(mesh, cfg)
+    dctx = ctx.at("dec_blocks")
+    dec = mine(cfg)["dec_blocks"]
+    p, dims = _layer({k: v for k, v in dec.items() if k.startswith("x_")},
+                     dctx.tp, None)
+    ins = {"x": draw(b, s, cfg.d_model, seed=8).requires_grad_(True),
+           "enc": draw(b, BODY["se"], cfg.d_model, seed=9)
+           .requires_grad_(True)}
+    entered = lm._enter_shared(p, dctx)
+    ck, cv = lm._cross_kv({"dec_blocks": entered}, ins["enc"], cfg, ctx)
+    y, _ = lm._attn_sub(ins["x"], lm._xattn_params(
+        {k: v[0] for k, v in entered.items()}), cfg, lm._xattn_ctx(dctx),
+        cross_kv=(ck[0], cv[0]))
+    (y * draw(b, s, cfg.d_model, seed=10)).sum().backward()
+    record("xattn", {"y": y, "k": ck, "v": cv}, ins, p, dims)
     return out
-
-
-def _serve(mesh, arch):
-    from repro_torch.parallel.sharding import data_rows
-    logits, heads = serve_run(mesh, model_config(arch))
-    return {"logits": logits, "kv_heads": np.asarray(heads),
-            "rows": np.asarray(data_rows(mesh, SERVE["b"]))}
 
 
 def _policy(mesh, tmp):
@@ -249,9 +279,9 @@ def _policy(mesh, tmp):
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg,
                         policy)["params"]
     params = convert.rank_state(load_params(tmp / f"{arch}_in.npz"), mesh,
-                                specs, family=cfg.family)
+                                specs)
     loss, grads, missing = step_fn.grads_of({"params": params}, model_batch(
-        cfg.vocab, POLICY_B))
+        cfg, POLICY_B))
     out = {"loss": loss.numpy(), "missing": np.asarray(missing),
            "tp": np.asarray(ctx.tp is not None),
            "dims": np.asarray([repr(dict(d)) for d in
@@ -310,6 +340,7 @@ def main(rank, world, tmp):
     import time
 
     from repro_torch.core.rounds import Mesh
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.parallel import dist as pd
     torch.set_num_threads(1)
     tmp = pathlib.Path(tmp)
@@ -324,6 +355,7 @@ def main(rank, world, tmp):
         secs[name] = time.perf_counter() - t0
         out.update({f"{name}/{k}": v for k, v in got.items()})
 
+    first = next(iter(LAYOUTS))
     for name, ranks in LAYOUTS.items():
         mesh = Mesh(MESH, "cpu", group=group, ranks=ranks)
         out[f"coords_{name}"] = np.asarray([mesh.coord("data"),
@@ -331,10 +363,14 @@ def main(rank, world, tmp):
         for arch in ARCHS:
             timed(f"draw_{name}_{arch}", _draw, mesh, arch)
             timed(f"grads_{name}_{arch}", _grads, mesh, arch, tmp)
-            timed(f"step_{name}_{arch}", _step, mesh, arch)
-            timed(f"serve_{name}_{arch}", _serve, mesh, arch)
+            timed(f"step_{name}_{arch}", step_case, mesh, arch, tmp, name,
+                  None if name == first else first)
+            timed(f"serve_{name}_{arch}", serve_case, mesh, arch)
         timed(f"policy_{name}", _policy, mesh, tmp)
+        timed(f"bodies_{name}", body_case, mesh)
         timed(f"train_{name}", _train, tmp, name, mesh)
+    timed("bodies_prod", body_case, make_production_mesh(
+        device="cpu", group=group, ranks={"model": 4}))
     timed("pserve", _pserve, tmp)
     out.update({f"seconds/{k}": np.asarray(v) for k, v in secs.items()})
     np.savez(tmp / f"rank{rank}.npz", **out)

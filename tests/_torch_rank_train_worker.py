@@ -150,7 +150,7 @@ def _grads(mesh, tmp):
     tcfg = TrainConfig()
     specs = state_specs(mesh, state_shapes(cfg, tcfg), tcfg)["params"]
     params = convert.rank_state(load_params(tmp / "model_in.npz"), mesh,
-                                specs, family=cfg.family)
+                                specs)
     ctx = make_ctx(mesh, cfg)
     batch = model_batch(cfg.vocab)
     ranked = build_train_step(cfg, mesh)[0].leaf_dims()["params"]
@@ -197,10 +197,10 @@ def _draw(mesh):
                                 "cpu", experts=experts, mesh=mesh)
     mine, whole = draw(block, mesh), draw()
     specs = state_specs(mesh, whole, tcfg)
-    cut = convert.rank_state(whole, mesh, specs, family=cfg.family)
+    cut = convert.rank_state(whole, mesh, specs)
     a, spec_a = pt.flatten(mine)
     b, spec_b = pt.flatten(cut)
-    placed = device_put(mine, to_named(mesh, specs, cfg.family))
+    placed = device_put(mine, to_named(mesh, specs))
     return {"block": np.asarray(block),
             "same_tree": np.asarray(spec_a == spec_b),
             "equal": np.asarray([torch.equal(x, y) for x, y in zip(a, b)]),
@@ -210,8 +210,7 @@ def _draw(mesh):
                                  is mine["params"]["blocks"]["we_d"]),
             "specs": np.asarray([repr(x) for x in pt.leaves(specs)]),
             "rank_dims": np.asarray([d.get("model", -1) for d in
-                                     pt.leaves(rank_dims(mesh, specs,
-                                                         cfg.family))])}
+                                     pt.leaves(rank_dims(mesh, specs))])}
 
 
 def _step(mesh):

@@ -274,8 +274,7 @@ def _jax_grow(jcfg, cache, max_len):
     b = cache["pos"].shape[0]
     full = jlm.init_decode_cache(jcfg, b, max_len)
     for k in cache:
-        if k in full and cache[k].shape != full[k].shape \
-                and cache[k].ndim == full[k].ndim and k not in tserve.KEEP:
+        if k in tserve.GROW and cache[k].shape != full[k].shape:
             sl = tuple(slice(0, s) for s in cache[k].shape)
             full[k] = full[k].at[sl].set(cache[k])
         else:

@@ -8,8 +8,11 @@ directory, a limit on the join; a rank that fails or outlasts it ends
 them all, and every case then fails) running
 ``tests/_torch_rank_data_worker.py``, which imports no JAX, in two
 layouts of a (data 4, model 2) mesh: 4 data ranks (``d4``) and 2 data x
-2 model ranks (``d2m2``), over the fp32 smoke configs of qwen3-1.7b and
-deepseek-moe-16b; beside the ranks one subprocess runs the reference's
+2 model ranks (``d2m2``), over the fp32 smoke configs of one model of
+every family (qwen3-1.7b, deepseek-moe-16b, mamba2-2.7b,
+recurrentgemma-2b, llava-next-mistral-7b, seamless-m4t-medium; llava's
+and seamless's batches carry the training driver's seeded patch and
+frame stand-ins); beside the ranks one subprocess runs the reference's
 ``build_train_step`` on an ``Auto`` (4, 2) mesh of 8 CPU devices with
 the state placed by its ``state_specs``
 (``tests/_torch_data_reference.py``) on the port's parameters.  Held:
@@ -28,12 +31,18 @@ the state placed by its ``state_specs``
   relative, every gradient leaf by its block within 1e-6 x its largest
   magnitude of the one-process mesh (1e-5 over 2 x 2, whose model ranks
   are tensor parallel) and within 2e-4 x max + 1e-6 of the reference's,
-  no leaf missed; a batch the data axis does not divide
-  (rows replicated along data) gives the one-process gradients;
+  no leaf missed (a leaf whose exact gradient is zero held to zero,
+  :func:`check_leaf`); a batch the data axis does not divide (rows
+  replicated along data) gives the one-process gradients;
 * the collectives of one ``grads_of`` equal :func:`collectives_per_step`;
 * one train step with fp32 and with int8 m and v matches the
   one-process step (grad norm within 1e-6 relative, every parameter
-  within 1e-6);
+  within 1e-6); every model's fp32 state checkpointed over 4 data ranks
+  holds the ranks' blocks bit for bit and restores in one process and
+  over 2 x 2;
+* every model's serve of a rank's rows (a prefill and teacher-forced
+  decode steps) within 1e-5 (prefill) and 1e-4 (decode) of the scale of
+  one process's rows, argmaxes equal, its cache the rank's share;
 * ``launch.train --data-ranks`` over both layouts matches one process
   within 1e-5; checkpoints cross layouts (4 data ranks -> 2 x 2 and one
   process, one process -> 4 data ranks) and continue within 1e-5;
@@ -63,26 +72,24 @@ N_RANKS = {"d4": {"data": 4, "model": 1}, "d2m2": {"data": 2, "model": 2}}
 # a gradient block against one process, x the leaf's largest magnitude:
 # over model ranks the tensor-parallel sums reorder reductions
 GRAD_TOL = {"d4": 1e-6, "d2m2": 1e-5}
+PREFILL_TOL = 1e-5       # a serve's prefill logits, x their scale
+DECODE_TOL = 1e-4        # its decode's logits over the bf16 cache
 
 
 def _write_params(tmp):
     """The port's draw of each model (seed 0) as ``params/...`` arrays,
-    the reference's parameter layout."""
+    the reference's parameter layout, and the model case's frontend
+    embeddings as ``batch/...`` arrays."""
     from repro_torch.models import lm
     out = {}
     for arch in W.ARCHS:
-        params = lm.init_params(W.model_config(arch),
-                                torch.Generator().manual_seed(0), "cpu")
-        arrays = {}
-
-        def walk(node, path):
-            if isinstance(node, dict):
-                for k, v in node.items():
-                    walk(v, path + [k])
-            else:
-                arrays["params/" + "/".join(path)] = node.numpy()
-        walk(params, [])
-        np.savez(tmp / f"{arch}_in.npz", **arrays)
+        cfg = W.model_config(arch)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+        embeds = {k: v for k, v in W.model_batch(cfg).items()
+                  if k not in ("tokens", "labels")}
+        np.savez(tmp / f"{arch}_in.npz", **W.arrays_of(params, "params/"),
+                 **W.arrays_of(embeds, "batch/"))
         out[arch] = params
     return out
 
@@ -270,7 +277,7 @@ def _one_process_grads(params, arch, remat, b=W.MODEL["b"]):
     loss, grads, missing = value_and_grad(
         lambda p, bt: lm.train_loss(p, bt, cfg, ctx, remat=remat,
                                     loss_chunk=W.MODEL["loss_chunk"]),
-        params, W.model_batch(cfg.vocab, b))
+        params, W.model_batch(cfg, b))
     assert missing == 0
     return float(loss), [g.numpy() for g in pt.leaves(grads)]
 
@@ -284,8 +291,30 @@ def one_grads(ranks):
                                                  (False, W.ODD_B))}
 
 
+# leaves whose exact gradient is zero: the cross-attention's key bias (a
+# query's softmax does not see one shift of every key's logit; no rope
+# there), so both sides give rounding noise, held to zero
+ZERO_GRAD = ("x_bk",)
+
+
+def check_leaf(g, ref, wl, path, tol, want):
+    """A gradient block ``g`` against the one-process block ``ref`` of
+    the whole leaf ``wl`` (at key ``path``): within ``tol`` x ``wl``'s
+    largest magnitude, or, for a :data:`ZERO_GRAD` leaf, both zero
+    within ``tol`` x the largest magnitude of every leaf of ``want``."""
+    assert g.shape == ref.shape, path
+    if path[-1] in ZERO_GRAD:
+        bound = tol * max(float(np.abs(w).max()) for w in want)
+        assert float(np.abs(g).max()) <= bound, (path, g)
+        assert float(np.abs(wl).max()) <= bound, (path, wl)
+        return
+    err = float(np.abs(g - ref).max())
+    assert err <= tol * float(np.abs(wl).max()), (path, err)
+
+
 def _check_grads(ranks, layout, arch, key, want, loss, rtol_share):
     dims = _dims(ranks, layout, arch)
+    paths = list(_paths(ranks["params"][arch]))
     shares = {}
     for r in range(4):
         got = _of(ranks, r, f"grads_{layout}_{arch}")
@@ -297,12 +326,8 @@ def _check_grads(ranks, layout, arch, key, want, loss, rtol_share):
         n = sum(k.startswith(f"{key}/grad") for k in got)
         assert n == len(want) == len(dims)
         for i, wl in enumerate(want):
-            ref = _block(wl, dims[i], layout, c)
-            g = got[f"{key}/grad{i}"]
-            assert g.shape == ref.shape, i
-            err = float(np.abs(g - ref).max())
-            assert err <= GRAD_TOL[layout] * float(np.abs(wl).max()), \
-                (i, err)
+            check_leaf(got[f"{key}/grad{i}"], _block(wl, dims[i], layout, c),
+                       wl, paths[i], GRAD_TOL[layout], want)
     assert sum(shares.values()) == pytest.approx(loss, rel=rtol_share)
 
 
@@ -344,7 +369,7 @@ def test_grads_over_data_ranks_match_the_reference(ranks, layout, arch):
     ref = jax[arch]
     cfg = W.model_config(arch)
     np.testing.assert_array_equal(
-        ref["toks"][:, :-1], W.model_batch(cfg.vocab)["tokens"].numpy())
+        ref["toks"][:, :-1], W.model_batch(cfg)["tokens"].numpy())
     dims = _dims(ranks, layout, arch)
     assert sum(k.startswith("grad") and k != "grad_norm"
                for k in ref) == len(dims)
@@ -360,44 +385,65 @@ def test_grads_over_data_ranks_match_the_reference(ranks, layout, arch):
             assert err <= 2e-4 * float(np.abs(wl).max()) + 1e-6, (i, err)
 
 
-def collectives_per_step(n_layers, top, remat, layout, moe,
-                         qk_norm=False, chunks=1):
-    """The collectives one ``grads_of`` issues on a rank, by axis.  Along
-    data: a layer's data-sharded leaves (one dtype) are packed into one
-    all-gather in the forward, again under remat, and one reduce-scatter
-    in the backward (each an ``all_to_all``), the top-level ones
-    (``top``: embed, head) gathered once and reduce-scattered once; one
-    ``all_reduce`` of the loss's mask count, one of the gradients held
-    whole along data, one of the reported loss.  A moe layer adds its
-    ``aux`` all-reduce in every forward run (over data, or the world
-    where the model axis is ranked too) and the sum of its gradient over
-    data in the backward; with model ranks its exchanges (2
-    ``all_to_all``s and the token blocks' all-gather a forward, 2
-    ``all_to_all``s and the two block slices' all-gathers in the
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def collectives_per_step(cfg, top, remat, layout, chunks=1):
+    """The collectives one ``grads_of`` issues on a rank of ``cfg``, by
+    axis.  A forward run of a layer is its forward and, under remat,
+    its rerun in the backward (the hybrid family's layers are never
+    checkpointed: one run); a rerun stops at the layer's last saved
+    tensor, before its last sum.  Along data: each run packs a layer's
+    data-sharded leaves (one dtype) into one all-gather and the backward
+    reduce-scatters them once (each an ``all_to_all``); the encdec
+    decoder's cross-attention K/V leaves are gathered once more a layer
+    outside its checkpoint (``lm._cross_kv``) and reduce-scattered; the
+    top-level ones (``top``: embed, head) are gathered and
+    reduce-scattered once; one ``all_reduce`` of the loss's mask count,
+    one of the gradients held whole along data, one of the reported
+    loss.  A moe layer adds its ``aux`` all-reduce in every run (over
+    data, or the world where the model axis is ranked too) and the sum
+    of its gradient over data in the backward; with model ranks its
+    exchanges (2 ``all_to_all``s and the token blocks' all-gather a run,
+    2 ``all_to_all``s and the two block slices' all-gathers in the
     backward) run over model.  With model ranks (``d2m2``) tensor
-    parallelism adds over model, a layer, three in the forward (k and v
-    gathered in one, the sums of ``wo``'s and ``wd``'s or the shared
-    experts' partial products) and three in the backward (the sums of
-    the normed inputs' partial gradients, the reduce-scatter of k's and
-    v's), and once a step the embedding's sum, two a loss chunk (the
-    ranks' maxima, the ``exp`` sums and target logits) again where its
-    checkpoint recomputes it, the sum of the final hidden state's
-    partial gradients and, with qk norms, the sum of their gradients;
-    remat's rerun of a layer stops at its last saved tensor, before the
-    layer's last sum."""
-    runs = 2 if remat else 1
-    out = {"all_to_all.data_calls": n_layers * (runs + 1)
-           + (2 if top else 0),
-           "all_reduce.data_calls": 3 + (n_layers if moe else 0)}
+    parallelism adds over model, a layer, three calls a run
+    (self-attention: q, k and v gathered in one, the sums of ``wo``'s
+    and of the FFN's partial products; Mamba2: its ``w_in`` output and
+    ``w_conv`` gathered in one, the sums of the gated norm's squares and
+    of ``w_out``'s products; RG-LRU: its conv output gathered, the sums
+    of ``w_out``'s and of the FFN's products; an encdec decoder layer
+    four, with the cross-attention's ``x_wo`` sum) and three in the
+    backward (four for a decoder layer: the sums of each entered input's
+    partial gradients, the gathers' reduce-scatter); a decoder layer's
+    cross K/V gathered and reduce-scattered, and the encoder output's
+    gradient summed once; once a step the embedding's sum, two a loss
+    chunk (the ranks' maxima, the ``exp`` sums and target logits) again
+    where its checkpoint recomputes it, the sum of the final hidden
+    state's partial gradients and, with qk norms, the sum of their
+    gradients."""
+    n, moe = cfg.n_layers, cfg.family == "moe"
+    runs = 2 if remat and cfg.family != "hybrid" else 1
+    encdec = cfg.family == "encdec"
+    stack = n + (cfg.n_enc_layers if encdec else 0)
+    out = {"all_to_all.data_calls": stack * (runs + 1)
+           + (2 * n if encdec else 0) + (2 if top else 0),
+           "all_reduce.data_calls": 3 + (n if moe else 0)}
     if moe and layout == "d4":
-        out["all_reduce.data_calls"] += n_layers * runs
-    if layout == "d2m2":
-        out["all_to_all.model_calls"] = n_layers * (3 * runs - (runs - 1)
-                                                    + 3) + 1 \
-            + 4 * chunks + 1 + (1 if qk_norm else 0)
+        out["all_reduce.data_calls"] += n * runs
+    if layout in ("d2m2", "m4"):
+        out["all_to_all.model_calls"] = stack * (3 * runs - (runs - 1) + 3) \
+            + 1 + 4 * chunks + 1 + (1 if cfg.qk_norm else 0)
+        if encdec:          # the cross-attention's sum each way, its K/V
+            out["all_to_all.model_calls"] += n * (runs + 1 + 2) + 1
     if moe and layout == "d2m2":
-        out["all_reduce.world_calls"] = n_layers * runs
-        out["all_to_all.model_calls"] += n_layers * (3 * runs + 4)
+        out["all_reduce.world_calls"] = n * runs
+    if moe and layout in ("d2m2", "m4"):
+        out["all_to_all.model_calls"] += n * (3 * runs + 4)
+    if layout == "m4":
+        del out["all_to_all.data_calls"], out["all_reduce.data_calls"]
+        if moe:
+            out["all_reduce.model_calls"] = n * runs
     return out
 
 
@@ -412,10 +458,10 @@ def test_collectives_a_step_follow_the_formula(ranks, layout, arch, remat):
     dims = _dims(ranks, layout, arch)
     keys = list(_paths(ranks["params"][arch]))
     assert len(keys) == len(pt.leaves(ranks["params"][arch]))
-    assert any("data" in d for d, k in zip(dims, keys) if k[0] == "blocks")
-    top = any("data" in d for d, k in zip(dims, keys) if k[0] != "blocks")
-    want = collectives_per_step(cfg.n_layers, top, remat, layout,
-                                cfg.family == "moe", cfg.qk_norm)
+    assert any("data" in d for d, k in zip(dims, keys) if k[0] in STACKS)
+    top = any("data" in d for d, k in zip(dims, keys)
+              if k[0] not in STACKS)
+    want = collectives_per_step(cfg, top, remat, layout)
     tag = f"remat{int(remat)}"
     for r in range(4):
         got = _of(ranks, r, f"grads_{layout}_{arch}")
@@ -426,10 +472,14 @@ def test_collectives_a_step_follow_the_formula(ranks, layout, arch, remat):
 
 
 def _paths(tree, path=()):
-    """Each leaf's key path, in JAX's leaf order."""
+    """Each leaf's key path (a list's index an int), in JAX's leaf
+    order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _paths(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
     else:
         yield path
 
@@ -456,7 +506,7 @@ def test_train_step_over_data_ranks_matches_one_process(ranks, layout, arch,
     state = init_train_state(cfg, tcfg,
                              torch.Generator().manual_seed(W.STEP_SEED),
                              "cpu")
-    state, m = step_fn(state, W.model_batch(cfg.vocab))
+    state, m = step_fn(state, W.model_batch(cfg))
     assert float(m["grad_norm"]) > tcfg.opt.grad_clip   # the clip acts
     want = [p.numpy() for p in pt.leaves(state["params"])]
     dims = _dims(ranks, layout, arch)
@@ -525,6 +575,114 @@ def test_checkpoint_from_one_process_resumes_over_data_ranks(ranks):
                                    ranks["one"]["losses"][3:], rtol=1e-5)
 
 
+def check_checkpoint(ranks, arch, layouts, of, coords, dims, block):
+    """The fp32 step's state in the first of ``layouts``, checkpointed
+    (rank 0 writes the whole state), holds every rank's parameter blocks
+    bit for bit; it restores in one process and in the second layout,
+    each rank of which gets its blocks of it bit for bit (``of``,
+    ``coords``, ``dims`` and ``block``: the test module's readers of the
+    ranks' records)."""
+    from repro_torch import tree as pt
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import init_train_state
+    cfg = W.model_config(arch)
+    first, second = layouts
+    like = init_train_state(cfg, TrainConfig(), torch.Generator(), "cpu")
+    got, _ = CheckpointManager(ranks["tmp"] / f"ckpt_{arch}_{first}"
+                               ).restore(like)
+    whole = [p.numpy() for p in pt.leaves(got["params"])]
+    for layout, key in ((first, "float32/param"), (second,
+                                                   "restored/param")):
+        for r in range(4):
+            rec = of(ranks, r, f"step_{layout}_{arch}")
+            c = coords(ranks, layout, r)
+            for i, (w, d) in enumerate(zip(whole, dims(ranks, layout,
+                                                       arch))):
+                np.testing.assert_array_equal(rec[f"{key}{i}"],
+                                              block(w, d, layout, c),
+                                              err_msg=f"{layout} {r} {i}")
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_checkpoint_of_every_family_crosses_layouts(ranks, arch):
+    """The fp32 step's state over 4 data ranks, checkpointed, holds every
+    rank's blocks; it restores in one process and over 2 x 2 ranks
+    (:func:`check_checkpoint`)."""
+    check_checkpoint(ranks, arch, list(W.LAYOUTS), _of, _coords, _dims,
+                     _block)
+
+
+def _rank_cache(cfg, shapes, n, rows):
+    """A model rank's decode cache shapes among ``n`` model ranks, serving
+    ``rows`` rows, from one process's ``shapes``: the KV heads its q
+    heads read (``k``, ``v``, ``cross_k``, ``cross_v``), its Mamba2 heads
+    (``state``) and the channels its conv reads (its heads' x and every
+    B and C), its block of RG-LRU's width (``hrec``, ``conv``), as the
+    model axis's 4 shards split them."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    out = {}
+    for key, shape in shapes.items():
+        shape = list(shape)
+        shape[1] = rows
+        if key in ("k", "v", "cross_k", "cross_v"):
+            shape[3] = max(1, hkv * (hq // n) // hq) if hq % 4 == 0 \
+                else hkv
+        elif key == "state":
+            shape[2] //= n
+        elif key == "conv" and cfg.family == "ssm":
+            shape[3] = cfg.d_inner // n + 2 * cfg.ssm_state
+        elif key in ("hrec", "conv"):
+            shape[-1] //= n
+        out[key] = tuple(shape)
+    return out
+
+
+def _close(got, want):
+    """The prefill's logits within :data:`PREFILL_TOL` of their scale, the
+    decode's within :data:`DECODE_TOL`; the argmax of every row equal."""
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got[0] - want[0]).max()) <= PREFILL_TOL * scale
+    assert float(np.abs(got - want).max()) <= DECODE_TOL * scale
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def _close(got, want):
+    """The prefill's logits within :data:`PREFILL_TOL` of their scale, the
+    decode's within :data:`DECODE_TOL`; the argmax of every row equal."""
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got[0] - want[0]).max()) <= PREFILL_TOL * scale
+    assert float(np.abs(got - want).max()) <= DECODE_TOL * scale
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.fixture(scope="module")
+def one_serves():
+    return {arch: W.serve_run(_mesh(), W.model_config(arch))
+            for arch in W.ARCHS}
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("layout", list(W.LAYOUTS))
+def test_serve_of_every_family_over_data_ranks_matches_one_process(
+        ranks, one_serves, layout, arch):
+    """A prefill and teacher-forced decode steps of each data rank's rows
+    of 4 (one a rank over 4 data ranks, 2 over 2 x 2, whose 2 model
+    ranks are tensor parallel) within the serve tolerances of one
+    process's rows, every argmax equal; each rank's cache holds its
+    rows and, over model ranks, its share (:func:`_rank_cache`)."""
+    want, shapes = one_serves[arch]
+    cfg = W.model_config(arch)
+    n = N_RANKS[layout]["model"]
+    for r in range(4):
+        got = _of(ranks, r, f"mserve_{layout}_{arch}")
+        assert len(got["rows"]) == 4 // N_RANKS[layout]["data"]
+        cache = {k[len("cache/"):]: tuple(int(i) for i in v)
+                 for k, v in got.items() if k.startswith("cache/")}
+        assert cache == _rank_cache(cfg, shapes, n, len(got["rows"])), r
+        _close(got["logits"], want[:, got["rows"]])
+
+
 # ------------------------------------------------------------- the serve
 
 def test_serve_over_data_ranks_matches_one_process(ranks):
@@ -560,7 +718,9 @@ def test_chip_smoke_data_ranks_phase_on_cpu(monkeypatch):
     check over 2 x 2) and the parent's checks all pass; the same records
     with one rank's loss moved past its tolerance, its parameter bytes
     off by one, or rank 0's serve logits off the witness (its rows served
-    alone), or every deepseek route of a rank flipped, fail the checks.
+    alone), or every deepseek route of a rank flipped, fail the checks;
+    and so do Mamba2's records over 4 data ranks with a rank's parameter
+    bytes off by one or its step-0 loss moved.
     Deepseek's routes flip against one process over 2 x 2 (tensor
     parallel, bf16): counted, a few of a rank's."""
     import copy
@@ -590,8 +750,14 @@ def test_chip_smoke_data_ranks_phase_on_cpu(monkeypatch):
         rec["train"]["result"]["losses"][0] *= 1 + 2 * cs.DATA_LOSS0_TOL
     with pytest.raises(AssertionError):
         cs.data_ranks_checks(K, ref, bad, SMALL)
+    for path in ("train", "mamba2"):
+        bad = copy.deepcopy(recs)
+        bad[2][path]["result"]["param_bytes"] += 1
+        with pytest.raises(AssertionError):
+            cs.data_ranks_checks(K, ref, bad, SMALL)
     bad = copy.deepcopy(recs)
-    bad[2]["train"]["result"]["param_bytes"] += 1
+    for rec in bad:
+        rec["mamba2"]["result"]["losses"][0] *= 1 + 2 * cs.DATA_LOSS0_TOL
     with pytest.raises(AssertionError):
         cs.data_ranks_checks(K, ref, bad, SMALL)
     bad = copy.deepcopy(recs)

@@ -1,8 +1,8 @@
-"""Tensor parallelism of the dense leaves over the model ranks: each model
-rank of a dense or moe config holds its block of every leaf the
-reference's ``state_specs`` shard over ``model`` and computes its block
-of every layer (``models.lm``; ``parallel.collectives.enter`` and
-``sum_ranks``).
+"""Tensor parallelism over the model ranks: each model rank, for every
+family, holds its block of every leaf the reference's ``state_specs``
+shard over ``model`` and computes its block of every layer
+(``models.lm``, ``models.ssm``, ``models.rglru``;
+``parallel.collectives.enter`` and ``sum_ranks``).
 
 One module fixture spawns 4 gloo ranks on the CPU once
 (``parallel.dist.spawn``: a ``file://`` rendezvous in the test's own
@@ -10,8 +10,10 @@ directory, a limit on the join; a rank that fails or outlasts it ends
 them all, and every case then fails) running
 ``tests/_torch_rank_tp_worker.py``, which imports no JAX, in two layouts
 of a (data 2, model 4) mesh: 4 model ranks (``m4``) and 2 data x 2 model
-ranks (``d2m2``), over the fp32 smoke configs of qwen3-1.7b and
-deepseek-moe-16b; beside the ranks one subprocess runs the reference's
+ranks (``d2m2``), over the fp32 smoke configs of one model of every
+family (qwen3-1.7b, deepseek-moe-16b, mamba2-2.7b, recurrentgemma-2b,
+llava-next-mistral-7b, seamless-m4t-medium); beside the ranks one
+subprocess runs the reference's
 ``build_train_step`` on an ``Auto`` (2, 4) mesh of 8 CPU devices with
 the default policy, so GSPMD's tensor parallelism
 (``tests/_torch_data_reference.py``), on the port's parameters.  Held:
@@ -29,9 +31,15 @@ the default policy, so GSPMD's tensor parallelism
   hold them; the collectives a call :func:`collectives_per_step`'s;
 * one train step with fp32 and with int8 m and v: the grad norm within
   1e-5 relative and every parameter block within 1e-5 of one process;
+  every model's fp32 state over 4 model ranks checkpointed and restored
+  in one process and over 2 x 2, bit for bit;
+* the bodies tensor parallelism reshaped, one layer each against the
+  whole layer within 1e-5 (Mamba2's gated norm and block, RG-LRU's
+  block, the cross-attention), also over the production mesh's 16
+  model shards;
 * a serve (prefill and teacher-forced decode) on the (2, 4) mesh (Hq 4
   on 4 model shards: each rank its heads, its cache the KV heads they
-  read) and ``launch.serve --production-mesh`` over 4 ranks (Hq 4 on 16
+  read and its share of the recurrent state) and ``launch.serve --production-mesh`` over 4 ranks (Hq 4 on 16
   shards: q gathered whole): ids equal, the prefill's logits within
   1e-5 of their scale of one process, the decode's within 1e-4 (the
   bf16 cache rounds the ranks' keys, a reduction's rounding away from
@@ -45,9 +53,9 @@ the default policy, so GSPMD's tensor parallelism
 * ``launch.train --production-mesh`` over both layouts matches one
   process within 1e-5; checkpoints cross 4 model ranks -> 2 x 2 and one
   process, one process -> 4 model ranks;
-* ``rank_dims`` ranks every spec'd leaf along ``model`` for the dense
-  and moe families only, and the KV heads a rank keeps are the ones its
-  q heads read.
+* ``rank_dims`` ranks every spec'd leaf along ``model``, for every
+  family (none with ``tp_enable=False``), and the KV heads a rank keeps
+  are the ones its q heads read.
 """
 
 import os
@@ -65,7 +73,11 @@ import numpy as np  # noqa: E402
 
 import _torch_rank_tp_worker as W  # noqa: E402
 from _torch_threads import _one_thread  # noqa: E402,F401
-from test_torch_ranks_data import _paths, _write_params  # noqa: E402
+from test_torch_ranks_data import (  # noqa: E402
+    _close, _paths, _rank_cache, _write_params, check_checkpoint,
+    check_leaf)
+from test_torch_ranks_data import (  # noqa: E402
+    collectives_per_step as _data_collectives)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JOIN_S = 240
@@ -74,8 +86,6 @@ LOSS_TOL = 1e-6          # relative, against one process
 GRAD_TOL = 1e-5          # x the leaf's largest magnitude, one process
 REF_TOL = 2e-4           # x the leaf's largest magnitude (+ 1e-6), JAX
 STEP_TOL = 1e-5          # the step's grad norm (relative) and parameters
-PREFILL_TOL = 1e-5       # the prefill's logits, x their scale
-DECODE_TOL = 1e-4        # the decode's logits over the bf16 cache
 
 
 def _import_chip_smoke():
@@ -189,6 +199,24 @@ def _spec_models(arch, mesh=None) -> list:
 
 # ----------------------------------------------------- the state and draw
 
+ATTN = {"wq", "wk", "wv", "wo"}
+# leaves every family's model ranks hold as their blocks (at least)
+SPLIT = {
+    "qwen3-1.7b": {"embed", "wg", "wu", "wd"} | ATTN,
+    "deepseek-moe-16b": {"embed", "head", "s_wg", "s_wu", "s_wd", "we_g",
+                         "we_u", "we_d"} | ATTN,
+    "mamba2-2.7b": {"embed", "head", "w_in", "w_conv", "a_log", "dt_bias",
+                    "d_skip", "norm", "w_out"},
+    "recurrentgemma-2b": {"embed", "wg", "wu", "wd", "w_x", "w_gate",
+                          "w_conv", "w_r", "w_i", "b_r", "b_i", "lam",
+                          "w_out"} | ATTN,
+    "llava-next-mistral-7b": {"embed", "head", "wg", "wu", "wd"} | ATTN,
+    "seamless-m4t-medium": {"embed", "head", "wu", "wd", "bu", "bq", "bk",
+                            "bv", "x_wq", "x_wk", "x_wv", "x_wo", "x_bq",
+                            "x_bk", "x_bv"} | ATTN,
+}
+
+
 @pytest.mark.parametrize("arch", W.ARCHS)
 @pytest.mark.parametrize("layout", list(W.LAYOUTS))
 def test_rank_draw_holds_every_model_leaf_as_its_block(ranks, layout, arch):
@@ -205,9 +233,7 @@ def test_rank_draw_holds_every_model_leaf_as_its_block(ranks, layout, arch):
     assert [d.get("model") for d in dims] == _spec_models(arch)
     split = {k[-1] for k, d in zip(_paths(ranks["params"][arch]), dims)
              if "model" in d}
-    ffn = ({"wg", "wu", "wd"} if arch == "qwen3-1.7b" else
-           {"s_wg", "s_wu", "s_wd", "we_g", "we_u", "we_d", "head"})
-    assert {"embed", "wq", "wk", "wv", "wo"} | ffn <= split
+    assert SPLIT[arch] <= split
     want = sum(p.numel() * p.element_size()
                // np.prod([N_RANKS[layout][a] for a in d] or [1])
                for p, d in zip(whole, dims))
@@ -229,7 +255,7 @@ def _one_process_grads(params, arch, remat, b=W.MODEL["b"], policy=None):
     loss, grads, missing = value_and_grad(
         lambda p, bt: lm.train_loss(p, bt, cfg, ctx, remat=remat,
                                     loss_chunk=W.MODEL["loss_chunk"]),
-        params, W.model_batch(cfg.vocab, b))
+        params, W.model_batch(cfg, b))
     assert missing == 0
     return float(loss), [g.numpy() for g in pt.leaves(grads)]
 
@@ -248,9 +274,12 @@ def test_grads_over_model_ranks_match_one_process(ranks, one_grads, layout,
                                                   arch, remat):
     """The loss within 1e-6 relative of the one-process mesh's; every
     gradient leaf, by this rank's block, within 1e-5 x its largest
-    magnitude of the one-process gradient; no leaf missed."""
+    magnitude of the one-process gradient (``check_leaf``: a leaf whose
+    exact gradient is zero, zero within 1e-5 x the largest gradient);
+    no leaf missed."""
     loss, want = one_grads[(arch, remat)]
     dims = _dims(ranks, layout, arch)
+    paths = list(_paths(ranks["params"][arch]))
     key = f"remat{int(remat)}"
     for r in range(4):
         got = _of(ranks, r, f"grads_{layout}_{arch}")
@@ -260,11 +289,8 @@ def test_grads_over_model_ranks_match_one_process(ranks, one_grads, layout,
                                                           rel=LOSS_TOL)
         assert sum(k.startswith(f"{key}/grad") for k in got) == len(want)
         for i, wl in enumerate(want):
-            ref = _block(wl, dims[i], layout, c)
-            g = got[f"{key}/grad{i}"]
-            assert g.shape == ref.shape, i
-            err = float(np.abs(g - ref).max())
-            assert err <= GRAD_TOL * float(np.abs(wl).max()), (i, err)
+            check_leaf(got[f"{key}/grad{i}"], _block(wl, dims[i], layout, c),
+                       wl, paths[i], GRAD_TOL, want)
 
 
 @pytest.mark.parametrize("arch", W.ARCHS)
@@ -280,7 +306,7 @@ def test_grads_over_model_ranks_match_the_reference(ranks, layout, arch):
     ref = jax[arch]
     cfg = W.model_config(arch)
     np.testing.assert_array_equal(
-        ref["toks"][:, :-1], W.model_batch(cfg.vocab)["tokens"].numpy())
+        ref["toks"][:, :-1], W.model_batch(cfg)["tokens"].numpy())
     dims = _dims(ranks, layout, arch)
     assert sum(k.startswith("grad") and k != "grad_norm"
                for k in ref) == len(dims)
@@ -325,38 +351,11 @@ def test_replicated_grads_and_router_inputs_are_the_same_bits(
 
 
 def collectives_per_step(cfg, remat, layout, chunks=1):
-    """The collectives one ``grads_of`` issues on a rank, by axis.  Over
-    model (tensor parallelism), a layer: three in the forward (k and v
-    gathered in one, the sums of ``wo``'s and of ``wd``'s or the shared
-    experts' partial products), again under remat but for the layer's
-    last sum (the checkpoint's recompute stops at the last saved
-    tensor), and three in the backward (the sums of the normed inputs'
-    partial gradients, the reduce-scatter of k's and v's); once a step
-    the embedding's sum, two a loss chunk (the ranks' maxima; the
-    ``exp`` sums and target logits) and again where its checkpoint
-    recomputes it, the sum of the final hidden state's partial gradients
-    and, with qk norms, the sum of their gradients.  A moe layer adds
-    its expert exchanges over model (2 ``all_to_all``s and the token
-    blocks' all-gather a forward run, 2 and the two block slices'
-    all-gathers in the backward) and its ``aux`` all-reduce a forward
-    run.  Over data (``d2m2``): a layer's data blocks gathered in each
-    forward run and reduce-scattered once, the top-level ones once each,
-    ``all_reduce``s of the mask count, of the gradients held whole along
-    data, of the reported loss and of a moe layer's aux gradient."""
-    n, moe = cfg.n_layers, cfg.family == "moe"
-    runs = 2 if remat else 1
-    out = {"all_to_all.model_calls": n * (3 * runs - (runs - 1) + 3) + 1
-           + 4 * chunks + 1 + (1 if cfg.qk_norm else 0)}
-    if moe:
-        out["all_to_all.model_calls"] += n * (3 * runs + 4)
-    if layout == "d2m2":
-        out["all_to_all.data_calls"] = n * (runs + 1) + 2
-        out["all_reduce.data_calls"] = 3 + (n if moe else 0)
-        if moe:
-            out["all_reduce.world_calls"] = n * runs
-    elif moe:
-        out["all_reduce.model_calls"] = n * runs
-    return out
+    """The collectives one ``grads_of`` issues on a rank, by axis:
+    ``test_torch_ranks_data.collectives_per_step``'s (the tensor-parallel
+    calls over model; over 2 x 2 also the data axis's, the top-level
+    leaves data-sharded)."""
+    return _data_collectives(cfg, True, remat, layout, chunks)
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -398,7 +397,7 @@ def test_train_step_over_model_ranks_matches_one_process(ranks, layout,
     state = init_train_state(cfg, tcfg,
                              torch.Generator().manual_seed(W.STEP_SEED),
                              "cpu")
-    state, m = step_fn(state, W.model_batch(cfg.vocab))
+    state, m = step_fn(state, W.model_batch(cfg))
     assert float(m["grad_norm"]) > tcfg.opt.grad_clip   # the clip acts
     want = [p.numpy() for p in pt.leaves(state["params"])]
     dims = _dims(ranks, layout, arch)
@@ -442,17 +441,9 @@ def test_sharding_policy_without_tp_keeps_dense_leaves_whole(
 # ------------------------------------------------------------- the serve
 
 def _serve_one(arch):
-    """The serve case in one process: every row's logits."""
-    return W.serve_run(_mesh(), W.model_config(arch))[0]
-
-
-def _close(got, want):
-    """The prefill's logits within :data:`PREFILL_TOL` of their scale, the
-    decode's within :data:`DECODE_TOL`; the argmax of every row equal."""
-    scale = float(np.abs(want).max())
-    assert float(np.abs(got[0] - want[0]).max()) <= PREFILL_TOL * scale
-    assert float(np.abs(got - want).max()) <= DECODE_TOL * scale
-    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    """The serve case in one process: every row's logits and the cache's
+    leaf shapes."""
+    return W.serve_run(_mesh(), W.model_config(arch))
 
 
 @pytest.mark.parametrize("arch", W.ARCHS)
@@ -460,16 +451,19 @@ def _close(got, want):
 def test_serve_over_model_ranks_matches_one_process(ranks, layout, arch):
     """A prefill and teacher-forced decode steps on the (2, 4) mesh: each
     rank's logits (its rows) within the serve tolerances of one
-    process's, every argmax equal; each rank's cache holds the KV heads
-    its q heads read (Hq 4 over 4 model shards: a rank's 4 / n heads
-    read one KV head over 4 ranks, 2 of deepseek's 4 over 2)."""
-    want = _serve_one(arch)
+    process's, every argmax equal; each rank's cache holds its share
+    (:func:`_rank_cache`: Hq 4 over 4 model shards, so a rank's 4 / n
+    heads read one KV head over 4 ranks, 2 of deepseek's 4 over 2; the
+    recurrentgemma smoke model's 2 q heads are every rank's, with its
+    one KV head)."""
+    want, shapes = _serve_one(arch)
     cfg = W.model_config(arch)
     n = N_RANKS[layout]["model"]
-    heads = max(1, cfg.n_kv_heads * (cfg.n_heads // n) // cfg.n_heads)
     for r in range(4):
         got = _of(ranks, r, f"serve_{layout}_{arch}")
-        assert int(got["kv_heads"]) == heads
+        cache = {k[len("cache/"):]: tuple(int(i) for i in v)
+                 for k, v in got.items() if k.startswith("cache/")}
+        assert cache == _rank_cache(cfg, shapes, n, len(got["rows"])), r
         _close(got["logits"], want[:, got["rows"]])
 
 
@@ -492,9 +486,9 @@ def test_split_row_sums_in_one_process_give_rank0s_bits(ranks, layout,
     the sums' rounding, not a wrong block; its cache holds every KV
     head."""
     got = _of(ranks, 0, f"serve_{layout}_{arch}")
-    logits, heads = _witness_serve(arch, got["rows"],
-                                   N_RANKS[layout]["model"])
-    assert heads == W.model_config(arch).n_kv_heads
+    logits, shapes = _witness_serve(arch, got["rows"],
+                                    N_RANKS[layout]["model"])
+    assert shapes["k"][3] == W.model_config(arch).n_kv_heads
     np.testing.assert_array_equal(logits, got["logits"])
 
 
@@ -534,6 +528,168 @@ def test_production_mesh_serve_over_model_ranks(ranks, tmp_path):
         "logits"], a["logits"])
 
 
+# ------------------------------------------------- the reshaped bodies
+
+BODY_TOL = 1e-5    # x the whole tensor's largest magnitude (9e's bound)
+# where the bodies ran: the (2, 4) mesh's layouts, and 4 model ranks of
+# the production mesh (16 model shards: Mamba2's 8 heads and seamless's
+# 4 q heads stay whole on a rank, and so do Mamba2's w_in, a_log,
+# dt_bias and d_skip)
+BODY_CASES = {"m4": 4, "d2m2": 4, "prod": 16}
+
+
+@pytest.fixture(scope="module")
+def one_bodies():
+    from repro_torch.launch.mesh import make_production_mesh
+    return {"mesh": W.body_case(_mesh()),
+            "prod": W.body_case(make_production_mesh(device="cpu"))}
+
+
+def _bodies(ranks, case, r, tag) -> dict:
+    got = _of(ranks, r, f"bodies_{case}")
+    return {k[len(tag) + 1:]: v for k, v in got.items()
+            if k.startswith(tag + "/")}
+
+
+def _body_want(one_bodies, case, tag) -> dict:
+    want = one_bodies["prod" if case == "prod" else "mesh"]
+    return {k[len(tag) + 1:]: v for k, v in want.items()
+            if k.startswith(tag + "/")}
+
+
+def _rank_of(ranks, case, r):
+    """(model ranks, this rank's model coordinate) of a body case."""
+    if case == "prod":
+        return 4, r
+    return N_RANKS[case]["model"], _coords(ranks, case, r)[1]
+
+
+def _heads(h, case, n, c):
+    """(first, count): the heads a rank computes, its block where the
+    case's model shards divide ``h``, else every head."""
+    if h % BODY_CASES[case]:
+        return 0, h
+    return c * (h // n), h // n
+
+
+def _near(got, want, what):
+    assert got.shape == want.shape, what
+    err = float(np.abs(got - want).max())
+    assert err <= BODY_TOL * float(np.abs(want).max()), (what, err)
+
+
+def _take(x, dim, first, count):
+    return np.take(x, np.arange(first, first + count), axis=dim)
+
+
+def _param_grads(got, want, n, c):
+    """Each parameter's gradient: the rank's block of the whole one along
+    its model dim (whole where it is -1), by ``check_leaf`` (a leaf whose
+    exact gradient is zero held to zero)."""
+    keys = [k[2:] for k in want if k.startswith("g/")]
+    for key in keys:
+        d = int(got[f"dim/{key}"])
+        w = block = want[f"g/{key}"]
+        if d >= 0:
+            k = w.shape[d] // n
+            block = _take(w, d, c * k, k)
+        check_leaf(got[f"g/{key}"], block, w, (key,), BODY_TOL,
+                   [want[f"g/{k}"] for k in keys])
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_mamba2_gated_norm_sums_squares_over_model_ranks(ranks, one_bodies,
+                                                         case):
+    """``ssm._gated_norm`` on a rank's heads' features (its sum of squares
+    the model ranks' summed in rank order, its gradient summed back over
+    them; every feature where the rank computes every head): the rank's
+    block of the whole norm's output and of the gradients of y, z and
+    the scale, within 1e-5 of their scale."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("mamba2-2.7b")
+    want = _body_want(one_bodies, case, "norm")
+    for r in range(4):
+        got = _bodies(ranks, case, r, "norm")
+        n, c = _rank_of(ranks, case, r)
+        first, count = _heads(cfg.n_ssm_heads, case, n, c)
+        lo, k = first * cfg.ssm_head_dim, count * cfg.ssm_head_dim
+        for key in ("y", "g_y", "g_z", "g/scale"):
+            _near(got[key], _take(want[key], -1, lo, k), key)
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_mamba2_block_runs_its_heads_of_the_gathered_projection(
+        ranks, one_bodies, case):
+    """Mamba2's block on a rank: its output and input gradient within
+    1e-5 of the whole block's; its state the whole one's at its heads,
+    its conv tail the whole one's at its heads' x channels and every B
+    and C channel (the gathered ``w_in`` output cut to its heads; on the
+    production mesh every head, ``w_in`` whole, its features cut at the
+    norm); every parameter gradient its block of the whole one's."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("mamba2-2.7b")
+    p = cfg.ssm_head_dim
+    want = _body_want(one_bodies, case, "ssm")
+    for r in range(4):
+        got = _bodies(ranks, case, r, "ssm")
+        n, c = _rank_of(ranks, case, r)
+        first, h = _heads(cfg.n_ssm_heads, case, n, c)
+        _near(got["y"], want["y"], "y")
+        _near(got["g_x"], want["g_x"], "g_x")
+        _near(got["state"], _take(want["state"], 1, first, h), "state")
+        tail = want["tail"]
+        _near(got["tail"], np.concatenate([
+            _take(tail, -1, first * p, h * p),
+            tail[..., cfg.d_inner:]], -1), "tail")
+        _param_grads(got, want, n, c)
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_rglru_block_gathers_its_conv_output(ranks, one_bodies, case):
+    """RG-LRU's block on a rank (its block of the width, the conv output
+    gathered for the dense ``w_r`` and ``w_i``): its output and input
+    gradient within 1e-5 of the whole block's; its last state and conv
+    tail the whole ones' blocks; every parameter gradient its block."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("recurrentgemma-2b")
+    want = _body_want(one_bodies, case, "rec")
+    for r in range(4):
+        got = _bodies(ranks, case, r, "rec")
+        n, c = _rank_of(ranks, case, r)
+        w = cfg.lru_width // n
+        _near(got["y"], want["y"], "y")
+        _near(got["g_x"], want["g_x"], "g_x")
+        for key in ("h_last", "tail"):
+            _near(got[key], _take(want[key], -1, c * w, w), key)
+        _param_grads(got, want, n, c)
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_cross_attention_keeps_the_kv_heads_its_q_heads_read(
+        ranks, one_bodies, case):
+    """The decoder's cross-attention on a rank: ``lm._cross_kv`` gives
+    every layer's cross K and V at the KV heads its q heads read
+    (``lm._kv_select``; every head on the production mesh) within 1e-5
+    of the whole ones'; the attention's output and the gradients of its
+    input and the encoder output within 1e-5 of the whole layer's;
+    every ``x_`` parameter gradient its block."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = get_smoke_config("seamless-m4t-medium")
+    want = _body_want(one_bodies, case, "xattn")
+    for r in range(4):
+        got = _bodies(ranks, case, r, "xattn")
+        n, c = _rank_of(ranks, case, r)
+        sel = lm._kv_select(cfg, *_heads(cfg.n_heads, case, n, c))
+        idx = (np.arange(sel[0], sel[0] + sel[1]) if isinstance(sel, tuple)
+               else np.asarray(sel))
+        for key in ("k", "v"):
+            _near(got[key], np.take(want[key], idx, axis=3), key)
+        for key in ("y", "g_x", "g_enc"):
+            _near(got[key], want[key], key)
+        _param_grads(got, want, n, c)
+
+
 # ----------------------------------------------- the driver, checkpoints
 
 @pytest.mark.parametrize("layout", list(W.LAYOUTS))
@@ -553,6 +709,15 @@ def test_train_driver_over_model_ranks_matches_one_process(ranks, layout):
         np.testing.assert_array_equal(
             got["losses"], _of(ranks, 0, f"train_{layout}")["losses"])
         assert int(got["param_bytes"]) < one["param_bytes"] // 2
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_checkpoint_of_every_family_crosses_model_ranks(ranks, arch):
+    """The fp32 step's state over 4 model ranks, checkpointed, holds every
+    rank's tensor-parallel blocks; it restores in one process and over
+    2 x 2 ranks (``test_torch_ranks_data.check_checkpoint``)."""
+    check_checkpoint(ranks, arch, list(W.LAYOUTS), _of, _coords, _dims,
+                     _block)
 
 
 def test_checkpoints_cross_model_ranks_2x2_and_one_process(ranks, tmp_path):
@@ -587,37 +752,35 @@ class _RankedMesh:
     ranks = {"model": 4}
 
 
+@pytest.mark.parametrize("tp_enable", [True, False])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b",
                                   "mamba2-2.7b", "recurrentgemma-2b",
                                   "llava-next-mistral-7b",
                                   "seamless-m4t-medium"])
-def test_rank_dims_rank_dense_leaves_for_dense_and_moe_only(arch):
-    """Along a ranked model axis ``rank_dims`` names every leaf whose spec
-    names ``model`` for the dense and moe families (tensor parallelism),
-    and only the routed experts for the ssm, hybrid, vlm and encdec
-    families (their TP comes in a later slice)."""
+def test_rank_dims_rank_every_model_leaf(arch, tp_enable):
+    """Along a ranked model axis ``rank_dims`` names, at its entry, every
+    leaf whose spec names ``model`` (tensor parallelism, every family:
+    the column-, row- and vocab-parallel leaves, Mamba2's and RG-LRU's,
+    the routed experts) and no other; with ``tp_enable=False`` no spec
+    names ``model`` and no leaf is ranked along it."""
     from repro_torch import tree as pt
     from repro_torch.configs import get_config
-    from repro_torch.convert import EXPERT_LEAVES
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.parallel.sharding import (TP_FAMILIES, _map,
+    from repro_torch.parallel.sharding import (ShardingPolicy, _map,
                                                param_specs, rank_dims)
     from repro_torch.train import TrainConfig
     from repro_torch.train.step import state_shapes
     cfg = get_config(arch)
     shapes = state_shapes(cfg, TrainConfig())["params"]
-    specs = param_specs(make_production_mesh(device="cpu"), shapes)
+    specs = param_specs(make_production_mesh(device="cpu"), shapes,
+                        ShardingPolicy(tp_enable=tp_enable))
     got = pt.leaves(_map(lambda _, d: d.get("model", -1),
-                         rank_dims(_RankedMesh(), specs, cfg.family)))
+                         rank_dims(_RankedMesh(), specs)))
     names = pt.leaves(_map(lambda _, s: next(
         (i for i, a in enumerate(s) if a == "model"), -1), specs))
-    keys = pt.leaves(_map(lambda key, _: key, specs))
-    assert len(got) == len(names) == len(keys)
-    if cfg.family in TP_FAMILIES:
-        assert got == names and sum(d >= 0 for d in got) > 4
-    else:
-        assert got == [n if k in EXPERT_LEAVES else -1
-                       for n, k in zip(names, keys)]
+    assert len(got) == len(names) == len(pt.leaves(shapes))
+    assert got == names
+    assert (sum(d >= 0 for d in got) > 4) == tp_enable
 
 
 @pytest.mark.parametrize("hq,hkv,n,want", [
@@ -650,14 +813,15 @@ SMALL = {"train": dict(steps=2, batch=8, seq=32),
 
 def test_chip_smoke_tp_ranks_phase_on_cpu(monkeypatch):
     """``chip_smoke.py``'s phase 7f rehearsed on the CPU at smoke sizes
-    (bf16): the one-process references, 4 ranks of ``rank_tp_main``
-    (Qwen3 trained over 4 model ranks and over 2 x 2, served over 4 model
-    ranks teacher-forced), the witness and the parent's checks all pass,
-    the witness giving the ranks' serve logits bit for bit; the same
-    records with one rank's step-0 loss moved past its tolerance, its
-    parameter bytes off by one, the serve's logits off their tolerance
-    (with the witness bit-equal or not), or the witness not bit-equal,
-    fail the checks."""
+    (bf16): the one-process references, 4 ranks of ``rank_tp_main`` (one
+    model of every family trained over 4 model ranks and over 2 x 2,
+    served over 4 model ranks teacher-forced), the witness and the
+    parent's checks all pass, the witness giving the ranks' Qwen3 serve
+    logits bit for bit; the same records with one rank's step-0 loss
+    moved past its tolerance (Qwen3, Mamba2), its parameter bytes off by
+    one (Qwen3, recurrentgemma), a serve's logits off their tolerance
+    (Qwen3 with the witness bit-equal or not, llava), a cache's KV heads
+    off (seamless), or the witness not bit-equal, fail the checks."""
     import copy
 
     from repro_torch import kernels as K
@@ -667,22 +831,29 @@ def test_chip_smoke_tp_ranks_phase_on_cpu(monkeypatch):
                                                   small=SMALL)
     ref, recs, witness = got["ref"], got["recs"], got["witness"]
     assert witness["bit_equal"], witness
-    assert recs[0]["serve"]["result"]["kv_heads"] == 2
+    assert recs[0]["qwen3-1.7b/serve"]["result"]["kv_heads"] == 2
+    assert recs[0]["mamba2-2.7b/serve"]["result"]["kv_heads"] is None
     cs.tp_ranks_checks(K, ref, recs, witness, SMALL)
-    bad = copy.deepcopy(recs)
-    for rec in bad:
-        rec["train_m4"]["result"]["losses"][0] *= 1 + 2 * cs.TP_LOSS0_TOL
-    with pytest.raises(AssertionError):
-        cs.tp_ranks_checks(K, ref, bad, witness, SMALL)
-    bad = copy.deepcopy(recs)
-    bad[1]["train_d2m2"]["result"]["param_bytes"] += 1
-    with pytest.raises(AssertionError):
-        cs.tp_ranks_checks(K, ref, bad, witness, SMALL)
-    bad = copy.deepcopy(recs)
-    bad[0]["serve_logits"]["rel_err"] = 2 * cs.REPLAY_TOL
-    for wit in (witness, dict(witness, bit_equal=False)):
+
+    def fails(bad, wit=witness):
         with pytest.raises(AssertionError):
             cs.tp_ranks_checks(K, ref, bad, wit, SMALL)
-    with pytest.raises(AssertionError):
-        cs.tp_ranks_checks(K, ref, recs, dict(witness, bit_equal=False),
-                           SMALL)
+    for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+        bad = copy.deepcopy(recs)
+        for rec in bad:
+            rec[f"{arch}/train_m4"]["result"]["losses"][0] *= \
+                1 + 2 * cs.TP_LOSS0_TOL
+        fails(bad)
+    for arch in ("qwen3-1.7b", "recurrentgemma-2b"):
+        bad = copy.deepcopy(recs)
+        bad[1][f"{arch}/train_d2m2"]["result"]["param_bytes"] += 1
+        fails(bad)
+    for arch in ("qwen3-1.7b", "llava-next-mistral-7b"):
+        bad = copy.deepcopy(recs)
+        bad[0]["serve_logits"][arch]["rel_err"] = 2 * cs.REPLAY_TOL
+        for wit in (witness, dict(witness, bit_equal=False)):
+            fails(bad, wit)
+    bad = copy.deepcopy(recs)
+    bad[3]["seamless-m4t-medium/serve"]["result"]["kv_heads"] += 1
+    fails(bad)
+    fails(recs, dict(witness, bit_equal=False))
