@@ -1,0 +1,1 @@
+"""See ``perfbench/__init__.py``."""
