@@ -9,8 +9,9 @@ caller's ``transition`` (for the B-link tree ``index.codec.descend_step``
 re-presents keys whose read lost a latch race.  Keys at different
 depths advance independently.  The reference fuses the loop into one
 ``lax.while_loop``; here the loop runs on the host and reads one flag a
-step (``any(~done)``), as ``driver.run_rounds`` does.  Every carry stays
-on the state's device.
+step (``any(~done)``), as ``driver.run_rounds`` does, under the same
+layer span ``plane.spin_sync`` and counter ``plane.host_reads``.  Every
+carry stays on the state's device.
 
 The ``transition`` contract::
 
@@ -31,8 +32,9 @@ from __future__ import annotations
 
 import torch
 
+from ...obs import count, span
 from .driver import _as_ops, _tele_round, zero_flat_tele
-from .engine import _note_trace, _round_impl
+from .engine import _round_impl
 from .state import payload_width
 
 
@@ -55,8 +57,6 @@ def run_descent(state, node_id, key, root, *, transition, n_nodes: int,
     ``slot_whits`` stays zero)."""
     node_id, key, root = _as_ops(state, node_id, key, root)
     b = root.shape[0]
-    _note_trace(("descent", transition, n_nodes, b, max_steps,
-                 "dirty" in state, payload_width(state), path_cap))
     no_write = torch.zeros((b,), dtype=torch.int32, device=root.device)
 
     def step(st, line, tele):
@@ -88,8 +88,10 @@ def _walk(state, key, root, *, transition, max_steps: int, path_cap: int,
     plen = torch.zeros((b,), dtype=torch.int32, device=dev)
     steps = 0
     while True:
-        all_done = (not bool((~done).any()) if n_left is None
-                    else n_left(~done) == 0)
+        with span("plane.spin_sync"):        # the step's one host sync
+            count("plane.host_reads")
+            all_done = (not bool((~done).any()) if n_left is None
+                        else n_left(~done) == 0)
         if all_done or steps >= max_steps:
             break
         line = torch.where(done, -1, cur)

@@ -2,7 +2,10 @@
 
 Counterpart of ``repro/core/rounds/driver.py``.  The reference fuses
 the loop into one ``jax.lax.while_loop`` with no host sync inside; this
-first cut loops on the host and reads ``pending.any()`` once per round.
+first cut loops on the host and reads ``pending.any()`` once per round:
+that read is the layer span ``plane.spin_sync`` and one count of
+``plane.host_reads`` (``obs.span`` / ``obs.count``; nothing while
+tracing is off).
 ``max_rounds`` and ``all_served`` keep their meaning, and versions,
 payloads, round counts and telemetry come out identical.  Like the
 engine, the drivers consume the state they are given (its leaves are
@@ -13,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from .engine import _note_trace, coherence_round
+from ...obs import count, span
+from .engine import coherence_round
 from .state import payload_width
 
 
@@ -81,8 +85,11 @@ def _spin(state, line, width, *, max_rounds: int, step, tele,
     data = torch.zeros((r, width), dtype=torch.int32, device=line.device)
     rounds = 0
     while True:
-        all_served = (not bool((pending >= 0).any()) if n_pending is None
-                      else n_pending(pending >= 0) == 0)
+        with span("plane.spin_sync"):        # the round's one host sync
+            count("plane.host_reads")
+            all_served = (not bool((pending >= 0).any())
+                          if n_pending is None
+                          else n_pending(pending >= 0) == 0)
         if all_served or rounds >= max_rounds:
             break
         state, served, ver, rdata, tele = step(state, pending, tele)
@@ -105,8 +112,6 @@ def run_rounds(state, node_id, line, is_write, wdata=None, *,
     if ``max_rounds`` rounds ran with ops still pending."""
     node_id, line, is_write = _as_ops(state, node_id, line, is_write)
     wdata = _ops_wdata(state, line, wdata)
-    _note_trace(("driver", n_nodes, line.shape[0], max_rounds,
-                 "dirty" in state, wdata.shape[1]))
 
     def step(st, pending, tele):
         st, served, ver, rdata = coherence_round(
@@ -131,8 +136,6 @@ def run_rmw(state, node_id, line, operands=(), *, modify, n_nodes: int,
     telemetry)`` — the write phase's replies, both phases' rounds and
     telemetry summed."""
     node_id, line = _as_ops(state, node_id, line)
-    _note_trace(("rmw", modify, n_nodes, line.shape[0], max_rounds,
-                 "dirty" in state, payload_width(state)))
     return _rmw(state, node_id, line, operands, modify,
                 lambda *a: run_rounds(*a, n_nodes=n_nodes,
                                       max_rounds=max_rounds))

@@ -18,9 +18,13 @@ What differs from the reference:
   each unselected slot at a selected slot's target with that slot's
   value — duplicate indices then always carry equal values, whatever
   order ``index_put_`` lands them in;
-* ``TRACE_COUNTS`` counts round executions per shape key: eager
-  PyTorch compiles nothing, so the reference's trace count has no
-  counterpart, and the dispatch count takes its place.
+* ``TRACE_COUNTS`` counts round executions under the key ``("round",
+  n_nodes, n_lines, R, write_back, W)``, one per shape: eager PyTorch
+  compiles nothing, so the reference's trace count has no counterpart,
+  and the count of rounds run takes its place.  Only rounds are
+  counted; the drivers, descents and transaction loops keep no key;
+* the round's body is the layer span ``engine.round`` (``obs.span``:
+  nothing while tracing is off), the host's time issuing one round.
 """
 
 from __future__ import annotations
@@ -30,14 +34,11 @@ import torch
 from .. import coherence as co
 from ...kernels.gcl_fetch import fetch as gcl_fetch_op
 from ...kernels.latch_ops import OP_CAS, OP_FAA, apply_batch
+from ...obs import span
 
 I, S, M = co.I, co.S, co.M
 
 TRACE_COUNTS: dict = {}
-
-
-def _note_trace(key) -> None:
-    TRACE_COUNTS[key] = TRACE_COUNTS.get(key, 0) + 1
 
 
 def _first_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
@@ -65,7 +66,14 @@ def _masked_put(dst: torch.Tensor, index: tuple, values: torch.Tensor,
 
 def _round_impl(state, node_id, line, is_write, wdata=None, *,
                 n_nodes: int):
-    """One round of R op slots; see :func:`coherence_round`."""
+    """One round of R op slots; see :func:`coherence_round`.  The
+    layer span ``engine.round`` covers it."""
+    with span("engine.round"):
+        return _round_body(state, node_id, line, is_write, wdata,
+                           n_nodes=n_nodes)
+
+
+def _round_body(state, node_id, line, is_write, wdata, *, n_nodes: int):
     co.check_node_capacity(n_nodes)
     write_back = "dirty" in state
     cstate = state["cache_state"]
@@ -80,7 +88,8 @@ def _round_impl(state, node_id, line, is_write, wdata=None, *,
     dev = line.device
     if wdata is None:
         wdata = torch.zeros((r, width), dtype=torch.int32, device=dev)
-    _note_trace(("round", n_nodes, n_lines, r, write_back, width))
+    shape = ("round", n_nodes, n_lines, r, write_back, width)
+    TRACE_COUNTS[shape] = TRACE_COUNTS.get(shape, 0) + 1
 
     node_id = node_id.long()
     valid = line >= 0

@@ -27,6 +27,16 @@ compile events, ``kernels/_build.LOADS``).  ``ops``, ``rmw``,
 ``descent`` and ``txn`` end in host copies, so their spans cover the
 device work; ``evict`` returns without a sync, so its span is the
 dispatch's host time only.
+
+The layer spans (``obs.span``; nothing while tracing is off): each verb
+is ``plane.<verb>``, opened by the same bracket (:class:`_Verb`) that
+feeds the recorder; its copies of
+results to the host are ``plane.result_copy`` (the first also waits for
+the rounds still queued on the device) and its telemetry's
+``plane.telemetry_copy``.  Counters: ``plane.host_reads`` (one a
+blocking read of a device tensor, here and in the drivers' spin checks,
+whatever the device) and ``plane.telemetry_bytes`` (the telemetry a
+verb copies).
 """
 
 from __future__ import annotations
@@ -38,8 +48,51 @@ import numpy as np
 import torch
 
 from ...kernels import _build
-from ...obs import PlaneTelemetry
+from ...obs import PlaneTelemetry, count, span
 from .placement import _host
+
+
+def _to_host(*tensors) -> list:
+    """Host numpy copies of device tensors: blocking reads, each one
+    ``plane.host_reads``."""
+    count("plane.host_reads", len(tensors))
+    return [t.cpu().numpy() for t in tensors]
+
+
+class _Verb:
+    """One verb's bracket: the layer span ``plane.<verb>`` and, with a
+    recorder attached, one recorder span when the body returns (wall
+    time, kernel library loads meanwhile, and the rounds and telemetry
+    of the result the body sets as ``result``)."""
+
+    __slots__ = ("plane", "verb", "batch", "attrs", "result", "mark",
+                 "span")
+
+    def __init__(self, plane, verb: str, *, batch=(), attrs=None):
+        self.plane = plane
+        self.verb = verb
+        self.batch = batch
+        self.attrs = attrs
+        self.result = None
+
+    def __enter__(self) -> "_Verb":
+        self.mark = None if self.plane.recorder is None \
+            else (time.perf_counter(), _build.LOADS)
+        self.span = span("plane." + self.verb)
+        self.span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.span.__exit__(*exc)
+        if exc[0] is None and self.mark is not None:
+            t0, c0 = self.mark
+            res = self.result
+            self.plane.recorder.record(
+                self.verb, duration=time.perf_counter() - t0,
+                batch=self.batch, rounds=0 if res is None else res.rounds,
+                telemetry=None if res is None else res.telemetry,
+                compiled=_build.LOADS - c0, attrs=self.attrs)
+        return False
 
 
 @dataclass(frozen=True)
@@ -155,12 +208,15 @@ class DevicePlane:
     def _telemetry(self, tele) -> PlaneTelemetry:
         """A driver's counter dict as a :class:`PlaneTelemetry`; a
         sharded plane's per-slot hits come back in slab-concatenation
-        order and are remapped to line ids through the directory."""
-        if self.sharded:
-            pos = self._positions()
-            tele = dict(tele, slot_hits=tele["slot_hits"][pos],
-                        slot_whits=tele["slot_whits"][pos])
-        c = {k: v.cpu().numpy() for k, v in tele.items()}
+        order and are remapped to line ids through the directory.  The
+        layer span ``plane.telemetry_copy``."""
+        with span("plane.telemetry_copy"):
+            if self.sharded:
+                pos = self._positions()
+                tele = dict(tele, slot_hits=tele["slot_hits"][pos],
+                            slot_whits=tele["slot_whits"][pos])
+            c = dict(zip(tele, _to_host(*tele.values())))
+            count("plane.telemetry_bytes", sum(a.nbytes for a in c.values()))
         c["line_hits"] = c.pop("slot_hits")
         c["line_whits"] = c.pop("slot_whits")
         return PlaneTelemetry.from_counters(c)
@@ -169,24 +225,6 @@ class DevicePlane:
         return {"mesh": self.mesh, "axis": self.axis,
                 "bucket_cap": self.bucket_cap}
 
-    def _span_begin(self):
-        """Recorder bracket: (wall clock, kernel library loads) or
-        None without a recorder."""
-        if self.recorder is None:
-            return None
-        return (time.perf_counter(), _build.LOADS)
-
-    def _span_end(self, verb: str, mark, *, batch=(), rounds: int = 0,
-                  telemetry=None, attrs=None) -> None:
-        """Close a bracket: append one span to the attached recorder."""
-        if mark is None or self.recorder is None:
-            return
-        t0, c0 = mark
-        self.recorder.record(
-            verb, duration=time.perf_counter() - t0, batch=batch,
-            rounds=rounds, telemetry=telemetry,
-            compiled=_build.LOADS - c0, attrs=attrs)
-
     # ------------------------------------------------------------- verbs
     def ops(self, node_id, line, is_write, wdata=None, *,
             max_rounds: int | None = None) -> PlaneResult:
@@ -194,26 +232,26 @@ class DevicePlane:
         completion through the spin loop."""
         mr = self.max_rounds if max_rounds is None else max_rounds
         r = np.shape(line)[0]
-        mark = self._span_begin()
-        if self.sharded:
-            from .sharded import pad_ops, run_rounds_sharded
-            ops = pad_ops(node_id, line, is_write, self.n_shards, wdata)
-            state, versions, data, rounds, done, tele = \
-                run_rounds_sharded(self.state, *ops, n_nodes=self.n_nodes,
-                                   max_rounds=mr, **self._sharded_kw())
-        else:
-            from .driver import run_rounds
-            state, versions, data, rounds, done, tele = run_rounds(
-                self.state, node_id, line, is_write, wdata,
-                n_nodes=self.n_nodes, max_rounds=mr)
-        self.state = state
-        if not done:
-            raise RuntimeError(f"ops not served after {mr} rounds")
-        res = PlaneResult(versions[:r].cpu().numpy(),
-                          data[:r].cpu().numpy(), rounds, {},
-                          self._telemetry(tele))
-        self._span_end("ops", mark, batch=(r,),
-                       rounds=rounds, telemetry=res.telemetry)
+        with _Verb(self, "ops", batch=(r,)) as v:
+            if self.sharded:
+                from .sharded import pad_ops, run_rounds_sharded
+                ops = pad_ops(node_id, line, is_write, self.n_shards, wdata)
+                state, versions, data, rounds, done, tele = \
+                    run_rounds_sharded(self.state, *ops,
+                                       n_nodes=self.n_nodes, max_rounds=mr,
+                                       **self._sharded_kw())
+            else:
+                from .driver import run_rounds
+                state, versions, data, rounds, done, tele = run_rounds(
+                    self.state, node_id, line, is_write, wdata,
+                    n_nodes=self.n_nodes, max_rounds=mr)
+            self.state = state
+            if not done:
+                raise RuntimeError(f"ops not served after {mr} rounds")
+            with span("plane.result_copy"):
+                versions, data = _to_host(versions[:r], data[:r])
+            res = v.result = PlaneResult(versions, data, rounds, {},
+                                         self._telemetry(tele))
         return res
 
     def rmw(self, node_id, line, *, modify, operands=(),
@@ -225,34 +263,36 @@ class DevicePlane:
         as no-ops."""
         mr = self.max_rounds if max_rounds is None else max_rounds
         r = np.shape(line)[0]
-        mark = self._span_begin()
-        operands = tuple(torch.as_tensor(op).to(self.device)
-                         for op in operands)
-        if self.sharded:
-            from .sharded import pad_ops, run_rmw_sharded
-            node_id, line, _ = pad_ops(node_id, line, np.zeros(r, np.int32),
-                                       self.n_shards)
-            pad = line.shape[0] - r
-            operands = tuple(
-                torch.cat([op, op.new_zeros((pad,) + tuple(op.shape[1:]))])
-                for op in operands) if pad else operands
-            state, versions, data, rounds, done, tele = run_rmw_sharded(
-                self.state, node_id, line, operands, modify=modify,
-                n_nodes=self.n_nodes, max_rounds=mr, **self._sharded_kw())
-        else:
-            from .driver import run_rmw
-            state, versions, data, rounds, done, tele = run_rmw(
-                self.state, node_id, line, operands, modify=modify,
-                n_nodes=self.n_nodes, max_rounds=mr)
-        self.state = state
-        if not done:
-            raise RuntimeError(f"RMW ops not served after {mr} "
-                               f"rounds per phase")
-        res = PlaneResult(versions[:r].cpu().numpy(),
-                          data[:r].cpu().numpy(), rounds, {},
-                          self._telemetry(tele))
-        self._span_end("rmw", mark, batch=(r,),
-                       rounds=rounds, telemetry=res.telemetry)
+        with _Verb(self, "rmw", batch=(r,)) as v:
+            operands = tuple(torch.as_tensor(op).to(self.device)
+                             for op in operands)
+            if self.sharded:
+                from .sharded import pad_ops, run_rmw_sharded
+                node_id, line, _ = pad_ops(node_id, line,
+                                           np.zeros(r, np.int32),
+                                           self.n_shards)
+                pad = line.shape[0] - r
+                operands = tuple(
+                    torch.cat([op, op.new_zeros((pad,)
+                                                + tuple(op.shape[1:]))])
+                    for op in operands) if pad else operands
+                state, versions, data, rounds, done, tele = \
+                    run_rmw_sharded(self.state, node_id, line, operands,
+                                    modify=modify, n_nodes=self.n_nodes,
+                                    max_rounds=mr, **self._sharded_kw())
+            else:
+                from .driver import run_rmw
+                state, versions, data, rounds, done, tele = run_rmw(
+                    self.state, node_id, line, operands, modify=modify,
+                    n_nodes=self.n_nodes, max_rounds=mr)
+            self.state = state
+            if not done:
+                raise RuntimeError(f"RMW ops not served after {mr} "
+                                   f"rounds per phase")
+            with span("plane.result_copy"):
+                versions, data = _to_host(versions[:r], data[:r])
+            res = v.result = PlaneResult(versions, data, rounds, {},
+                                         self._telemetry(tele))
         return res
 
     def descent(self, node_id, key, root, *, transition,
@@ -265,33 +305,35 @@ class DevicePlane:
         (one coherence round each)."""
         ms = self.max_rounds if max_steps is None else max_steps
         r = np.shape(root)[0]
-        mark = self._span_begin()
-        if self.sharded:
-            from .sharded import pad_ops, run_descent_sharded
-            node_id, root, key = pad_ops(node_id, root, key, self.n_shards)
-            (state, line, lanes, levels, hops, paths, plen, steps, done,
-             tele) = run_descent_sharded(
-                self.state, node_id, key, root, transition=transition,
-                n_nodes=self.n_nodes, max_steps=ms, path_cap=path_cap,
-                **self._sharded_kw())
-        else:
-            from .descent import run_descent
-            (state, line, lanes, levels, hops, paths, plen, steps, done,
-             tele) = run_descent(self.state, node_id, key, root,
-                                 transition=transition,
-                                 n_nodes=self.n_nodes, max_steps=ms,
-                                 path_cap=path_cap)
-        self.state = state
-        if not done:
-            raise RuntimeError(f"descent did not settle after {ms} "
-                               f"steps (broken links?)")
-        stats = {"line": line, "levels": levels, "hops": hops,
-                 "paths": paths, "path_len": plen}
-        res = PlaneResult(None, lanes[:r].cpu().numpy(), steps,
-                          {k: v[:r].cpu().numpy() for k, v in stats.items()},
-                          self._telemetry(tele))
-        self._span_end("descent", mark, batch=(r,),
-                       rounds=steps, telemetry=res.telemetry)
+        with _Verb(self, "descent", batch=(r,)) as v:
+            if self.sharded:
+                from .sharded import pad_ops, run_descent_sharded
+                node_id, root, key = pad_ops(node_id, root, key,
+                                             self.n_shards)
+                (state, line, lanes, levels, hops, paths, plen, steps, done,
+                 tele) = run_descent_sharded(
+                    self.state, node_id, key, root, transition=transition,
+                    n_nodes=self.n_nodes, max_steps=ms, path_cap=path_cap,
+                    **self._sharded_kw())
+            else:
+                from .descent import run_descent
+                (state, line, lanes, levels, hops, paths, plen, steps, done,
+                 tele) = run_descent(self.state, node_id, key, root,
+                                     transition=transition,
+                                     n_nodes=self.n_nodes, max_steps=ms,
+                                     path_cap=path_cap)
+            self.state = state
+            if not done:
+                raise RuntimeError(f"descent did not settle after {ms} "
+                                   f"steps (broken links?)")
+            stats = {"line": line, "levels": levels, "hops": hops,
+                     "paths": paths, "path_len": plen}
+            with span("plane.result_copy"):
+                lanes, *host = _to_host(lanes[:r], *(t[:r] for t in
+                                                     stats.values()))
+            res = v.result = PlaneResult(None, lanes, steps,
+                                         dict(zip(stats, host)),
+                                         self._telemetry(tele))
         return res
 
     def txn(self, node_id, glines, rmask, wmask, ts, *, algo: str,
@@ -300,36 +342,33 @@ class DevicePlane:
         (:mod:`repro_torch.core.rounds.txn`); returns a
         ``TxnBatchResult``."""
         from .txn import run_txn_batch
-        mark = self._span_begin()
-        res = run_txn_batch(self, node_id, glines, rmask, wmask, ts,
-                            algo=algo, max_iters=max_iters,
-                            max_rounds=max_rounds)
-        self._span_end("txn", mark, batch=tuple(np.shape(glines)),
-                       rounds=res.rounds, telemetry=res.telemetry,
-                       attrs={"algo": algo})
+        with _Verb(self, "txn", batch=tuple(np.shape(glines)),
+                   attrs={"algo": algo}) as v:
+            res = v.result = run_txn_batch(
+                self, node_id, glines, rmask, wmask, ts, algo=algo,
+                max_iters=max_iters, max_rounds=max_rounds)
         return res
 
     def evict(self, node_id, line) -> None:
         """Evict (node, line) pairs: release holder latches, flushing
         dirty write-back copies first."""
         r = np.shape(line)[0]
-        mark = self._span_begin()
-        dev = self.device
-        node_id, line = (torch.as_tensor(x).to(device=dev,
-                                              dtype=torch.int32)
-                         for x in (node_id, line))
-        if self.sharded:
-            from .sharded import evict_lines_sharded, pad_ops
-            node_id, line, _ = pad_ops(node_id, line,
-                                       torch.zeros_like(line),
-                                       self.n_shards)
-            self.state = evict_lines_sharded(
-                self.state, node_id, line, mesh=self.mesh, axis=self.axis,
-                bucket_cap=self.bucket_cap)
-        else:
-            from .engine import evict_lines
-            self.state = evict_lines(self.state, node_id, line)
-        self._span_end("evict", mark, batch=(r,))
+        with _Verb(self, "evict", batch=(r,)):
+            dev = self.device
+            node_id, line = (torch.as_tensor(x).to(device=dev,
+                                                  dtype=torch.int32)
+                             for x in (node_id, line))
+            if self.sharded:
+                from .sharded import evict_lines_sharded, pad_ops
+                node_id, line, _ = pad_ops(node_id, line,
+                                           torch.zeros_like(line),
+                                           self.n_shards)
+                self.state = evict_lines_sharded(
+                    self.state, node_id, line, mesh=self.mesh,
+                    axis=self.axis, bucket_cap=self.bucket_cap)
+            else:
+                from .engine import evict_lines
+                self.state = evict_lines(self.state, node_id, line)
 
     # -------------------------------------------------------- placement
     def rehome(self, lines, new_homes, victims=None) -> int:

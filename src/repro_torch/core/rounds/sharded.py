@@ -54,7 +54,7 @@ from ..distributed_rounds import _bucket, _unbucket, exchange, reply
 from . import state as st
 from .descent import _walk
 from .driver import _as_ops, _ops_wdata, _rmw, _spin, add_tele
-from .engine import _evict_impl, _note_trace, _round_impl
+from .engine import _evict_impl, _round_impl
 from .mesh import AXIS, check_on_mesh, shards_of
 from .placement import _host
 
@@ -478,10 +478,6 @@ def coherence_round_sharded(state, node_id, line, is_write, wdata=None, *,
     geo, r, cap, node_l, line_l, isw_l, wd_l = _prepare(
         state, mesh, axis, n_nodes, node_id, line, is_write, wdata,
         bucket_cap)
-    _note_trace(("sharded_round", geo.s, n_nodes,
-                 state["words"].shape[0], line.shape[0], cap,
-                 "dirty" in state, wd_l.shape[1], "home" in state,
-                 "replica" in state))
     state, served, ver, data, _ = _route_round(
         state, node_l, line_l, isw_l, wd_l, geo=geo, n_nodes=n_nodes,
         cap=cap)
@@ -506,9 +502,6 @@ def run_rounds_sharded(state, node_id, line, is_write, wdata=None, *,
     geo, r, cap, node_l, line_l, isw_l, wd_l = _prepare(
         state, mesh, axis, n_nodes, node_id, line, is_write, wdata,
         bucket_cap)
-    _note_trace(("sharded", geo.s, n_nodes, state["words"].shape[0],
-                 line_l.shape[0], cap, max_rounds, "dirty" in state,
-                 wd_l.shape[1], "home" in state, "replica" in state))
 
     def step(stt, pending, tele):
         stt, served, ver, rdata, dtele = _route_round(
@@ -534,10 +527,6 @@ def run_rmw_sharded(state, node_id, line, operands=(), *, modify, mesh,
     :func:`run_rounds_sharded`.  Same return contract (telemetry summed
     over both phases, the write phase's versions and bytes)."""
     node_id, line = _as_ops(state, node_id, line)
-    _note_trace(("rmw_sharded", modify, shards_of(mesh, axis), n_nodes,
-                 state["words"].shape[0], line.shape[0], bucket_cap,
-                 "dirty" in state, st.payload_width(state),
-                 "home" in state, "replica" in state))
     return _rmw(state, node_id, line, operands, modify,
                 lambda *a: run_rounds_sharded(
                     *a, mesh=mesh, axis=axis, n_nodes=n_nodes,
@@ -568,10 +557,6 @@ def run_descent_sharded(state, node_id, key, root, *, transition, mesh,
     if not width:
         raise ValueError("run_descent_sharded needs a payload-plane "
                          "state (the transition decodes node bytes)")
-    _note_trace(("descent_sharded", transition, geo.s, n_nodes,
-                 state["words"].shape[0], b, cap, max_steps,
-                 "dirty" in state, width, path_cap, "home" in state,
-                 "replica" in state))
     node_l, key_l, root_l = (geo.block(x, r) for x in (node_id, key, root))
     b_l = root_l.shape[0]
     no_write = torch.zeros((b_l,), dtype=torch.int32, device=root.device)
@@ -676,8 +661,6 @@ def rehome_exchange(state, src_slot, dst_slot, new_home, *, mesh,
         return torch.from_numpy((p % n_shards - geo.first) * l_local
                                 + p // n_shards).to(dev)
     moved = tuple(sorted(k for k in state if k not in st.GLOBAL_LEAVES))
-    _note_trace(("rehome", n_shards, state["words"].shape[0],
-                 int(src.size), moved, "replica" in state))
     if not geo.ranked:
         at_src, at_dst = rows(src), rows(dst)
         for k in moved:

@@ -39,7 +39,6 @@ import torch
 from ...obs import PlaneTelemetry
 from .. import coherence as co
 from .driver import _as_ops, add_tele, run_rounds, zero_flat_tele
-from .engine import _note_trace
 from .state import payload_width
 
 LOCK_LANE = 0
@@ -124,9 +123,6 @@ def run_txn_rounds(state, node_id, glines, rmask, wmask, ts, *,
         return stt, data, r, ok, tl
 
     args = _as_ops(state, node_id, glines, rmask, wmask, ts)
-    _note_trace(("txn", algo, *args[1].shape, args[2].shape[2], n_nodes,
-                 max_rounds, max_iters, "dirty" in state,
-                 payload_width(state)))
     return _txn_loop(state, *args, algo=algo, max_iters=max_iters,
                      spin=spin,
                      tele=zero_flat_tele(state["words"].shape[0],
@@ -163,10 +159,6 @@ def run_txn_rounds_sharded(state, node_id, glines, rmask, wmask, ts, *,
     args = _as_ops(state, node_id, glines, rmask, wmask, ts)
     b = args[1].shape[0]
     _check_slots(b, n_shards, "B")
-    _note_trace(("txn_sharded", algo, n_shards, *args[1].shape,
-                 args[2].shape[2], n_nodes, max_rounds, max_iters,
-                 bucket_cap, "dirty" in state, payload_width(state),
-                 "home" in state, "replica" in state))
     return _txn_loop(state, *args, algo=algo, max_iters=max_iters,
                      spin=spin,
                      tele=_zero_tele(n_shards, lines_of(state, mesh, axis),

@@ -278,6 +278,12 @@ class MetricsRegistry:
     def families(self):
         return dict(self._families)
 
+    def retain(self, keep) -> None:
+        """Drops every series whose labels (a dict) ``keep`` rejects."""
+        for fam in self._families.values():
+            fam["series"] = {k: m for k, m in fam["series"].items()
+                             if keep(dict(k))}
+
     def snapshot(self) -> dict:
         """Plain-dict view (bench meta embedding): histograms collapse
         to their summary snapshots, counters/gauges to values."""

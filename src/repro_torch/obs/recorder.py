@@ -1,4 +1,5 @@
-"""`FlightRecorder` — the plane's bounded span ring + exporters.
+"""`FlightRecorder` — the plane's bounded span ring + exporters; and the
+process's layer spans and counters (:func:`span`, :func:`count`).
 
 One :class:`Span` per verb dispatch (ops/rmw/descent/txn/evict —
 appended by ``DevicePlane`` when a recorder is attached): verb, batch
@@ -29,20 +30,52 @@ JSON (open a serving run in ``chrome://tracing`` / ui.perfetto.dev);
 :meth:`snapshot` folds the whole recorder into a plain dict for
 ``BENCH_*.json`` ``meta.telemetry``.
 
-A copy of ``repro/obs/recorder.py``, but for what ``compiled`` counts.
+**Layer spans and counters.**  The layers mark their own work:
+``with span("engine.round"):`` around a round's body,
+``count("plane.host_reads")`` at a blocking read of a device value.
+Tracing is off by default, and then a site costs one flag test (no
+clock read, no allocation, no annotation, no registry write).  It is on
+while ``tracing(True)`` holds, or while a ``torch.profiler`` session
+records.  When on, each span is also a
+``torch.profiler.record_function`` annotation of its name, so in any
+profiler trace it nests with its parent span on the device events'
+clock; and the totals go to one process-wide registry
+(:data:`TRACER`): per span name the calls, the seconds and the self
+seconds (less the spans nested in it), per counter its sum.  Only
+durations are kept, on the monotonic clock (``time.perf_counter_ns``);
+where a span lies among the device's events is its annotation's.
+Totals are kept per tracing session: a session starts with the first
+site that finds tracing on after one that found it off (or after
+``tracing(True)`` turned it on).  The registry holds the newest session
+and the one before it.  An operator::
+
+    with obs.tracing():
+        tree.lookup_batch(keys)
+    print(obs.TRACER.registry.render_prom())
+    # trace_span_self_seconds_total{session="1",span="engine.round"} ...
+    obs.session_totals()    # {"session": 1, "spans": {...}, ...}
+
+The spans' names and what reads them: ``PERF.md`` section 3.
+
+A copy of ``repro/obs/recorder.py``, but for what ``compiled`` counts
+and the layer spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import threading
 import time
 from typing import NamedTuple
 
 import numpy as np
+import torch.autograd.profiler as _profiler
 
 from .metrics import EwmaHeat, MetricsRegistry
 
-__all__ = ["Span", "FlightRecorder"]
+__all__ = ["Span", "FlightRecorder", "TRACER", "Tracer", "count",
+           "session_totals", "span", "tracing"]
 
 
 class Span(NamedTuple):
@@ -268,3 +301,176 @@ class FlightRecorder:
     def __repr__(self) -> str:
         return (f"FlightRecorder(capacity={self.capacity}, "
                 f"spans={self._total}, dropped={self.dropped})")
+
+
+# ------------------------------------------------ layer spans and counters
+
+# what span() gives while tracing is off: one shared do-nothing
+# context, so the off path allocates nothing
+_OFF = contextlib.nullcontext()
+
+# a span's clock: durations only, so a monotonic one
+_clock = time.perf_counter_ns
+
+
+class _OnSpan:
+    """One span while tracing is on: a ``record_function`` annotation
+    of its name and, on exit, its seconds and self seconds added to the
+    tracer's session totals."""
+
+    __slots__ = ("tracer", "name", "annotation", "t0", "children")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self.tracer = tracer
+        self.name = name
+
+    def __enter__(self):
+        self.annotation = _profiler.record_function(self.name)
+        self.annotation.__enter__()
+        self.tracer._stack().append(self)
+        self.children = 0
+        # read inside the annotation, so the span's interval nests in it
+        self.t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        dur = _clock() - self.t0
+        stack = self.tracer._stack()
+        stack.pop()
+        if stack:
+            stack[-1].children += dur
+        self.tracer._add_span(self.name, dur, dur - self.children)
+        self.annotation.__exit__(*exc)
+        return False
+
+
+class Tracer:
+    """The process's layer spans and counters: the tracing switch, the
+    session, and the totals in :attr:`registry` (families
+    ``trace_span_total``, ``trace_span_seconds_total``,
+    ``trace_span_self_seconds_total`` labelled ``session`` and ``span``;
+    ``trace_count_total`` labelled ``session`` and ``counter``).  Spans
+    nest per thread; the registry is shared by every thread, as the
+    plane's callers are one thread each."""
+
+    def __init__(self):
+        self.registry = MetricsRegistry()
+        self.on = False         # tracing()'s switch
+        self.live = False       # the last site found tracing on
+        self.session = 0        # the newest session (0: none yet)
+        self._local = threading.local()
+        self._span_handles: dict = {}
+        self._count_handles: dict = {}
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _start_session(self) -> None:
+        self.session += 1
+        self._span_handles.clear()
+        self._count_handles.clear()
+        # the series of the session before stay beside the new one's,
+        # older ones go: a process that traces again and again holds two
+        # sessions' series
+        keep = {str(self.session - 1), str(self.session)}
+        self.registry.retain(lambda labels: labels["session"] in keep)
+
+    def active(self) -> bool:
+        """Whether tracing is on now (starting a session if the last
+        site found it off)."""
+        if self.on or _profiler._is_profiler_enabled:
+            if not self.live:
+                self.live = True
+                self._start_session()
+            return True
+        self.live = False
+        return False
+
+    def _add_span(self, name: str, dur_ns: int, self_ns: int) -> None:
+        h = self._span_handles.get(name)
+        if h is None:
+            reg, lbl = self.registry, {"session": str(self.session),
+                                       "span": name}
+            h = self._span_handles[name] = (
+                reg.counter("trace_span_total", "layer span calls",
+                            labels=lbl),
+                reg.counter("trace_span_seconds_total",
+                            "layer span wall seconds", labels=lbl),
+                reg.counter("trace_span_self_seconds_total",
+                            "layer span seconds less its nested spans",
+                            labels=lbl))
+        calls, secs, own = h
+        calls.inc()
+        secs.inc(dur_ns * 1e-9)
+        own.inc(self_ns * 1e-9)
+
+    def _add_count(self, name: str, n) -> None:
+        c = self._count_handles.get(name)
+        if c is None:
+            c = self._count_handles[name] = self.registry.counter(
+                "trace_count_total", "layer counters",
+                labels={"session": str(self.session), "counter": name})
+        c.inc(n)
+
+    def totals(self) -> dict | None:
+        """The newest session's totals as plain numbers: ``{"session":
+        k, "spans": {name: {"count", "seconds", "self_seconds"}},
+        "counters": {name: value}}``; None before any session."""
+        if self.session < 1:
+            return None
+        return {"session": self.session,
+                "spans": {name: {"count": calls.value,
+                                 "seconds": secs.value,
+                                 "self_seconds": own.value}
+                          for name, (calls, secs, own)
+                          in self._span_handles.items()},
+                "counters": {name: c.value
+                             for name, c in self._count_handles.items()}}
+
+
+TRACER = Tracer()
+
+
+def span(name: str):
+    """A context marking a layer's work as span ``name``: nothing while
+    tracing is off; an annotation and session totals while it is on."""
+    return _OnSpan(TRACER, name) if TRACER.active() else _OFF
+
+
+def count(name: str, n=1) -> None:
+    """Adds ``n`` to counter ``name`` while tracing is on."""
+    if TRACER.active():
+        TRACER._add_count(name, n)
+
+
+class tracing:                                     # noqa: N801
+    """Turns the layer spans on (``tracing()``, ``tracing(True)``) or
+    off (``tracing(False)``) from the call on; as a context it puts the
+    switch back on exit.  Turning it on starts a new session, and so
+    does the first site after tracing was off.  A ``torch.profiler``
+    session turns tracing on while it records, whatever the switch
+    says (two profiler sessions with no site between them share one
+    tracing session)."""
+
+    def __init__(self, on: bool = True):
+        self.prev = TRACER.on
+        TRACER.on = bool(on)
+        if on and not self.prev:
+            TRACER.live = False
+
+    def __enter__(self) -> Tracer:
+        return TRACER
+
+    def __exit__(self, *exc):
+        TRACER.on = self.prev
+        if not (TRACER.on or _profiler._is_profiler_enabled):
+            TRACER.live = False
+        return False
+
+
+def session_totals() -> dict | None:
+    """The newest tracing session's totals (:meth:`Tracer.totals`)."""
+    return TRACER.totals()
